@@ -1,14 +1,16 @@
-"""The parts of the experiment configuration that serving reads.
+"""The experiment configuration the port reads.
 
 Same JSON schema as the JAX package's ``config.py`` (and the reference
-allRank's): only ``model`` and ``data.slate_length`` are parsed here, every
-other section of a training config is accepted and ignored.
+allRank's). Parsed here: ``model``, ``data``, ``optimizer``, ``loss``,
+``lr_scheduler`` and ``training``, with the JAX package's field names and
+defaults. The sections the port does not use yet (metrics, click models,
+the mesh layout) are accepted and ignored.
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 
@@ -51,12 +53,48 @@ class ModelConfig:
 @dataclass
 class DataConfig:
     slate_length: int
+    path: Optional[str] = None
+    num_workers: int = 1
+    batch_size: int = 64
+    validation_ds_role: str = "vali"
+    shuffle_seed: int = 42
+    eval_buckets: int = 0
+    binary_cache: bool = False
+    device_cache: bool = False
+    device_cache_dtype: str = "auto"
+    device_cache_sharding: str = "replicated"
+
+
+@dataclass
+class TrainingConfig:
+    epochs: int
+    gradient_clipping_norm: Optional[float]
+    early_stopping_patience: int = 0
+    compute_dtype: str = "float32"
+    checkpoint_every: Optional[int] = None
+    checkpoint_backend: str = "npz"
+    resume: bool = False
+    init_from: Optional[str] = None
+    profiler_trace_dir: Optional[str] = None
+    metrics_on_train: bool = True
+    scan_steps: int = 1
+    accumulation_steps: int = 1
+
+
+@dataclass
+class NameArgsConfig:
+    name: str
+    args: Dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass
 class Config:
     model: ModelConfig
     data: DataConfig
+    optimizer: Optional[NameArgsConfig] = None
+    loss: Optional[NameArgsConfig] = None
+    lr_scheduler: Optional[NameArgsConfig] = None
+    training: Optional[TrainingConfig] = None
 
     @classmethod
     def from_json(cls, config_path: str) -> "Config":
@@ -83,5 +121,15 @@ class Config:
                 transformer=transformer,
                 post_model=PostModelConfig(**model["post_model"]),
             ),
-            data=DataConfig(slate_length=int(config["data"]["slate_length"])),
+            data=DataConfig(**config["data"]),
+            optimizer=_name_args(config.get("optimizer")),
+            loss=_name_args(config.get("loss")),
+            lr_scheduler=_name_args(config.get("lr_scheduler")),
+            training=(TrainingConfig(**config["training"])
+                      if config.get("training") else None),
         )
+
+
+def _name_args(section: Optional[Dict[str, Any]]
+               ) -> Optional[NameArgsConfig]:
+    return NameArgsConfig(**section) if section else None

@@ -12,3 +12,6 @@ PADDED_INDEX_VALUE = -1
 # Large-negative fill for padded attention keys in place of -inf: a fully
 # padded slate then gets a uniform softmax instead of NaN, in fp32 and bf16.
 NEG_INF_FILL = -1e9
+
+# the losses' default epsilon (clamps and normalisers)
+DEFAULT_EPS = 1e-10

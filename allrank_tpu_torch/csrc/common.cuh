@@ -1,5 +1,5 @@
-// Pieces shared by the sublayer kernels: conversion at the TPU kernels'
-// rounding points, the unbiased-std LayerNorm row statistics, and a 64 x 64
+// Pieces shared by the kernels: conversion at the TPU kernels' rounding
+// points, the unbiased-std LayerNorm row statistics, and a 64 x 64
 // register-tiled fp32 product over operands staged in shared memory.
 //
 // Every product in these kernels is an fp32 FMA on the SIMT units: exact
@@ -50,6 +50,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Mean and unbiased variance of one row of x (length d), by one warp; every
+// lane gets both.
+template <class T>
+__device__ __forceinline__ void row_moments(const T* __restrict__ row, int d,
+                                            float& mu, float& var) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int k = lane; k < d; k += 32) s += to_float(row[k]);
+  mu = warp_sum(s) / (float)d;
+  float ss = 0.f;
+  for (int k = lane; k < d; k += 32) {
+    const float c = to_float(row[k]) - mu;
+    ss = fmaf(c, c, ss);
+  }
+  var = warp_sum(ss) / (float)max(d - 1, 1);
+}
+
 // Mean and 1 / (unbiased std + eps) of rows [0, rows) of x (pitch d), one
 // warp per row, the variance floored at 1e-24 first (an all-zero row has
 // variance 0). Rows in [rows, kTile) get zeros.
@@ -60,16 +77,8 @@ __device__ void ln_row_stats(const T* __restrict__ x, int rows, int d,
   for (int r = warp; r < kTile; r += kThreads / 32) {
     float mu = 0.f, rd = 0.f;
     if (r < rows) {
-      const T* row = x + (size_t)r * d;
-      float s = 0.f;
-      for (int k = lane; k < d; k += 32) s += to_float(row[k]);
-      mu = warp_sum(s) / (float)d;
-      float ss = 0.f;
-      for (int k = lane; k < d; k += 32) {
-        const float c = to_float(row[k]) - mu;
-        ss = fmaf(c, c, ss);
-      }
-      const float var = warp_sum(ss) / (float)max(d - 1, 1);
+      float var;
+      row_moments(x + (size_t)r * d, d, mu, var);
       rd = 1.f / (sqrtf(fmaxf(var, kVarFloor)) + kLnEps);
     }
     if (lane == 0) {
@@ -92,6 +101,26 @@ __device__ __forceinline__ void mma_tile(float acc[4][4], const float* A,
     float a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * lda + k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[k * ldb + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// The same with A stored transposed: acc[i][j] += sum_k A[k * lda + ty +
+// 16 i] * B[k * ldb + tx + 16 j] (A^T . B for an A tile kept [depth][64]).
+__device__ __forceinline__ void mma_tile_t(float acc[4][4], const float* A,
+                                           int lda, const float* B, int ldb,
+                                           int depth) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int k = 0; k < depth; ++k) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[k * lda + ty + 16 * i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = B[k * ldb + tx + 16 * j];
 #pragma unroll

@@ -6,6 +6,7 @@ npz keyed by tree path joined with ``|`` (``transformer|layers|0|qkv|w``).
 keeps the JAX layouts (dense ``w`` is ``[d_in, d_out]``; the fused
 ``qkv.w`` is ``[d, 3d]`` as q|k|v blocks), so no transposes are needed.
 Both loaders are strict: a missing, extra or mis-shaped key raises.
+``export_params`` is their inverse.
 """
 
 from __future__ import annotations
@@ -66,3 +67,11 @@ def load_npz(model: nn.Module, path: str) -> nn.Module:
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     return _load_flat(model, flat, path)
+
+
+def export_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters and buffers as ``{"a|0|w": ndarray}`` under
+    the JAX package's key names (the flat form ``load_npz`` reads and
+    ``flatten_params`` gives)."""
+    return {name.replace(".", _SEP): t.detach().cpu().numpy().copy()
+            for name, t in model.state_dict(keep_vars=True).items()}

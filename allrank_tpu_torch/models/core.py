@@ -1,4 +1,5 @@
-"""Core NN primitives: dense, layer norms, activations, Xavier init.
+"""Core NN primitives: dense, layer norms, activations, dropout, Xavier
+init.
 
 Layouts follow the JAX package (``w`` is ``[d_in, d_out]``), so weights
 carry across without transposes (interop.py).
@@ -80,6 +81,20 @@ def std_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((x32 - mean) ** 2).sum(dim=-1, keepdim=True) / max(n - 1, 1)
     out = (x32 - mean) / (torch.sqrt(torch.clamp(var, min=1e-24)) + eps)
     return (scale * out + bias).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the JAX package's XLA-path semantics
+    (``models/core.py:95-100`` there): each element is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``; the identity at
+    ``p == 0`` or without a generator. ``generator`` lives on x's device."""
+    if p == 0.0 or generator is None:
+        return x
+    keep = 1.0 - p
+    mask = torch.bernoulli(torch.full(x.shape, keep, device=x.device),
+                           generator=generator).bool()
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Dense(nn.Module):

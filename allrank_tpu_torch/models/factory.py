@@ -18,6 +18,7 @@ from allrank_tpu_torch.config import ModelConfig
 from allrank_tpu_torch.models.core import (
     Dense,
     LayerNormParams,
+    dropout,
     get_activation,
     layer_norm,
 )
@@ -116,19 +117,33 @@ class FCTower(nn.Module):
         self.input_norm = (LayerNormParams(fcdef.n_features)
                            if fcdef.input_norm else None)
         self.activation = get_activation(fcdef.activation)
+        self.p = float(fcdef.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` (on x's device) turns on dropout after each layer,
+        as the JAX package's ``_fc_apply`` in training."""
         if self.input_norm is not None:
             x = layer_norm(x, self.input_norm.scale, self.input_norm.bias)
         for layer in self.layers:
-            x = self.activation(layer(x))
+            x = dropout(self.activation(layer(x)), self.p, generator)
         return x
 
 
+def device_generator(generator: torch.Generator,
+                     device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from the host ``generator``: the
+    generator itself on the CPU, a fresh one on a GPU."""
+    if device.type == "cpu":
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 class LTRModel(nn.Module):
-    """The scoring model in inference form (dropout is a training concern
-    and comes with the training slice). Weights are drawn on the CPU from
-    ``generator`` and then moved to ``device`` (default: the GPU)."""
+    """The ranking model, for scoring and, with ``train=True``, for training
+    with dropout. Weights are drawn on the CPU from ``generator`` and then
+    moved to ``device`` (default: the GPU)."""
 
     def __init__(self, mdef: LTRModelDef,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -144,16 +159,24 @@ class LTRModel(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 indices: torch.Tensor,
-                compute_dtype: Union[str, torch.dtype] = torch.float32
+                compute_dtype: Union[str, torch.dtype] = torch.float32,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """[B, L, F] -> [B, L, d_output], squeezed to [B, L] when
         d_output == 1. x is cast to ``compute_dtype`` at the input and the
-        encoder output back to fp32 before the head."""
+        encoder output back to fp32 before the head. With ``train`` and a
+        CPU ``generator``, dropout is on in the FC tower and the encoder
+        (the JAX package's ``forward(..., train=True, rng=...)``)."""
         h = x.to(as_dtype(compute_dtype))
+        gen = generator if train else None
         if self.fc is not None:
-            h = self.fc(h)
+            fc_gen = None
+            if gen is not None and self.fc.p > 0.0:
+                fc_gen = device_generator(gen, h.device)
+            h = self.fc(h, fc_gen)
         if self.transformer is not None:
-            h = self.transformer(h, mask, indices)
+            h = self.transformer(h, mask, indices, train, gen)
         out = self.output(h.float())
         if self.mdef.output.d_output == 1:
             out = out.squeeze(2)

@@ -6,7 +6,16 @@ Each block is the attention sublayer then the FFN sublayer, both through
 ``ops``: on CUDA tensors the hand-written kernels, on CPU tensors their
 plain versions. There is no dispatch gate on B or L: on CUDA every sublayer
 inside the kernels' envelope runs the kernel, and outside it the encoder
-raises ``NotImplementedError`` naming the limit.
+raises ``NotImplementedError`` naming the limit. When autograd records, the
+sublayers run as autograd Functions whose backwards are the backward
+kernels; under ``torch.no_grad``/``inference_mode`` the forward kernels run
+alone.
+
+In training form (``train=True`` with a generator and a dropout rate) each
+block draws four int32 seeds, as the JAX package's ``transformer_apply``
+splits four keys per block: attention probabilities, the attention
+sublayer's output, the FFN hidden activation and the FFN output. The
+kernels key their dropout masks on them (ops/dropout.py).
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ from allrank_tpu_torch.models.positional import (
     FixedPositionalEncoding,
     LearnedPositionalEncoding,
 )
-from allrank_tpu_torch.ops.attention_block import attention_sublayer_fwd
-from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
+from allrank_tpu_torch.ops.attention_block import attention_sublayer
+from allrank_tpu_torch.ops.ffn_block import ffn_sublayer
+
+SEED_HIGH = 2 ** 31 - 1  # seeds are drawn from [0, 2**31 - 1), as in JAX
 
 
 @dataclass(frozen=True)
@@ -64,13 +75,16 @@ class EncoderBlock(nn.Module):
         self.ln1 = LayerNormParams(d)
         self.ln2 = LayerNormParams(d)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = attention_sublayer_fwd(
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, p: float = 0.0,
+                seeds=(0, 0, 0, 0)) -> torch.Tensor:
+        """``seeds``: (attention probabilities, attention output, FFN hidden,
+        FFN output) at dropout rate ``p``."""
+        x = attention_sublayer(
             x, mask, self.ln1.scale, self.ln1.bias, self.qkv.w, self.qkv.b,
-            self.out.w, self.out.b, self.h)
-        return ffn_sublayer_fwd(
+            self.out.w, self.out.b, self.h, p, p, seeds[:2])
+        return ffn_sublayer(
             x, self.ln2.scale, self.ln2.bias, self.ff1.w, self.ff1.b,
-            self.ff2.w, self.ff2.b)
+            self.ff2.w, self.ff2.b, p, p, seeds[2:])
 
 
 class Transformer(nn.Module):
@@ -93,12 +107,22 @@ class Transformer(nn.Module):
             self.pe = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                indices: torch.Tensor) -> torch.Tensor:
+                indices: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, L, d_model]; mask: [B, L] bool, True at padded documents;
-        indices: [B, L] original ranks."""
+        indices: [B, L] original ranks. With ``train`` and a CPU
+        ``generator`` the blocks run with dropout, their seeds drawn from
+        the generator on the host."""
         if self.pe is not None:
             x = self.pe(x, mask, indices)
         x = x.contiguous()
-        for block in self.layers:
-            x = block(x, mask)
+        n = len(self.layers)
+        p = float(self.tdef.dropout)
+        if train and p > 0.0 and generator is not None:
+            seeds = torch.randint(0, SEED_HIGH, (4 * n,),
+                                  generator=generator).tolist()
+        else:
+            p, seeds = 0.0, [0] * (4 * n)
+        for i, block in enumerate(self.layers):
+            x = block(x, mask, p, tuple(seeds[4 * i:4 * i + 4]))
         return std_layer_norm(x, self.final_ln.scale, self.final_ln.bias)

@@ -192,7 +192,7 @@ print(len(names), bad)
                          text=True, cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and bad == "[]", out.stdout
+    assert int(n) >= 25 and bad == "[]", out.stdout
 
 
 def _imported_roots(path):

@@ -169,14 +169,24 @@ def test_ffn_plain_matches_xla_sublayer(dtype):
                                np.asarray(ref.astype(jnp.float32)), **tol)
 
 
-def test_dropout_is_not_ported():
+@pytest.mark.parametrize("rate", [1.0, 1.5, -0.1])
+def test_dropout_rate_outside_zero_one_raises(rate):
+    """Dropout runs inside the sublayers at 0 <= p < 1; any other rate is
+    refused before any mask is drawn."""
     rng, x, mask = _inputs(16, seed=0)
     xt, mt, *pt = _to_torch(x, torch.float32, mask, *_attn_params(rng, 16))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        attention_sublayer_fwd(xt, mt, *pt, 2, p_drop=0.1)
+    with pytest.raises(ValueError, match="dropout rate"):
+        attention_sublayer_fwd(xt, mt, *pt, 2, p_attn=rate)
+    with pytest.raises(ValueError, match="dropout rate"):
+        attention_sublayer_fwd(xt, mt, *pt, 2, p_resid=rate)
     qt = _to_torch(x, torch.float32, *_ffn_params(rng, 16, 32))[1:]
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ffn_sublayer_fwd(xt, *qt, p_drop=0.1)
+    with pytest.raises(ValueError, match="dropout rate"):
+        ffn_sublayer_fwd(xt, *qt, p_hidden=rate)
+    # a rate in range drops: the output differs from the rate-0 output
+    y0 = attention_sublayer_fwd(xt, mt, *pt, 2)
+    y1 = attention_sublayer_fwd(xt, mt, *pt, 2, p_attn=0.3, p_resid=0.3,
+                                seeds=(1, 2))
+    assert torch.isfinite(y1).all() and not torch.equal(y0, y1)
 
 
 def test_kernel_arguments_are_checked_before_any_launch():
