@@ -2,11 +2,13 @@
 Hopper GPUs.
 
 A package of its own beside the JAX package, which stays the reference;
-this one imports nothing of it. Its first slice is the scoring service of
-the flagship ranker: the model (FC tower, slate Transformer encoder, output
-head), the scorer and ranker (``serving.py``) and the HTTP service
-(``serve_http.py``), with hand-written CUDA kernels for the encoder's
-attention and FFN sublayers (``ops/``, sources in ``csrc/``).
+this one imports nothing of it. Ported so far: the scoring service of the
+flagship ranker (the model, ``serving.py``, ``serve_http.py``), the train
+step (``training/``, ``losses/``) and the train CLI end to end
+(``main.py``, ``data/``, ``metrics.py``), with hand-written CUDA kernels
+for the encoder's attention and FFN sublayers, the lambdaLoss pair chain,
+the fused NeuralNDCG soft-sort and Sinkhorn scaling (``ops/``, sources in
+``csrc/``).
 """
 
 __version__ = "0.1.0"

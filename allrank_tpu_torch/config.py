@@ -2,16 +2,22 @@
 
 Same JSON schema as the JAX package's ``config.py`` (and the reference
 allRank's). Parsed here: ``model``, ``data``, ``optimizer``, ``loss``,
-``lr_scheduler`` and ``training``, with the JAX package's field names and
-defaults. The sections the port does not use yet (metrics, click models,
+``lr_scheduler``, ``training``, ``metrics``, ``val_metric``,
+``expected_metrics`` and ``detect_anomaly``, with the JAX package's field
+names and defaults. The sections the port does not use yet (click models,
 the mesh layout) are accepted and ignored.
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass, field
+from collections import defaultdict
+from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
+
+
+class MetricConfigError(Exception):
+    pass
 
 
 @dataclass
@@ -95,6 +101,11 @@ class Config:
     loss: Optional[NameArgsConfig] = None
     lr_scheduler: Optional[NameArgsConfig] = None
     training: Optional[TrainingConfig] = None
+    metrics: Dict[str, List[int]] = field(default_factory=dict)
+    val_metric: Optional[str] = None
+    expected_metrics: Dict[str, Dict[str, float]] = field(
+        default_factory=dict)
+    detect_anomaly: bool = False
 
     @classmethod
     def from_json(cls, config_path: str) -> "Config":
@@ -127,7 +138,29 @@ class Config:
             lr_scheduler=_name_args(config.get("lr_scheduler")),
             training=(TrainingConfig(**config["training"])
                       if config.get("training") else None),
+            metrics=cls._parse_metrics(config.get("metrics") or []),
+            val_metric=config.get("val_metric"),
+            expected_metrics=config.get("expected_metrics") or {},
+            detect_anomaly=bool(config.get("detect_anomaly", False)),
         )
+
+    @staticmethod
+    def _parse_metrics(metrics: List[str]) -> Dict[str, List[int]]:
+        """Parse ["ndcg_5", "mrr_10"] into {"ndcg": [5], "mrr": [10]}."""
+        metrics_dict: Dict[str, List[int]] = defaultdict(list)
+        for metric_string in metrics:
+            try:
+                name, at = metric_string.split("_")
+                metrics_dict[name].append(int(at))
+            except (ValueError, TypeError):
+                raise MetricConfigError(
+                    f"Wrong metric format '{metric_string}'. Expected "
+                    "<name>_<at> where name is a valid metric name and at "
+                    "is an int")
+        return dict(metrics_dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
 
 
 def _name_args(section: Optional[Dict[str, Any]]

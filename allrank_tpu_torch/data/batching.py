@@ -1,0 +1,230 @@
+"""Fixed-shape slate batching and the host-to-device feed (the JAX package's
+``data/batching.py``).
+
+* Every batch has the same shape [B, L, F]: the trailing partial batch is
+  padded with dummy slates marked False in ``slate_mask`` [B].
+* Shuffling redraws each epoch from ``seed + epoch``; slate subsampling draws
+  from a per-(seed, epoch, slate) stream, so a batch does not depend on which
+  position assembles a slate. Same seed, same epoch: the same arrays as the
+  JAX package's batchers.
+* ``DevicePrefetcher`` copies batch t+1 from pinned host memory on a side
+  stream while the device computes on batch t.
+
+Not yet ported: worker pools (``num_workers`` > 1), the C++ batch assembler,
+``emit_row_indices`` (the device feature store's index batches) and
+``local_rows`` (multi-host row ownership); asking for one raises.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from allrank_tpu_torch.constants import PADDED_Y_VALUE
+from allrank_tpu_torch.data.slate_fixing import fix_slate
+from allrank_tpu_torch.utils.device import resolve_device
+
+
+class SlateBatch(NamedTuple):
+    x: np.ndarray  # [B, L, F] float32
+    y: np.ndarray  # [B, L] float32, PADDED_Y_VALUE at padded docs
+    indices: np.ndarray  # [B, L] int32, original ranks, -1 at pads
+    slate_mask: np.ndarray  # [B] bool, False for batch-padding dummy slates
+
+
+def _check_unported(local_rows, num_workers, emit_row_indices) -> None:
+    for asked, what in ((local_rows is not None, "local_rows"),
+                        (int(num_workers or 0) > 1, "num_workers > 1"),
+                        (bool(emit_row_indices), "emit_row_indices")):
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not yet ported to allrank_tpu_torch's batchers")
+
+
+class SlateBatcher:
+    """Iterates fixed-shape batches over a SlateDataset.
+
+    Shuffle and randomised subsampling redraw each epoch from
+    ``seed + epoch``; call ``set_epoch`` before each pass (train role).
+    """
+
+    def __init__(self, dataset, slate_length: int, batch_size: int,
+                 shuffle: bool = False, seed: int = 42,
+                 local_rows: Optional[np.ndarray] = None,
+                 num_workers: int = 0, emit_row_indices: bool = False):
+        _check_unported(local_rows, num_workers, emit_row_indices)
+        self.dataset = dataset
+        self.slate_length = int(slate_length)
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _order(self) -> np.ndarray:
+        """The epoch's slate permutation."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        return order
+
+    def _slate_rng(self, ds_idx: int) -> np.random.RandomState:
+        """Per-(seed, epoch, slate) stream: subsampling is independent of
+        which batch position assembles the slate."""
+        s = (self.seed * 1000003 + self.epoch) * 1000003 + int(ds_idx)
+        return np.random.RandomState(s % (2**31 - 1))
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
+    def _fill_row(self, bufs, row: int, ds_idx: int,
+                  arange_L: np.ndarray) -> None:
+        x, y, indices, slate_mask = bufs
+        L = self.slate_length
+        sx, sy = self.dataset[int(ds_idx)]
+        n = len(sy)
+        if n < L:
+            # pad: straight into the batch buffers
+            x[row, :n] = sx
+            y[row, :n] = sy
+            indices[row, :n] = arange_L[:n]
+        else:
+            # n >= L: random subsample or permutation with the relevance
+            # guard (full-length slates are permuted too)
+            fx, fy, fi = fix_slate(sx, sy, L, self._slate_rng(ds_idx))
+            x[row], y[row], indices[row] = fx, fy, fi
+        slate_mask[row] = True
+
+    def __iter__(self) -> Iterator[SlateBatch]:
+        order = self._order()
+        G, L = self.batch_size, self.slate_length
+        n_features = self.dataset.n_features
+        arange_L = np.arange(L, dtype=np.int32)
+        for start in range(0, len(order), G):
+            chunk = order[start:start + G]  # may be short
+            x = np.zeros((G, L, n_features), dtype=np.float32)
+            y = np.full((G, L), float(PADDED_Y_VALUE), dtype=np.float32)
+            indices = np.full((G, L), PADDED_Y_VALUE, dtype=np.int32)
+            slate_mask = np.zeros((G,), dtype=bool)
+            bufs = (x, y, indices, slate_mask)
+            for row, ds_idx in enumerate(chunk):
+                self._fill_row(bufs, row, int(ds_idx), arange_L)
+            yield SlateBatch(x, y, indices, slate_mask)
+
+
+class _SubsetDataset:
+    """A view over selected slates of a SlateDataset."""
+
+    def __init__(self, dataset, indices: np.ndarray):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int):
+        return self.dataset[int(self.indices[idx])]
+
+    @property
+    def n_features(self) -> int:
+        return self.dataset.n_features
+
+
+class BucketedSlateBatcher:
+    """Validation batcher with per-bucket padded slate lengths: slates are
+    sorted by length and split into ``n_buckets`` groups of about equal
+    count, and each group pads to its own maximum (rounded up to ``align``).
+    Metrics do not depend on padding, so results match pad-to-longest while
+    the O(L^2) losses run at smaller shapes."""
+
+    def __init__(self, dataset, batch_size: int, n_buckets: int = 4,
+                 local_rows: Optional[np.ndarray] = None,
+                 num_workers: int = 0, align: int = 8,
+                 emit_row_indices: bool = False):
+        _check_unported(local_rows, num_workers, emit_row_indices)
+        lengths = np.array([len(dataset[i][1]) for i in range(len(dataset))])
+        order = np.argsort(lengths, kind="stable")
+        self.buckets = []  # (bucket_length, slate indices)
+        for group in np.array_split(order, max(1, int(n_buckets))):
+            if len(group) == 0:
+                continue
+            length = -(-int(lengths[group].max()) // align) * align
+            if self.buckets and self.buckets[-1][0] == length:
+                prev_len, prev_idx = self.buckets[-1]
+                self.buckets[-1] = (prev_len,
+                                    np.concatenate([prev_idx, group]))
+            else:
+                self.buckets.append((length, group))
+        self._batchers = [
+            SlateBatcher(_SubsetDataset(dataset, idxs), length, batch_size,
+                         shuffle=False)
+            for length, idxs in self.buckets]
+
+    def set_epoch(self, epoch: int) -> None:
+        for b in self._batchers:
+            b.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return sum(len(b) for b in self._batchers)
+
+    def __iter__(self) -> Iterator[SlateBatch]:
+        for b in self._batchers:
+            yield from b
+
+
+class DevicePrefetcher:
+    """Wraps a batch iterator, moving batches to ``device`` (default: the
+    GPU) ahead of compute; yields ``SlateBatch``es of tensors.
+
+    On a GPU each array goes through pinned host memory and a non-blocking
+    copy on a side stream, ``depth`` batches in flight, so the copy of batch
+    t+1 overlaps the compute on batch t; the consumer's stream waits for a
+    batch's copy just before the batch is handed out. On the CPU the arrays
+    are wrapped as tensors."""
+
+    def __init__(self, batches, device=None, depth: int = 2):
+        self.batches = batches
+        self.device = resolve_device(device)
+        self.depth = depth
+
+    def __iter__(self):
+        dev = self.device
+        if dev.type == "cpu":
+            for batch in self.batches:
+                yield SlateBatch(*(torch.from_numpy(np.ascontiguousarray(a))
+                                   for a in batch))
+            return
+        side = torch.cuda.Stream(device=dev)
+        queue: collections.deque = collections.deque()
+
+        def put(batch: SlateBatch):
+            with torch.cuda.stream(side):
+                moved = SlateBatch(*(
+                    torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                    .to(dev, non_blocking=True) for a in batch))
+                copied = torch.cuda.Event()
+                copied.record(side)
+            return moved, copied
+
+        it = iter(self.batches)
+        try:
+            for _ in range(self.depth):
+                queue.append(put(next(it)))
+        except StopIteration:
+            pass
+        while queue:
+            ready, copied = queue.popleft()
+            try:
+                queue.append(put(next(it)))
+            except StopIteration:
+                pass
+            current = torch.cuda.current_stream(dev)
+            current.wait_event(copied)
+            for t in ready:
+                t.record_stream(current)
+            yield ready

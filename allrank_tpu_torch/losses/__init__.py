@@ -3,22 +3,28 @@
 ``y_true == PADDED_Y_VALUE`` and an optional ``slate_mask`` [B] marks real
 slates (the JAX package's ``losses/__init__.py`` contract).
 
-Only lambdaLoss is ported so far; the rest of the JAX package's loss zoo
-comes with a later slice of the port, and ``get_loss`` names those losses
-as not yet ported.
+lambdaLoss and the two NeuralNDCG losses are ported so far; the rest of
+the JAX package's loss zoo comes with a later slice of the port, and
+``get_loss`` names those losses as not yet ported. A loss with
+``needs_rng`` takes a ``generator`` keyword (a ``torch.Generator``).
 """
 
 from allrank_tpu_torch.constants import DEFAULT_EPS, PADDED_Y_VALUE  # noqa: F401
 from allrank_tpu_torch.losses.lambdaloss import lambdaLoss  # noqa: F401
+from allrank_tpu_torch.losses.neuralndcg import (  # noqa: F401
+    neuralNDCG,
+    neuralNDCG_transposed,
+)
 
 # config loss names -> (fn, needs_rng), as in the JAX package's registry
 LOSSES = {
     "lambdaLoss": (lambdaLoss, False),
+    "neuralNDCG": (neuralNDCG, True),
+    "neuralNDCG_transposed": (neuralNDCG_transposed, True),
 }
 NOT_YET_PORTED = ("listNet", "binary_listNet", "listMLE", "rankNet",
                   "rankNet_weightByGTDiff", "rankNet_weightByGTDiff_pow",
-                  "ordinal", "pointwise_rmse", "bce", "approxNDCGLoss",
-                  "neuralNDCG", "neuralNDCG_transposed")
+                  "ordinal", "pointwise_rmse", "bce", "approxNDCGLoss")
 
 
 def get_loss(name: str):

@@ -163,8 +163,11 @@ def position_tables(n: int, dev) -> tuple:
     the host until the device caught up."""
     key = (n, dev)
     if key not in _TABLES:
-        _TABLES[key] = (torch.from_numpy(log2_positions(n)).to(dev),
-                        torch.from_numpy(ndcg2_delta_by_distance(n)).to(dev))
+        # a tensor made under inference mode could not enter autograd later
+        with torch.inference_mode(False):
+            _TABLES[key] = (
+                torch.from_numpy(log2_positions(n)).to(dev),
+                torch.from_numpy(ndcg2_delta_by_distance(n)).to(dev))
     return _TABLES[key]
 
 

@@ -1,6 +1,9 @@
-"""The train step: forward with dropout, loss, backward, global-norm clip
-and the optimizer update (the JAX package's ``training/train_utils.py:61``
-``make_train_step``).
+"""The train step, the evaluation step and the epoch loop (the JAX package's
+``training/train_utils.py``: ``make_train_step``, ``make_eval_fns``,
+``compute_metrics``, ``fit``).
+
+The train step: forward with dropout, loss, backward, global-norm clip and
+the optimizer update.
 
 On CUDA every sublayer of the encoder runs its hand-written kernels in both
 directions (autograd Functions in ``ops/``) and lambdaLoss its pair-chain
@@ -10,16 +13,40 @@ synchronisation of its own.
 
 ``scan_steps`` is a JAX dispatch device (several steps in one compiled
 program) and has no counterpart here; a CUDA graph per step is later work.
+
+``fit`` is host-side only: epoch iteration, learning-rate scheduling (with
+plateau scheduling on the validation metric), early stopping, logging,
+partial and final checkpoints. It reads the device once per epoch for the
+loss and once per evaluation pass for the metrics.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from allrank_tpu_torch.constants import PADDED_Y_VALUE
+from allrank_tpu_torch.data.batching import DevicePrefetcher
+from allrank_tpu_torch.metrics import get_metric
 from allrank_tpu_torch.models.factory import LTRModel, as_dtype
+from allrank_tpu_torch.training.checkpoint import (
+    load_opt_state,
+    load_params,
+    save_opt_state,
+    save_params,
+)
+from allrank_tpu_torch.training.early_stop import EarlyStop
+from allrank_tpu_torch.training.optimizers import (
+    get_learning_rate,
+    set_learning_rate,
+)
+from allrank_tpu_torch.utils.ltr_logging import get_logger
+
+logger = get_logger()
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -125,3 +152,228 @@ def make_train_step(model: LTRModel, loss_fn: Callable,
         return loss, slate_mask.float().sum()
 
     return step
+
+
+def make_eval_fns(model: LTRModel, loss_fn: Callable,
+                  loss_kwargs: Optional[Dict[str, Any]], needs_rng: bool,
+                  metrics: Dict[str, Sequence[int]],
+                  compute_dtype="float32"):
+    """Build the evaluation step ``(generator, batch) -> ({metric_at: sum},
+    loss_sum, n_real)``, all device tensors, without autograd; ``batch`` is
+    a ``SlateBatch`` (arrays or tensors)."""
+    dtype = as_dtype(compute_dtype)
+    loss_kwargs = dict(loss_kwargs or {})
+    metric_fns = {name: (get_metric(name), tuple(ats))
+                  for name, ats in metrics.items()}
+    dev = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def step(generator, batch):
+        x, y, indices, slate_mask = batch
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        indices = torch.as_tensor(indices, device=dev).long()
+        slate_mask = torch.as_tensor(slate_mask, device=dev).bool()
+        preds = model(x, y == PADDED_Y_VALUE, indices, compute_dtype=dtype)
+        kw = dict(loss_kwargs)
+        if needs_rng:
+            kw["generator"] = generator
+        loss = loss_fn(preds, y, slate_mask=slate_mask, **kw)
+        # multi-output heads score by the sum over d_output
+        scores = preds.sum(dim=-1) if preds.dim() == 3 else preds
+        sw = slate_mask.float()
+        n_real = sw.sum()
+        sums = {}
+        for name, (fn, ats) in metric_fns.items():
+            weighted = (fn(scores, y, ats=ats) * sw[:, None]).sum(dim=0)
+            for i, at in enumerate(ats):
+                sums[f"{name}_{at}"] = weighted[i]
+        return sums, loss * n_real, n_real
+
+    return step
+
+
+def compute_metrics(eval_step, batches, generator
+                    ) -> Tuple[Dict[str, float], float]:
+    """Run the evaluation step over a batch stream; returns (per-slate mean
+    of each metric, mean loss). The one device-to-host read happens here."""
+    names, totals = [], None
+    for batch in batches:
+        sums, loss_sum, n_real = eval_step(generator, batch)
+        names = list(sums)
+        row = torch.stack([*sums.values(), loss_sum, n_real])
+        totals = row if totals is None else totals + row
+    if totals is None:
+        raise ValueError(
+            "empty batch stream: the evaluation split has no batches")
+    *metric_sums, loss_total, n = totals.tolist()
+    if n == 0.0:
+        raise ValueError("evaluation split contains zero real slates")
+    return {k: v / n for k, v in zip(names, metric_sums)}, loss_total / n
+
+
+def epoch_summary(epoch, train_loss, train_metrics, val_loss,
+                  val_metrics) -> str:
+    s = f"Epoch : {epoch} Train loss: {train_loss} Val loss: {val_loss} "
+    s += " ".join(f"Train {k} {v}" for k, v in train_metrics.items())
+    s += " "
+    s += " ".join(f"Val {k} {v}" for k, v in val_metrics.items())
+    return s
+
+
+def _json_safe(d: dict) -> dict:
+    """The resumable fields of a scheduler's state: callables (a LambdaLR's
+    ``lr_lambda``, rebuilt from the config on restart) are dropped."""
+    return {k: v for k, v in d.items()
+            if isinstance(v, (int, float, str, bool, list, type(None)))}
+
+
+def fit(*, epochs: int, model: LTRModel, loss_fn: Callable,
+        loss_kwargs: Dict[str, Any], needs_rng: bool,
+        optimizer: torch.optim.Optimizer, scheduler, train_batcher,
+        val_batcher, metrics: Dict[str, Sequence[int]],
+        val_metric: Optional[str], early_stopping_patience: int,
+        gradient_clipping_norm: Optional[float],
+        output_dir: Optional[str] = None, tensorboard_summary_writer=None,
+        compute_dtype: str = "float32", seed: int = 42,
+        checkpoint_name: str = "model.npz",
+        checkpoint_every: Optional[int] = None,
+        checkpoint_backend: str = "npz", resume: bool = False,
+        profiler_trace_dir: Optional[str] = None,
+        metrics_on_train: bool = True, scan_steps: int = 1,
+        accumulation_steps: int = 1, accum_weighting=None) -> Dict[str, Any]:
+    """The epoch loop. Trains ``model`` in place on its own device and
+    returns ``{"epochs", "train_metrics", "val_metrics", "num_params",
+    "model"}``.
+
+    ``checkpoint_every=N`` writes parameters, optimizer state and loop state
+    (epoch, scheduler, early stop, both generators' states) under
+    ``<output_dir>/partial/`` every N epochs; ``resume=True`` restores them
+    and continues from the next epoch to the same weights as an
+    uninterrupted run. Not yet ported, and raising when asked for: the Orbax
+    checkpoint backend, ``scan_steps`` > 1 and the profiler trace."""
+    for asked, what in ((checkpoint_backend == "orbax",
+                         "checkpoint_backend='orbax'"),
+                        (int(scan_steps or 1) > 1, "scan_steps > 1"),
+                        (profiler_trace_dir is not None,
+                         "profiler_trace_dir")):
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not yet ported to allrank_tpu_torch")
+    if checkpoint_backend != "npz":
+        raise ValueError(f"unknown checkpoint_backend '{checkpoint_backend}'"
+                         " (expected 'npz' or 'orbax')")
+    dev = next(model.parameters()).device
+    # two host generators: the train step's (dropout seeds, a stochastic
+    # loss's noise) and the evaluation's
+    step_gen = torch.Generator().manual_seed(seed)
+    eval_gen = torch.Generator().manual_seed(seed + 1)
+    train_step = make_train_step(
+        model, loss_fn, loss_kwargs, needs_rng, optimizer,
+        gradient_clipping_norm, compute_dtype,
+        accumulation_steps=accumulation_steps,
+        accum_weighting=accum_weighting, generator=step_gen)
+    eval_step = make_eval_fns(model, loss_fn, loss_kwargs, needs_rng, metrics,
+                              compute_dtype)
+    if val_metric is None:
+        first_name = next(iter(metrics))
+        val_metric = f"{first_name}_{metrics[first_name][0]}"
+    early_stop = EarlyStop(early_stopping_patience)
+    train_metrics: Dict[str, float] = {}
+    val_metrics: Dict[str, float] = {}
+
+    def prefetch(batcher):
+        return DevicePrefetcher(batcher, device=dev)
+
+    partial_dir = os.path.join(output_dir, "partial") if output_dir else None
+    start_epoch = 0
+    if resume and partial_dir and os.path.exists(
+            os.path.join(partial_dir, "loop_state.json")):
+        load_params(model, os.path.join(partial_dir, "params.npz"))
+        load_opt_state(optimizer, os.path.join(partial_dir, "opt_state.npz"))
+        with open(os.path.join(partial_dir, "loop_state.json")) as f:
+            loop_state = json.load(f)
+        start_epoch = loop_state["epoch"] + 1
+        if scheduler is not None:
+            scheduler.__dict__.update(loop_state["scheduler"])
+        early_stop.__dict__.update(loop_state["early_stop"])
+        step_gen.set_state(torch.tensor(loop_state["step_rng"],
+                                        dtype=torch.uint8))
+        eval_gen.set_state(torch.tensor(loop_state["rng"],
+                                        dtype=torch.uint8))
+        logger.info("resumed from %s at epoch %d", partial_dir, start_epoch)
+
+    def save_partial(epoch: int) -> None:
+        os.makedirs(partial_dir, exist_ok=True)
+        save_params(model, os.path.join(partial_dir, "params.npz"))
+        save_opt_state(optimizer, os.path.join(partial_dir, "opt_state.npz"))
+        with open(os.path.join(partial_dir, "loop_state.json"), "w") as f:
+            json.dump({
+                "epoch": epoch,
+                "scheduler": (_json_safe(scheduler.__dict__)
+                              if scheduler else {}),
+                "early_stop": dict(early_stop.__dict__),
+                "step_rng": step_gen.get_state().tolist(),
+                "rng": eval_gen.get_state().tolist(),
+            }, f)
+
+    num_epochs_run = start_epoch
+    for epoch in range(start_epoch, epochs):
+        t0 = time.time()
+        logger.info("Current learning rate: %s", get_learning_rate(optimizer))
+        train_batcher.set_epoch(epoch)
+        totals = None
+        for batch in prefetch(train_batcher):
+            loss, n_real = train_step(*batch)
+            row = torch.stack([loss * n_real, n_real])
+            totals = row if totals is None else totals + row
+        loss_total, n_total = totals.tolist()
+        train_loss = loss_total / n_total
+        t_train = time.time() - t0
+
+        if metrics_on_train:
+            train_metrics, _ = compute_metrics(
+                eval_step, prefetch(train_batcher), eval_gen)
+        t_eval0 = time.time()
+        val_metrics, val_loss = compute_metrics(
+            eval_step, prefetch(val_batcher), eval_gen)
+        logger.info("epoch %d phases: train %.1fs, val eval %.1fs", epoch,
+                    t_train, time.time() - t_eval0)
+        logger.info("%s [%.1fs]", epoch_summary(
+            epoch, train_loss, train_metrics, val_loss, val_metrics),
+            time.time() - t0)
+
+        if tensorboard_summary_writer is not None:
+            tb = {("train", "loss"): train_loss, ("val", "loss"): val_loss}
+            tb.update({("train", k): v for k, v in train_metrics.items()})
+            tb.update({("val", k): v for k, v in val_metrics.items()})
+            tensorboard_summary_writer.save_to_tensorboard(tb, epoch)
+
+        current_val = val_metrics[val_metric]
+        if scheduler is not None:
+            set_learning_rate(optimizer, scheduler.step(
+                current_val if scheduler.needs_metric else None))
+        early_stop.step(current_val, epoch)
+        num_epochs_run = epoch + 1
+        if (checkpoint_every and partial_dir
+                and (epoch + 1) % checkpoint_every == 0):
+            save_partial(epoch)
+        if early_stop.stop_training(epoch):
+            logger.info(
+                "early stopping at epoch %d since %s didn't improve from "
+                "epoch %d. Best value %s", epoch, val_metric,
+                early_stop.best_epoch, early_stop.best_value)
+            break
+
+    if tensorboard_summary_writer is not None:
+        tensorboard_summary_writer.close_all_writers()
+    if output_dir is not None:
+        path = save_params(model, os.path.join(output_dir, checkpoint_name))
+        logger.info("saved final model to %s", path)
+    return {
+        "epochs": num_epochs_run,
+        "train_metrics": train_metrics,
+        "val_metrics": val_metrics,
+        "num_params": sum(p.numel() for p in model.parameters()),
+        "model": model,
+    }

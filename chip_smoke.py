@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the three kernel sources of
+1. the card, torch and CUDA versions; builds the five kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took; turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
@@ -49,7 +49,29 @@ and never prints its last line):
     model, dropout 0, bf16) and at the paper config, with its idle share
     and device time by kernel; each new kernel, its plain version and a
     library yardstick;
-11. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+11. the fused soft-sort kernels (B8, forward and backward) against their
+    plain versions at N=64, L=240 and at N=2048 (the stochastic fold), both
+    ``transpose`` values, ragged lengths, one fully padded slate;
+12. the Sinkhorn kernels (B7, forward and backward) against their plain
+    versions at N=8, L=640;
+13. the train CLI, the third main path: a dummy libsvm dataset of WEB30K's
+    shape from a seed (136 features, 5 grades, 1,024 train and 256
+    validation slates of 40-240 documents), then
+    ``allrank_tpu_torch.main.run`` on
+    ``reproducibility/configs/neuralndcg_web30k/neuralndcg_atmax.json`` with
+    only ``data.path``, ``training.epochs`` (2) and ``expected_metrics``
+    changed; every epoch's loss finite, ``model.npz``,
+    ``experiment_result.json`` and ``used_config.json`` written, ndcg@5 on
+    validation reported, and the launches counted: B8 forward and backward
+    once per train step, B8 forward once per evaluation batch, B1/B2 twice
+    per step and per evaluation batch (two blocks). Then one epoch of
+    ``ndcgloss2pp.json`` the same way (B3 launched), a NeuralNDCG train step
+    at B=8, L=640 that launches B7, and step 1 of the NeuralNDCG model at
+    dropout 0 in fp32 on the GPU against the CPU's plain run;
+14. times: B7 and B8, their plain versions and a PyTorch formulation of the
+    same chain (forward, and backward by autograd); the NeuralNDCG train
+    step with its idle share; an epoch's train, evaluation and feed seconds;
+15. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -62,12 +84,17 @@ import copy
 import io
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from argparse import Namespace
 
 import numpy as np
 import torch
@@ -108,6 +135,17 @@ SCORE_TOL = 1e-3
 # flagship scores, bf16 vs fp32 on the GPU: bf16 keeps 8 mantissa bits and
 # rounds at every sublayer of 4 blocks; relative to the largest |score|
 BF16_SCORE_TOL = 0.05
+
+
+# B7 and B8 against their plain versions, fp32: the same FMAs summed in
+# another order through 50 compounding iterations; the gradient cancels
+# heavily, so it is held relative to its tensor's largest value
+SOFT_TOL = dict(rtol=1e-4, atol=1e-4)
+SOFT_GRAD_TOL = (1e-4, 1e-6)
+SINKHORN_ITERS = 50
+NEURAL_CONFIG = ("reproducibility/configs/neuralndcg_web30k/"
+                 "neuralndcg_atmax.json")
+CLI_TRAIN_SLATES, CLI_VAL_SLATES = 1024, 256
 
 
 def card() -> str:
@@ -365,6 +403,149 @@ def profile_calls(fn, tag: str, calls: int = 5) -> None:
               f"time) {kname[:90]}")
 
 
+def soft_sort_inputs(gen, n, l, dev):
+    """Scores, 0/1 pad floats (ragged lengths, slate 0 full, the last one
+    fully padded), power-of-two gains and an output cotangent."""
+    s = torch.randn(n, l, generator=gen)
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    lengths[-1] = 0
+    pad = (torch.arange(l)[None, :] >= lengths[:, None]).float()
+    labels = torch.randint(0, 5, (n, l), generator=gen).float()
+    vec = (2.0 ** labels - 1.0) * (1.0 - pad)
+    dout = torch.randn(n, l, generator=gen)
+    return [t.to(dev) for t in (s, pad, vec, dout)]
+
+
+def premasked_matrices(gen, n, l, dev):
+    """Row-stochastic [n, l, l] matrices with the Sinkhorn pre-fill of ragged
+    padding (slate 0 full, the last one fully padded)."""
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    lengths[-1] = 0
+    pad = torch.arange(l)[None, :] >= lengths[:, None]
+    m0 = torch.softmax(torch.randn(n, l, l, generator=gen) * 3.0, dim=-1)
+    m0 = torch.where(pad[:, :, None] | pad[:, None, :], 0.0, m0)
+    return torch.where(pad[:, :, None] & pad[:, None, :], 1.0, m0).to(dev)
+
+
+def assert_grad_close(got, ref, what) -> float:
+    assert torch.isfinite(got).all(), f"{what}: non-finite gradient"
+    err, scale = rel_err(got, ref)
+    rtol, atol = SOFT_GRAD_TOL
+    assert err <= rtol * scale + atol, f"{what}: {err} > {rtol} x {scale}"
+    return err
+
+
+def soft_sort_library(s, pad, vec, transpose):
+    """The soft-sort chain in the JAX package's XLA-path formulation
+    (``deterministic_neural_sort`` -> the freezing ``sinkhorn_scaling`` ->
+    ``einsum``), a yardstick only: returns (forward, backward by autograd)
+    as functions that run it once."""
+    from allrank_tpu_torch.ops.soft_sort import (
+        deterministic_neural_sort,
+        sinkhorn_scaling,
+    )
+
+    mask = pad > 0.5
+
+    def forward(leaf):
+        p = sinkhorn_scaling(deterministic_neural_sort(leaf, 1.0, mask), mask,
+                             backend="plain")
+        return torch.einsum("bij,bi->bj" if transpose else "bij,bj->bi", p,
+                            vec)
+
+    leaf = s.detach().requires_grad_()
+    out = forward(leaf)
+    dout = torch.ones_like(out)
+    return (lambda: forward(s),
+            lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True))
+
+
+def sinkhorn_library(m0):
+    """Sinkhorn scaling as the freezing chain of torch ops (forward, and
+    backward by autograd), a yardstick only."""
+    from allrank_tpu_torch.ops.soft_sort import sinkhorn_scaling
+
+    leaf = m0.detach().requires_grad_()
+    out = sinkhorn_scaling(leaf, backend="plain")
+    dp = torch.ones_like(out)
+    return (lambda: sinkhorn_scaling(m0, backend="plain"),
+            lambda: torch.autograd.grad(out, leaf, dp, retain_graph=True))
+
+
+def write_cli_dataset(data_dir: str, seed: int = 0) -> dict:
+    """train.txt (1,024 slates) and one validation file under both role
+    names the two configs ask for (test.txt, vali.txt; 256 slates): 136
+    features, slate lengths drawn from 40-240, labels 0-4 that follow two
+    features plus noise. Returns {role: (X, y, qid)} as written."""
+    from allrank_tpu_torch.data.dummy import write_svmlight
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    arrays = {}
+    for role, n_slates in (("train", CLI_TRAIN_SLATES),
+                           ("test", CLI_VAL_SLATES)):
+        lengths = rng.randint(40, L + 1, size=n_slates)
+        x = rng.randn(int(lengths.sum()), N_FEATURES)
+        y = np.clip(np.round(2.0 + x[:, 0] + 0.5 * x[:, 1]
+                             + 0.5 * rng.randn(len(x))), 0, 4).astype(np.int32)
+        qid = np.repeat(np.arange(n_slates), lengths)
+        write_svmlight(os.path.join(data_dir, f"{role}.txt"), x, y, qid)
+        arrays[role] = (x, y, qid)
+    shutil.copyfile(os.path.join(data_dir, "test.txt"),
+                    os.path.join(data_dir, "vali.txt"))
+    return arrays
+
+
+def run_cli(config_path: str, work_dir: str, run_id: str, epochs: int):
+    """``allrank_tpu_torch.main.run`` on ``config_path`` with only the data
+    path, the epochs and the expected-metrics gate changed; returns (result,
+    output directory, per-epoch train and validation losses, seconds)."""
+    from allrank_tpu_torch.main import run
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    cfg["data"]["path"] = os.path.join(work_dir, "data")
+    cfg["training"]["epochs"] = epochs
+    cfg["expected_metrics"] = {"val": {"ndcg_5": 0.0}}
+    cut = os.path.join(work_dir, f"{run_id}.json")
+    with open(cut, "w") as f:
+        json.dump(cfg, f)
+    job_dir = os.path.join(work_dir, "job")
+    t0 = time.perf_counter()
+    result = run(Namespace(job_dir=job_dir, run_id=run_id,
+                           config_file_name=cut))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out_dir = os.path.join(job_dir, "results", run_id)
+    losses = {}
+    for role in ("train", "val"):
+        with open(os.path.join(job_dir, "tb_evals", "single", run_id,
+                               f"loss_{role}", "scalars.jsonl")) as f:
+            losses[role] = [json.loads(line)["value"] for line in f]
+    return result, out_dir, losses, seconds
+
+
+def check_cli_outputs(result, out_dir, losses, epochs, metric_names) -> None:
+    assert result["epochs"] == epochs, result["epochs"]
+    for role in ("train", "val"):
+        assert len(losses[role]) == epochs, losses
+        assert all(math.isfinite(v) for v in losses[role]), losses
+    for name in ("model.npz", "experiment_result.json", "used_config.json",
+                 "training.log"):
+        assert os.path.getsize(os.path.join(out_dir, name)) > 0, name
+    with open(os.path.join(out_dir, "experiment_result.json")) as f:
+        dumped = json.load(f)
+    for name in metric_names:
+        for role in ("train", "val"):
+            value = result[f"{role}_metrics"][name]
+            assert 0.0 <= value <= 1.0, (role, name, value)
+            assert dumped[f"{role}_metrics/{name}"] == value
+    with np.load(os.path.join(out_dir, "model.npz")) as weights:
+        assert all(np.isfinite(weights[k]).all() for k in weights.files)
+
+
 def post(url: str, slate: np.ndarray, binary: bool) -> np.ndarray:
     if binary:
         buf = io.BytesIO()
@@ -406,6 +587,18 @@ def main() -> int:
         lambda_pairs_fwd,
         lambda_pairs_fwd_plain,
     )
+    from allrank_tpu_torch.ops.neuralsort import (
+        soft_sort_bwd,
+        soft_sort_bwd_plain,
+        soft_sort_fwd,
+        soft_sort_fwd_plain,
+    )
+    from allrank_tpu_torch.ops.sinkhorn import (
+        sinkhorn_bwd,
+        sinkhorn_bwd_plain,
+        sinkhorn_fwd,
+        sinkhorn_fwd_plain,
+    )
     from allrank_tpu_torch.serve_http import SlateScoringService, run_server
     from allrank_tpu_torch.serving import make_ranker, make_scorer
 
@@ -418,9 +611,10 @@ def main() -> int:
     print(f"card: {name_power}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ["attention_block", "ffn_block", "lambda_pairs"]
+    sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
+               "neuralsort"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the three "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the five "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
@@ -621,8 +815,8 @@ def main() -> int:
 
     # -- 7: B1 and B2 backward against their plain versions -----------------
     bwd_errs = {}
-    cases = [(B, L, 128, 4, 512), (3, 1, 128, 4, 512), (2, 1024, 144, 2, 512),
-             (5, 70, 256, 1, 1024)]
+    cases = [(B, L, 128, 4, 512), (B, L, 96, 1, 384), (3, 1, 128, 4, 512),
+             (2, 1024, 144, 2, 512), (5, 70, 256, 1, 1024)]
     for b, l, d, h, d_ff in cases:
         for dtype in (torch.float32, torch.bfloat16):
             for p in (0.0, 0.3):
@@ -860,7 +1054,294 @@ def main() -> int:
               f"{ops_per_pair} operations per pair, {moved / 1e6:.3f} MB) "
               f"{tag}")
 
-    # -- 11: the record ---------------------------------------------------------
+    # -- 11: B8 against its plain version -------------------------------------
+    T = SINKHORN_ITERS
+    soft_errs = {}
+    for n in (B, 2048):
+        for transpose in (False, True):
+            sc, pad, vec, dout = soft_sort_inputs(gen, n, L, dev)
+            before = (soft_sort_fwd.launches, soft_sort_bwd.launches)
+            out, a_hist, b_hist = soft_sort_fwd(sc, pad, vec, 1.0, T,
+                                                transpose)
+            ds = soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout, 1.0, T,
+                               transpose)
+            torch.cuda.synchronize()
+            assert (soft_sort_fwd.launches, soft_sort_bwd.launches) == (
+                before[0] + 1, before[1] + 1), "B8 did not launch"
+            ref, ref_a, ref_b = soft_sort_fwd_plain(sc, pad, vec, 1.0, T,
+                                                    transpose)
+            assert torch.isfinite(out).all() and torch.isfinite(a_hist).all()
+            torch.testing.assert_close(out, ref, **SOFT_TOL)
+            assert not out[-1].any(), "the fully padded slate's output"
+            # the records against the plain version's: the scaling pair's
+            # gauge (a -> c a, b -> b / c) is not contracted, so rounding
+            # drifts along it; the output above is free of it
+            torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
+            torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
+            ref_ds = soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
+                                         1.0, T, transpose)
+            g_err = assert_grad_close(ds, ref_ds, f"B8 ds N={n}")
+            assert not ds[pad > 0.5].any(), "a padded document's gradient"
+            f_err = rel_err(out, ref)[0]
+            if n == B and not transpose:
+                soft_errs = {"soft_sort_fwd": f_err, "soft_sort_bwd": g_err}
+            print(f"B8 vs plain N={n} L={L} transpose={transpose}: "
+                  f"max_abs_err out {f_err:.3e} (tol {SOFT_TOL}), ds "
+                  f"{g_err:.3e} of max|ref| {rel_err(ds, ref_ds)[1]:.3e} "
+                  f"(tol {SOFT_GRAD_TOL[0]:g} x)")
+            del ref, ref_a, ref_b, ref_ds
+    print("phase 11 ok: fused soft-sort kernels match their plain versions")
+
+    # -- 12: B7 against its plain version -------------------------------------
+    n7, l7 = 8, 640
+    m0 = premasked_matrices(gen, n7, l7, dev)
+    dp = torch.randn(n7, l7, l7, generator=gen).to(dev)
+    before = (sinkhorn_fwd.launches, sinkhorn_bwd.launches)
+    p_out, a_hist, b_hist = sinkhorn_fwd(m0, T)
+    dm0 = sinkhorn_bwd(m0, a_hist, b_hist, dp, T)
+    torch.cuda.synchronize()
+    assert (sinkhorn_fwd.launches, sinkhorn_bwd.launches) == (
+        before[0] + 1, before[1] + 1), "B7 did not launch"
+    ref_p, ref_a, ref_b = sinkhorn_fwd_plain(m0, T)
+    assert torch.isfinite(p_out).all()
+    torch.testing.assert_close(p_out, ref_p, **SOFT_TOL)
+    torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
+    sink_errs = {
+        "sinkhorn_fwd": rel_err(p_out, ref_p)[0],
+        "sinkhorn_bwd": assert_grad_close(
+            dm0, sinkhorn_bwd_plain(m0, a_hist, b_hist, dp, T), "B7 dM0")}
+    print(f"B7 vs plain N={n7} L={l7}: max_abs_err P "
+          f"{sink_errs['sinkhorn_fwd']:.3e} (tol {SOFT_TOL}), dM0 "
+          f"{sink_errs['sinkhorn_bwd']:.3e} (tol {SOFT_GRAD_TOL[0]:g} x "
+          f"max|ref|)")
+    print("phase 12 ok: Sinkhorn kernels match their plain versions")
+
+    # -- 13: the train CLI, the third main path -------------------------------
+    all_kernels = train_kernels + (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd,
+                                   sinkhorn_bwd)
+
+    def reset_counts():
+        for k in all_kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.__name__: k.launches for k in all_kernels}
+
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        written = write_cli_dataset(os.path.join(work_dir, "data"))
+        print(f"cli dataset: {CLI_TRAIN_SLATES} train and {CLI_VAL_SLATES} "
+              f"validation slates of 40-{L} documents x {N_FEATURES} "
+              f"features written in {time.perf_counter() - t0:.1f} s")
+        steps = CLI_TRAIN_SLATES // B          # train steps per epoch
+        evals = steps + CLI_VAL_SLATES // B    # evaluation batches per epoch
+        epochs = 2
+        reset_counts()
+        result, out_dir, losses, cli_seconds = run_cli(
+            NEURAL_CONFIG, work_dir, "neuralndcg_atmax", epochs)
+        cli_launches = counts()
+        check_cli_outputs(result, out_dir, losses, epochs,
+                          ("ndcg_5", "ndcg_10", "ndcg_30", "ndcg_60"))
+        blocks = 2
+        expected = {
+            "soft_sort_fwd": epochs * (steps + evals),
+            "soft_sort_bwd": epochs * steps,
+            "attention_sublayer_fwd": blocks * epochs * (steps + evals),
+            "ffn_sublayer_fwd": blocks * epochs * (steps + evals),
+            "attention_sublayer_bwd": blocks * epochs * steps,
+            "ffn_sublayer_bwd": blocks * epochs * steps,
+            "lambda_pairs_fwd": 0, "lambda_pairs_bwd": 0,
+            "sinkhorn_fwd": 0, "sinkhorn_bwd": 0}
+        assert cli_launches == expected, (cli_launches, expected)
+        with open(os.path.join(out_dir, "training.log")) as f:
+            cli_phases = re.findall(
+                r"epoch (\d+) phases: train ([\d.]+)s, val eval ([\d.]+)s",
+                f.read())
+        print(f"train CLI, {NEURAL_CONFIG} (2 blocks of d=96, h=1, d_ff=384, "
+              f"dropout 0.1, bf16, Adam 1e-3, neuralNDCG), B={B} L={L}: "
+              f"{epochs} epochs of {steps} steps in {cli_seconds:.1f} s with "
+              f"loading; train loss {losses['train']}, val loss "
+              f"{losses['val']}, val ndcg_5 "
+              f"{result['val_metrics']['ndcg_5']:.4f}; the CLI's own log, "
+              f"(epoch, train s, val eval s): {cli_phases}; launches "
+              f"{cli_launches} {tag}")
+
+        reset_counts()
+        result, out_dir, losses, seconds = run_cli(PAPER_CONFIG, work_dir,
+                                                   "ndcgloss2pp", 1)
+        paper_launches = counts()
+        check_cli_outputs(result, out_dir, losses, 1, ("ndcg_5", "ndcg_10"))
+        blocks = 4
+        expected = {
+            "soft_sort_fwd": 0, "soft_sort_bwd": 0,
+            "attention_sublayer_fwd": blocks * (steps + evals),
+            "ffn_sublayer_fwd": blocks * (steps + evals),
+            "attention_sublayer_bwd": blocks * steps,
+            "ffn_sublayer_bwd": blocks * steps,
+            "lambda_pairs_fwd": steps + evals, "lambda_pairs_bwd": steps,
+            "sinkhorn_fwd": 0, "sinkhorn_bwd": 0}
+        assert paper_launches == expected, (paper_launches, expected)
+        print(f"train CLI, {PAPER_CONFIG}: 1 epoch in {seconds:.1f} s with "
+              f"loading; train loss {losses['train']}, val ndcg_5 "
+              f"{result['val_metrics']['ndcg_5']:.4f}; launches "
+              f"{paper_launches}")
+
+        # the epoch's split, on the CLI's own data and batchers
+        from allrank_tpu_torch.config import Config
+        from allrank_tpu_torch.data.batching import (
+            DevicePrefetcher,
+            SlateBatcher,
+        )
+        from allrank_tpu_torch.data.dataset import SlateDataset
+        from allrank_tpu_torch.losses import get_loss
+        from allrank_tpu_torch.models.factory import LTRModel, make_model
+        from allrank_tpu_torch.training.train_utils import (
+            compute_metrics,
+            make_eval_fns,
+        )
+
+        ncfg = Config.from_json(NEURAL_CONFIG)
+        train_ds = SlateDataset(*written["train"])
+        val_ds = SlateDataset(*written["test"])
+        train_batcher = SlateBatcher(train_ds, L, B, shuffle=True)
+        val_batcher = SlateBatcher(val_ds, val_ds.longest_query_length, B)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    nmodel = LTRModel(make_model(ncfg.model, N_FEATURES),
+                      torch.Generator().manual_seed(0), device=dev)
+    nstep = make_step(ncfg, nmodel, ncfg.training.compute_dtype)
+    loss_fn, needs_rng = get_loss(ncfg.loss.name)
+    neval = make_eval_fns(nmodel, loss_fn, ncfg.loss.args, needs_rng,
+                          ncfg.metrics, ncfg.training.compute_dtype)
+    egen = torch.Generator().manual_seed(3)
+    split = {}
+    for rep in range(2):  # the first pass warms up
+        t0 = time.perf_counter()
+        for batch in DevicePrefetcher(train_batcher, device=dev):
+            pass
+        torch.cuda.synchronize()
+        split["feed alone"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for batch in DevicePrefetcher(train_batcher, device=dev):
+            nstep(*batch)
+        torch.cuda.synchronize()
+        split["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compute_metrics(neval, DevicePrefetcher(train_batcher, device=dev),
+                        egen)
+        compute_metrics(neval, DevicePrefetcher(val_batcher, device=dev),
+                        egen)
+        split["eval (train and validation sets)"] = time.perf_counter() - t0
+    print(f"epoch split, NeuralNDCG recipe, {steps} steps and {evals} "
+          f"evaluation batches of B={B}: "
+          f"{ {k: round(v, 4) for k, v in split.items()} } s (the feed runs "
+          f"inside the train and eval loops; alone it is the host's batch "
+          f"assembly, pinning and copies) {tag}")
+
+    # a NeuralNDCG step beyond the fused kernel's length: the materialised
+    # chain through the Sinkhorn kernel
+    rng7 = np.random.RandomState(7)
+    x7 = rng7.randn(n7, l7, N_FEATURES).astype(np.float32)
+    y7 = rng7.randint(0, 5, (n7, l7)).astype(np.float32)
+    y7[:, -100:] = -1.0
+    i7 = np.tile(np.arange(l7), (n7, 1))
+    i7[:, -100:] = -1
+    reset_counts()
+    loss7, _ = nstep(x7, y7, i7)
+    b7_launches = counts()
+    assert math.isfinite(loss7.item()), loss7
+    assert (b7_launches["sinkhorn_fwd"], b7_launches["sinkhorn_bwd"],
+            b7_launches["soft_sort_fwd"]) == (1, 1, 0), b7_launches
+    print(f"NeuralNDCG train step at B={n7} L={l7}: loss {loss7.item():.6f}, "
+          f"launches {b7_launches}")
+
+    # step 1 at dropout 0 in fp32: the card's kernels against the CPU
+    ncfg0 = Config.from_json(NEURAL_CONFIG)
+    ncfg0.model.transformer.dropout = 0.0
+    gpu_model = LTRModel(make_model(ncfg0.model, N_FEATURES),
+                         torch.Generator().manual_seed(0), device=dev)
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    small = [t[:8] for t in (xb, yb, ib)]
+    results = []
+    for m, batch in ((gpu_model, small), (cpu_model,
+                                          [t.cpu() for t in small])):
+        step = make_step(ncfg0, m, "float32", optimizer_name="SGD", lr=0.0)
+        loss, _ = step(*batch)
+        results.append((loss.item(), {n: p.grad.float().cpu()
+                                      for n, p in m.named_parameters()}))
+    (gl, gg), (cl, cg) = results
+    assert abs(gl - cl) <= STEP_LOSS_RTOL * abs(cl), (gl, cl)
+    top = max(v.abs().max().item() for v in cg.values())
+    step_err = 0.0
+    for name, ref in cg.items():
+        err, scale = rel_err(gg[name], ref)
+        allowed = STEP_GRAD_TOL * scale + 1e-5 * top
+        assert err <= allowed, (name, err, scale)
+        step_err = max(step_err, err / allowed)
+    print(f"NeuralNDCG train step 1 at dropout 0, fp32, B=8 L={L}, GPU vs "
+          f"CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
+          f"{step_err:.3f} of its tolerance")
+    print("phase 13 ok: the train CLI runs both recipes on the card through "
+          "every kernel; the long-slate step runs the Sinkhorn kernel")
+
+    # -- 14: times of the new kernels and the NeuralNDCG step -----------------
+    ms = median_ms(lambda: nstep(xb, yb, ib), iters=20, warmup=3)
+    step_ms["NeuralNDCG recipe (dropout 0.1, bf16)"] = ms
+    print(f"time train step NeuralNDCG recipe B={B} L={L}: {ms:.4f} ms per "
+          f"step, {B / ms * 1e3:.1f} slates/s {tag}")
+    profile_calls(lambda: nstep(xb, yb, ib),
+                  f"train step NeuralNDCG recipe {tag}")
+
+    sc, pad, vec, dout = soft_sort_inputs(gen, B, L, dev)
+    _, a_hist, b_hist = soft_sort_fwd(sc, pad, vec, 1.0, T, False)
+    lib = soft_sort_library(sc, pad, vec, False)
+    m0 = premasked_matrices(gen, n7, l7, dev)
+    p_out, a7, b7 = sinkhorn_fwd(m0, T)
+    lib7 = sinkhorn_library(m0)
+    hist_bytes = 2 * (T + 1) * 4  # both records, per slate and document
+    for kernel_name, fns, lib_fn, flops, moved, shape in (
+            # per slate: 2 T matvecs of 2 L^2, the NeuralSort chain (row
+            # sums, logits, softmax: some 10 L^2) and the contraction (4 L^2)
+            ("soft_sort_fwd",
+             (lambda: soft_sort_fwd(sc, pad, vec, 1.0, T, False),
+              lambda: soft_sort_fwd_plain(sc, pad, vec, 1.0, T, False)),
+             lib[0], B * (4 * T + 14) * L * L,
+             B * L * (3 * 4 + 4 + hist_bytes), f"N={B} L={L}"),
+            # the reverse pass's 2 T matvecs, the two [L, T] . [T, L]
+            # products (4 T L^2), the chain again and the softmax and
+            # row-sum cotangents (some 31 L^2)
+            ("soft_sort_bwd",
+             (lambda: soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout, 1.0,
+                                    T, False),
+              lambda: soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
+                                          1.0, T, False)),
+             lib[1], B * (8 * T + 31) * L * L,
+             B * L * (4 * 4 + 4 + hist_bytes), f"N={B} L={L}"),
+            ("sinkhorn_fwd",
+             (lambda: sinkhorn_fwd(m0, T), lambda: sinkhorn_fwd_plain(m0, T)),
+             lib7[0], n7 * (4 * T + 2) * l7 * l7,
+             n7 * (2 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}"),
+            ("sinkhorn_bwd",
+             (lambda: sinkhorn_bwd(m0, a7, b7, dp, T),
+              lambda: sinkhorn_bwd_plain(m0, a7, b7, dp, T)),
+             lib7[1], n7 * (8 * T + 8) * l7 * l7,
+             n7 * (3 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}")):
+        ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
+                                for fn in fns + (lib_fn,))
+        bound_ms, bound_by = bound(flops, moved, torch.float32)
+        rows.append({"name": kernel_name, "route": "cuda",
+                     "max_abs_err": {**soft_errs, **sink_errs}[kernel_name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "gflop": flops / 1e9, "mbytes": moved / 1e6})
+        print(f"time {kernel_name} float32 {shape}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library (torch-op chain, autograd) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB) {tag}")
+
+    # -- 15: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -873,18 +1354,34 @@ def main() -> int:
         "lambda_pairs_fwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
                              "allrank_tpu/ops/lambda_pallas.py:174"),
         "lambda_pairs_bwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
-                             "allrank_tpu/ops/lambda_pallas.py:197")}
+                             "allrank_tpu/ops/lambda_pallas.py:197"),
+        "soft_sort_fwd": ("allrank_tpu_torch/csrc/neuralsort.cu",
+                          "allrank_tpu/ops/neuralsort_pallas.py:186"),
+        "soft_sort_bwd": ("allrank_tpu_torch/csrc/neuralsort.cu",
+                          "allrank_tpu/ops/neuralsort_pallas.py:214"),
+        "sinkhorn_fwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
+                         "allrank_tpu/ops/sinkhorn_pallas.py:286"),
+        "sinkhorn_bwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
+                         "allrank_tpu/ops/sinkhorn_pallas.py:325")}
+    # each kernel's own main path: serving (phase 5) for the sublayer
+    # forwards, the train step (phase 9) for their backwards and the pair
+    # chain, the CLI's NeuralNDCG run (phase 13) for the fused soft-sort, its
+    # long-slate step for the Sinkhorn kernel
+    launches = {**train_launches, **main_launches,
+                "soft_sort_fwd": cli_launches["soft_sort_fwd"],
+                "soft_sort_bwd": cli_launches["soft_sort_bwd"],
+                "sinkhorn_fwd": b7_launches["sinkhorn_fwd"],
+                "sinkhorn_bwd": b7_launches["sinkhorn_bwd"]}
     for row in rows:
-        row["source"], row["replaces"] = origin[row["name"]]
-        # serving (phase 5) is the forwards' main path, training (phase 9)
-        # the backward and pair-chain kernels'
-        row["launches"] = main_launches.get(row["name"],
-                                            train_launches[row["name"]])
-        row["train_launches"] = train_launches[row["name"]]
+        name = row["name"]
+        row["source"], row["replaces"] = origin[name]
+        row["launches"] = launches[name]
+        row["train_launches"] = train_launches.get(name, 0)
+        row["cli_launches"] = cli_launches[name] + paper_launches[name]
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 6
+    assert len(rows) == 10
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(json.dumps({"kernels": rows}))
     print(card())

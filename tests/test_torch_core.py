@@ -171,10 +171,28 @@ def test_default_device_without_gpu_raises():
             entry()
 
 
+# the modules of the train CLI's slice, which the walk below must reach
+NEW_MODULES = [
+    "allrank_tpu_torch.metrics", "allrank_tpu_torch.main",
+    "allrank_tpu_torch.ops.soft_sort", "allrank_tpu_torch.ops.sinkhorn",
+    "allrank_tpu_torch.ops.neuralsort",
+    "allrank_tpu_torch.losses.neuralndcg", "allrank_tpu_torch.data.dataset",
+    "allrank_tpu_torch.data.slate_fixing", "allrank_tpu_torch.data.dummy",
+    "allrank_tpu_torch.data.batching",
+    "allrank_tpu_torch.training.schedulers",
+    "allrank_tpu_torch.training.early_stop",
+    "allrank_tpu_torch.training.checkpoint",
+    "allrank_tpu_torch.utils.file_utils",
+    "allrank_tpu_torch.utils.experiments",
+    "allrank_tpu_torch.utils.tensorboard_utils",
+]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of allrank_tpu_torch, imported in a fresh process,
     leaves no ``jax`` and no ``allrank_tpu``/``allrank_tpu.*`` module
-    loaded (the port's own name starts with ``allrank_tpu`` too)."""
+    loaded (the port's own name starts with ``allrank_tpu`` too), and none
+    of scikit-learn, Orbax or Triton either."""
     code = """
 import importlib, pkgutil, sys
 import allrank_tpu_torch
@@ -184,15 +202,17 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "allrank_tpu" or m.startswith("allrank_tpu."))
-print(len(names), bad)
-"""
+             or m == "allrank_tpu" or m.startswith("allrank_tpu.")
+             or m.split(".")[0] in ("sklearn", "orbax", "triton"))
+missing = sorted(set(%r) - set(names))
+print(len(names), bad + missing)
+""" % (NEW_MODULES,)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 25 and bad == "[]", out.stdout
+    assert int(n) >= 25 + len(NEW_MODULES) and bad == "[]", out.stdout
 
 
 def _imported_roots(path):
@@ -214,4 +234,5 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     for path in paths:
         for name in _imported_roots(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "allrank_tpu"), (path, name)
+            assert root not in ("jax", "jaxlib", "allrank_tpu", "sklearn",
+                                "orbax"), (path, name)

@@ -32,6 +32,18 @@ from allrank_tpu_torch.ops.lambda_pairs import (
     lambda_pairs_fwd,
     lambda_pairs_fwd_plain,
 )
+from allrank_tpu_torch.ops.neuralsort import (
+    soft_sort_bwd,
+    soft_sort_bwd_plain,
+    soft_sort_fwd,
+    soft_sort_fwd_plain,
+)
+from allrank_tpu_torch.ops.sinkhorn import (
+    sinkhorn_bwd,
+    sinkhorn_bwd_plain,
+    sinkhorn_fwd,
+    sinkhorn_fwd_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -155,6 +167,7 @@ def _close(got, ref, dtype, what):
 @pytest.mark.parametrize("p", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,d_ff,l", [(128, 4, 512, 240), (96, 1, 384, 70),
+                                        (96, 1, 384, 240),
                                         (256, 1, 1024, 65)])
 def test_backward_kernels_match_plain(cuda, d, h, d_ff, l, dtype, p):
     gen = torch.Generator().manual_seed(d + l)
@@ -268,3 +281,192 @@ def test_train_step_launches_every_kernel_and_learns(cuda):
         assert [k.launches for k in kernels] == [2, 2, 2, 2, 1, 1]
     assert np.isfinite(losses).all() and n_real.item() == 8
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
+
+
+def _grad_close(got, ref, what):
+    """Gradient against the plain version: fp32 sums in another order
+    through a 50-iteration recurrence whose gradient cancels heavily, so
+    relative to the tensor's largest value."""
+    assert torch.isfinite(got).all(), what
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= 1e-4 * scale + 1e-6, f"{what}: {err} vs max|ref| {scale}"
+
+
+def _records_close(a_hist, b_hist, ref_a, ref_b):
+    """The scaling records: the iteration does not contract the gauge
+    a -> c a, b -> b / c of a scaling pair, so rounding drifts along it
+    over 50 iterations (1.2e-4 seen at L=240); P and the contracted output
+    are free of the gauge and hold to 1e-4."""
+    torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
+
+
+def _soft_sort_inputs(n, l, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.randn(n, l, generator=gen)
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    if n > 1:
+        lengths[-1] = 0  # a fully padded slate
+    pad = (torch.arange(l)[None, :] >= lengths[:, None]).float()
+    labels = torch.randint(0, 5, (n, l), generator=gen).float()
+    vec = (2.0 ** labels - 1.0) * (1.0 - pad)
+    dout = torch.randn(n, l, generator=gen)
+    return [t.to(dev) for t in (s, pad, vec, dout)]
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n,l", [(3, 1), (5, 70), (64, 240), (4, 512)])
+def test_soft_sort_kernels_match_plain(cuda, n, l, transpose):
+    s, pad, vec, dout = _soft_sort_inputs(n, l, 100 + l, cuda)
+    before = (soft_sort_fwd.launches, soft_sort_bwd.launches)
+    out, a_hist, b_hist = soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    ref, ref_a, ref_b = soft_sort_fwd_plain(s, pad, vec, 1.0, 50, transpose)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    _records_close(a_hist, b_hist, ref_a, ref_b)
+    ds = soft_sort_bwd(s, pad, vec, a_hist, b_hist, dout, 1.0, 50, transpose)
+    ref_ds = soft_sort_bwd_plain(s, pad, vec, a_hist, b_hist, dout, 1.0, 50,
+                                 transpose)
+    _grad_close(ds, ref_ds, "soft-sort ds")
+    assert not ds[pad > 0.5].any(), "a padded document took a gradient"
+    assert (soft_sort_fwd.launches, soft_sort_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    # fixed reduction order: the same bits on a second run
+    again = soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    assert all(torch.equal(x, y) for x, y in zip((out, a_hist, b_hist),
+                                                 again))
+    assert torch.equal(ds, soft_sort_bwd(s, pad, vec, a_hist, b_hist, dout,
+                                         1.0, 50, transpose))
+
+
+def test_soft_sort_kernel_walks_more_slates_than_blocks(cuda):
+    """The stochastic fold: N = S * B slates on at most one block per SM."""
+    n, l = 300, 40
+    s, pad, vec, dout = _soft_sort_inputs(n, l, 5, cuda)
+    out, a_hist, b_hist = soft_sort_fwd(s, pad, vec, 0.7, 50, False)
+    ref, *_ = soft_sort_fwd_plain(s, pad, vec, 0.7, 50, False)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    ds = soft_sort_bwd(s, pad, vec, a_hist, b_hist, dout, 0.7, 50, False)
+    _grad_close(ds, soft_sort_bwd_plain(s, pad, vec, a_hist, b_hist, dout,
+                                        0.7, 50, False), "soft-sort ds")
+
+
+@pytest.mark.parametrize("n,l", [(3, 1), (5, 70), (8, 240), (4, 640),
+                                 (2, 768)])
+def test_sinkhorn_kernels_match_plain(cuda, n, l):
+    gen = torch.Generator().manual_seed(l)
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    lengths[-1] = 0 if n > 1 else l
+    pad = torch.arange(l)[None, :] >= lengths[:, None]
+    m0 = torch.softmax(torch.randn(n, l, l, generator=gen) * 3.0, dim=-1)
+    m0 = torch.where(pad[:, :, None] | pad[:, None, :], 0.0, m0)
+    m0 = torch.where(pad[:, :, None] & pad[:, None, :], 1.0, m0).to(cuda)
+    dp = torch.randn(n, l, l, generator=gen).to(cuda)
+    before = (sinkhorn_fwd.launches, sinkhorn_bwd.launches)
+    p, a_hist, b_hist = sinkhorn_fwd(m0, 50)
+    ref_p, ref_a, ref_b = sinkhorn_fwd_plain(m0, 50)
+    assert torch.isfinite(p).all()
+    torch.testing.assert_close(p, ref_p, rtol=1e-4, atol=1e-4)
+    _records_close(a_hist, b_hist, ref_a, ref_b)
+    dm0 = sinkhorn_bwd(m0, a_hist, b_hist, dp, 50)
+    _grad_close(dm0, sinkhorn_bwd_plain(m0, a_hist, b_hist, dp, 50),
+                "sinkhorn dM0")
+    assert (sinkhorn_fwd.launches, sinkhorn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(p, sinkhorn_fwd(m0, 50)[0])
+    assert torch.equal(dm0, sinkhorn_bwd(m0, a_hist, b_hist, dp, 50))
+
+
+def _neural_step(cuda, l, b=8):
+    """A train step of a small NeuralNDCG model on the card, a fresh model
+    and generator per call."""
+    from allrank_tpu_torch.config import (
+        FCConfig,
+        ModelConfig,
+        PostModelConfig,
+        TransformerConfig,
+    )
+    from allrank_tpu_torch.losses import get_loss
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.training import make_optimizer, make_train_step
+
+    mdef = make_model(ModelConfig(
+        fc_model=FCConfig(sizes=[96], input_norm=False, activation=None,
+                          dropout=0.0),
+        transformer=TransformerConfig(N=2, d_ff=384, h=1, dropout=0.1,
+                                      positional_encoding=None),
+        post_model=PostModelConfig(d_output=1, output_activation="Tanh")),
+        10)
+    model = LTRModel(mdef, torch.Generator().manual_seed(0), device=cuda)
+    loss_fn, needs_rng = get_loss("neuralNDCG")
+    assert needs_rng
+    step = make_train_step(
+        model, loss_fn, {"temperature": 1.0, "k": None}, needs_rng,
+        make_optimizer("Adam", {"lr": 1e-3}, model.parameters()), None,
+        "bfloat16", generator=torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(0)
+    x = rng.randn(b, l, 10).astype(np.float32)
+    y = rng.randint(0, 5, (b, l)).astype(np.float32)
+    y[:, -l // 4:] = -1
+    y[-1] = -1  # a fully padded slate
+    indices = np.tile(np.arange(l), (b, 1))
+    return model, lambda: step(x, y, indices)
+
+
+def test_neural_ndcg_step_gives_the_same_bits_twice(cuda):
+    """Two runs of the NeuralNDCG train step from the same generator state:
+    no atomics anywhere on the path, so the same loss and weights."""
+    runs = []
+    kernels = (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd, sinkhorn_bwd)
+    for _ in range(2):
+        model, step = _neural_step(cuda, 240)
+        for k in kernels:
+            k.launches = 0
+        losses = [step()[0].item() for _ in range(3)]
+        assert [k.launches for k in kernels] == [3, 3, 0, 0]
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    (l1, w1), (l2, w2) = runs
+    assert np.isfinite(l1).all() and l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(w1, w2))
+
+
+def test_neural_ndcg_long_slates_run_the_sinkhorn_kernel(cuda):
+    """512 < L <= 768: the materialised chain through the Sinkhorn kernel."""
+    model, step = _neural_step(cuda, 640, b=4)
+    kernels = (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd, sinkhorn_bwd)
+    for k in kernels:
+        k.launches = 0
+    loss, _ = step()
+    assert np.isfinite(loss.item())
+    assert [k.launches for k in kernels] == [0, 0, 1, 1]
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def test_neural_ndcg_loss_on_the_card_matches_the_cpu(cuda):
+    """The fused kernel's loss and gradient against the CPU's plain chain
+    (which freezes at tolerance 1e-6, so beyond fp32 rounding the two differ
+    by what the iterations after convergence still move)."""
+    from allrank_tpu_torch.losses.neuralndcg import (
+        neuralNDCG,
+        neuralNDCG_transposed,
+    )
+
+    rng = np.random.RandomState(2)
+    y_pred = rng.randn(6, 240).astype(np.float32)
+    y_true = rng.randint(0, 5, (6, 240)).astype(np.float32)
+    y_true[1, 100:] = -1
+    y_true[5] = -1
+    for fn in (neuralNDCG, neuralNDCG_transposed):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            p = torch.tensor(y_pred, device=dev, requires_grad=True)
+            loss = fn(p, torch.tensor(y_true, device=dev), k=10)
+            loss.backward()
+            out.append((loss.item(), p.grad.cpu()))
+        (gl, gg), (cl, cg) = out
+        assert abs(gl - cl) <= 1e-4, (gl, cl)
+        assert (gg - cg).abs().max() <= 1e-3 * cg.abs().max() + 1e-7
