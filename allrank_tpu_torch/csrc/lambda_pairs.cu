@@ -12,7 +12,9 @@
 //   dyp_i = gout * (sum_j c_ij - sum_j c_ji),
 //   c = sel * [w log a > log eps] * (w / a) [/ ln 2] * [s > eps] * sigma s (1-s)
 // The weight w_ij comes from one of seven schemes (or is 1); it depends on
-// the labels and the positions only, so no other gradient path exists.
+// the labels and the positions only, so no other gradient path exists. The
+// per-pair device function lives in lambda_chain.cuh, shared with the
+// row-tiled kernel for longer blocks (lambda_tiled.cu).
 //
 // What bounds it: neither bytes nor products. The inputs are five [B, k]
 // rows (some 300 KB at B=64, k=240); the work is O(B k^2) pair evaluations
@@ -32,110 +34,12 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "lambda_chain.cuh"
 
 namespace allrank {
 namespace {
 
 constexpr int kMaxK = 384;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// the weighing schemes, in the order ops/lambda_pairs.py numbers them
-enum Scheme {
-  kNone = 0,
-  kNdcgLoss1 = 1,
-  kNdcgLoss2 = 2,
-  kLambdaRank = 3,
-  kNdcgLoss2PP = 4,
-  kRankNet = 5,
-  kGTDiff = 6,
-  kGTDiffPowed = 7,
-};
-
-struct ChainArgs {
-  int L, k_eff, scheme, binary;
-  float sigma, mu, eps, log_eps;
-};
-
-struct Row {  // the slate's rows in shared memory
-  const float *yp, *ts, *g, *valid, *d_row, *delta;
-};
-
-struct PairOut {
-  bool sel;
-  float logs, c;
-};
-
-__device__ __forceinline__ PairOut pair(const Row& row, const ChainArgs& a,
-                                        int i, int j, bool want_grad) {
-  PairOut out;
-  const bool pv = row.valid[i] > 0.5f && row.valid[j] > 0.5f;
-  bool sel = pv;
-  if (a.scheme != kNdcgLoss1) sel = sel && (row.ts[i] - row.ts[j]) > 0.f;
-  if (a.k_eff < a.L) sel = sel && i < a.k_eff && j < a.k_eff;
-  float d = pv ? row.yp[i] - row.yp[j] : 0.f;
-  d = fminf(fmaxf(d, -1e8f), 1e8f);
-  const float s = 1.f / (1.f + expf(-(a.sigma * d)));
-  const float am = fmaxf(s, a.eps);
-  bool weighted = true;
-  float w = 1.f;
-  switch (a.scheme) {
-    case kNdcgLoss1:
-      w = row.g[i] / row.d_row[i];
-      break;
-    case kGTDiff:
-      w = fabsf(row.ts[i] - row.ts[j]);
-      break;
-    case kGTDiffPowed:
-      w = fabsf(row.ts[i] * row.ts[i] - row.ts[j] * row.ts[j]);
-      break;
-    case kNdcgLoss2:
-    case kLambdaRank:
-    case kNdcgLoss2PP: {
-      const float gdiff = fabsf(row.g[i] - row.g[j]);
-      const float nd2 = row.delta[abs(i - j)] * gdiff;
-      const float lrank =
-          fabsf(1.f / row.d_row[i] - 1.f / row.d_row[j]) * gdiff;
-      w = a.scheme == kNdcgLoss2 ? nd2
-          : a.scheme == kLambdaRank ? lrank
-                                    : a.mu * nd2 + lrank;
-      break;
-    }
-    default:  // none and rankNet: weight 1, the power is the identity
-      weighted = false;
-  }
-  const float log_a = logf(am);
-  const float wlog = weighted ? w * log_a : log_a;
-  float logs = fmaxf(wlog, a.log_eps);
-  if (a.binary) logs = logs / kLn2;
-  out.sel = sel;
-  out.logs = logs;
-  out.c = 0.f;
-  if (want_grad && sel) {
-    const float w_over_a = weighted ? w / am : 1.f / am;
-    float c = wlog > a.log_eps ? w_over_a / (a.binary ? kLn2 : 1.f) : 0.f;
-    out.c = c * (s > a.eps ? a.sigma * s * (1.f - s) : 0.f);
-  }
-  return out;
-}
-
-__device__ __forceinline__ Row load_row(float* sm, const float* yp,
-                                        const float* ts, const float* g,
-                                        const float* valid,
-                                        const float* d_row,
-                                        const float* delta, int L) {
-  const size_t o = (size_t)blockIdx.x * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    sm[i] = yp[o + i];
-    sm[kMaxK + i] = ts[o + i];
-    sm[2 * kMaxK + i] = g[o + i];
-    sm[3 * kMaxK + i] = valid[o + i];
-    sm[4 * kMaxK + i] = d_row[i];
-    sm[5 * kMaxK + i] = delta[i];
-  }
-  __syncthreads();
-  return Row{sm, sm + kMaxK, sm + 2 * kMaxK, sm + 3 * kMaxK, sm + 4 * kMaxK,
-             sm + 5 * kMaxK};
-}
 
 // loss[b] = sum over selected pairs, cnt[b] = their count; the row sums go
 // through shared memory and are added in order of i by one thread.
@@ -149,7 +53,8 @@ __global__ void lambda_fwd_kernel(const float* __restrict__ yp,
                                   float* __restrict__ cnt, ChainArgs a) {
   __shared__ float sm[6 * kMaxK];
   __shared__ float row_loss[kMaxK], row_cnt[kMaxK];
-  const Row row = load_row(sm, yp, ts, g, valid, d_row, delta, a.L);
+  const Row row = load_row(sm, kMaxK, blockIdx.x, yp, ts, g, valid, d_row,
+                           delta, a.L);
   for (int i = threadIdx.x; i < a.L; i += blockDim.x) {
     float ls = 0.f, cs = 0.f;
     for (int j = 0; j < a.L; ++j) {
@@ -184,7 +89,8 @@ __global__ void lambda_bwd_kernel(const float* __restrict__ yp,
                                   const float* __restrict__ gout,
                                   float* __restrict__ dyp, ChainArgs a) {
   __shared__ float sm[6 * kMaxK];
-  const Row row = load_row(sm, yp, ts, g, valid, d_row, delta, a.L);
+  const Row row = load_row(sm, kMaxK, blockIdx.x, yp, ts, g, valid, d_row,
+                           delta, a.L);
   const float go = gout[blockIdx.x];
   for (int i = threadIdx.x; i < a.L; i += blockDim.x) {
     float out_sum = 0.f, in_sum = 0.f;

@@ -3,36 +3,52 @@
 ``y_true == PADDED_Y_VALUE`` and an optional ``slate_mask`` [B] marks real
 slates (the JAX package's ``losses/__init__.py`` contract).
 
-lambdaLoss and the two NeuralNDCG losses are ported so far; the rest of
-the JAX package's loss zoo comes with a later slice of the port, and
-``get_loss`` names those losses as not yet ported. A loss with
-``needs_rng`` takes a ``generator`` keyword (a ``torch.Generator``).
+The registry holds the JAX package's thirteen names. A loss with
+``needs_rng`` takes a ``generator`` keyword (a CPU ``torch.Generator``)
+where the JAX function takes ``rng``.
 """
 
 from allrank_tpu_torch.constants import DEFAULT_EPS, PADDED_Y_VALUE  # noqa: F401
+from allrank_tpu_torch.losses.approxndcg import approxNDCGLoss  # noqa: F401
+from allrank_tpu_torch.losses.bce import bce  # noqa: F401
 from allrank_tpu_torch.losses.lambdaloss import lambdaLoss  # noqa: F401
+from allrank_tpu_torch.losses.listmle import listMLE  # noqa: F401
+from allrank_tpu_torch.losses.listnet import (  # noqa: F401
+    binary_listNet,
+    listNet,
+)
 from allrank_tpu_torch.losses.neuralndcg import (  # noqa: F401
     neuralNDCG,
     neuralNDCG_transposed,
 )
+from allrank_tpu_torch.losses.ordinal import ordinal, with_ordinals  # noqa: F401
+from allrank_tpu_torch.losses.pointwise import pointwise_rmse  # noqa: F401
+from allrank_tpu_torch.losses.ranknet import (  # noqa: F401
+    rankNet,
+    rankNet_weightByGTDiff,
+    rankNet_weightByGTDiff_pow,
+)
 
 # config loss names -> (fn, needs_rng), as in the JAX package's registry
 LOSSES = {
+    "listNet": (listNet, False),
+    "binary_listNet": (binary_listNet, False),
+    "listMLE": (listMLE, True),
+    "rankNet": (rankNet, False),
+    "rankNet_weightByGTDiff": (rankNet_weightByGTDiff, False),
+    "rankNet_weightByGTDiff_pow": (rankNet_weightByGTDiff_pow, False),
+    "ordinal": (ordinal, False),
+    "pointwise_rmse": (pointwise_rmse, False),
+    "bce": (bce, False),
     "lambdaLoss": (lambdaLoss, False),
+    "approxNDCGLoss": (approxNDCGLoss, False),
     "neuralNDCG": (neuralNDCG, True),
     "neuralNDCG_transposed": (neuralNDCG_transposed, True),
 }
-NOT_YET_PORTED = ("listNet", "binary_listNet", "listMLE", "rankNet",
-                  "rankNet_weightByGTDiff", "rankNet_weightByGTDiff_pow",
-                  "ordinal", "pointwise_rmse", "bce", "approxNDCGLoss")
 
 
 def get_loss(name: str):
     """Return (loss_fn, needs_rng) for a config loss name."""
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"loss '{name}' is not yet ported to allrank_tpu_torch (ported: "
-            f"{sorted(LOSSES)})")
     if name not in LOSSES:
         raise ValueError(
             f"Unknown loss '{name}'. Available: {sorted(LOSSES)}")

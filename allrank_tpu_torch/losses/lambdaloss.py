@@ -5,8 +5,10 @@ lambdaLoss.py:7-114).
 As there, the reference's boolean-mask reduction becomes a dense pair mask
 over the top-k block, and the position tables (log2 discounts, ndcgLoss2
 deltas) are host float64 values rounded to float32. On CUDA the pair chain
-is the kernel B3 (``ops/lambda_pairs.py``); on the CPU the loss runs the
-JAX package's XLA-path formulation under autograd, the plain version.
+is the kernel B3 (``ops/lambda_pairs.py``) up to k = 384 and the row-tiled
+kernel B6 (``ops/lambda_tiled.py``) up to k = 4096; on the CPU, and beyond
+4096, the loss runs the JAX package's XLA-path formulation under autograd,
+the plain version.
 """
 
 from __future__ import annotations
@@ -19,11 +21,16 @@ import torch
 from allrank_tpu_torch.constants import DEFAULT_EPS, PADDED_Y_VALUE
 from allrank_tpu_torch.losses.common import as_f32, padding_mask
 from allrank_tpu_torch.ops.lambda_pairs import (
+    MAX_FUSED_LENGTH,
     check_scheme,
     fused_lambda_pairs,
     ndcg2_deltas,
     pair_weights,
     position_tables,
+)
+from allrank_tpu_torch.ops.lambda_tiled import (
+    MAX_TILED_LENGTH,
+    tiled_lambda_pairs,
 )
 
 
@@ -91,12 +98,20 @@ def lambdaLoss(y_pred: torch.Tensor, y_true: torch.Tensor,
 def _fused_chain(y_pred_sorted, true_raw_topk, true_sorted_by_preds,
                  pred_valid, G, D, slate_ok, scheme, k_eff, sigma, mu,
                  reduction_log, eps):
-    """(loss total, selected-pair count) through the pair-chain kernel B3."""
-    del true_raw_topk, D  # the kernel takes its own position tables
+    """(loss total, selected-pair count) through the pair-chain kernels: B3
+    up to k = 384, the row-tiled B6 up to 4096; beyond, the torch-op chain,
+    as the JAX loss beyond its tiled kernel's length."""
+    if k_eff > MAX_TILED_LENGTH:
+        return _plain_chain(y_pred_sorted, true_raw_topk,
+                            true_sorted_by_preds, pred_valid, G, D, slate_ok,
+                            scheme, k_eff, sigma, mu, reduction_log, eps)
+    # the kernels take their own position tables
+    pairs = (fused_lambda_pairs if k_eff <= MAX_FUSED_LENGTH
+             else tiled_lambda_pairs)
     valid_rows = pred_valid
     if slate_ok is not None:
         valid_rows = valid_rows & slate_ok[:, None]
-    loss_sums, counts = fused_lambda_pairs(
+    loss_sums, counts = pairs(
         torch.where(pred_valid, y_pred_sorted, 0.0), true_sorted_by_preds, G,
         valid_rows.float(), scheme=scheme, k_eff=k_eff, sigma=sigma, mu=mu,
         log_base=reduction_log, eps=eps)

@@ -36,9 +36,11 @@ SCHEMES = (None, "ndcgLoss1_scheme", "ndcgLoss2_scheme", "lambdaRank_scheme",
            "rankNetWeightedByGTDiff_scheme",
            "rankNetWeightedByGTDiffPowed_scheme")
 _LN2 = float(np.log(2.0))
-_ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
-_SIGNATURES = {"lambda_pairs_fwd": [ctypes.c_void_p] * 8 + _ARGS,
-               "lambda_pairs_bwd": [ctypes.c_void_p] * 8 + _ARGS}
+# the chain's scalar arguments and the stream, after the pointers
+CHAIN_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_float] * 4
+                  + [ctypes.c_void_p])
+_SIGNATURES = {"lambda_pairs_fwd": [ctypes.c_void_p] * 8 + CHAIN_ARGTYPES,
+               "lambda_pairs_bwd": [ctypes.c_void_p] * 8 + CHAIN_ARGTYPES}
 
 
 def check_scheme(scheme: Optional[str]) -> int:
@@ -122,7 +124,7 @@ def _chain(yp, ts, g, valid, *, scheme, k_eff, sigma, mu, log_base, eps):
     return logs, sel, s, a, wlog, w
 
 
-def _check_args(yp, kw):
+def check_args(yp, kw):
     check_scheme(kw["scheme"])
     if kw["log_base"] not in ("natural", "binary"):
         raise ValueError("Reduction logarithm base can be either natural or "
@@ -134,7 +136,7 @@ def _check_args(yp, kw):
 def lambda_pairs_fwd_plain(yp, ts, g, valid, **kw):
     """(per-slate loss sums [B], selected-pair counts [B]) in plain PyTorch
     ops."""
-    _check_args(yp, kw)
+    check_args(yp, kw)
     logs, sel, *_ = _chain(yp, ts, g, valid, **kw)
     sel = sel.float()
     return (logs * sel).sum(dim=(1, 2)), sel.sum(dim=(1, 2))
@@ -143,7 +145,7 @@ def lambda_pairs_fwd_plain(yp, ts, g, valid, **kw):
 def lambda_pairs_bwd_plain(yp, ts, g, valid, gout, **kw):
     """dL/dyp [B, k] for the loss sums' cotangent ``gout`` [B], in plain
     PyTorch ops (the TPU kernel's ``_bwd_kernel``)."""
-    _check_args(yp, kw)
+    check_args(yp, kw)
     eps, sigma = kw["eps"], kw["sigma"]
     ln = _LN2 if kw["log_base"] == "binary" else 1.0
     _, sel, s, a, wlog, w = _chain(yp, ts, g, valid, **kw)
@@ -171,20 +173,20 @@ def position_tables(n: int, dev) -> tuple:
     return _TABLES[key]
 
 
-def _launch(name, yp, ts, g, valid, extra, outs, kw):
+def launch_chain(lib_name, signatures, name, yp, ts, g, valid, extra, outs,
+                 kw):
+    """Launches function ``name`` of ``csrc/<lib_name>.cu`` on the chain's
+    [B, k] inputs, the position tables, ``extra`` inputs and ``outs``, in
+    the order of its C signature, after checking every [B, k] argument; the
+    call both pair-chain kernels make."""
     b, n = yp.shape
-    if n > MAX_FUSED_LENGTH:
-        raise NotImplementedError(
-            f"the lambdaLoss pair kernel covers k <= {MAX_FUSED_LENGTH}, got "
-            f"{n}; longer top-k blocks need the tiled kernel B6 "
-            f"(tiled_lambda_pairs), which comes with slice 5 of the port")
     dev = yp.device
     for t_name, t in (("y_pred_sorted", yp), ("true_sorted", ts),
                       ("gains", g), ("valid", valid)):
         _build.require(t, t_name, (b, n), torch.float32, dev)
     tables = position_tables(n, dev)
     eps = float(kw["eps"])
-    lib = _build.load("lambda_pairs", _SIGNATURES)
+    lib = _build.load(lib_name, signatures)
     with torch.cuda.device(dev):
         rc = getattr(lib, name)(
             *map(_build.ptr, (yp, ts, g, valid, *tables, *extra, *outs)),
@@ -194,6 +196,17 @@ def _launch(name, yp, ts, g, valid, extra, outs, kw):
     _build.check_launch(lib, rc, name)
 
 
+def _launch(name, yp, ts, g, valid, extra, outs, kw):
+    n = yp.shape[1]
+    if n > MAX_FUSED_LENGTH:
+        raise NotImplementedError(
+            f"the lambdaLoss pair kernel covers k <= {MAX_FUSED_LENGTH}, got "
+            f"{n}; longer top-k blocks take the tiled kernel "
+            f"(ops/lambda_tiled.tiled_lambda_pairs)")
+    launch_chain("lambda_pairs", _SIGNATURES, name, yp, ts, g, valid, extra,
+                 outs, kw)
+
+
 def lambda_pairs_fwd(yp, ts, g, valid, **kw):
     """(loss sums [B], counts [B]). A CPU tensor takes the plain version; a
     CUDA tensor launches the forward kernel or raises."""
@@ -201,7 +214,7 @@ def lambda_pairs_fwd(yp, ts, g, valid, **kw):
         return lambda_pairs_fwd_plain(yp, ts, g, valid, **kw)
     if yp.device.type != "cuda":
         raise ValueError(f"no lambdaLoss pair chain for device {yp.device}")
-    _check_args(yp, kw)
+    check_args(yp, kw)
     loss = torch.empty(yp.shape[0], dtype=torch.float32, device=yp.device)
     cnt = torch.empty_like(loss)
     _launch("lambda_pairs_fwd", yp, ts, g, valid, (), (loss, cnt), kw)
@@ -219,7 +232,7 @@ def lambda_pairs_bwd(yp, ts, g, valid, gout, **kw):
         return lambda_pairs_bwd_plain(yp, ts, g, valid, gout, **kw)
     if yp.device.type != "cuda":
         raise ValueError(f"no lambdaLoss pair chain for device {yp.device}")
-    _check_args(yp, kw)
+    check_args(yp, kw)
     _build.require(gout, "gout", (yp.shape[0],), torch.float32, yp.device)
     dyp = torch.empty_like(yp)
     _launch("lambda_pairs_bwd", yp, ts, g, valid, (gout,), (dyp,), kw)

@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the five kernel sources of
+1. the card, torch and CUDA versions; builds the seven kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took; turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
@@ -32,6 +32,8 @@ and never prints its last line):
 7. the B1 and B2 backward kernels against their plain versions (and the
    forwards at dropout 0.3), at the flagship widths and the edge shapes of
    phases 2-3, dropout 0 and 0.3, fp32 and bf16, with bit-identical masks;
+   and at B=64, L=240, d=144, h=2 (head width 72, the ordinal recipe's) at
+   dropout 0 and 0.4;
 8. the lambdaLoss pair-chain kernels (B3, forward and backward) against
    their plain versions: every weighing scheme, k = all or 10,
    L in {1, 240, 384}, a dummy slate;
@@ -71,7 +73,36 @@ and never prints its last line):
 14. times: B7 and B8, their plain versions and a PyTorch formulation of the
     same chain (forward, and backward by autograd); the NeuralNDCG train
     step with its idle share; an epoch's train, evaluation and feed seconds;
-15. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+15. the approxNDCG rank-sum kernels (B9, forward and backward) against
+    their plain versions: B=64, L=240 ragged with one empty slate, L in
+    {1, 37, 1308, 4096}, alpha in {0.1, 1, 10}, scores of +-1e4 (where
+    t < eps takes the clamp's branch), tied scores;
+16. the row-tiled lambdaLoss kernels (B6, forward and backward) against
+    their plain versions at (B, k) = (64, 512), (16, 1024), (8, 1308),
+    (2, 4096): every weighing scheme, both log bases, k_eff < k, a slate
+    with no valid document; and against B3 on the same inputs at k=384;
+17. the train CLI on the five other paper recipes, each as written but for
+    ``data.path``, one epoch and the gate, on phase 13's dataset:
+    ``approxndcg.json`` (B9 1 + 1 per step and 1 per evaluation batch),
+    ``ordinal.json`` (d=144, h=2, a 4-output sigmoid head),
+    ``ordinal_mlp.json`` and ``ndcgloss2pp_mlp.json`` (an FC tower alone:
+    no sublayer kernel launches) and ``lambdarank_atmax.json``; every
+    launch count exact, every loss finite, the three output files written;
+18. one train step of each other loss name (listNet, binary_listNet,
+    listMLE, the three rankNets, pointwise_rmse, bce) on the flagship model
+    at B=64, L=240: loss and every gradient finite in bf16 with dropout,
+    and at dropout 0 in fp32 the loss and gradients on the GPU against the
+    CPU's plain run;
+19. the long-slate lambdaLoss step: the paper config at B=16, L=1024,
+    bf16, 10 steps through ``make_train_step`` on a synthetic batch: B6
+    1 + 1 launches per step and none of B3, every loss finite, the mean of
+    the last 3 below the first 3; step 1 at dropout 0 in fp32 at B=4
+    against the CPU's plain run;
+20. times: B9 at B=64, L=240 and B6 at (64, 512) and (16, 1024), their
+    plain versions and the torch-op chains (backward by autograd); the
+    approxNDCG train step and the long-slate step with their idle share
+    and device time by kernel;
+21. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -146,6 +177,26 @@ SINKHORN_ITERS = 50
 NEURAL_CONFIG = ("reproducibility/configs/neuralndcg_web30k/"
                  "neuralndcg_atmax.json")
 CLI_TRAIN_SLATES, CLI_VAL_SLATES = 1024, 256
+CONFIG_DIR = "reproducibility/configs/"
+# the five other paper recipes: (config, encoder blocks, loss kernel)
+OTHER_RECIPES = [
+    ("neuralndcg_web30k/approxndcg.json", 2, "approx_pos"),
+    ("contextaware_web30k/ordinal.json", 4, None),
+    ("contextaware_web30k/ordinal_mlp.json", 0, None),
+    ("contextaware_web30k/ndcgloss2pp_mlp.json", 0, "lambda_pairs"),
+    ("neuralndcg_web30k/lambdarank_atmax.json", 2, "lambda_pairs")]
+# B9 against its plain version: the JAX test's own forward tolerance (the
+# sums reach L, so a relative part of the same size beside it); the
+# gradient, two fp32 sums of up to L terms in another order, relative to
+# its largest value
+B9_VALUE_TOL = dict(rtol=1e-5, atol=1e-5)
+B9_GRAD_TOL = (1e-4, 1e-6)
+# the losses that neither recipe nor earlier phase drives, with arguments
+OTHER_LOSSES = [("listNet", {}), ("binary_listNet", {}), ("listMLE", {}),
+                ("rankNet", {}), ("rankNet_weightByGTDiff", {}),
+                ("rankNet_weightByGTDiff_pow", {}),
+                ("pointwise_rmse", {"no_of_levels": 4}), ("bce", {})]
+LONG_B, LONG_L = 16, 1024
 
 
 def card() -> str:
@@ -242,9 +293,10 @@ def b2_library(x, g, b, w1, b1, w2, b2):
     return x + (torch.matmul(hidden, w2) + b2)
 
 
-def flagship_model(dev, dropout=0.0):
+def flagship_model(dev, dropout=0.0, output_activation=None):
     """``__graft_entry__._flagship_mdef`` (the model ``bench.py`` trains)
-    rebuilt in the port, random weights from a seeded generator."""
+    rebuilt in the port, random weights from a seeded generator;
+    ``output_activation`` puts an activation on its head (none there)."""
     from allrank_tpu_torch.config import (
         FCConfig,
         ModelConfig,
@@ -261,20 +313,22 @@ def flagship_model(dev, dropout=0.0):
             N=4, d_ff=512, h=4, dropout=dropout,
             positional_encoding=PositionalEncodingConfig(
                 strategy="fixed", max_indices=256)),
-        post_model=PostModelConfig(d_output=1)), N_FEATURES)
+        post_model=PostModelConfig(d_output=1,
+                                   output_activation=output_activation)),
+        N_FEATURES)
     return LTRModel(mdef, torch.Generator().manual_seed(0), device=dev)
 
 
 PAPER_CONFIG = "reproducibility/configs/contextaware_web30k/ndcgloss2pp.json"
 
 
-def paper_setup(dev, dropout=None):
+def paper_setup(dev, dropout=None, config=PAPER_CONFIG):
     """The paper config's model (random weights from a seeded generator),
-    loss and optimizer settings; ``dropout`` overrides the config's 0.3."""
+    loss and optimizer settings; ``dropout`` overrides the config's own."""
     from allrank_tpu_torch.config import Config
     from allrank_tpu_torch.models.factory import LTRModel, make_model
 
-    cfg = Config.from_json(PAPER_CONFIG)
+    cfg = Config.from_json(config)
     if dropout is not None:
         cfg.model.transformer.dropout = dropout
     model = LTRModel(make_model(cfg.model, N_FEATURES),
@@ -282,34 +336,66 @@ def paper_setup(dev, dropout=None):
     return cfg, model
 
 
-def train_batch(dev, seed=0):
+def train_batch(dev, seed=0, b=B, l=L, tail=40):
     """B=64 slates of L=240 WEB30K-shaped documents with a 40-document
-    padding tail (``bench.py``'s batch); labels 0-4 follow two features
-    plus noise, so a few steps can lower the loss."""
+    padding tail (``bench.py``'s batch), or another size; labels 0-4 follow
+    two features plus noise, so a few steps can lower the loss."""
     rng = np.random.RandomState(seed)
-    x = rng.randn(B, L, N_FEATURES).astype(np.float32)
+    x = rng.randn(b, l, N_FEATURES).astype(np.float32)
     y = np.clip(np.round(2.0 + x[..., 0] + 0.5 * x[..., 1]
-                         + 0.5 * rng.randn(B, L)), 0, 4).astype(np.float32)
-    indices = np.tile(np.arange(L), (B, 1))
-    y[:, -40:] = -1.0
-    indices[:, -40:] = -1
+                         + 0.5 * rng.randn(b, l)), 0, 4).astype(np.float32)
+    indices = np.tile(np.arange(l), (b, 1))
+    y[:, -tail:] = -1.0
+    indices[:, -tail:] = -1
     return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev),
             torch.as_tensor(indices, device=dev))
 
 
-def make_step(cfg, model, dtype, optimizer_name=None, lr=None):
+def make_step(cfg, model, dtype, optimizer_name=None, lr=None, loss=None):
+    """The train step of ``cfg`` on ``model``; ``loss`` = (name, args)
+    replaces the config's loss."""
     from allrank_tpu_torch.losses import get_loss
     from allrank_tpu_torch.training import make_optimizer, make_train_step
 
-    loss_fn, needs_rng = get_loss(cfg.loss.name)
+    loss_name, loss_args = loss or (cfg.loss.name, cfg.loss.args)
+    loss_fn, needs_rng = get_loss(loss_name)
     args = dict(cfg.optimizer.args)
     if lr is not None:
         args["lr"] = lr
     opt = make_optimizer(optimizer_name or cfg.optimizer.name, args,
                          model.parameters())
-    return make_train_step(model, loss_fn, cfg.loss.args, needs_rng, opt,
+    return make_train_step(model, loss_fn, loss_args, needs_rng, opt,
                            cfg.training.gradient_clipping_norm, dtype,
                            generator=torch.Generator().manual_seed(1))
+
+
+def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None) -> tuple:
+    """Step 1 in fp32 with SGD at rate 0 on ``gpu_model`` and on its copy on
+    the CPU (the plain versions): asserts the loss (relative
+    ``STEP_LOSS_RTOL``) and every gradient (``STEP_GRAD_TOL`` of its
+    tensor's largest value plus 1e-5 of the largest gradient of all);
+    returns (GPU loss, CPU loss, the worst gradient error as a share of its
+    tolerance)."""
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    results = []
+    for m, b in ((gpu_model, batch), (cpu_model, [t.cpu() for t in batch])):
+        step = make_step(cfg, m, "float32", optimizer_name="SGD", lr=0.0,
+                         loss=loss)
+        value, _ = step(*b)
+        results.append((value.item(), {n: p.grad.float().cpu()
+                                       for n, p in m.named_parameters()}))
+    (gl, gg), (cl, cg) = results
+    assert math.isfinite(gl) and abs(gl - cl) <= STEP_LOSS_RTOL * abs(cl), (
+        loss, gl, cl)
+    top = max(v.abs().max().item() for v in cg.values())
+    worst = 0.0
+    for name, ref in cg.items():
+        assert torch.isfinite(gg[name]).all(), (loss, name)
+        err, scale = rel_err(gg[name], ref)
+        allowed = STEP_GRAD_TOL * scale + 1e-5 * top
+        assert err <= allowed, (loss, name, err, scale)
+        worst = max(worst, err / allowed)
+    return gl, cl, worst
 
 
 def rel_err(got, ref) -> tuple:
@@ -361,8 +447,23 @@ def chain_library(pair_args, kw):
             lambda: torch.autograd.grad(total, leaf, retain_graph=True))
 
 
-def profile_calls(fn, tag: str, calls: int = 5) -> None:
-    """Device time by kernel name over ``calls`` calls of ``fn``, and the
+def approx_library(s, valid_f, alpha, eps):
+    """The approxNDCG rank sum as the JAX package's XLA-path chain of torch
+    ops (``losses/approxndcg._plain_pos``), a yardstick only: returns
+    (forward, backward by autograd) as functions that run it once."""
+    from allrank_tpu_torch.losses.approxndcg import _plain_pos
+
+    ok = valid_f > 0.5
+    leaf = s.detach().requires_grad_()
+    out = _plain_pos(leaf, ok, alpha, eps)
+    u = torch.ones_like(out)
+    return (lambda: _plain_pos(s, ok, alpha, eps),
+            lambda: torch.autograd.grad(out, leaf, u, retain_graph=True))
+
+
+def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> None:
+    """Device time by kernel name over ``calls`` calls of ``fn`` (the eight
+    largest, and every kernel whose name holds one of ``also``), and the
     device's idle share of that window (torch.profiler; prints "not
     measured" if the trace holds no device events)."""
     from torch.profiler import ProfilerActivity, profile
@@ -398,7 +499,9 @@ def profile_calls(fn, tag: str, calls: int = 5) -> None:
           f"per call, device busy {busy / calls:.1f} us per call, idle "
           f"share {1 - busy / window_us:.3f} {tag}")
     total = sum(by_name.values())
-    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for kname, us in ranked[:8] + [kv for kv in ranked[8:]
+                                   if any(a in kv[0] for a in also)]:
         print(f"  {us / calls:9.1f} us per call ({us / total:.3f} of device "
               f"time) {kname[:90]}")
 
@@ -568,6 +671,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from allrank_tpu_torch.ops import _build
+    from allrank_tpu_torch.ops.approx_pos import (
+        approx_pos_bwd,
+        approx_pos_bwd_plain,
+        approx_pos_fwd,
+        approx_pos_fwd_plain,
+    )
     from allrank_tpu_torch.ops.attention_block import (
         attention_sublayer_bwd,
         attention_sublayer_bwd_plain,
@@ -586,6 +695,12 @@ def main() -> int:
         lambda_pairs_bwd_plain,
         lambda_pairs_fwd,
         lambda_pairs_fwd_plain,
+    )
+    from allrank_tpu_torch.ops.lambda_tiled import (
+        lambda_tiled_bwd,
+        lambda_tiled_bwd_plain,
+        lambda_tiled_fwd,
+        lambda_tiled_fwd_plain,
     )
     from allrank_tpu_torch.ops.neuralsort import (
         soft_sort_bwd,
@@ -612,9 +727,9 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
-               "neuralsort"]
+               "neuralsort", "approx_pos", "lambda_tiled"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the five "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the seven "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
@@ -816,10 +931,12 @@ def main() -> int:
     # -- 7: B1 and B2 backward against their plain versions -----------------
     bwd_errs = {}
     cases = [(B, L, 128, 4, 512), (B, L, 96, 1, 384), (3, 1, 128, 4, 512),
-             (2, 1024, 144, 2, 512), (5, 70, 256, 1, 1024)]
+             (2, 1024, 144, 2, 512), (5, 70, 256, 1, 1024),
+             # the ordinal recipe's width and dropout: head width 72
+             (B, L, 144, 2, 512)]
     for b, l, d, h, d_ff in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            for p in (0.0, 0.3):
+            for p in ((0.0, 0.4) if (b, d) == (B, 144) else (0.0, 0.3)):
                 seeds = (101, 202)
                 a_args = attn_inputs(gen, b, l, d, dtype, dev)
                 f_args = ffn_inputs(gen, b, l, d, d_ff, dtype, dev)
@@ -865,7 +982,7 @@ def main() -> int:
                       f"{worst_rel['ffn_sublayer_bwd']:.2e} (tol "
                       f"{BWD_TOL[dtype][0]:g})")
     print("phase 7 ok: B1 and B2 backward kernels (and the forwards at "
-          "p=0.3) match their plain versions, masks bit-identical")
+          "p=0.3 and 0.4) match their plain versions, masks bit-identical")
 
     # -- 8: B3 against its plain version -----------------------------------------
     b3_errs = {"lambda_pairs_fwd": 0.0, "lambda_pairs_bwd": 0.0}
@@ -932,27 +1049,11 @@ def main() -> int:
           f"{last:.3f}; launches {train_launches}")
 
     cfg0, gpu_model = paper_setup(dev, dropout=0.0)
-    cpu_model = copy.deepcopy(gpu_model).to("cpu")
-    batch_cpu = [t.cpu() for t in (xb, yb, ib)]
-    results = []
-    for m, batch in ((gpu_model, (xb, yb, ib)), (cpu_model, batch_cpu)):
-        step = make_step(cfg0, m, "float32", optimizer_name="SGD", lr=0.0)
-        loss, _ = step(*batch)
-        results.append((loss.item(), {n: p.grad.float().cpu()
-                                      for n, p in m.named_parameters()}))
-    (gl, gg), (cl, cg) = results
-    assert abs(gl - cl) <= STEP_LOSS_RTOL * abs(cl), (gl, cl)
-    top = max(v.abs().max().item() for v in cg.values())
-    step_err = 0.0
-    for name, ref in cg.items():
-        err, scale = rel_err(gg[name], ref)
-        allowed = STEP_GRAD_TOL * scale + 1e-5 * top
-        assert err <= allowed, (name, err, scale)
-        step_err = max(step_err, err / allowed)
+    gl, cl, step_err = step_one_gpu_vs_cpu(cfg0, gpu_model, (xb, yb, ib))
     print(f"train step 1 at dropout 0, fp32, GPU vs CPU plain: loss {gl:.6f} "
           f"vs {cl:.6f}; worst gradient error {step_err:.3f} of its "
           f"tolerance ({STEP_GRAD_TOL} x its tensor's max + 1e-5 x the "
-          f"largest gradient {top:.3e})")
+          f"largest gradient)")
     print("phase 9 ok: the paper-config train step runs on the card through "
           "every kernel and learns; it matches the CPU at dropout 0")
 
@@ -1119,7 +1220,9 @@ def main() -> int:
 
     # -- 13: the train CLI, the third main path -------------------------------
     all_kernels = train_kernels + (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd,
-                                   sinkhorn_bwd)
+                                   sinkhorn_bwd, approx_pos_fwd,
+                                   approx_pos_bwd, lambda_tiled_fwd,
+                                   lambda_tiled_bwd)
 
     def reset_counts():
         for k in all_kernels:
@@ -1128,87 +1231,83 @@ def main() -> int:
     def counts():
         return {k.__name__: k.launches for k in all_kernels}
 
-    work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        t0 = time.perf_counter()
-        written = write_cli_dataset(os.path.join(work_dir, "data"))
-        print(f"cli dataset: {CLI_TRAIN_SLATES} train and {CLI_VAL_SLATES} "
-              f"validation slates of 40-{L} documents x {N_FEATURES} "
-              f"features written in {time.perf_counter() - t0:.1f} s")
-        steps = CLI_TRAIN_SLATES // B          # train steps per epoch
-        evals = steps + CLI_VAL_SLATES // B    # evaluation batches per epoch
-        epochs = 2
-        reset_counts()
-        result, out_dir, losses, cli_seconds = run_cli(
-            NEURAL_CONFIG, work_dir, "neuralndcg_atmax", epochs)
-        cli_launches = counts()
-        check_cli_outputs(result, out_dir, losses, epochs,
-                          ("ndcg_5", "ndcg_10", "ndcg_30", "ndcg_60"))
-        blocks = 2
-        expected = {
-            "soft_sort_fwd": epochs * (steps + evals),
-            "soft_sort_bwd": epochs * steps,
-            "attention_sublayer_fwd": blocks * epochs * (steps + evals),
-            "ffn_sublayer_fwd": blocks * epochs * (steps + evals),
-            "attention_sublayer_bwd": blocks * epochs * steps,
-            "ffn_sublayer_bwd": blocks * epochs * steps,
-            "lambda_pairs_fwd": 0, "lambda_pairs_bwd": 0,
-            "sinkhorn_fwd": 0, "sinkhorn_bwd": 0}
-        assert cli_launches == expected, (cli_launches, expected)
-        with open(os.path.join(out_dir, "training.log")) as f:
-            cli_phases = re.findall(
-                r"epoch (\d+) phases: train ([\d.]+)s, val eval ([\d.]+)s",
-                f.read())
-        print(f"train CLI, {NEURAL_CONFIG} (2 blocks of d=96, h=1, d_ff=384, "
-              f"dropout 0.1, bf16, Adam 1e-3, neuralNDCG), B={B} L={L}: "
-              f"{epochs} epochs of {steps} steps in {cli_seconds:.1f} s with "
-              f"loading; train loss {losses['train']}, val loss "
-              f"{losses['val']}, val ndcg_5 "
-              f"{result['val_metrics']['ndcg_5']:.4f}; the CLI's own log, "
-              f"(epoch, train s, val eval s): {cli_phases}; launches "
-              f"{cli_launches} {tag}")
+    def expect(blocks, fwd, bwd, loss_kernel=None):
+        """The launches of a run of ``fwd`` forward and ``bwd`` backward
+        passes through ``blocks`` encoder blocks and one loss kernel."""
+        want = dict.fromkeys(counts(), 0)
+        for sub in ("attention_sublayer", "ffn_sublayer"):
+            want[sub + "_fwd"] = blocks * fwd
+            want[sub + "_bwd"] = blocks * bwd
+        if loss_kernel:
+            want[loss_kernel + "_fwd"] = fwd
+            want[loss_kernel + "_bwd"] = bwd
+        return want
 
-        reset_counts()
-        result, out_dir, losses, seconds = run_cli(PAPER_CONFIG, work_dir,
-                                                   "ndcgloss2pp", 1)
-        paper_launches = counts()
-        check_cli_outputs(result, out_dir, losses, 1, ("ndcg_5", "ndcg_10"))
-        blocks = 4
-        expected = {
-            "soft_sort_fwd": 0, "soft_sort_bwd": 0,
-            "attention_sublayer_fwd": blocks * (steps + evals),
-            "ffn_sublayer_fwd": blocks * (steps + evals),
-            "attention_sublayer_bwd": blocks * steps,
-            "ffn_sublayer_bwd": blocks * steps,
-            "lambda_pairs_fwd": steps + evals, "lambda_pairs_bwd": steps,
-            "sinkhorn_fwd": 0, "sinkhorn_bwd": 0}
-        assert paper_launches == expected, (paper_launches, expected)
-        print(f"train CLI, {PAPER_CONFIG}: 1 epoch in {seconds:.1f} s with "
-              f"loading; train loss {losses['train']}, val ndcg_5 "
-              f"{result['val_metrics']['ndcg_5']:.4f}; launches "
-              f"{paper_launches}")
+    # removed when the script ends, also by an exception: the later CLI
+    # runs read the same dataset
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    work_dir = work.name
+    t0 = time.perf_counter()
+    written = write_cli_dataset(os.path.join(work_dir, "data"))
+    print(f"cli dataset: {CLI_TRAIN_SLATES} train and {CLI_VAL_SLATES} "
+          f"validation slates of 40-{L} documents x {N_FEATURES} "
+          f"features written in {time.perf_counter() - t0:.1f} s")
+    steps = CLI_TRAIN_SLATES // B          # train steps per epoch
+    evals = steps + CLI_VAL_SLATES // B    # evaluation batches per epoch
+    epochs = 2
+    reset_counts()
+    result, out_dir, losses, cli_seconds = run_cli(
+        NEURAL_CONFIG, work_dir, "neuralndcg_atmax", epochs)
+    cli_launches = counts()
+    check_cli_outputs(result, out_dir, losses, epochs,
+                      ("ndcg_5", "ndcg_10", "ndcg_30", "ndcg_60"))
+    expected = expect(2, epochs * (steps + evals), epochs * steps,
+                      "soft_sort")
+    assert cli_launches == expected, (cli_launches, expected)
+    with open(os.path.join(out_dir, "training.log")) as f:
+        cli_phases = re.findall(
+            r"epoch (\d+) phases: train ([\d.]+)s, val eval ([\d.]+)s",
+            f.read())
+    print(f"train CLI, {NEURAL_CONFIG} (2 blocks of d=96, h=1, d_ff=384, "
+          f"dropout 0.1, bf16, Adam 1e-3, neuralNDCG), B={B} L={L}: "
+          f"{epochs} epochs of {steps} steps in {cli_seconds:.1f} s with "
+          f"loading; train loss {losses['train']}, val loss "
+          f"{losses['val']}, val ndcg_5 "
+          f"{result['val_metrics']['ndcg_5']:.4f}; the CLI's own log, "
+          f"(epoch, train s, val eval s): {cli_phases}; launches "
+          f"{cli_launches} {tag}")
 
-        # the epoch's split, on the CLI's own data and batchers
-        from allrank_tpu_torch.config import Config
-        from allrank_tpu_torch.data.batching import (
-            DevicePrefetcher,
-            SlateBatcher,
-        )
-        from allrank_tpu_torch.data.dataset import SlateDataset
-        from allrank_tpu_torch.losses import get_loss
-        from allrank_tpu_torch.models.factory import LTRModel, make_model
-        from allrank_tpu_torch.training.train_utils import (
-            compute_metrics,
-            make_eval_fns,
-        )
+    reset_counts()
+    result, out_dir, losses, seconds = run_cli(PAPER_CONFIG, work_dir,
+                                               "ndcgloss2pp", 1)
+    paper_launches = counts()
+    check_cli_outputs(result, out_dir, losses, 1, ("ndcg_5", "ndcg_10"))
+    expected = expect(4, steps + evals, steps, "lambda_pairs")
+    assert paper_launches == expected, (paper_launches, expected)
+    print(f"train CLI, {PAPER_CONFIG}: 1 epoch in {seconds:.1f} s with "
+          f"loading; train loss {losses['train']}, val ndcg_5 "
+          f"{result['val_metrics']['ndcg_5']:.4f}; launches "
+          f"{paper_launches}")
 
-        ncfg = Config.from_json(NEURAL_CONFIG)
-        train_ds = SlateDataset(*written["train"])
-        val_ds = SlateDataset(*written["test"])
-        train_batcher = SlateBatcher(train_ds, L, B, shuffle=True)
-        val_batcher = SlateBatcher(val_ds, val_ds.longest_query_length, B)
-    finally:
-        shutil.rmtree(work_dir, ignore_errors=True)
+    # the epoch's split, on the CLI's own data and batchers
+    from allrank_tpu_torch.config import Config
+    from allrank_tpu_torch.data.batching import (
+        DevicePrefetcher,
+        SlateBatcher,
+    )
+    from allrank_tpu_torch.data.dataset import SlateDataset
+    from allrank_tpu_torch.losses import get_loss
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.training.train_utils import (
+        compute_metrics,
+        make_eval_fns,
+    )
+
+    ncfg = Config.from_json(NEURAL_CONFIG)
+    train_ds = SlateDataset(*written["train"])
+    val_ds = SlateDataset(*written["test"])
+    train_batcher = SlateBatcher(train_ds, L, B, shuffle=True)
+    val_batcher = SlateBatcher(val_ds, val_ds.longest_query_length, B)
     nmodel = LTRModel(make_model(ncfg.model, N_FEATURES),
                       torch.Generator().manual_seed(0), device=dev)
     nstep = make_step(ncfg, nmodel, ncfg.training.compute_dtype)
@@ -1262,24 +1361,8 @@ def main() -> int:
     ncfg0.model.transformer.dropout = 0.0
     gpu_model = LTRModel(make_model(ncfg0.model, N_FEATURES),
                          torch.Generator().manual_seed(0), device=dev)
-    cpu_model = copy.deepcopy(gpu_model).to("cpu")
-    small = [t[:8] for t in (xb, yb, ib)]
-    results = []
-    for m, batch in ((gpu_model, small), (cpu_model,
-                                          [t.cpu() for t in small])):
-        step = make_step(ncfg0, m, "float32", optimizer_name="SGD", lr=0.0)
-        loss, _ = step(*batch)
-        results.append((loss.item(), {n: p.grad.float().cpu()
-                                      for n, p in m.named_parameters()}))
-    (gl, gg), (cl, cg) = results
-    assert abs(gl - cl) <= STEP_LOSS_RTOL * abs(cl), (gl, cl)
-    top = max(v.abs().max().item() for v in cg.values())
-    step_err = 0.0
-    for name, ref in cg.items():
-        err, scale = rel_err(gg[name], ref)
-        allowed = STEP_GRAD_TOL * scale + 1e-5 * top
-        assert err <= allowed, (name, err, scale)
-        step_err = max(step_err, err / allowed)
+    gl, cl, step_err = step_one_gpu_vs_cpu(ncfg0, gpu_model,
+                                           [t[:8] for t in (xb, yb, ib)])
     print(f"NeuralNDCG train step 1 at dropout 0, fp32, B=8 L={L}, GPU vs "
           f"CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
           f"{step_err:.3f} of its tolerance")
@@ -1341,7 +1424,302 @@ def main() -> int:
               f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
               f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB) {tag}")
 
-    # -- 15: the record -------------------------------------------------------
+    # -- 15: B9 against its plain version ---------------------------------------
+    eps = 1e-10
+    b9_errs = {"approx_pos_fwd": 0.0, "approx_pos_bwd": 0.0}
+    for n, l, scale in ((B, L, 1.0), (B, L, 1e4), (3, 1, 1.0), (5, 37, 1.0),
+                        (2, 1308, 1.0), (2, 4096, 1.0)):
+        sc = torch.randn(n, l, generator=gen) * scale
+        sc[:, 1::5] = sc[:, 0::5][:, :sc[:, 1::5].shape[1]]  # tied scores
+        lengths = torch.randint(1, l + 1, (n,), generator=gen)
+        lengths[0] = l
+        lengths[-1] = 0  # an empty slate
+        valid = (torch.arange(l)[None, :] < lengths[:, None]).float()
+        u = torch.randn(n, l, generator=gen)
+        sc, valid, u = (t.to(dev) for t in (sc, valid, u))
+        for alpha in (0.1, 1.0, 10.0):
+            before = (approx_pos_fwd.launches, approx_pos_bwd.launches)
+            pos = approx_pos_fwd(sc, valid, alpha, eps)
+            ds = approx_pos_bwd(sc, valid, u, alpha, eps)
+            torch.cuda.synchronize()
+            assert (approx_pos_fwd.launches, approx_pos_bwd.launches) == (
+                before[0] + 1, before[1] + 1), "B9 did not launch"
+            ref = approx_pos_fwd_plain(sc, valid, alpha, eps)
+            ref_ds = approx_pos_bwd_plain(sc, valid, u, alpha, eps)
+            assert torch.isfinite(pos).all() and torch.isfinite(ds).all()
+            torch.testing.assert_close(pos, ref, **B9_VALUE_TOL)
+            g_err, g_scale = rel_err(ds, ref_ds)
+            assert g_err <= B9_GRAD_TOL[0] * g_scale + B9_GRAD_TOL[1], (
+                f"B9 ds N={n} L={l} alpha={alpha}: {g_err} of {g_scale}")
+            assert not pos[valid < 0.5].any() and not ds[valid < 0.5].any()
+            if scale == 1e4 and alpha == 10.0:
+                # away from the tied columns nearly every t is 0 (below
+                # eps: the clamp's branch) or 1: no gradient
+                assert (ds[:, 2::5] == 0).float().mean() > 0.9
+            if (n, l, scale, alpha) == (B, L, 1.0, 1.0):
+                b9_errs = {"approx_pos_fwd": rel_err(pos, ref)[0],
+                           "approx_pos_bwd": g_err}
+            print(f"B9 vs plain N={n} L={l} scores x{scale:g} alpha={alpha}: "
+                  f"max_abs_err pos {rel_err(pos, ref)[0]:.3e} (max "
+                  f"{ref.max().item():.1f}; tol {B9_VALUE_TOL}), ds "
+                  f"{g_err:.3e} of max|ref| {g_scale:.3e} (tol "
+                  f"{B9_GRAD_TOL[0]:g} x)")
+        del ref, ref_ds
+    print("phase 15 ok: approxNDCG rank-sum kernels match their plain "
+          "versions")
+
+    # -- 16: B6 against its plain version and against B3 -----------------------
+    def pair_inputs(b, k):
+        ts = torch.randint(0, 5, (b, k), generator=gen).float()
+        valid = (torch.rand(b, k, generator=gen) > 0.15).float()
+        valid[-1] = 0.0  # a slate with no valid document
+        yp = torch.randn(b, k, generator=gen) * valid
+        return [t.to(dev) for t in (yp, ts, (2.0 ** ts - 1.0) / 30.0, valid)]
+
+    def assert_chain_close(got, ref, what):
+        (loss, cnt, dyp), (ref_loss, ref_cnt, ref_dyp) = got, ref
+        assert torch.equal(cnt, ref_cnt), what
+        torch.testing.assert_close(loss, ref_loss, **B3_VALUE_TOL)
+        torch.testing.assert_close(
+            dyp, ref_dyp, rtol=B3_GRAD_RTOL,
+            atol=B3_GRAD_ATOL * ref_dyp.abs().max().item() + 1e-6)
+
+    b6_errs = {}
+    for b, k in ((B, 512), (LONG_B, LONG_L), (8, 1308), (2, 4096)):
+        pair_args = pair_inputs(b, k)
+        gout = torch.linspace(0.5, 1.5, b, device=dev)
+        for scheme in SCHEMES:
+            for log_base, k_eff in (("binary", k), ("natural", 3 * k // 4)):
+                kw = dict(scheme=scheme, k_eff=k_eff, sigma=1.0, mu=10.0,
+                          log_base=log_base, eps=eps)
+                before = (lambda_tiled_fwd.launches,
+                          lambda_tiled_bwd.launches)
+                loss, cnt = lambda_tiled_fwd(*pair_args, **kw)
+                dyp = lambda_tiled_bwd(*pair_args, gout, **kw)
+                torch.cuda.synchronize()
+                assert (lambda_tiled_fwd.launches,
+                        lambda_tiled_bwd.launches) == (
+                    before[0] + 1, before[1] + 1), "B6 did not launch"
+                ref = (*lambda_tiled_fwd_plain(*pair_args, **kw),
+                       lambda_tiled_bwd_plain(*pair_args, gout, **kw))
+                assert_chain_close((loss, cnt, dyp), ref,
+                                   (b, k, scheme, log_base, k_eff))
+                assert not dyp[-1].any(), "the empty slate took a gradient"
+                if k_eff < k:
+                    assert not dyp[:, k_eff:].any()
+                if scheme == "ndcgLoss2PP_scheme" and k_eff == k:
+                    b6_errs[(b, k)] = (rel_err(loss, ref[0])[0],
+                                       rel_err(dyp, ref[2])[0],
+                                       ref[0].abs().max().item(),
+                                       ref[2].abs().max().item())
+                del ref
+        e = b6_errs[(b, k)]
+        print(f"B6 vs plain B={b} k={k}, 8 schemes x (binary, k_eff=k; "
+              f"natural, k_eff=3k/4): ok, counts exact; ndcgLoss2PP "
+              f"max_abs_err loss {e[0]:.3e} of {e[2]:.3e}, grad {e[1]:.3e} "
+              f"of {e[3]:.3e}")
+    pair_args = pair_inputs(B, 384)
+    gout = torch.linspace(0.5, 1.5, B, device=dev)
+    for scheme in SCHEMES:
+        kw = dict(scheme=scheme, k_eff=384, sigma=1.0, mu=10.0,
+                  log_base="binary", eps=eps)
+        assert_chain_close(
+            (*lambda_tiled_fwd(*pair_args, **kw),
+             lambda_tiled_bwd(*pair_args, gout, **kw)),
+            (*lambda_pairs_fwd(*pair_args, **kw),
+             lambda_pairs_bwd(*pair_args, gout, **kw)), ("B6 vs B3", scheme))
+    print(f"B6 vs B3 at B={B} k=384, 8 schemes: loss sums, counts and "
+          f"gradients agree (tol {B3_VALUE_TOL}, grad rtol {B3_GRAD_RTOL})")
+    print("phase 16 ok: row-tiled lambdaLoss kernels match their plain "
+          "versions and the one-block kernels")
+
+    # -- 17: the train CLI on the five other recipes ------------------------------
+    recipe_launches = {}
+    for rel_path, blocks, loss_kernel in OTHER_RECIPES:
+        path = CONFIG_DIR + rel_path
+        run_id = os.path.splitext(os.path.basename(path))[0]
+        rcfg = Config.from_json(path)
+        reset_counts()
+        result, out_dir, losses, seconds = run_cli(path, work_dir, run_id, 1)
+        recipe_launches[run_id] = counts()
+        check_cli_outputs(result, out_dir, losses, 1,
+                          [f"{m}_{at}" for m, ats in rcfg.metrics.items()
+                           for at in ats])
+        expected = expect(blocks, steps + evals, steps, loss_kernel)
+        assert recipe_launches[run_id] == expected, (
+            run_id, recipe_launches[run_id], expected)
+        tower = (f"FC {rcfg.model.fc_model.sizes}" if not blocks else
+                 f"{blocks} blocks of d={rcfg.model.fc_model.sizes[-1]}, "
+                 f"h={rcfg.model.transformer.h}")
+        print(f"train CLI, {path} ({tower}, d_output "
+              f"{rcfg.model.post_model.d_output}, {rcfg.loss.name}): 1 epoch "
+              f"of {steps} steps in {seconds:.1f} s with loading; train loss "
+              f"{losses['train']}, val loss {losses['val']}, val ndcg_5 "
+              f"{result['val_metrics']['ndcg_5']:.4f}; launches "
+              f"{ {k: v for k, v in recipe_launches[run_id].items() if v} } "
+              f"{tag}")
+    work.cleanup()
+    print("phase 17 ok: all seven paper recipes train through the CLI on the "
+          "card with exact launch counts")
+
+    # -- 18: one train step of each other loss name ------------------------------
+    for loss_name, loss_args in OTHER_LOSSES:
+        head = "Sigmoid" if loss_name == "bce" else None
+        step = make_step(cfg, flagship_model(dev, 0.1, head), "bfloat16",
+                         loss=(loss_name, loss_args))
+        reset_counts()
+        loss, _ = step(xb, yb, ib)
+        got = counts()
+        assert got == expect(4, 1, 1), (loss_name, got)
+        assert math.isfinite(loss.item()), (loss_name, loss.item())
+        gl, cl, worst = step_one_gpu_vs_cpu(
+            cfg, flagship_model(dev, 0.0, head), (xb, yb, ib),
+            loss=(loss_name, loss_args))
+        print(f"train step, flagship model, {loss_name} B={B} L={L}: bf16 "
+              f"with dropout 0.1 loss {loss.item():.6f}; step 1 at dropout 0, "
+              f"fp32, GPU vs CPU plain: loss {gl:.6f} vs {cl:.6f}, worst "
+              f"gradient error {worst:.3f} of its tolerance")
+    print("phase 18 ok: every loss name takes a train step on the card that "
+          "matches the CPU")
+
+    # -- 19: the long-slate lambdaLoss step ---------------------------------------
+    lcfg, lmodel = paper_setup(dev)
+    long_batch = train_batch(dev, seed=5, b=LONG_B, l=LONG_L, tail=100)
+    lstep = make_step(lcfg, lmodel, lcfg.training.compute_dtype)
+    long_kernels = (lambda_tiled_fwd, lambda_tiled_bwd, lambda_pairs_fwd,
+                    lambda_pairs_bwd, attention_sublayer_fwd,
+                    attention_sublayer_bwd, ffn_sublayer_fwd,
+                    ffn_sublayer_bwd)
+    reset_counts()
+    losses = []
+    for i in range(10):
+        before = [k.launches for k in long_kernels]
+        loss, _ = lstep(*long_batch)
+        losses.append(loss.item())
+        got = tuple(k.launches - n for k, n in zip(long_kernels, before))
+        assert got == (1, 1, 0, 0, 4, 4, 4, 4), f"step {i} launches {got}"
+        assert math.isfinite(losses[-1]), f"step {i} loss {losses[-1]}"
+    long_launches = counts()
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    assert last < first, f"loss did not fall: {first} -> {last}"
+    print(f"long-slate train step, paper config (dropout 0.3, bf16, Adam "
+          f"1e-3, lambdaLoss ndcgLoss2PP), B={LONG_B} L={LONG_L}, 100-doc "
+          f"padding tail: 10 steps, loss mean of the first 3 {first:.3f}, of "
+          f"the last 3 {last:.3f}; launches "
+          f"{ {k: v for k, v in long_launches.items() if v} }")
+    gl, cl, worst = step_one_gpu_vs_cpu(
+        lcfg, paper_setup(dev, dropout=0.0)[1],
+        [t[:4] for t in long_batch])
+    print(f"long-slate train step 1 at dropout 0, fp32, B=4 L={LONG_L}, GPU "
+          f"vs CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
+          f"{worst:.3f} of its tolerance")
+    print("phase 19 ok: lambdaLoss trains at L=1024 through the row-tiled "
+          "kernel and matches the CPU")
+
+    # -- 20: times of the new kernels and steps -------------------------------
+    acfg, amodel = paper_setup(dev, config=CONFIG_DIR + OTHER_RECIPES[0][0])
+    astep = make_step(acfg, amodel, acfg.training.compute_dtype)
+    for label, fn, n_slates, loss_kernels in (
+            (f"approxNDCG recipe (dropout 0.1, bf16) B={B} L={L}",
+             lambda: astep(xb, yb, ib), B, ("approx_",)),
+            (f"long-slate paper config (dropout 0.3, bf16) B={LONG_B} "
+             f"L={LONG_L}", lambda: lstep(*long_batch), LONG_B,
+             ("tiled_",))):
+        ms = median_ms(fn, iters=20, warmup=3)
+        step_ms[label] = ms
+        print(f"time train step {label}: {ms:.4f} ms per step, "
+              f"{n_slates / ms * 1e3:.1f} slates/s {tag}")
+        profile_calls(fn, f"train step {label} {tag}", also=loss_kernels)
+
+    # B9 at the train step's shape: 200 valid documents of 240
+    sc = torch.randn(B, L, generator=gen)
+    valid = torch.ones(B, L)
+    valid[:, -40:] = 0.0
+    sc, valid, u = (t.to(dev) for t in (sc * valid, valid,
+                                        torch.randn(B, L, generator=gen)))
+    lib = approx_library(sc, valid, 1.0, eps)
+    pairs = int((valid.sum(dim=1) * (valid.sum(dim=1) - 1)).sum().item())
+    for kernel_name, fns, ops_per_pair, lib_fn, n_vec in (
+            # per valid off-diagonal pair: the difference, the scale, the
+            # exponential, the sum and the quotient of the sigmoid, the
+            # clamp, the mask and the accumulation
+            ("approx_pos_fwd",
+             (lambda: approx_pos_fwd(sc, valid, 1.0, eps),
+              lambda: approx_pos_fwd_plain(sc, valid, 1.0, eps)), 8, lib[0],
+             3),
+            # each c_ij once: the sigmoid (5), 1 - t, the products with
+            # -alpha, t and u, the compare, and its two accumulations; the
+            # kernel's second sigmoid (t_ji, so that no atomics are needed)
+            # is a cost of its design and not part of the bound
+            ("approx_pos_bwd",
+             (lambda: approx_pos_bwd(sc, valid, u, 1.0, eps),
+              lambda: approx_pos_bwd_plain(sc, valid, u, 1.0, eps)), 12,
+             lib[1], 4)):
+        ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
+                                for fn in fns + (lib_fn,))
+        flops = ops_per_pair * pairs
+        moved = n_vec * B * L * 4
+        bound_ms, bound_by = bound(flops, moved, torch.float32)
+        rows.append({"name": kernel_name, "route": "cuda",
+                     "max_abs_err": b9_errs[kernel_name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "gflop": flops / 1e9, "mbytes": moved / 1e6})
+        print(f"time {kernel_name} float32 B={B} L={L} (200 valid): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch-op "
+              f"chain, autograd) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {ops_per_pair} operations per pair, "
+              f"{moved / 1e6:.3f} MB) {tag}")
+
+    # B6 at the long-slate step's shape and at (64, 512), every document
+    # valid; the torch-op chain is what a dispatch gate would have to beat
+    b6_rows = {}
+    for b, k in ((LONG_B, LONG_L), (B, 512)):
+        ts = torch.randint(0, 5, (b, k), generator=gen).float()
+        pair_args = [t.to(dev) for t in (torch.randn(b, k, generator=gen), ts,
+                                         (2.0 ** ts - 1.0) / 30.0,
+                                         torch.ones(b, k))]
+        kw = dict(scheme="ndcgLoss2PP_scheme", k_eff=k, sigma=1.0, mu=10.0,
+                  log_base="binary", eps=eps)
+        gout = torch.ones(b, device=dev)
+        lib = chain_library(pair_args, kw)
+        for kernel_name, fns, ops_per_pair, lib_fn in (
+                ("lambda_tiled_fwd",
+                 (lambda: lambda_tiled_fwd(*pair_args, **kw),
+                  lambda: lambda_tiled_fwd_plain(*pair_args, **kw)), 28,
+                 lib[0]),
+                # as for B3: each c_ij once, 36 operations
+                ("lambda_tiled_bwd",
+                 (lambda: lambda_tiled_bwd(*pair_args, gout, **kw),
+                  lambda: lambda_tiled_bwd_plain(*pair_args, gout, **kw)),
+                 36, lib[1])):
+            ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
+                                    for fn in fns + (lib_fn,))
+            flops = ops_per_pair * b * k * k
+            moved = nbytes(*pair_args) + 2 * k * 4 + b * k * 4 + 2 * b * 4
+            bound_ms, bound_by = bound(flops, moved, torch.float32)
+            if (b, k) == (LONG_B, LONG_L):
+                e = b6_errs[(b, k)]
+                b6_rows[kernel_name] = {
+                    "name": kernel_name, "route": "cuda",
+                    "max_abs_err": e[0 if kernel_name.endswith("fwd") else 1],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "gflop": flops / 1e9, "mbytes": moved / 1e6}
+            else:
+                b6_rows[kernel_name].update({
+                    "ms_b64_k512": ms, "plain_ms_b64_k512": plain_ms,
+                    "bound_ms_b64_k512": bound_ms,
+                    "library_ms_b64_k512": lib_ms})
+            print(f"time {kernel_name} float32 B={b} k={k}: kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms, library (XLA-path chain, "
+                  f"autograd) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}: {ops_per_pair} operations per pair, "
+                  f"{moved / 1e6:.3f} MB) {tag}")
+        del lib
+    rows.extend(b6_rows.values())
+
+    # -- 21: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -1362,26 +1740,44 @@ def main() -> int:
         "sinkhorn_fwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
                          "allrank_tpu/ops/sinkhorn_pallas.py:286"),
         "sinkhorn_bwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
-                         "allrank_tpu/ops/sinkhorn_pallas.py:325")}
+                         "allrank_tpu/ops/sinkhorn_pallas.py:325"),
+        "approx_pos_fwd": ("allrank_tpu_torch/csrc/approx_pos.cu",
+                           "allrank_tpu/ops/approx_pallas.py:79"),
+        "approx_pos_bwd": ("allrank_tpu_torch/csrc/approx_pos.cu",
+                           "allrank_tpu/ops/approx_pallas.py:94"),
+        "lambda_tiled_fwd": ("allrank_tpu_torch/csrc/lambda_tiled.cu",
+                             "allrank_tpu/ops/lambda_tiled.py:237"),
+        "lambda_tiled_bwd": ("allrank_tpu_torch/csrc/lambda_tiled.cu",
+                             "allrank_tpu/ops/lambda_tiled.py:261")}
     # each kernel's own main path: serving (phase 5) for the sublayer
     # forwards, the train step (phase 9) for their backwards and the pair
     # chain, the CLI's NeuralNDCG run (phase 13) for the fused soft-sort, its
-    # long-slate step for the Sinkhorn kernel
+    # long-slate step for the Sinkhorn kernel, the CLI's approxNDCG run
+    # (phase 17) for the rank sum, the long-slate lambdaLoss steps (phase
+    # 19) for the row-tiled pair chain
     launches = {**train_launches, **main_launches,
                 "soft_sort_fwd": cli_launches["soft_sort_fwd"],
                 "soft_sort_bwd": cli_launches["soft_sort_bwd"],
                 "sinkhorn_fwd": b7_launches["sinkhorn_fwd"],
-                "sinkhorn_bwd": b7_launches["sinkhorn_bwd"]}
+                "sinkhorn_bwd": b7_launches["sinkhorn_bwd"],
+                "approx_pos_fwd":
+                recipe_launches["approxndcg"]["approx_pos_fwd"],
+                "approx_pos_bwd":
+                recipe_launches["approxndcg"]["approx_pos_bwd"],
+                "lambda_tiled_fwd": long_launches["lambda_tiled_fwd"],
+                "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
     for row in rows:
         name = row["name"]
         row["source"], row["replaces"] = origin[name]
         row["launches"] = launches[name]
         row["train_launches"] = train_launches.get(name, 0)
-        row["cli_launches"] = cli_launches[name] + paper_launches[name]
+        row["cli_launches"] = (cli_launches[name] + paper_launches[name]
+                               + sum(r[name]
+                                     for r in recipe_launches.values()))
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 10
+    assert len(rows) == 14
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(json.dumps({"kernels": rows}))
     print(card())

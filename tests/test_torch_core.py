@@ -171,8 +171,14 @@ def test_default_device_without_gpu_raises():
             entry()
 
 
-# the modules of the train CLI's slice, which the walk below must reach
+# the modules of the train CLI's slice and of the loss zoo's, which the
+# walk below must reach
 NEW_MODULES = [
+    "allrank_tpu_torch.losses.pointwise", "allrank_tpu_torch.losses.bce",
+    "allrank_tpu_torch.losses.ordinal", "allrank_tpu_torch.losses.listnet",
+    "allrank_tpu_torch.losses.listmle", "allrank_tpu_torch.losses.ranknet",
+    "allrank_tpu_torch.losses.approxndcg",
+    "allrank_tpu_torch.ops.approx_pos", "allrank_tpu_torch.ops.lambda_tiled",
     "allrank_tpu_torch.metrics", "allrank_tpu_torch.main",
     "allrank_tpu_torch.ops.soft_sort", "allrank_tpu_torch.ops.sinkhorn",
     "allrank_tpu_torch.ops.neuralsort",

@@ -1,7 +1,7 @@
 """The port's training loop against the JAX package's pieces: the schedulers
 value for value, checkpoints that either package loads, ``fit`` on dummy
 data, resume, and the train CLI end to end on the CPU with cut-down copies
-of the two paper recipes."""
+of the paper recipes."""
 
 import json
 import math
@@ -59,6 +59,12 @@ NEURAL = os.path.join(REPO, "reproducibility", "configs", "neuralndcg_web30k",
 LAMBDA = os.path.join(REPO, "reproducibility", "configs",
                       "contextaware_web30k", "ndcgloss2pp.json")
 RECIPES = ["neuralndcg_atmax", "ndcgloss2pp"]
+APPROX = os.path.join(REPO, "reproducibility", "configs", "neuralndcg_web30k",
+                      "approxndcg.json")
+ORDINAL = os.path.join(REPO, "reproducibility", "configs",
+                       "contextaware_web30k", "ordinal.json")
+ORDINAL_MLP = os.path.join(REPO, "reproducibility", "configs",
+                           "contextaware_web30k", "ordinal_mlp.json")
 
 SCHEDULERS = [
     ("StepLR", {"step_size": 50, "gamma": 0.1}),
@@ -110,9 +116,12 @@ def _tiny_cfg(path, data_dir, **training):
         cfg = json.load(f)
     cfg["data"].update(path=data_dir, slate_length=12, batch_size=16,
                        validation_ds_role="vali")
-    cfg["model"]["fc_model"]["sizes"] = [16]
-    cfg["model"]["transformer"].update(d_ff=32, h=min(
-        2, cfg["model"]["transformer"]["h"]))
+    # an FC tower alone keeps its depth, a transformer's input layer its one
+    n_fc = len(cfg["model"]["fc_model"]["sizes"])
+    cfg["model"]["fc_model"]["sizes"] = [16, 32, 16][:n_fc]
+    if cfg["model"]["transformer"] is not None:
+        cfg["model"]["transformer"].update(d_ff=32, h=min(
+            2, cfg["model"]["transformer"]["h"]))
     cfg["training"].update(epochs=3, compute_dtype="float32", **training)
     cfg["metrics"] = ["ndcg_5", "ndcg_10"]
     cfg["expected_metrics"] = {"val": {"ndcg_5": 0.5}}
@@ -310,13 +319,20 @@ def test_resume_continues_to_the_same_weights(path, data_dir, tmp_path):
         assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
-@pytest.mark.parametrize("path,run_id", [(NEURAL, "neural"),
-                                         (LAMBDA, "lambda")], ids=RECIPES)
+@pytest.mark.parametrize("path,run_id", [
+    (NEURAL, "neural"), (LAMBDA, "lambda"), (APPROX, "approx"),
+    (ORDINAL, "ordinal"), (ORDINAL_MLP, "ordinal_mlp")],
+    ids=RECIPES + ["approxndcg", "ordinal", "ordinal_mlp"])
 def test_cli_runs_the_paper_recipes_end_to_end(path, run_id, data_dir,
                                                tmp_path):
     config_path = str(tmp_path / "config.json")
+    cfg_dict = _tiny_cfg(path, data_dir)
+    if Config.from_json(path).loss.name == "ordinal":
+        # the 4-output sigmoid head scores by the sum of its outputs
+        assert cfg_dict["model"]["post_model"] == {
+            "output_activation": "Sigmoid", "d_output": 4}
     with open(config_path, "w") as f:
-        json.dump(_tiny_cfg(path, data_dir), f)
+        json.dump(cfg_dict, f)
     job_dir = str(tmp_path / "job")
     args = Namespace(job_dir=job_dir, run_id=run_id,
                      config_file_name=config_path)

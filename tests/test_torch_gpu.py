@@ -13,6 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from allrank_tpu_torch.ops.approx_pos import (
+    approx_pos_bwd,
+    approx_pos_bwd_plain,
+    approx_pos_fwd,
+    approx_pos_fwd_plain,
+)
 from allrank_tpu_torch.ops.attention_block import (
     attention_sublayer_bwd,
     attention_sublayer_bwd_plain,
@@ -31,6 +37,12 @@ from allrank_tpu_torch.ops.lambda_pairs import (
     lambda_pairs_bwd_plain,
     lambda_pairs_fwd,
     lambda_pairs_fwd_plain,
+)
+from allrank_tpu_torch.ops.lambda_tiled import (
+    lambda_tiled_bwd,
+    lambda_tiled_bwd_plain,
+    lambda_tiled_fwd,
+    lambda_tiled_fwd_plain,
 )
 from allrank_tpu_torch.ops.neuralsort import (
     soft_sort_bwd,
@@ -145,10 +157,28 @@ def test_kernels_raise_outside_their_envelope(cuda):
     with pytest.raises(ValueError, match="dropout rate"):
         attention_sublayer_fwd(x[:, :8].contiguous(), mask[:, :8].contiguous(),
                                *attn, 4, p_attn=1.0)
+    # k = 385: the one-block kernel refuses and names the tiled one, which
+    # runs, as the loss does through it
     yp = torch.zeros(2, 385, device=cuda)
-    with pytest.raises(NotImplementedError, match="B6"):
-        lambda_pairs_fwd(yp, yp, yp, yp, scheme=None, k_eff=385, sigma=1.0,
-                         mu=10.0, log_base="binary", eps=1e-10)
+    kw = dict(scheme=None, k_eff=385, sigma=1.0, mu=10.0, log_base="binary",
+              eps=1e-10)
+    with pytest.raises(NotImplementedError, match="tiled_lambda_pairs"):
+        lambda_pairs_fwd(yp, yp, yp, yp, **kw)
+    before = lambda_tiled_fwd.launches
+    loss, cnt = lambda_tiled_fwd(yp, yp, yp, torch.ones_like(yp), **kw)
+    assert lambda_tiled_fwd.launches == before + 1
+    assert not cnt.any() and not loss.any()  # equal labels select no pair
+    from allrank_tpu_torch.losses import lambdaLoss
+
+    y_true = torch.arange(385, device=cuda).remainder(5).float().repeat(2, 1)
+    value = lambdaLoss(torch.randn(2, 385, device=cuda), y_true)
+    assert lambda_tiled_fwd.launches == before + 2
+    assert torch.isfinite(value)
+    long = torch.zeros(1, 4097, device=cuda)
+    with pytest.raises(NotImplementedError, match="k <= 4096"):
+        lambda_tiled_fwd(long, long, long, long, **{**kw, "k_eff": 4097})
+    with pytest.raises(NotImplementedError, match="L <= 4096"):
+        approx_pos_fwd(long, long, 1.0, 1e-10)
 
 
 # backward kernel vs its plain version, per gradient tensor: fp32 sums in
@@ -168,6 +198,7 @@ def _close(got, ref, dtype, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,d_ff,l", [(128, 4, 512, 240), (96, 1, 384, 70),
                                         (96, 1, 384, 240),
+                                        (144, 2, 512, 240),
                                         (256, 1, 1024, 65)])
 def test_backward_kernels_match_plain(cuda, d, h, d_ff, l, dtype, p):
     gen = torch.Generator().manual_seed(d + l)
@@ -470,3 +501,130 @@ def test_neural_ndcg_loss_on_the_card_matches_the_cpu(cuda):
         (gl, gg), (cl, cg) = out
         assert abs(gl - cl) <= 1e-4, (gl, cl)
         assert (gg - cg).abs().max() <= 1e-3 * cg.abs().max() + 1e-7
+
+
+def _approx_inputs(n, l, seed, dev, scale=1.0):
+    """Scores with ties, ragged 0/1 validity (slate 0 full, the last one
+    empty) and a cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.randn(n, l, generator=gen) * scale
+    s[:, 1::7] = s[:, 0::7][:, :s[:, 1::7].shape[1]]  # tied scores
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    if n > 1:
+        lengths[-1] = 0
+    valid = (torch.arange(l)[None, :] < lengths[:, None]).float()
+    u = torch.randn(n, l, generator=gen)
+    return [t.to(dev) for t in (s, valid, u)]
+
+
+@pytest.mark.parametrize("alpha", [0.1, 1.0, 10.0])
+@pytest.mark.parametrize("n,l,scale", [(3, 1, 1.0), (5, 37, 1.0),
+                                       (64, 240, 1.0), (64, 240, 1e4),
+                                       (2, 1308, 1.0), (2, 4096, 1.0)])
+def test_approx_pos_kernels_match_plain(cuda, n, l, scale, alpha):
+    """B9 against its plain version: the forward at the JAX test's own atol
+    1e-5 (relative to the sums, which reach L); the gradient relative to its
+    largest value (two fp32 sums of up to L terms in another order)."""
+    s, valid, u = _approx_inputs(n, l, l, cuda, scale)
+    eps = 1e-10
+    before = (approx_pos_fwd.launches, approx_pos_bwd.launches)
+    pos = approx_pos_fwd(s, valid, alpha, eps)
+    ds = approx_pos_bwd(s, valid, u, alpha, eps)
+    assert (approx_pos_fwd.launches, approx_pos_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = approx_pos_fwd_plain(s, valid, alpha, eps)
+    torch.testing.assert_close(pos, ref, rtol=1e-5, atol=1e-5)
+    assert not pos[valid < 0.5].any()
+    _grad_close(ds, approx_pos_bwd_plain(s, valid, u, alpha, eps),
+                "approx-pos ds")
+    assert not ds[valid < 0.5].any(), "a padded document took a gradient"
+    assert torch.equal(pos, approx_pos_fwd(s, valid, alpha, eps))
+    assert torch.equal(ds, approx_pos_bwd(s, valid, u, alpha, eps))
+
+
+def _pair_inputs(b, k, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    ts = torch.randint(0, 5, (b, k), generator=gen).float()
+    valid = (torch.rand(b, k, generator=gen) > 0.2).float()
+    valid[-1] = 0.0  # a dummy slate
+    yp = torch.randn(b, k, generator=gen) * valid
+    g = (2.0 ** ts - 1.0) / 20.0
+    return [t.to(dev) for t in (yp, ts, g, valid)]
+
+
+@pytest.mark.parametrize("b,k,k_eff", [(6, 512, None), (4, 1024, 700),
+                                       (3, 1308, None), (2, 4096, None)])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_tiled_lambda_kernels_match_plain(cuda, scheme, b, k, k_eff):
+    """B6 against its plain version at the one-block kernel's tolerances:
+    loss sums rtol 2e-5, counts exact, gradient rtol 1e-4 with an absolute
+    part that scales with the largest gradient."""
+    args = _pair_inputs(b, k, k, cuda)
+    kw = dict(scheme=scheme, k_eff=k_eff or k, sigma=1.0, mu=10.0,
+              log_base="natural" if k == 1024 else "binary", eps=1e-10)
+    before = (lambda_tiled_fwd.launches, lambda_tiled_bwd.launches)
+    loss, cnt = lambda_tiled_fwd(*args, **kw)
+    ref_loss, ref_cnt = lambda_tiled_fwd_plain(*args, **kw)
+    torch.testing.assert_close(cnt, ref_cnt, rtol=0, atol=0)
+    torch.testing.assert_close(loss, ref_loss, rtol=2e-5, atol=1e-5)
+    gout = torch.linspace(0.5, 1.5, b, device=cuda)
+    dyp = lambda_tiled_bwd(*args, gout, **kw)
+    assert (lambda_tiled_fwd.launches, lambda_tiled_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = lambda_tiled_bwd_plain(*args, gout, **kw)
+    torch.testing.assert_close(dyp, ref, rtol=1e-4,
+                               atol=1e-5 * ref.abs().max().item() + 1e-6)
+    assert not dyp[-1].any(), "the dummy slate took a gradient"
+    again = lambda_tiled_fwd(*args, **kw)
+    assert torch.equal(loss, again[0]) and torch.equal(cnt, again[1])
+    assert torch.equal(dyp, lambda_tiled_bwd(*args, gout, **kw))
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_tiled_lambda_kernel_agrees_with_the_one_block_kernel(cuda, scheme):
+    """At k = 384, which both cover: the same per-pair device function,
+    summed in another order."""
+    args = _pair_inputs(8, 384, 3, cuda)
+    kw = dict(scheme=scheme, k_eff=384, sigma=1.0, mu=10.0,
+              log_base="binary", eps=1e-10)
+    loss, cnt = lambda_tiled_fwd(*args, **kw)
+    ref_loss, ref_cnt = lambda_pairs_fwd(*args, **kw)
+    assert torch.equal(cnt, ref_cnt)
+    torch.testing.assert_close(loss, ref_loss, rtol=2e-5, atol=1e-5)
+    gout = torch.ones(8, device=cuda)
+    ref = lambda_pairs_bwd(*args, gout, **kw)
+    torch.testing.assert_close(lambda_tiled_bwd(*args, gout, **kw), ref,
+                               rtol=1e-4,
+                               atol=1e-5 * ref.abs().max().item() + 1e-6)
+
+
+def test_approx_ndcg_and_long_lambda_loss_match_the_cpu(cuda):
+    """The two losses on the card (B9; B6 at L = 400) against the CPU's
+    torch-op chains, value and gradient."""
+    from allrank_tpu_torch.losses import approxNDCGLoss, lambdaLoss
+
+    rng = np.random.RandomState(4)
+    y_pred = rng.randn(4, 400).astype(np.float32)
+    y_true = rng.randint(0, 5, (4, 400)).astype(np.float32)
+    y_true[1, 150:] = -1
+    y_true[3] = -1
+    kernels = (approx_pos_fwd, approx_pos_bwd, lambda_tiled_fwd,
+               lambda_tiled_bwd)
+    for fn, kw, want in (
+            (approxNDCGLoss, {"alpha": 1.0}, [1, 1, 0, 0]),
+            (lambdaLoss, {"weighing_scheme": "ndcgLoss2PP_scheme"},
+             [0, 0, 1, 1])):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            for k in kernels:
+                k.launches = 0
+            p = torch.tensor(y_pred, device=dev, requires_grad=True)
+            loss = fn(p, torch.tensor(y_true, device=dev), **kw)
+            loss.backward()
+            out.append((loss.item(), p.grad.cpu()))
+            if dev.type == "cuda":
+                assert [k.launches for k in kernels] == want
+        (gl, gg), (cl, cg) = out
+        assert abs(gl - cl) <= 2e-5 * abs(cl) + 1e-6, (gl, cl)
+        assert (gg - cg).abs().max() <= 1e-4 * cg.abs().max() + 1e-7

@@ -164,10 +164,13 @@ def test_lambda_loss_rejects_bad_arguments():
 
 
 def test_registry_has_lambda_loss_and_names_the_rest():
+    """The registry has the JAX package's 13 names and ``needs_rng`` flags,
+    and ``get_loss`` raises only for an unknown name."""
     fn, needs_rng = get_loss("lambdaLoss")
     assert fn is lambdaLoss and needs_rng is False
+    import allrank_tpu_torch.losses as port_losses
     from allrank_tpu.losses import LOSSES as JAX_LOSSES
-    from allrank_tpu_torch.losses import LOSSES, NOT_YET_PORTED
+    from allrank_tpu_torch.losses import LOSSES
     from allrank_tpu_torch.losses.neuralndcg import (
         neuralNDCG,
         neuralNDCG_transposed,
@@ -175,19 +178,14 @@ def test_registry_has_lambda_loss_and_names_the_rest():
 
     assert get_loss("neuralNDCG") == (neuralNDCG, True)
     assert get_loss("neuralNDCG_transposed") == (neuralNDCG_transposed, True)
-    assert sorted(NOT_YET_PORTED) == sorted([
-        "listNet", "binary_listNet", "listMLE", "rankNet",
-        "rankNet_weightByGTDiff", "rankNet_weightByGTDiff_pow", "ordinal",
-        "pointwise_rmse", "bce", "approxNDCGLoss"])
-    # ported and not yet ported together are the JAX package's registry,
-    # with its needs_rng flags
-    assert not set(LOSSES) & set(NOT_YET_PORTED)
-    assert set(LOSSES) | set(NOT_YET_PORTED) == set(JAX_LOSSES)
-    for name, (_, rng) in LOSSES.items():
+    assert not hasattr(port_losses, "NOT_YET_PORTED")
+    assert len(LOSSES) == 13 and sorted(LOSSES) == sorted(JAX_LOSSES)
+    for name, (fn, rng) in LOSSES.items():
         assert rng == JAX_LOSSES[name][1], name
-    for name in NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_loss(name)
+        assert get_loss(name) == (fn, rng)
+        assert fn.__name__ == JAX_LOSSES[name][0].__name__ == name
+        assert fn.__module__.startswith("allrank_tpu_torch.losses.")
+    assert LOSSES["listMLE"][1] is True
     with pytest.raises(ValueError, match="Unknown loss"):
         get_loss("nope")
 
