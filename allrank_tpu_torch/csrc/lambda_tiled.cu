@@ -22,8 +22,9 @@
 // shared memory, a warp per row i sweeping j (lane l takes j = l, l + 32,
 // ...), no padding (the sweep stops at k). Rows that are not valid, or lie
 // at or beyond k_eff, select no pair and are skipped.
-//   forward:  each block writes the partial loss and count of its rows;
-//             a second kernel adds a slate's partials in a fixed order.
+//   forward:  each block writes the partial loss and count of its rows
+//             into one [2, tiles + 1, B] buffer; a second kernel adds a
+//             slate's partials in a fixed order into the buffer's last row.
 //   backward: for its row i the warp evaluates c_ij and the transposed c_ji
 //             in one sweep and writes dyp_i = gout (sum_j c_ij - sum_j c_ji)
 //             once: no auxiliary, no atomics, the same bits every run.
@@ -46,15 +47,15 @@ __device__ __forceinline__ bool row_selects(const Row& row,
   return row.valid[i] > 0.5f && !(a.k_eff < a.L && i >= a.k_eff);
 }
 
-// partial[(slate, tile)] = (loss, count) over the tile's rows
+// buf[0 | 1, tile, slate] = (loss | count) over the tile's rows; buf is
+// [2, gridDim.y + 1, gridDim.x]
 __global__ void tiled_fwd_kernel(const float* __restrict__ yp,
                                  const float* __restrict__ ts,
                                  const float* __restrict__ g,
                                  const float* __restrict__ valid,
                                  const float* __restrict__ d_row,
                                  const float* __restrict__ delta,
-                                 float* __restrict__ part_loss,
-                                 float* __restrict__ part_cnt, ChainArgs a) {
+                                 float* __restrict__ buf, ChainArgs a) {
   extern __shared__ float sm[];
   __shared__ float warp_loss[kRowsPerBlock], warp_cnt[kRowsPerBlock];
   const int slate = blockIdx.x, tile = blockIdx.y;
@@ -87,31 +88,30 @@ __global__ void tiled_fwd_kernel(const float* __restrict__ yp,
       ls += warp_loss[r];
       cs += warp_cnt[r];
     }
-    part_loss[(size_t)slate * gridDim.y + tile] = ls;
-    part_cnt[(size_t)slate * gridDim.y + tile] = cs;
+    const size_t batch = gridDim.x, at = (size_t)tile * batch + slate;
+    buf[at] = ls;
+    buf[(gridDim.y + 1) * batch + at] = cs;
   }
 }
 
-// loss[b], cnt[b] = the slate's partials added in a fixed order, a warp per
-// slate.
-__global__ void tiled_sum_kernel(const float* __restrict__ part_loss,
-                                 const float* __restrict__ part_cnt,
-                                 float* __restrict__ loss,
-                                 float* __restrict__ cnt, int batch,
+// buf[0 | 1, tiles, b] = the slate's partials added in a fixed order, a warp
+// per slate.
+__global__ void tiled_sum_kernel(float* __restrict__ buf, int batch,
                                  int tiles) {
   const int slate = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (slate >= batch) return;
+  float* cnt = buf + (size_t)(tiles + 1) * batch;
   float ls = 0.f, cs = 0.f;
   for (int t = lane; t < tiles; t += 32) {
-    ls += part_loss[(size_t)slate * tiles + t];
-    cs += part_cnt[(size_t)slate * tiles + t];
+    ls += buf[(size_t)t * batch + slate];
+    cs += cnt[(size_t)t * batch + slate];
   }
   ls = warp_sum(ls);
   cs = warp_sum(cs);
   if (lane == 0) {
-    loss[slate] = ls;
-    cnt[slate] = cs;
+    buf[(size_t)tiles * batch + slate] = ls;
+    cnt[(size_t)tiles * batch + slate] = cs;
   }
 }
 
@@ -162,20 +162,16 @@ int tiles_for(int L) {
 }
 }  // namespace
 
-// The number of row tiles of a length-L block: the wrapper sizes the
-// partial-sum scratch [batch, tiles] with it.
-extern "C" int lambda_tiled_tiles(int L) { return tiles_for(L); }
-
-// Forward on `stream`: loss, cnt [B] from yp, ts, g, valid [B, L] fp32,
-// d_row = log2(i + 2) and delta (the ndcgLoss2 delta of distance i) [L];
-// part_loss, part_cnt are scratch [B, lambda_tiled_tiles(L)]; L <= 4096.
+// Forward on `stream`, from yp, ts, g, valid [B, L] fp32, d_row = log2(i + 2)
+// and delta (the ndcgLoss2 delta of distance i) [L]; L <= 4096. buf is
+// [2, tiles + 1, B] with tiles = ceil(L / 32): the loss sums [B] come back in
+// buf[0, tiles], the counts in buf[1, tiles]; the rows before are scratch.
 // Returns 0 or the CUDA error code.
 extern "C" int lambda_tiled_fwd(const void* yp, const void* ts, const void* g,
                                 const void* valid, const void* d_row,
-                                const void* delta, void* part_loss,
-                                void* part_cnt, void* loss, void* cnt,
-                                int batch, int L, int k_eff, int scheme,
-                                int binary, float sigma, float mu, float eps,
+                                const void* delta, void* buf, int batch,
+                                int L, int k_eff, int scheme, int binary,
+                                float sigma, float mu, float eps,
                                 float log_eps, void* stream) {
   using namespace allrank;
   if (L < 1 || L > kMaxTiledK || batch < 1) return cudaErrorInvalidValue;
@@ -188,16 +184,14 @@ extern "C" int lambda_tiled_fwd(const void* yp, const void* ts, const void* g,
       static_cast<const float*>(yp), static_cast<const float*>(ts),
       static_cast<const float*>(g), static_cast<const float*>(valid),
       static_cast<const float*>(d_row), static_cast<const float*>(delta),
-      static_cast<float*>(part_loss), static_cast<float*>(part_cnt),
+      static_cast<float*>(buf),
       ChainArgs{L, k_eff, scheme, binary, sigma, mu, eps, log_eps});
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int slates_per_block = kTiledThreads / 32;
   tiled_sum_kernel<<<(batch + slates_per_block - 1) / slates_per_block,
-                     kTiledThreads, 0, s>>>(
-      static_cast<const float*>(part_loss),
-      static_cast<const float*>(part_cnt), static_cast<float*>(loss),
-      static_cast<float*>(cnt), batch, tiles);
+                     kTiledThreads, 0, s>>>(static_cast<float*>(buf), batch,
+                                            tiles);
   return cudaGetLastError();
 }
 

@@ -3,8 +3,8 @@ allrank/models/losses/approxNDCG.py:7-53).
 
 The only O(L^2) work is the approximate-position sum over valid
 off-diagonal pairs. On CUDA it is the rank-sum kernel B9
-(``ops/approx_pos.py``) for every slate length the kernel covers; on the
-CPU, and beyond the kernel's envelope, the loss runs the JAX package's
+(``ops/approx_pos.py``), whose wrapper raises ``NotImplementedError``
+beyond the kernel's length; on the CPU the loss runs the JAX package's
 XLA-path chain of torch ops under autograd, the plain version.
 """
 
@@ -21,7 +21,7 @@ from allrank_tpu_torch.losses.common import (
     padding_mask,
     resolve_slate_mask,
 )
-from allrank_tpu_torch.ops.approx_pos import MAX_LENGTH, fused_approx_pos
+from allrank_tpu_torch.ops.approx_pos import fused_approx_pos
 from allrank_tpu_torch.ops.lambda_pairs import position_tables
 
 
@@ -56,8 +56,7 @@ def approxNDCGLoss(y_pred: torch.Tensor, y_true: torch.Tensor,
         ((torch.pow(2.0, y_true_sorted) - 1.0) / D).sum(dim=-1), min=eps)
     G = (torch.pow(2.0, true_sorted_by_preds) - 1.0) / max_dcgs[:, None]
 
-    chain = (_fused_pos if y_pred.device.type == "cuda"
-             and slate_length <= MAX_LENGTH else _plain_pos)
+    chain = _fused_pos if y_pred.device.type == "cuda" else _plain_pos
     approx_pos = 1.0 + chain(y_pred_sorted, valid, alpha, eps)
     approx_D = torch.log2(1.0 + approx_pos)
     approx_ndcg = (G / approx_D).sum(dim=-1)

@@ -6,9 +6,9 @@ As there, the reference's boolean-mask reduction becomes a dense pair mask
 over the top-k block, and the position tables (log2 discounts, ndcgLoss2
 deltas) are host float64 values rounded to float32. On CUDA the pair chain
 is the kernel B3 (``ops/lambda_pairs.py``) up to k = 384 and the row-tiled
-kernel B6 (``ops/lambda_tiled.py``) up to k = 4096; on the CPU, and beyond
-4096, the loss runs the JAX package's XLA-path formulation under autograd,
-the plain version.
+kernel B6 (``ops/lambda_tiled.py``) up to k = 4096, beyond which that
+kernel's wrapper raises ``NotImplementedError``; on the CPU the loss runs
+the JAX package's XLA-path formulation under autograd, the plain version.
 """
 
 from __future__ import annotations
@@ -28,10 +28,7 @@ from allrank_tpu_torch.ops.lambda_pairs import (
     pair_weights,
     position_tables,
 )
-from allrank_tpu_torch.ops.lambda_tiled import (
-    MAX_TILED_LENGTH,
-    tiled_lambda_pairs,
-)
+from allrank_tpu_torch.ops.lambda_tiled import tiled_lambda_pairs
 
 
 def lambdaLoss(y_pred: torch.Tensor, y_true: torch.Tensor,
@@ -99,13 +96,11 @@ def _fused_chain(y_pred_sorted, true_raw_topk, true_sorted_by_preds,
                  pred_valid, G, D, slate_ok, scheme, k_eff, sigma, mu,
                  reduction_log, eps):
     """(loss total, selected-pair count) through the pair-chain kernels: B3
-    up to k = 384, the row-tiled B6 up to 4096; beyond, the torch-op chain,
-    as the JAX loss beyond its tiled kernel's length."""
-    if k_eff > MAX_TILED_LENGTH:
-        return _plain_chain(y_pred_sorted, true_raw_topk,
-                            true_sorted_by_preds, pred_valid, G, D, slate_ok,
-                            scheme, k_eff, sigma, mu, reduction_log, eps)
-    # the kernels take their own position tables
+    up to k = 384, the row-tiled B6 beyond; past B6's length its wrapper
+    raises. 384 is B3's length, the TPU kernel's own, not a crossover
+    measured on this card (B6 covers those lengths too; PERF.md section 6
+    has both kernels' times there)."""
+    del true_raw_topk, D  # the kernels take their own position tables
     pairs = (fused_lambda_pairs if k_eff <= MAX_FUSED_LENGTH
              else tiled_lambda_pairs)
     valid_rows = pred_valid
@@ -116,6 +111,20 @@ def _fused_chain(y_pred_sorted, true_raw_topk, true_sorted_by_preds,
         valid_rows.float(), scheme=scheme, k_eff=k_eff, sigma=sigma, mu=mu,
         log_base=reduction_log, eps=eps)
     return loss_sums.sum(), counts.sum()
+
+
+_DELTAS: dict = {}
+
+
+def _delta_table(n: int, dev) -> torch.Tensor:
+    """The [n, n] ndcgLoss2 delta table on ``dev``. The last one is kept
+    (16 n^2 bytes on the host to build): a run repeats its top-k length."""
+    if (n, dev) not in _DELTAS:
+        _DELTAS.clear()
+        # a tensor made under inference mode could not enter autograd later
+        with torch.inference_mode(False):
+            _DELTAS[(n, dev)] = torch.from_numpy(ndcg2_deltas(n)).to(dev)
+    return _DELTAS[(n, dev)]
 
 
 def _plain_chain(y_pred_sorted, true_raw_topk, true_sorted_by_preds,
@@ -134,7 +143,7 @@ def _plain_chain(y_pred_sorted, true_raw_topk, true_sorted_by_preds,
     if slate_ok is not None:
         selected = selected & slate_ok[:, None, None]
 
-    deltas = torch.from_numpy(ndcg2_deltas(G.shape[1])).to(G.device)
+    deltas = _delta_table(G.shape[1], G.device)
     weights = pair_weights(scheme, G, true_sorted_by_preds, D, deltas, mu)
     scores_diffs = torch.where(
         pair_valid, y_pred_sorted[:, :, None] - y_pred_sorted[:, None, :],

@@ -32,8 +32,9 @@ from allrank_tpu_torch.ops.lambda_pairs import (
 )
 
 MAX_TILED_LENGTH = 4096
-_SIGNATURES = {"lambda_tiled_tiles": [ctypes.c_int],
-               "lambda_tiled_fwd": [ctypes.c_void_p] * 10 + CHAIN_ARGTYPES,
+# the rows of one thread block: kRowsPerBlock of csrc/lambda_tiled.cu
+ROWS_PER_TILE = 32
+_SIGNATURES = {"lambda_tiled_fwd": [ctypes.c_void_p] * 7 + CHAIN_ARGTYPES,
                "lambda_tiled_bwd": [ctypes.c_void_p] * 8 + CHAIN_ARGTYPES}
 
 
@@ -59,15 +60,13 @@ def lambda_tiled_fwd(yp, ts, g, valid, **kw):
     check_args(yp, kw)
     _check_length(yp)
     b, n = yp.shape
-    tiles = _build.load("lambda_tiled", _SIGNATURES).lambda_tiled_tiles(n)
-    # per (slate, row tile) partial loss sums and counts, then the results
-    part_loss, part_cnt, loss, cnt = (
-        torch.empty(shape, dtype=torch.float32, device=yp.device)
-        for shape in ((b, tiles), (b, tiles), (b,), (b,)))
+    tiles = -(-n // ROWS_PER_TILE)
+    # (loss, count) by row tile and slate; the kernel's last row is the sum
+    buf = torch.empty(2, tiles + 1, b, dtype=torch.float32, device=yp.device)
     launch_chain("lambda_tiled", _SIGNATURES, "lambda_tiled_fwd", yp, ts, g,
-                 valid, (), (part_loss, part_cnt, loss, cnt), kw)
+                 valid, (), (buf,), kw)
     lambda_tiled_fwd.launches += 1
-    return loss, cnt
+    return buf[0, tiles], buf[1, tiles]
 
 
 lambda_tiled_fwd.launches = 0

@@ -461,6 +461,64 @@ def approx_library(s, valid_f, alpha, eps):
             lambda: torch.autograd.grad(out, leaf, u, retain_graph=True))
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """The device's own time for one call of a kernel's wrapper: ``calls``
+    calls captured into one CUDA graph, which the host launches as a whole,
+    so the kernels run back to back with none of the host's time between
+    them (allocation, checks, the launch: several times a kernel of 10-100
+    us); the median event-timed replay, divided by ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, iters=20, warmup=3) / calls
+
+
+def chain_work(pair_args, kw, ops_per_pair: int, backward: bool) -> tuple:
+    """(operations, bytes, selected pairs): what the lambdaLoss pair chain
+    needs on these inputs. ``ops_per_pair`` for each pair the scheme selects
+    (both documents valid and inside the top k_eff, the first label above
+    the second), one compare
+    for every other pair; the four [B, k] inputs and the two [k] tables read
+    once; the two [B] results written, or [B] read and [B, k] written by the
+    backward."""
+    yp, ts, _, valid = pair_args
+    b, k = yp.shape
+    ok = (valid > 0.5) & (torch.arange(k, device=yp.device) < kw["k_eff"])
+    sel = ok[:, :, None] & ok[:, None, :]
+    if kw["scheme"] != "ndcgLoss1_scheme":
+        sel = sel & (ts[:, :, None] > ts[:, None, :])
+    selected = int(sel.sum().item())
+    moved = nbytes(*pair_args) + 2 * k * 4 + (
+        b * 4 + b * k * 4 if backward else 2 * b * 4)
+    return ops_per_pair * selected + (b * k * k - selected), moved, selected
+
+
+def short_kernel_row(name, kernel, plain, lib_fn, work, err, shape,
+                     tag) -> dict:
+    """The record of a kernel of 10-300 us, printed too: the device's own
+    time for the kernel (``graph_ms``) with its event-timed call beside it,
+    the event-timed calls of its plain version and of the library
+    formulation, and the bound of ``work`` = (operations, bytes, ...)."""
+    ms = graph_ms(kernel)
+    call_ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
+                                 for fn in (kernel, plain, lib_fn))
+    flops, moved = work[:2]
+    bound_ms, bound_by = bound(flops, moved, torch.float32)
+    print(f"time {name} float32 {shape}: kernel {ms:.4f} ms of device time "
+          f"(20 calls in one CUDA graph; one event-timed call {call_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms a call, library (torch-op chain, "
+          f"autograd) {lib_ms:.4f} ms a call, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {flops / 1e9:.4f} G operations, "
+          f"{moved / 1e6:.3f} MB) {tag}")
+    return {"name": name, "route": "cuda", "max_abs_err": err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "gflop": flops / 1e9, "mbytes": moved / 1e6}
+
+
 def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> None:
     """Device time by kernel name over ``calls`` calls of ``fn`` (the eight
     largest, and every kernel whose name holds one of ``also``), and the
@@ -1126,34 +1184,19 @@ def main() -> int:
               log_base="binary", eps=1e-10)
     gout = torch.ones(B, device=dev)
     lib = chain_library(pair_args, kw)
-    pairs = B * L * L
-    for kernel_name, fns, ops_per_pair, lib_fn in (
-            ("lambda_pairs_fwd",
-             (lambda: lambda_pairs_fwd(*pair_args, **kw),
-              lambda: lambda_pairs_fwd_plain(*pair_args, **kw)), 28,
-             lib[0]),
-            ("lambda_pairs_bwd",
-             (lambda: lambda_pairs_bwd(*pair_args, gout, **kw),
-              lambda: lambda_pairs_bwd_plain(*pair_args, gout, **kw)),
-             # the function needs each c_ij once; the kernel's second
-             # evaluation (c_ji, so that no atomics are needed) is a cost of
-             # its design and not part of the bound
-             36, lib[1])):
-        ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
-                                for fn in fns + (lib_fn,))
-        flops = ops_per_pair * pairs
-        moved = nbytes(*pair_args) + B * L * 4 + 2 * B * 4
-        bound_ms, bound_by = bound(flops, moved, torch.float32)
-        rows.append({"name": kernel_name, "route": "cuda",
-                     "max_abs_err": b3_errs[kernel_name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms,
-                     "gflop": flops / 1e9, "mbytes": moved / 1e6})
-        print(f"time {kernel_name} float32 B={B} k={L}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (XLA-path chain, autograd) "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-              f"{ops_per_pair} operations per pair, {moved / 1e6:.3f} MB) "
-              f"{tag}")
+    # per selected pair 28 operations forward, 36 backward: the function
+    # needs each c_ij once; the kernel's second evaluation (c_ji, so that no
+    # atomics are needed) is a cost of its design and not part of the bound
+    rows.append(short_kernel_row(
+        "lambda_pairs_fwd", lambda: lambda_pairs_fwd(*pair_args, **kw),
+        lambda: lambda_pairs_fwd_plain(*pair_args, **kw), lib[0],
+        chain_work(pair_args, kw, 28, False), b3_errs["lambda_pairs_fwd"],
+        f"B={B} k={L} (200 valid)", tag))
+    rows.append(short_kernel_row(
+        "lambda_pairs_bwd", lambda: lambda_pairs_bwd(*pair_args, gout, **kw),
+        lambda: lambda_pairs_bwd_plain(*pair_args, gout, **kw), lib[1],
+        chain_work(pair_args, kw, 36, True), b3_errs["lambda_pairs_bwd"],
+        f"B={B} k={L} (200 valid)", tag))
 
     # -- 11: B8 against its plain version -------------------------------------
     T = SINKHORN_ITERS
@@ -1639,37 +1682,23 @@ def main() -> int:
                                         torch.randn(B, L, generator=gen)))
     lib = approx_library(sc, valid, 1.0, eps)
     pairs = int((valid.sum(dim=1) * (valid.sum(dim=1) - 1)).sum().item())
-    for kernel_name, fns, ops_per_pair, lib_fn, n_vec in (
-            # per valid off-diagonal pair: the difference, the scale, the
-            # exponential, the sum and the quotient of the sigmoid, the
-            # clamp, the mask and the accumulation
-            ("approx_pos_fwd",
-             (lambda: approx_pos_fwd(sc, valid, 1.0, eps),
-              lambda: approx_pos_fwd_plain(sc, valid, 1.0, eps)), 8, lib[0],
-             3),
-            # each c_ij once: the sigmoid (5), 1 - t, the products with
-            # -alpha, t and u, the compare, and its two accumulations; the
-            # kernel's second sigmoid (t_ji, so that no atomics are needed)
-            # is a cost of its design and not part of the bound
-            ("approx_pos_bwd",
-             (lambda: approx_pos_bwd(sc, valid, u, 1.0, eps),
-              lambda: approx_pos_bwd_plain(sc, valid, u, 1.0, eps)), 12,
-             lib[1], 4)):
-        ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
-                                for fn in fns + (lib_fn,))
-        flops = ops_per_pair * pairs
-        moved = n_vec * B * L * 4
-        bound_ms, bound_by = bound(flops, moved, torch.float32)
-        rows.append({"name": kernel_name, "route": "cuda",
-                     "max_abs_err": b9_errs[kernel_name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms,
-                     "gflop": flops / 1e9, "mbytes": moved / 1e6})
-        print(f"time {kernel_name} float32 B={B} L={L} (200 valid): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch-op "
-              f"chain, autograd) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}: {ops_per_pair} operations per pair, "
-              f"{moved / 1e6:.3f} MB) {tag}")
+    # per valid off-diagonal pair, forward 8 operations: the difference, the
+    # scale, the exponential, the sum and the quotient of the sigmoid, the
+    # clamp, the mask and the accumulation; s and valid read, pos written
+    rows.append(short_kernel_row(
+        "approx_pos_fwd", lambda: approx_pos_fwd(sc, valid, 1.0, eps),
+        lambda: approx_pos_fwd_plain(sc, valid, 1.0, eps), lib[0],
+        (8 * pairs, 3 * B * L * 4), b9_errs["approx_pos_fwd"],
+        f"B={B} L={L} (200 valid)", tag))
+    # backward 12, each c_ij once: the sigmoid (5), 1 - t, the products with
+    # -alpha, t and u, the compare, and its two accumulations; the kernel's
+    # second sigmoid (t_ji, so that no atomics are needed) is a cost of its
+    # design and not part of the bound; u read too
+    rows.append(short_kernel_row(
+        "approx_pos_bwd", lambda: approx_pos_bwd(sc, valid, u, 1.0, eps),
+        lambda: approx_pos_bwd_plain(sc, valid, u, 1.0, eps), lib[1],
+        (12 * pairs, 4 * B * L * 4), b9_errs["approx_pos_bwd"],
+        f"B={B} L={L} (200 valid)", tag))
 
     # B6 at the long-slate step's shape and at (64, 512), every document
     # valid; the torch-op chain is what a dispatch gate would have to beat
@@ -1683,41 +1712,53 @@ def main() -> int:
                   log_base="binary", eps=eps)
         gout = torch.ones(b, device=dev)
         lib = chain_library(pair_args, kw)
-        for kernel_name, fns, ops_per_pair, lib_fn in (
-                ("lambda_tiled_fwd",
-                 (lambda: lambda_tiled_fwd(*pair_args, **kw),
-                  lambda: lambda_tiled_fwd_plain(*pair_args, **kw)), 28,
-                 lib[0]),
-                # as for B3: each c_ij once, 36 operations
-                ("lambda_tiled_bwd",
-                 (lambda: lambda_tiled_bwd(*pair_args, gout, **kw),
-                  lambda: lambda_tiled_bwd_plain(*pair_args, gout, **kw)),
-                 36, lib[1])):
-            ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
-                                    for fn in fns + (lib_fn,))
-            flops = ops_per_pair * b * k * k
-            moved = nbytes(*pair_args) + 2 * k * 4 + b * k * 4 + 2 * b * 4
-            bound_ms, bound_by = bound(flops, moved, torch.float32)
+        e = b6_errs[(b, k)]
+        # the operations of B3's bound (phase 10), on the pairs these
+        # labels select
+        for row in (
+                short_kernel_row(
+                    "lambda_tiled_fwd",
+                    lambda: lambda_tiled_fwd(*pair_args, **kw),
+                    lambda: lambda_tiled_fwd_plain(*pair_args, **kw), lib[0],
+                    chain_work(pair_args, kw, 28, False), e[0],
+                    f"B={b} k={k}", tag),
+                short_kernel_row(
+                    "lambda_tiled_bwd",
+                    lambda: lambda_tiled_bwd(*pair_args, gout, **kw),
+                    lambda: lambda_tiled_bwd_plain(*pair_args, gout, **kw),
+                    lib[1], chain_work(pair_args, kw, 36, True), e[1],
+                    f"B={b} k={k}", tag)):
             if (b, k) == (LONG_B, LONG_L):
-                e = b6_errs[(b, k)]
-                b6_rows[kernel_name] = {
-                    "name": kernel_name, "route": "cuda",
-                    "max_abs_err": e[0 if kernel_name.endswith("fwd") else 1],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": lib_ms,
-                    "gflop": flops / 1e9, "mbytes": moved / 1e6}
+                b6_rows[row["name"]] = row
             else:
-                b6_rows[kernel_name].update({
-                    "ms_b64_k512": ms, "plain_ms_b64_k512": plain_ms,
-                    "bound_ms_b64_k512": bound_ms,
-                    "library_ms_b64_k512": lib_ms})
-            print(f"time {kernel_name} float32 B={b} k={k}: kernel {ms:.4f} "
-                  f"ms, plain {plain_ms:.4f} ms, library (XLA-path chain, "
-                  f"autograd) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({bound_by}: {ops_per_pair} operations per pair, "
-                  f"{moved / 1e6:.3f} MB) {tag}")
+                b6_rows[row["name"]].update({
+                    f"{key}_b64_k512": row[key]
+                    for key in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                "library_ms")})
         del lib
     rows.extend(b6_rows.values())
+
+    # B6 beside B3 inside B3's envelope, device time on the same inputs: the
+    # dispatch sends k <= 384 to B3 because that is B3's length, not
+    # because B3 is the faster one there
+    for b, k in ((B, 128), (B, L), (B, 384), (256, L)):
+        ts = torch.randint(0, 5, (b, k), generator=gen).float()
+        pair_args = [t.to(dev) for t in (torch.randn(b, k, generator=gen), ts,
+                                         (2.0 ** ts - 1.0) / 30.0,
+                                         torch.ones(b, k))]
+        kw = dict(scheme="ndcgLoss2PP_scheme", k_eff=k, sigma=1.0, mu=10.0,
+                  log_base="binary", eps=eps)
+        gout = torch.ones(b, device=dev)
+        us = [graph_ms(fn) * 1e3 for fn in (
+            lambda: lambda_pairs_fwd(*pair_args, **kw),
+            lambda: lambda_tiled_fwd(*pair_args, **kw),
+            lambda: lambda_pairs_bwd(*pair_args, gout, **kw),
+            lambda: lambda_tiled_bwd(*pair_args, gout, **kw))]
+        for name, pair in (("fwd", us[:2]), ("bwd", us[2:])):
+            b6_rows[f"lambda_tiled_{name}"][f"b3_b6_us_b{b}_k{k}"] = pair
+        print(f"time B3 beside B6, float32 B={b} k={k}, device time: forward "
+              f"{us[0]:.1f} us against {us[1]:.1f} us, backward {us[2]:.1f} "
+              f"us against {us[3]:.1f} us {tag}")
 
     # -- 21: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (

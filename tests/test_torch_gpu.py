@@ -179,6 +179,14 @@ def test_kernels_raise_outside_their_envelope(cuda):
         lambda_tiled_fwd(long, long, long, long, **{**kw, "k_eff": 4097})
     with pytest.raises(NotImplementedError, match="L <= 4096"):
         approx_pos_fwd(long, long, 1.0, 1e-10)
+    # the losses let the refusal surface: no torch-op chain on the card
+    from allrank_tpu_torch.losses import approxNDCGLoss
+
+    long_true = torch.arange(4097, device=cuda).remainder(5).float()[None]
+    with pytest.raises(NotImplementedError, match="k <= 4096"):
+        lambdaLoss(torch.randn(1, 4097, device=cuda), long_true)
+    with pytest.raises(NotImplementedError, match="L <= 4096"):
+        approxNDCGLoss(torch.randn(1, 4097, device=cuda), long_true)
 
 
 # backward kernel vs its plain version, per gradient tensor: fp32 sums in

@@ -128,22 +128,20 @@ def _long_batch(b=3, n=400, seed=0):
     (dict(weighing_scheme="lambdaRank_scheme", k=390, reduction="mean"),
      "tiled"),
     (dict(weighing_scheme="ndcgLoss2_scheme", k=384), "one-block"),
-    (dict(weighing_scheme="ndcgLoss2PP_scheme", k=399), "torch-op chain"),
+    (dict(weighing_scheme="ndcgLoss2PP_scheme", k=399), "refused"),
 ], ids=lambda v: v if isinstance(v, str) else "-".join(
     f"{k}={x}" for k, x in v.items()))
 def test_long_slate_lambda_loss_matches_jax(kw, route, monkeypatch):
     """The kernel route of the port's lambdaLoss (prep + dispatch, on the
     plain versions here) against the JAX loss: k_eff <= 384 goes to the
-    one-block chain, 384 < k_eff <= the tiled kernel's length to the tiled
-    one, above that to the torch-op chain (the length is 4096; the last
-    case lowers it to 398, a [B, 4097, 4097] chain being too large for
-    this suite)."""
+    one-block chain, every longer one to the tiled one. Past its length
+    (4096) the tiled kernel's wrapper refuses a CUDA tensor; the last case
+    has it refuse here, and the loss lets that surface and takes no
+    torch-op chain instead."""
     y_pred, y_true = _long_batch()
     ref_v, ref_g = jax.value_and_grad(
         lambda p: jax_lambdaLoss(p, jnp.asarray(y_true), **kw))(
             jnp.asarray(y_pred))
-    if route == "torch-op chain":
-        monkeypatch.setattr(port_lambdaloss, "MAX_TILED_LENGTH", 398)
     calls = []
 
     def spy(name):
@@ -157,6 +155,11 @@ def test_long_slate_lambda_loss_matches_jax(kw, route, monkeypatch):
 
     spy("fused_lambda_pairs")
     spy("tiled_lambda_pairs")
+    if route == "refused":
+        def refuse(*a, **k):
+            raise NotImplementedError("k <= 4096")
+
+        monkeypatch.setattr(port_lambdaloss, "tiled_lambda_pairs", refuse)
     plain = port_lambdaloss._plain_chain
 
     def kernel_route(*a):  # what a CUDA tensor takes
@@ -166,14 +169,31 @@ def test_long_slate_lambda_loss_matches_jax(kw, route, monkeypatch):
 
     monkeypatch.setattr(port_lambdaloss, "_plain_chain", kernel_route)
     p = torch.tensor(y_pred, requires_grad=True)
+    if route == "refused":
+        with pytest.raises(NotImplementedError, match="k <= 4096"):
+            lambdaLoss(p, torch.tensor(y_true), **kw)
+        assert calls == []
+        return
     loss = lambdaLoss(p, torch.tensor(y_true), **kw)
     loss.backward()
     assert calls == [{"tiled": "tiled_lambda_pairs",
-                      "one-block": "fused_lambda_pairs",
-                      "torch-op chain": "_plain_chain"}[route]]
+                      "one-block": "fused_lambda_pairs"}[route]]
     np.testing.assert_allclose(loss.item(), float(ref_v), rtol=2e-5)
     np.testing.assert_allclose(
         p.grad.numpy(), np.asarray(ref_g), rtol=TOL["rtol"],
         atol=TOL["atol"] * max(1.0, float(np.abs(ref_g).max())))
     assert not p.grad[-1].any()  # the all-padded slate
     assert port_tiled.lambda_tiled_fwd.launches == 0  # no card here
+
+
+def test_scratch_tiles_are_the_kernels_rows_per_block():
+    """The wrapper sizes the forward's [2, tiles + 1, B] buffer from its own
+    constant; the kernel's grid comes from the source's."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(port_tiled.__file__), os.pardir, "csrc",
+                       "lambda_tiled.cu")
+    with open(src) as f:
+        rows = re.search(r"constexpr int kRowsPerBlock = (\d+);", f.read())
+    assert int(rows.group(1)) == port_tiled.ROWS_PER_TILE
