@@ -2,20 +2,36 @@
 Self-Attention", arXiv 2005.10084): positional encoding, N pre-norm blocks
 over the slate axis with padding-masked self-attention, final LayerNorm.
 
-Each block is the attention sublayer then the FFN sublayer, both through
-``ops``: on CUDA tensors the hand-written kernels, on CPU tensors their
-plain versions. There is no dispatch gate on B or L: on CUDA every sublayer
-inside the kernels' envelope runs the kernel, and outside it the encoder
-raises ``NotImplementedError`` naming the limit. When autograd records, the
-sublayers run as autograd Functions whose backwards are the backward
-kernels; under ``torch.no_grad``/``inference_mode`` the forward kernels run
-alone.
+Each block is an attention sublayer then the FFN sublayer (B2,
+``ops/ffn_block``, at every L). ``Transformer.forward`` picks the attention
+sublayer's form by slate length, the same for every block
+(``encoder_form``):
+
+- L <= 1024: the whole sublayer in one kernel pair (B1,
+  ``ops/attention_block``);
+- 1024 < L <= 1224: the split block, the JAX package's ``_attention``
+  (``models/transformer.py:416-466, 516-518`` there): LayerNorm and the QKV
+  projection in PyTorch ops, the bare attention kernel B4
+  (``ops/attention_fused``) with dropout on the probabilities inside it,
+  the out-projection, the output dropout and the residual in PyTorch ops;
+- 1224 < L <= 8192: the split block with the K-tiled kernel B5
+  (``ops/attention_tiled``);
+- beyond 8192 the encoder raises ``NotImplementedError`` on the GPU.
+
+1224 and 8192 are the JAX package's ``FUSED_ATTENTION_MAX_LEN`` and
+``TILED_ATTENTION_MAX_LEN``; on this card all three are the port's envelope
+until measured, with no gate on B, dtype or heads. CPU tensors take every
+kernel's plain version, through the same forms. When autograd records, the
+kernels run as autograd Functions whose backwards are the backward kernels;
+under ``torch.no_grad``/``inference_mode`` the forward kernels run alone.
 
 In training form (``train=True`` with a generator and a dropout rate) each
 block draws four int32 seeds, as the JAX package's ``transformer_apply``
 splits four keys per block: attention probabilities, the attention
-sublayer's output, the FFN hidden activation and the FFN output. The
-kernels key their dropout masks on them (ops/dropout.py).
+sublayer's output, the FFN hidden activation and the FFN output. Every form
+keys its dropout masks on them the same way (ops/dropout.py: the global
+element index of each tensor), so at any L inside B1's envelope the split
+block computes B1's function with B1's masks.
 """
 
 from __future__ import annotations
@@ -36,10 +52,61 @@ from allrank_tpu_torch.models.positional import (
     FixedPositionalEncoding,
     LearnedPositionalEncoding,
 )
+from allrank_tpu_torch.ops import dropout
+from allrank_tpu_torch.ops.attention_block import MAX_LEN as SUBLAYER_MAX_LEN
 from allrank_tpu_torch.ops.attention_block import attention_sublayer
+from allrank_tpu_torch.ops.attention_fused import fused_slate_attention
+from allrank_tpu_torch.ops.attention_tiled import tiled_slate_attention
 from allrank_tpu_torch.ops.ffn_block import ffn_sublayer
 
 SEED_HIGH = 2 ** 31 - 1  # seeds are drawn from [0, 2**31 - 1), as in JAX
+FUSED_ATTENTION_MAX_LEN = 1224
+TILED_ATTENTION_MAX_LEN = 8192
+
+
+def encoder_form(l: int, device_type: str):
+    """The attention sublayer's form at slate length ``l``: None for the B1
+    sublayer, else the bare attention of the split block,
+    ``fused_slate_attention`` (B4) or ``tiled_slate_attention`` (B5). Raises
+    ``NotImplementedError`` beyond 8192 on the GPU, before any launch; CPU
+    tensors run the plain versions at any length."""
+    if l <= SUBLAYER_MAX_LEN:
+        return None
+    if l <= FUSED_ATTENTION_MAX_LEN:
+        return fused_slate_attention
+    if l <= TILED_ATTENTION_MAX_LEN or device_type == "cpu":
+        return tiled_slate_attention
+    raise NotImplementedError(
+        f"the encoder covers slates of L <= {TILED_ATTENTION_MAX_LEN} on the "
+        f"GPU (the tiled attention kernel's envelope), got L={l}")
+
+
+def split_attention_sublayer(x, key_mask, ln_scale, ln_bias, wqkv, bqkv,
+                             wout, bout, h: int, p_attn: float = 0.0,
+                             p_resid: float = 0.0, seeds=(0, 0), *,
+                             attention):
+    """``x + drop_r(attention(LN(x) . Wqkv + bqkv) . Wout + bout)`` with the
+    bare attention kernel ``attention`` (B4 or B5) and everything around it
+    in PyTorch ops, with B1's rounding points: LN(x), qkv and the attention
+    output in x's dtype, the products in fp32 on weights rounded to it, the
+    residual in fp32. Dropout on the probabilities (``seeds[0]``) happens
+    inside the kernel, on the output (``seeds[1]``, stream ``ATTN_RESID``
+    over (b, l, d)) here."""
+    b, l, d = x.shape
+    dtype = x.dtype
+    x32 = x.float()
+    n = std_layer_norm(x32, ln_scale, ln_bias).to(dtype)
+    qkv = (torch.matmul(n.float(), wqkv.to(dtype).float()) + bqkv).to(dtype)
+    q, k, v = (t.reshape(b, l, h, d // h).transpose(1, 2).contiguous()
+               for t in qkv.split(d, dim=-1))
+    ctx = attention(q, k, v, key_mask, p_attn, seeds[0])
+    ctx = ctx.transpose(1, 2).reshape(b, l, d)
+    a = torch.matmul(ctx.float(), wout.to(dtype).float()) + bout
+    if p_resid:
+        keep = dropout.keep_mask(seeds[1], dropout.ATTN_RESID, p_resid,
+                                 (b, l, d), x.device)
+        a = torch.where(keep, a / (1.0 - p_resid), 0.0)
+    return (x32 + a).to(dtype)
 
 
 @dataclass(frozen=True)
@@ -76,12 +143,17 @@ class EncoderBlock(nn.Module):
         self.ln2 = LayerNormParams(d)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, p: float = 0.0,
-                seeds=(0, 0, 0, 0)) -> torch.Tensor:
+                seeds=(0, 0, 0, 0), attention=None) -> torch.Tensor:
         """``seeds``: (attention probabilities, attention output, FFN hidden,
-        FFN output) at dropout rate ``p``."""
-        x = attention_sublayer(
-            x, mask, self.ln1.scale, self.ln1.bias, self.qkv.w, self.qkv.b,
-            self.out.w, self.out.b, self.h, p, p, seeds[:2])
+        FFN output) at dropout rate ``p``; ``attention`` that of
+        ``encoder_form``: None for the B1 sublayer, else the split block's
+        bare attention."""
+        args = (x, mask, self.ln1.scale, self.ln1.bias, self.qkv.w,
+                self.qkv.b, self.out.w, self.out.b, self.h, p, p, seeds[:2])
+        if attention is None:
+            x = attention_sublayer(*args)
+        else:
+            x = split_attention_sublayer(*args, attention=attention)
         return ffn_sublayer(
             x, self.ln2.scale, self.ln2.bias, self.ff1.w, self.ff1.b,
             self.ff2.w, self.ff2.b, p, p, seeds[2:])
@@ -115,6 +187,7 @@ class Transformer(nn.Module):
         the generator on the host."""
         if self.pe is not None:
             x = self.pe(x, mask, indices)
+        attention = encoder_form(x.shape[1], x.device.type)
         x = x.contiguous()
         n = len(self.layers)
         p = float(self.tdef.dropout)
@@ -124,5 +197,5 @@ class Transformer(nn.Module):
         else:
             p, seeds = 0.0, [0] * (4 * n)
         for i, block in enumerate(self.layers):
-            x = block(x, mask, p, tuple(seeds[4 * i:4 * i + 4]))
+            x = block(x, mask, p, tuple(seeds[4 * i:4 * i + 4]), attention)
         return std_layer_norm(x, self.final_ln.scale, self.final_ln.bias)

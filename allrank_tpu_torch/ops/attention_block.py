@@ -32,7 +32,12 @@ from allrank_tpu_torch.constants import NEG_INF_FILL
 from allrank_tpu_torch.models.core import std_layer_norm
 from allrank_tpu_torch.ops import _build, dropout
 
-# the kernels' envelope, the JAX kernels' own (models/transformer.py there)
+# the port's envelope of the sublayer kernels B1 and B2: d_model <= 256
+# (the JAX package's MEGA_SUBLAYER_MAX_WIDTH) and, for B1, L <= 1024. JAX
+# dispatches its sublayer kernel only up to L=768 (MEGA_SUBLAYER_MAX_LEN,
+# a VMEM bound, models/transformer.py:120 there); 1024 is this port's own,
+# and the encoder takes longer slates through the split block
+# (models/transformer.py)
 MAX_WIDTH = 256
 MAX_LEN = 1024
 DTYPES = (torch.float32, torch.bfloat16)
@@ -46,9 +51,9 @@ _SIGNATURES = {
 }
 
 
-def check_envelope(b: int, l: int, d: int, dtype, h: int = 1) -> None:
-    """Raises ``NotImplementedError`` naming the limit the kernels do not
-    cover."""
+def check_width(b: int, d: int, dtype, h: int = 1) -> None:
+    """The envelope both sublayer kernels share: dtype, d_model, heads and
+    a non-empty batch; raises ``NotImplementedError`` naming the limit."""
     if dtype not in DTYPES:
         raise NotImplementedError(
             f"sublayer kernels take float32 or bfloat16 x, got {dtype}")
@@ -58,11 +63,17 @@ def check_envelope(b: int, l: int, d: int, dtype, h: int = 1) -> None:
     if h < 1 or d % h:
         raise NotImplementedError(
             f"d_model {d} must be a positive multiple of h {h}")
+    if b < 1:
+        raise NotImplementedError(f"empty batch (B={b})")
+
+
+def check_envelope(b: int, l: int, d: int, dtype, h: int = 1) -> None:
+    """B1's envelope: ``check_width`` and 1 <= L <= 1024. Raises
+    ``NotImplementedError`` naming the limit the kernel does not cover."""
+    check_width(b, d, dtype, h)
     if not 1 <= l <= MAX_LEN:
         raise NotImplementedError(
             f"sublayer kernels cover 1 <= L <= {MAX_LEN}, got {l}")
-    if b < 1:
-        raise NotImplementedError(f"empty batch (B={b})")
 
 
 def splits(m: int, k: int, n: int) -> int:

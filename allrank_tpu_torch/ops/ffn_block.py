@@ -23,12 +23,15 @@ import torch
 from allrank_tpu_torch.models.core import std_layer_norm
 from allrank_tpu_torch.ops import _build, dropout
 from allrank_tpu_torch.ops.attention_block import (
-    check_envelope,
+    check_width,
     ln_backward,
     splits,
 )
 
 MAX_FF = 1024
+# the kernel works row by row on the M = B * L rows, at any L; its widest
+# index, row * d_ff into the hidden state and its dropout mask, stays an int
+MAX_HIDDEN = 2 ** 31
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -113,12 +116,16 @@ def _check(x, params):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, L, d], got {tuple(x.shape)}")
     b, l, d = x.shape
-    check_envelope(b, l, d, x.dtype)
+    check_width(b, d, x.dtype)
     w1 = params[2]
     d_ff = w1.shape[-1] if w1.dim() == 2 else -1
     if not 1 <= d_ff <= MAX_FF:
         raise NotImplementedError(
             f"FFN kernel covers d_ff <= {MAX_FF}, got {d_ff}")
+    if l < 1 or b * l * d_ff >= MAX_HIDDEN:
+        raise NotImplementedError(
+            f"FFN kernel covers L >= 1 and B * L * d_ff < 2**31, got "
+            f"B={b}, L={l}, d_ff={d_ff}")
     dev = x.device
     _build.require(x, "x", (b, l, d), x.dtype, dev)
     for name, t, shape in zip(("ln_scale", "ln_bias", "w1", "b1", "w2", "b2"),

@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the seven kernel sources of
+1. the card, torch and CUDA versions; builds the nine kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took; turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
@@ -102,7 +102,29 @@ and never prints its last line):
     plain versions and the torch-op chains (backward by autograd); the
     approxNDCG train step and the long-slate step with their idle share
     and device time by kernel;
-21. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+21. the bare attention kernels B4 (exact softmax, two passes) and B5
+    (K-streamed online softmax), forward and backward, against their plain
+    versions: B4 at (B, h, L, d_k) = (4, 4, 1200, 32) and (2, 2, 1100, 72),
+    B5 at (2, 4, 4096, 32) and (1, 4, 8192, 32), fp32 and bf16, dropout 0
+    and 0.3, a fully padded slate; and the split attention block (PyTorch
+    ops around B4 or B5) against the B1 sublayer at (64, 240) and
+    (16, 1024), dropout 0.3, the same seeds;
+22. long-slate serving: the paper config's model (no positional encoding)
+    through ``make_scorer`` at B=4, L=8192, fp32 and bf16, ragged lengths
+    and an empty slate, against its plain forward on the card; 4 launches
+    each of B5 and B2 forward per call, none of B1 or B4; one 7,000-document
+    request through ``SlateScoringService`` at ``slate_length=8192``;
+23. long-slate training, the paper config through ``make_train_step``:
+    10 steps at (B, L) = (8, 4096) with a 400-document tail (B5 and B2
+    4 + 4 launches per step, B6 1 + 1) and at (16, 1200) with a
+    120-document tail (B4 4 + 4); losses finite and falling; step 1 at
+    dropout 0 in fp32 at B=2, L=4096 and B=4, L=1200 against the CPU;
+24. times: B4 and B5 forward and backward at (8, 4, 1200, 32),
+    (8, 4, 4096, 32) and (16, 4, 1024, 32), each with its bound, its plain
+    version and ``scaled_dot_product_attention`` (backward by autograd); at
+    (16, 1024) the B1 sublayer beside the split block with B4 and with B5;
+    both long steps with their idle share and device time by kernel;
+25. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -161,6 +183,12 @@ B3_GRAD_RTOL, B3_GRAD_ATOL = 1e-4, 1e-5
 # largest value plus 1e-5 of the largest gradient of all (a gradient that
 # is zero in exact arithmetic, the output bias, is fp32 noise)
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
+# the long-slate step 1: FFN hidden units per block whose ReLU gate may flip
+# between GPU and CPU (1.6 % of the paper config's d_ff = 512); a unit
+# flips where a pre-activation lies within fp32 rounding of 0, two or three
+# in all four blocks at some 5,000-7,000 rows, more with more rows; a fault
+# upstream of the FFN moves every pre-activation and flips far more
+GATE_FLIPS_MAX = 8
 # flagship scores, GPU kernels vs the CPU plain run, fp32 through 4 blocks
 SCORE_TOL = 1e-3
 # flagship scores, bf16 vs fp32 on the GPU: bf16 keeps 8 mantissa bits and
@@ -369,32 +397,87 @@ def make_step(cfg, model, dtype, optimizer_name=None, lr=None, loss=None):
                            generator=torch.Generator().manual_seed(1))
 
 
-def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None) -> tuple:
+def ffn_gates(model, batch, run):
+    """Runs ``run()`` with every FFN sublayer call of ``model``'s encoder
+    recorded: returns (run's result, per block the [d_ff] bool of hidden
+    units whose ReLU gate is open at some valid document)."""
+    import allrank_tpu_torch.models.transformer as transformer
+    from allrank_tpu_torch.models.core import std_layer_norm
+
+    valid = (batch[1] != -1.0).reshape(-1).cpu()
+    gates, inner = [], transformer.ffn_sublayer
+
+    def record(x, ln_scale, ln_bias, w1, b1, *rest):
+        with torch.no_grad():
+            pre = std_layer_norm(x.float(), ln_scale, ln_bias) @ w1 + b1
+            gates.append((pre.reshape(-1, pre.shape[-1]) > 0).cpu()[valid])
+        return inner(x, ln_scale, ln_bias, w1, b1, *rest)
+
+    transformer.ffn_sublayer = record
+    try:
+        out = run()
+    finally:
+        transformer.ffn_sublayer = inner
+    return out, gates
+
+
+def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None,
+                        gate_flips=False) -> tuple:
     """Step 1 in fp32 with SGD at rate 0 on ``gpu_model`` and on its copy on
     the CPU (the plain versions): asserts the loss (relative
     ``STEP_LOSS_RTOL``) and every gradient (``STEP_GRAD_TOL`` of its
     tensor's largest value plus 1e-5 of the largest gradient of all);
     returns (GPU loss, CPU loss, the worst gradient error as a share of its
-    tolerance)."""
+    tolerance).
+
+    With ``gate_flips`` it also returns, per block, the number of FFN
+    hidden units whose ReLU gate differs between the two runs at some valid
+    document (pre-activations within fp32 rounding of 0), and holds the FFN
+    weights of those units (columns of W1 and b1, rows of W2) out of the
+    rule: a gradient is not continuous there. At most ``GATE_FLIPS_MAX``
+    units of a block may flip; the rest of every gradient, and every other
+    gradient whole, stays under the rule."""
     cpu_model = copy.deepcopy(gpu_model).to("cpu")
-    results = []
+    results, gates = [], []
     for m, b in ((gpu_model, batch), (cpu_model, [t.cpu() for t in batch])):
         step = make_step(cfg, m, "float32", optimizer_name="SGD", lr=0.0,
                          loss=loss)
-        value, _ = step(*b)
+        if gate_flips:
+            (value, _), g = ffn_gates(m, b, lambda: step(*b))
+            gates.append(g)
+        else:
+            value, _ = step(*b)
         results.append((value.item(), {n: p.grad.float().cpu()
                                        for n, p in m.named_parameters()}))
     (gl, gg), (cl, cg) = results
     assert math.isfinite(gl) and abs(gl - cl) <= STEP_LOSS_RTOL * abs(cl), (
         loss, gl, cl)
+    keep = {}
+    if gate_flips:
+        for i, (a, c) in enumerate(zip(*gates)):
+            same = ~(a != c).any(dim=0)
+            pre = f"transformer.layers.{i}."
+            keep[pre + "ff1.w"] = same[None, :].expand_as(cg[pre + "ff1.w"])
+            keep[pre + "ff1.b"] = same
+            keep[pre + "ff2.w"] = same[:, None].expand_as(cg[pre + "ff2.w"])
     top = max(v.abs().max().item() for v in cg.values())
     worst = 0.0
     for name, ref in cg.items():
         assert torch.isfinite(gg[name]).all(), (loss, name)
-        err, scale = rel_err(gg[name], ref)
+        got = gg[name]
+        if name in keep:
+            got, ref = got[keep[name]], ref[keep[name]]
+        err, scale = rel_err(got, ref)
         allowed = STEP_GRAD_TOL * scale + 1e-5 * top
         assert err <= allowed, (loss, name, err, scale)
         worst = max(worst, err / allowed)
+    if gate_flips:
+        flips = [int((~keep[f"transformer.layers.{i}.ff1.b"]).sum().item())
+                 for i in range(len(gates[0]))]
+        assert max(flips) <= GATE_FLIPS_MAX, (
+            f"FFN units with a ReLU gate flipped between GPU and CPU, per "
+            f"block: {flips} (at most {GATE_FLIPS_MAX})")
+        return gl, cl, worst, flips
     return gl, cl, worst
 
 
@@ -474,6 +557,80 @@ def graph_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
     return median_ms(graph.replay, iters=20, warmup=3) / calls
+
+
+def qkv_inputs(gen, b, h, l, dk, dtype, dev, empty=True):
+    """q, k, v and an output cotangent [B, h, L, d_k], and the padding mask:
+    slate 0 full, the others ragged, the last fully padded if ``empty``."""
+    q, k, v, do = (torch.randn(b, h, l, dk, generator=gen).to(dtype).to(dev)
+                   for _ in range(4))
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0] = l
+    if empty and b > 1:
+        lengths[-1] = 0
+    return q, k, v, (torch.arange(l)[None, :] >= lengths[:, None]).to(dev), do
+
+
+def attention_work(b, h, l, dk, dtype, backward: bool) -> tuple:
+    """(operations, bytes) of bare attention on [B, h, L, d_k]: forward
+    4 B h L^2 d_k (q . k^T and P . v), backward 10 B h L^2 d_k (S and dP
+    rebuilt, dV, dQ, dK); q, k, v and the mask read, out written, or in
+    the backward q, k, v, dO, out, the row statistics and the mask read
+    and dq, dk, dv written."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    t = b * h * l * dk * esz
+    flops = (10 if backward else 4) * b * h * l * l * dk
+    moved = (7 * t + b * h * l * 8 if backward else 4 * t) + b * l
+    return flops, moved
+
+
+def sdpa_library(q, k, v, mask, do):
+    """``scaled_dot_product_attention`` with the additive key mask (-1e9 at
+    padded keys), a yardstick only: returns (forward, backward by autograd)
+    as functions that run it once."""
+    mask_add = torch.zeros(q.shape[0], 1, 1, q.shape[2], dtype=q.dtype,
+                           device=q.device).masked_fill(
+        mask[:, None, None, :], -1e9)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_add)
+    return (lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=mask_add),
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+
+
+def plain_scores(model, x, lengths, dtype):
+    """The model's scores on the card with every kernel replaced by its
+    plain version (called directly; the wrappers take them on the CPU
+    only): the reference of the long-slate scorer."""
+    from allrank_tpu_torch.models.core import get_activation, std_layer_norm
+    from allrank_tpu_torch.models.transformer import split_attention_sublayer
+    from allrank_tpu_torch.ops.attention_tiled import (
+        tiled_attention_fwd_plain,
+    )
+    from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd_plain
+
+    def tiled(q, k, v, m, p, seed):
+        return tiled_attention_fwd_plain(q, k, v, m, p, seed)[0]
+
+    with torch.inference_mode():
+        x = torch.as_tensor(x, device=lengths.device)
+        mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                >= lengths[:, None])
+        hid = model.fc(x.to(dtype))
+        enc = model.transformer
+        assert enc.pe is None
+        for blk in enc.layers:
+            hid = split_attention_sublayer(
+                hid, mask, blk.ln1.scale, blk.ln1.bias, blk.qkv.w, blk.qkv.b,
+                blk.out.w, blk.out.b, blk.h, attention=tiled)
+            hid = ffn_sublayer_fwd_plain(hid, blk.ln2.scale, blk.ln2.bias,
+                                         blk.ff1.w, blk.ff1.b, blk.ff2.w,
+                                         blk.ff2.b)
+        hid = std_layer_norm(hid, enc.final_ln.scale, enc.final_ln.bias)
+        out = model.output(hid.float()).squeeze(2)
+        out = get_activation(model.mdef.output.output_activation)(out)
+        return torch.where(mask, float("-inf"), out.float())
+
 
 
 def chain_work(pair_args, kw, ops_per_pair: int, backward: bool) -> tuple:
@@ -741,6 +898,18 @@ def main() -> int:
         attention_sublayer_fwd,
         attention_sublayer_fwd_plain,
     )
+    from allrank_tpu_torch.ops.attention_fused import (
+        attention_fused_bwd,
+        attention_fused_bwd_plain,
+        attention_fused_fwd,
+        attention_fused_fwd_plain,
+    )
+    from allrank_tpu_torch.ops.attention_tiled import (
+        tiled_attention_bwd,
+        tiled_attention_bwd_plain,
+        tiled_attention_fwd,
+        tiled_attention_fwd_plain,
+    )
     from allrank_tpu_torch.ops.ffn_block import (
         ffn_sublayer_bwd,
         ffn_sublayer_bwd_plain,
@@ -778,16 +947,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name_power = card()
     tag = f"[{name_power}]"
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
 
     # -- 1: card, versions, build --------------------------------------------
     print(f"card: {name_power}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
-               "neuralsort", "approx_pos", "lambda_tiled"]
+               "neuralsort", "approx_pos", "lambda_tiled", "attention_fused",
+               "attention_tiled"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the seven "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the nine "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
@@ -1760,7 +1930,324 @@ def main() -> int:
               f"{us[0]:.1f} us against {us[1]:.1f} us, backward {us[2]:.1f} "
               f"us against {us[3]:.1f} us {tag}")
 
-    # -- 21: the record -------------------------------------------------------
+    # -- 21: B4 and B5 against their plain versions -----------------------------
+    from allrank_tpu_torch.models.transformer import split_attention_sublayer
+    from allrank_tpu_torch.ops.attention_block import attention_sublayer
+    from allrank_tpu_torch.ops.attention_fused import fused_slate_attention
+    from allrank_tpu_torch.ops.attention_tiled import tiled_slate_attention
+
+    def attention_pair(kind, args, p, seed):
+        """One kernel forward and backward against the plain versions on
+        the same inputs; returns (max abs err of out, of the gradients)."""
+        q, k, v, mask, do = args
+        dtype = q.dtype
+        if kind == "fused":
+            fwd, bwd = attention_fused_fwd, attention_fused_bwd
+            before = (fwd.launches, bwd.launches)
+            out, stats = fwd(q, k, v, mask, p, seed, return_saved=True)
+            grads = bwd(q, k, v, mask, do, p, seed, stats=stats)
+            torch.cuda.synchronize()
+            ref = attention_fused_fwd_plain(q, k, v, mask, p, seed)
+            ref_grads = attention_fused_bwd_plain(q, k, v, mask, do, p, seed)
+        else:
+            fwd, bwd = tiled_attention_fwd, tiled_attention_bwd
+            before = (fwd.launches, bwd.launches)
+            out, lse = fwd(q, k, v, mask, p, seed, return_saved=True)
+            grads = bwd(q, k, v, mask, out, lse, do, p, seed)
+            torch.cuda.synchronize()
+            ref, ref_lse = tiled_attention_fwd_plain(q, k, v, mask, p, seed)
+            torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+            ref_grads = tiled_attention_bwd_plain(q, k, v, mask, out, lse, do,
+                                                  p, seed)
+        assert (fwd.launches, bwd.launches) == (before[0] + 1,
+                                                before[1] + 1), kind
+        assert torch.isfinite(out.float()).all(), kind
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **KERNEL_TOL[dtype])
+        rtol, atol = BWD_TOL[dtype]
+        g_err = 0.0
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+            assert torch.isfinite(g.float()).all(), (kind, name)
+            err, scale = rel_err(g, r)
+            assert err <= rtol * scale + atol, (
+                f"{kind} {name} {tuple(q.shape)} {dtype} p={p}: {err} > "
+                f"{rtol} x {scale} + {atol}")
+            g_err = max(g_err, err)
+        return rel_err(out, ref)[0], g_err
+
+    # each kernel at the shape its own main path gives it (phase 23's train
+    # steps: B4 at B=16, L=1200 and B5 at B=8, L=4096, the paper config's
+    # h=4, d_k=32), at d_k=72 and at L=8192; the plain versions materialise
+    # [B, h, L, L] and its int64 mask index (their peak is printed)
+    attn_errs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for kind, shapes in (("fused", ((16, 4, 1200, 32), (2, 2, 1100, 72))),
+                         ("tiled", ((8, 4, 4096, 32), (1, 4, 8192, 32)))):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                for p in (0.0, 0.3):
+                    args = qkv_inputs(gen, *shape, dtype, dev)
+                    errs_fb = attention_pair(kind, args, p, 303)
+                    attn_errs[(kind, shape, dtype, p)] = errs_fb
+                    print(f"{'B4' if kind == 'fused' else 'B5'} vs plain "
+                          f"(B, h, L, d_k)={shape} {dtype} p={p}: max_abs_err "
+                          f"out {errs_fb[0]:.3e}, grads {errs_fb[1]:.3e} (tol "
+                          f"{KERNEL_TOL[dtype]}; grads {BWD_TOL[dtype][0]:g} x "
+                          f"max|ref|)")
+                    del args
+            torch.cuda.empty_cache()
+    print(f"B4/B5 vs plain: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB {tag}")
+    # the split block with B4 and with B5 against the B1 sublayer on the
+    # same inputs and seeds, p = 0.3, forward and every gradient (slates
+    # with a valid document: a fully padded slate is covered above)
+    for b, l in ((B, L), (LONG_B, LONG_L)):
+        args = attn_inputs(gen, b, l, 128, torch.float32, dev)
+        args[1][0] = torch.arange(l, device=dev) >= l // 2
+        dy = torch.randn(b, l, 128, generator=gen).to(dev)
+        runs = {}
+        for form, fn in (
+                ("B1", attention_sublayer),
+                ("B4", lambda *a: split_attention_sublayer(
+                    *a, attention=fused_slate_attention)),
+                ("B5", lambda *a: split_attention_sublayer(
+                    *a, attention=tiled_slate_attention))):
+            leaves = [t.detach().clone().requires_grad_() if t.is_floating_point()
+                      else t for t in args]
+            y = fn(*leaves, 4, 0.3, 0.3, (41, 42))
+            grads = torch.autograd.grad(
+                y, [t for t in leaves if t.requires_grad], dy)
+            runs[form] = (y.detach(), grads)
+        y1, g1 = runs["B1"]
+        for form in ("B4", "B5"):
+            y, g = runs[form]
+            torch.testing.assert_close(y, y1, **KERNEL_TOL[torch.float32])
+            worst = 0.0
+            for i, (a, r) in enumerate(zip(g, g1)):
+                err, scale = rel_err(a, r)
+                assert err <= BWD_TOL[torch.float32][0] * scale + 1e-6, (
+                    form, b, l, i, err, scale)
+                worst = max(worst, err / (scale + 1e-6))
+            print(f"split block with {form} vs the B1 sublayer B={b} L={l} "
+                  f"d=128 h=4 p=0.3, same seeds: max_abs_err y "
+                  f"{rel_err(y, y1)[0]:.3e}, worst gradient {worst:.2e} of "
+                  f"its tensor's max|ref|")
+    print("phase 21 ok: B4 and B5 match their plain versions forward and "
+          "backward, and the split block matches the B1 sublayer")
+
+    # -- 22: long-slate serving ------------------------------------------------
+    serve_b, serve_l = 4, 8192
+    attn_kernels = (attention_sublayer_fwd, attention_fused_fwd,
+                    tiled_attention_fwd, ffn_sublayer_fwd,
+                    attention_sublayer_bwd, attention_fused_bwd,
+                    tiled_attention_bwd, ffn_sublayer_bwd, lambda_pairs_fwd,
+                    lambda_pairs_bwd, lambda_tiled_fwd, lambda_tiled_bwd)
+
+    def long_counts():
+        return {k.__name__: k.launches for k in attn_kernels}
+
+    def reset_long():
+        for k in attn_kernels:
+            k.launches = 0
+
+    _, smodel = paper_setup(dev, dropout=0.0)
+    rng22 = np.random.RandomState(22)
+    x22 = rng22.randn(serve_b, serve_l, N_FEATURES).astype(np.float32)
+    len22 = np.array([serve_l, 5000, 0, 1])
+    len22_dev = torch.as_tensor(len22, device=dev)
+    pad22 = np.arange(serve_l)[None, :] >= len22[:, None]
+    serve_launches = {}
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        scorer = make_scorer(smodel, dtype)
+        scorer(x22, len22)
+        reset_long()
+        got = scorer(x22, len22)
+        torch.cuda.synchronize()
+        serve_launches[label] = {k: v for k, v in long_counts().items() if v}
+        assert serve_launches[label] == {"tiled_attention_fwd": 4,
+                                         "ffn_sublayer_fwd": 4}, (
+            label, serve_launches[label])
+        got = got.cpu().numpy()
+        ref = plain_scores(smodel, torch.as_tensor(x22, device=dev),
+                           len22_dev, dtype).cpu().numpy()
+        assert got.shape == (serve_b, serve_l) and not np.isnan(got).any()
+        assert np.isneginf(got[pad22]).all() and np.isfinite(got[~pad22]).all()
+        err = float(np.abs(got[~pad22] - ref[~pad22]).max())
+        tol = (SCORE_TOL if dtype == torch.float32 else
+               BF16_SCORE_TOL * float(np.abs(ref[~pad22]).max()))
+        assert err <= tol, f"{label} long scores vs plain: {err} > {tol}"
+        print(f"long-slate scorer, paper-config model (no positional "
+              f"encoding), B={serve_b} L={serve_l} {label}, lengths "
+              f"{len22.tolist()}: max_abs_err vs the plain forward on the card "
+              f"{err:.3e} (tol {tol:.3e}); launches {serve_launches[label]}")
+    service = SlateScoringService(smodel, serve_l, N_FEATURES, batch_size=4,
+                                  max_wait_ms=5, compute_dtype="float32",
+                                  batch_buckets=(1, 4))
+    try:
+        one = rng22.randn(7000, N_FEATURES).astype(np.float32)
+        got = service.score(one, timeout=120)
+        xb = np.zeros((1, serve_l, N_FEATURES), dtype=np.float32)
+        xb[0, :7000] = one
+        direct = make_scorer(smodel, "float32")(xb, [7000]).cpu().numpy()
+        assert got.shape == (7000,) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, direct[0, :7000], rtol=1e-4,
+                                   atol=1e-4)
+    finally:
+        service.close()
+    print(f"service with slate_length={serve_l}: one 7000-document request "
+          f"answered, equal to the direct scorer")
+    print("phase 22 ok: the scorer serves B=4 slates of L=8192 through B5")
+
+    # -- 23: long-slate training -------------------------------------------------
+    long_runs = {}
+    for b, l, tail, attn in ((8, 4096, 400, "tiled_attention"),
+                             (16, 1200, 120, "attention_fused")):
+        tcfg, tmodel = paper_setup(dev)
+        batch = train_batch(dev, seed=23, b=b, l=l, tail=tail)
+        tstep = make_step(tcfg, tmodel, tcfg.training.compute_dtype)
+        want = {f"{attn}_fwd": 4, f"{attn}_bwd": 4, "ffn_sublayer_fwd": 4,
+                "ffn_sublayer_bwd": 4, "lambda_tiled_fwd": 1,
+                "lambda_tiled_bwd": 1}
+        reset_long()
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(10):
+            before = long_counts()
+            loss, n_real = tstep(*batch)
+            losses.append(loss.item())
+            got = {k: v - before[k] for k, v in long_counts().items()
+                   if v - before[k]}
+            assert got == want, f"B={b} L={l} step {i} launches {got}"
+            assert math.isfinite(losses[-1]), f"step {i} loss {losses[-1]}"
+        seconds = time.perf_counter() - t0
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        assert last < first, f"B={b} L={l} loss did not fall: {first} -> {last}"
+        long_runs[(b, l)] = (long_counts(), tstep, batch)
+        print(f"long-slate train step, paper config (dropout 0.3, bf16, Adam "
+              f"1e-3, lambdaLoss ndcgLoss2PP), B={b} L={l}, {tail}-doc "
+              f"padding tail: 10 steps in {seconds:.1f} s, loss mean of the "
+              f"first 3 {first:.3f}, of the last 3 {last:.3f}; launches "
+              f"{ {k: v for k, v in long_counts().items() if v} }")
+    for b, l, tail in ((2, 4096, 400), (16, 1200, 120)):
+        t0 = time.perf_counter()
+        gl, cl, worst, flips = step_one_gpu_vs_cpu(
+            lcfg, paper_setup(dev, dropout=0.0)[1],
+            train_batch(dev, seed=24, b=b, l=l, tail=tail), gate_flips=True)
+        print(f"long-slate train step 1 at dropout 0, fp32, B={b} L={l}, GPU "
+              f"vs CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
+              f"{worst:.3f} of its tolerance, FFN units with a ReLU gate "
+              f"flipped between the two held out per block {flips} (at most "
+              f"{GATE_FLIPS_MAX}) "
+              f"({time.perf_counter() - t0:.1f} s)")
+    print("phase 23 ok: the paper config trains at L=4096 through B5 and at "
+          "L=1200 through B4, and matches the CPU")
+
+    # -- 24: times of B4 and B5, and the long steps -----------------------------
+    attn_rows = {}
+    for b, h, l, dk in ((8, 4, 1200, 32), (8, 4, 4096, 32),
+                        (LONG_B, 4, LONG_L, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, do = qkv_inputs(gen, b, h, l, dk, dtype, dev,
+                                           empty=False)
+            _, stats = attention_fused_fwd(q, k, v, mask, return_saved=True)
+            out5, lse = tiled_attention_fwd(q, k, v, mask, return_saved=True)
+            lib = sdpa_library(q, k, v, mask, do)
+            fns = {
+                "attention_fused_fwd": (
+                    lambda: attention_fused_fwd(q, k, v, mask),
+                    lambda: attention_fused_fwd_plain(q, k, v, mask), lib[0]),
+                "attention_fused_bwd": (
+                    lambda: attention_fused_bwd(q, k, v, mask, do,
+                                                stats=stats),
+                    lambda: attention_fused_bwd_plain(q, k, v, mask, do),
+                    lib[1]),
+                "tiled_attention_fwd": (
+                    lambda: tiled_attention_fwd(q, k, v, mask),
+                    lambda: tiled_attention_fwd_plain(q, k, v, mask), lib[0]),
+                "tiled_attention_bwd": (
+                    lambda: tiled_attention_bwd(q, k, v, mask, out5, lse, do),
+                    lambda: tiled_attention_bwd_plain(q, k, v, mask, out5,
+                                                      lse, do), lib[1])}
+            for name, (kfn, pfn, lfn) in fns.items():
+                iters = 10 if l > 2000 else 20
+                ms, plain_ms, lib_ms = (median_ms(fn, iters=iters, warmup=2)
+                                        for fn in (kfn, pfn, lfn))
+                flops, moved = attention_work(b, h, l, dk, dtype,
+                                              name.endswith("bwd"))
+                bound_ms, bound_by = bound(flops, moved, dtype)
+                key = (name, b, l, dtype)
+                attn_rows[key] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, gflop=flops / 1e9,
+                                      mbytes=moved / 1e6)
+                print(f"time {name} {dtype} (B, h, L, d_k)=({b}, {h}, {l}, "
+                      f"{dk}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"library (scaled_dot_product_attention"
+                      f"{', autograd' if name.endswith('bwd') else ''}) "
+                      f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                      f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB; "
+                      f"{b * h * l * l:.3e} exps) {tag}")
+            del q, k, v, do, stats, out5, lse, lib, fns
+            torch.cuda.empty_cache()
+    # inside B1's envelope: the whole attention sublayer three ways, the
+    # data of a later threshold between B1 and the split block
+    args = attn_inputs(gen, LONG_B, LONG_L, 128, torch.float32, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        a_args = [args[0].to(dtype)] + args[1:]
+        dy = torch.randn(LONG_B, LONG_L, 128, generator=gen).to(dtype).to(dev)
+        leaves = [t.detach().clone().requires_grad_() if t.is_floating_point()
+                  else t for t in a_args]
+        timings = []
+        for form, fn in (
+                ("B1 sublayer", attention_sublayer),
+                ("split block with B4", lambda *a: split_attention_sublayer(
+                    *a, attention=fused_slate_attention)),
+                ("split block with B5", lambda *a: split_attention_sublayer(
+                    *a, attention=tiled_slate_attention))):
+            with torch.no_grad():
+                f_ms = median_ms(lambda: fn(*a_args, 4, 0.0, 0.0, (0, 0)),
+                                 iters=20, warmup=3)
+
+            def fwd_bwd():
+                y = fn(*leaves, 4, 0.0, 0.0, (0, 0))
+                torch.autograd.grad(y, [t for t in leaves if t.requires_grad],
+                                    dy)
+
+            fb_ms = median_ms(fwd_bwd, iters=10, warmup=2)
+            timings.append((form, f_ms, fb_ms))
+        print(f"time attention sublayer {dtype} B={LONG_B} L={LONG_L} d=128 "
+              f"h=4, forward / forward and backward: "
+              + "; ".join(f"{form} {f:.4f} / {fb:.4f} ms"
+                          for form, f, fb in timings) + f" {tag}")
+    for (b, l), (_, tstep, batch) in long_runs.items():
+        label = f"long-slate paper config (dropout 0.3, bf16) B={b} L={l}"
+        ms = median_ms(lambda: tstep(*batch), iters=5, warmup=2)
+        step_ms[label] = ms
+        print(f"time train step {label}: {ms:.4f} ms per step, "
+              f"{b / ms * 1e3:.1f} slates/s {tag}")
+        profile_calls(lambda: tstep(*batch), f"train step {label} {tag}",
+                      also=("fused_fwd", "tiled_fwd", "attn_bwd", "tiled_"))
+    for name in ("attention_fused_fwd", "attention_fused_bwd",
+                 "tiled_attention_fwd", "tiled_attention_bwd"):
+        kind = "fused" if "fused" in name else "tiled"
+        b, l = (8, 1200) if kind == "fused" else (8, 4096)
+        shape = ((16, 4, 1200, 32) if kind == "fused" else (8, 4, 4096, 32))
+        row = {"name": name, "route": "cuda"}
+        for dtype in (torch.float32, torch.bfloat16):
+            sfx = "" if dtype == torch.float32 else "_bf16"
+            row[f"max_abs_err{sfx}"] = max(
+                attn_errs[(kind, shape, dtype, p)][name.endswith("bwd")]
+                for p in (0.0, 0.3))
+            for key, value in attn_rows[(name, b, l, dtype)].items():
+                row[f"{key}{sfx}"] = value
+            for ob, ol in ((8, 4096 if kind == "fused" else 1200),
+                           (LONG_B, LONG_L)):
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    row[f"{key}{sfx}_b{ob}_l{ol}"] = attn_rows[
+                        (name, ob, ol, dtype)][key]
+        rows.append(row)
+
+    # -- 25: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -1789,7 +2276,15 @@ def main() -> int:
         "lambda_tiled_fwd": ("allrank_tpu_torch/csrc/lambda_tiled.cu",
                              "allrank_tpu/ops/lambda_tiled.py:237"),
         "lambda_tiled_bwd": ("allrank_tpu_torch/csrc/lambda_tiled.cu",
-                             "allrank_tpu/ops/lambda_tiled.py:261")}
+                             "allrank_tpu/ops/lambda_tiled.py:261"),
+        "attention_fused_fwd": ("allrank_tpu_torch/csrc/attention_fused.cu",
+                                "allrank_tpu/ops/attention_pallas.py:179"),
+        "attention_fused_bwd": ("allrank_tpu_torch/csrc/attention_fused.cu",
+                                "allrank_tpu/ops/attention_pallas.py:206"),
+        "tiled_attention_fwd": ("allrank_tpu_torch/csrc/attention_tiled.cu",
+                                "allrank_tpu/ops/attention_tiled.py:228"),
+        "tiled_attention_bwd": ("allrank_tpu_torch/csrc/attention_tiled.cu",
+                                "allrank_tpu/ops/attention_tiled.py:265")}
     # each kernel's own main path: serving (phase 5) for the sublayer
     # forwards, the train step (phase 9) for their backwards and the pair
     # chain, the CLI's NeuralNDCG run (phase 13) for the fused soft-sort, its
@@ -1807,23 +2302,29 @@ def main() -> int:
                 recipe_launches["approxndcg"]["approx_pos_bwd"],
                 "lambda_tiled_fwd": long_launches["lambda_tiled_fwd"],
                 "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
+    # B4 and B5: their own long-slate steps (phase 23)
+    for (b, l), (got, _, _) in long_runs.items():
+        for name, n in got.items():
+            if n and ("attention_fused" in name or "tiled_attention" in name):
+                launches[name] = n
     for row in rows:
         name = row["name"]
         row["source"], row["replaces"] = origin[name]
         row["launches"] = launches[name]
         row["train_launches"] = train_launches.get(name, 0)
-        row["cli_launches"] = (cli_launches[name] + paper_launches[name]
-                               + sum(r[name]
+        row["cli_launches"] = (cli_launches.get(name, 0)
+                               + paper_launches.get(name, 0)
+                               + sum(r.get(name, 0)
                                      for r in recipe_launches.values()))
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 14
+    assert len(rows) == 18
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(json.dumps({"kernels": rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -25,6 +25,20 @@ from allrank_tpu_torch.ops.attention_block import (
     attention_sublayer_fwd,
     attention_sublayer_fwd_plain,
 )
+from allrank_tpu_torch.ops.attention_fused import (
+    attention_fused_bwd,
+    attention_fused_bwd_plain,
+    attention_fused_fwd,
+    attention_fused_fwd_plain,
+    fused_slate_attention,
+)
+from allrank_tpu_torch.ops.attention_tiled import (
+    tiled_attention_bwd,
+    tiled_attention_bwd_plain,
+    tiled_attention_fwd,
+    tiled_attention_fwd_plain,
+    tiled_slate_attention,
+)
 from allrank_tpu_torch.ops.ffn_block import (
     ffn_sublayer_bwd,
     ffn_sublayer_bwd_plain,
@@ -636,3 +650,133 @@ def test_approx_ndcg_and_long_lambda_loss_match_the_cpu(cuda):
         (gl, gg), (cl, cg) = out
         assert abs(gl - cl) <= 2e-5 * abs(cl) + 1e-6, (gl, cl)
         assert (gg - cg).abs().max() <= 1e-4 * cg.abs().max() + 1e-7
+
+
+def _qkv_inputs(b, h, l, dk, dtype, dev, seed):
+    """q, k, v, a cotangent and the mask: slate 0 full, the others ragged,
+    the last fully padded when there are three or more."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, l, dk, generator=gen).to(dtype).to(dev)
+                   for _ in range(4))
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0] = l
+    if b > 2:
+        lengths[-1] = 0
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(dev)
+    return q, k, v, mask, do
+
+
+def _attention_pair(kind, q, k, v, mask, do, p, seed):
+    """(kernel forward, kernel grads, plain forward, plain grads)."""
+    if kind == "fused":
+        out, stats = attention_fused_fwd(q, k, v, mask, p, seed,
+                                         return_saved=True)
+        grads = attention_fused_bwd(q, k, v, mask, do, p, seed, stats=stats)
+        ref = attention_fused_fwd_plain(q, k, v, mask, p, seed)
+        ref_grads = attention_fused_bwd_plain(q, k, v, mask, do, p, seed)
+        again = attention_fused_bwd(q, k, v, mask, do, p, seed, stats=stats)
+    else:
+        out, lse = tiled_attention_fwd(q, k, v, mask, p, seed,
+                                       return_saved=True)
+        grads = tiled_attention_bwd(q, k, v, mask, out, lse, do, p, seed)
+        ref, ref_lse = tiled_attention_fwd_plain(q, k, v, mask, p, seed)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+        ref_grads = tiled_attention_bwd_plain(q, k, v, mask, out, lse, do, p,
+                                              seed)
+        again = tiled_attention_bwd(q, k, v, mask, out, lse, do, p, seed)
+    # no atomics: a second backward gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    return out, grads, ref, ref_grads
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,l,dk", [(3, 2, 1, 16), (3, 2, 240, 72),
+                                      (3, 2, 1100, 32), (3, 1, 1308, 96),
+                                      (1, 2, 4096, 32)])
+@pytest.mark.parametrize("kind", ["fused", "tiled"])
+def test_attention_kernels_match_plain(cuda, kind, b, h, l, dk, dtype, p):
+    q, k, v, mask, do = _qkv_inputs(b, h, l, dk, dtype, cuda, l + dk)
+    fwd, bwd = ((attention_fused_fwd, attention_fused_bwd) if kind == "fused"
+                else (tiled_attention_fwd, tiled_attention_bwd))
+    before = (fwd.launches, bwd.launches)
+    out, grads, ref, ref_grads = _attention_pair(kind, q, k, v, mask, do, p,
+                                                 77)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert torch.isfinite(g.float()).all(), name
+        _close(g, r, dtype, f"{kind} {name}")
+
+
+@pytest.mark.parametrize("form", [
+    pytest.param(fused_slate_attention, id="fused"),
+    pytest.param(tiled_slate_attention, id="tiled")])
+def test_split_block_matches_the_b1_block(cuda, form):
+    """At L=512, p=0.3 and the same seeds the split block with B4 or B5
+    computes the B1 block's function with its masks: forward and gradients
+    (on slates with a valid document each) within the kernels' tolerances."""
+    from allrank_tpu_torch.models.transformer import (
+        EncoderBlock,
+        TransformerDef,
+    )
+
+    d, h, l = 128, 4, 512
+    block = EncoderBlock(TransformerDef(N=1, d_model=d, d_ff=512, h=h,
+                                        dropout=0.3),
+                         torch.Generator().manual_seed(0)).to(cuda)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, l, d, generator=gen).to(cuda)
+    lengths = torch.tensor([l, 300, 17, 1])
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(cuda)
+    w = torch.randn(4, l, d, generator=gen).to(cuda)
+    seeds = (5, 6, 7, 8)
+    runs = []
+    for f in (None, form):
+        block.zero_grad()
+        xx = x.clone().requires_grad_()
+        y = block(xx, mask, 0.3, seeds, f)
+        (y * w).sum().backward()
+        runs.append([y.detach(), xx.grad]
+                    + [p.grad.clone() for p in block.parameters()])
+    torch.testing.assert_close(runs[1][0], runs[0][0], **TOL[torch.float32])
+    for g, r in zip(runs[1][1:], runs[0][1:]):
+        _close(g, r, torch.float32, f"split block {form.__name__}")
+
+
+def test_long_slate_scorer_launches_the_attention_kernels(cuda):
+    from allrank_tpu_torch.config import (
+        FCConfig,
+        ModelConfig,
+        PostModelConfig,
+        TransformerConfig,
+    )
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.serving import make_scorer
+
+    mdef = make_model(ModelConfig(
+        fc_model=FCConfig(sizes=[32], input_norm=True, activation="ReLU",
+                          dropout=0.0),
+        transformer=TransformerConfig(N=3, d_ff=64, h=2, dropout=0.0,
+                                      positional_encoding=None),
+        post_model=PostModelConfig(d_output=1)), 10)
+    model = LTRModel(mdef, torch.Generator().manual_seed(0), device="cpu")
+    kernels = (attention_sublayer_fwd, attention_fused_fwd,
+               tiled_attention_fwd, ffn_sublayer_fwd)
+    for l, want in ((1100, [0, 3, 0, 3]), (1300, [0, 0, 3, 3])):
+        x = np.random.RandomState(l).randn(3, l, 10).astype(np.float32)
+        lengths = np.array([l, 400, 0])
+        ref = make_scorer(model, device="cpu")(x, lengths).numpy()
+        scorer = make_scorer(model, device=cuda)
+        for kernel in kernels:
+            kernel.launches = 0
+        got = scorer(x, lengths).cpu().numpy()
+        assert [kernel.launches for kernel in kernels] == want
+        valid = ~np.isneginf(ref)
+        assert (np.isneginf(got) == ~valid).all() and not np.isnan(got).any()
+        np.testing.assert_allclose(got[valid], ref[valid], rtol=1e-4,
+                                   atol=1e-4)
+    with pytest.raises(NotImplementedError, match="L <= 8192"):
+        make_scorer(model, device=cuda)(np.zeros((1, 8193, 10), np.float32),
+                                        [5])

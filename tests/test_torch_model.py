@@ -148,8 +148,16 @@ def test_parameter_names_are_the_jax_tree_paths():
 
 def test_encoder_raises_outside_the_kernel_envelope_on_cuda():
     """The envelope is checked before any launch (CPU tensors run the plain
-    versions at any size, so the check is called directly here)."""
+    versions at any size, so the checks are called directly here). B1
+    still refuses L=1025; the encoder sends 1025-8192 to the split block
+    (B4 to 1224, then B5) and refuses 8193 on the GPU; B2 takes any L."""
+    from allrank_tpu_torch.models.transformer import encoder_form
     from allrank_tpu_torch.ops.attention_block import check_envelope
+    from allrank_tpu_torch.ops.attention_fused import (
+        check_envelope as check_attention,
+    )
+    from allrank_tpu_torch.ops.attention_fused import fused_slate_attention
+    from allrank_tpu_torch.ops.attention_tiled import tiled_slate_attention
 
     with pytest.raises(NotImplementedError, match="d_model <= 256"):
         check_envelope(2, 8, 288, torch.float32, 4)
@@ -158,3 +166,13 @@ def test_encoder_raises_outside_the_kernel_envelope_on_cuda():
     with pytest.raises(NotImplementedError, match="float16"):
         check_envelope(2, 8, 128, torch.float16, 4)
     check_envelope(64, 240, 144, torch.bfloat16, 2)  # d_k 72: inside
+    assert [encoder_form(l, "cuda") for l in (1024, 1025, 1224, 1225, 8192)] \
+        == [None, fused_slate_attention, fused_slate_attention,
+            tiled_slate_attention, tiled_slate_attention]
+    with pytest.raises(NotImplementedError, match="L <= 8192"):
+        encoder_form(8193, "cuda")
+    check_attention(8, 4, 8192, 32, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="L <= 8192"):
+        check_attention(1, 4, 8193, 32, torch.float32)
+    with pytest.raises(NotImplementedError, match="d_k <= 128"):
+        check_attention(1, 1, 8, 144, torch.float32)
