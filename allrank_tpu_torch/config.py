@@ -3,16 +3,18 @@
 Same JSON schema as the JAX package's ``config.py`` (and the reference
 allRank's). Parsed here: ``model``, ``data``, ``optimizer``, ``loss``,
 ``lr_scheduler``, ``training``, ``metrics``, ``val_metric``,
-``expected_metrics`` and ``detect_anomaly``, with the JAX package's field
-names and defaults. The sections the port does not use yet (click models,
-the mesh layout) are accepted and ignored.
+``expected_metrics``, ``detect_anomaly``, ``click_model`` and ``parallel``,
+with the JAX package's field names and defaults; an unknown top-level key
+raises ``TypeError``, as there. The click model is parsed and kept (the
+click pipeline is not ported yet); a ``parallel`` layout of more than one
+device is refused by the entry points (``utils.device.require_one_device``).
 """
 
 from __future__ import annotations
 
 import json
 from collections import defaultdict
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, fields
 from typing import Any, Dict, List, Optional
 
 
@@ -94,6 +96,15 @@ class NameArgsConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """The JAX package's mesh layout; the port runs on one device."""
+
+    data: int = -1  # -1: every device the run has
+    model: int = 1
+    sequence: int = 1
+
+
+@dataclass
 class Config:
     model: ModelConfig
     data: DataConfig
@@ -106,6 +117,8 @@ class Config:
     expected_metrics: Dict[str, Dict[str, float]] = field(
         default_factory=dict)
     detect_anomaly: bool = False
+    click_model: Optional[NameArgsConfig] = None
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     @classmethod
     def from_json(cls, config_path: str) -> "Config":
@@ -114,6 +127,9 @@ class Config:
 
     @classmethod
     def from_dict(cls, config: Dict[str, Any]) -> "Config":
+        unknown = sorted(set(config) - {f.name for f in fields(cls)})
+        if unknown:
+            raise TypeError(f"unknown config section(s) {unknown}")
         model = dict(config["model"])
         fc = model.get("fc_model")
         transformer = model.get("transformer")
@@ -142,6 +158,8 @@ class Config:
             val_metric=config.get("val_metric"),
             expected_metrics=config.get("expected_metrics") or {},
             detect_anomaly=bool(config.get("detect_anomaly", False)),
+            click_model=_name_args(config.get("click_model")),
+            parallel=ParallelConfig(**(config.get("parallel") or {})),
         )
 
     @staticmethod

@@ -56,7 +56,8 @@ def parse_svmlight(path_or_stream
 
     Feature indices are taken as one-based when no index 0 occurs, else as
     zero-based (scikit-learn's ``zero_based="auto"``); F is the largest
-    index seen. Text after ``#`` on a line is ignored."""
+    index seen plus one, 1 when no row has a feature. Text after ``#`` on a
+    line is ignored."""
     if isinstance(path_or_stream, (str, os.PathLike)):
         with open(path_or_stream, "rb") as f:
             data = f.read()
@@ -77,7 +78,8 @@ def parse_svmlight(path_or_stream
         idx = idx - 1
     if idx.size and idx.min() < 0:
         raise ValueError("negative feature index in libsvm text")
-    n_features = int(idx.max()) + 1 if idx.size else 0
+    # scikit-learn's count: a file whose rows have no features has one
+    n_features = (int(idx.max()) if idx.size else 0) + 1
     X = np.zeros((len(y), n_features), dtype=np.float32)
     X[np.repeat(np.arange(len(y)), nnz), idx] = val
     return X, y.astype(np.float32), qids.astype(np.int64)

@@ -10,7 +10,9 @@ validation slates -> build model, optimizer, loss and scheduler by name ->
 ``fit`` -> dump ``experiment_result.json`` -> hard-assert
 ``expected_metrics`` (the built-in regression gate). Runs on the GPU; the
 device mesh, the compilation cache and the device feature store of the JAX
-CLI have no counterpart here yet.
+CLI have no counterpart here yet: a ``parallel`` layout of more than one
+device, a multi-process launch and ``data.device_cache`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from allrank_tpu_torch.losses import accumulation_weighting, get_loss
 from allrank_tpu_torch.models.factory import LTRModel, make_model
 from allrank_tpu_torch.training import fit, make_optimizer, make_scheduler
 from allrank_tpu_torch.training.checkpoint import load_params
-from allrank_tpu_torch.utils.device import resolve_device
+from allrank_tpu_torch.utils.device import require_one_device, resolve_device
 from allrank_tpu_torch.utils.experiments import (
     assert_expected_metrics,
     dump_experiment_result,
@@ -71,6 +73,7 @@ def run(args: Namespace = None, device=None) -> dict:
     logger.info("Config: %s", pformat(config))
     shutil.copy2(paths.config_path,
                  os.path.join(paths.output_dir, "used_config.json"))
+    require_one_device(config.parallel)
     if config.data.device_cache:
         raise NotImplementedError(
             "data.device_cache (the device feature store) is not yet ported "

@@ -50,14 +50,20 @@ class SlateScoringService:
     def __init__(self, model, slate_length: int, n_features: int,
                  batch_size: int = 64, max_wait_ms: float = 5.0,
                  compute_dtype: str = "bfloat16", batch_buckets=None,
-                 max_queue: Optional[int] = None, device=None):
+                 max_queue: Optional[int] = None, device=None,
+                 act_scales: Optional[dict] = None):
         """``batch_buckets`` (e.g. ``(1, 8, 64)``) routes each wave to the
         smallest bucket that fits — a 1-request wave at low QPS costs a B=1
         call, not a padded B=64 one. Default: a single bucket of
-        ``batch_size``. ``device`` defaults to the GPU."""
-        if compute_dtype in ("int8", "int8_static"):
-            raise NotImplementedError(
-                f"{compute_dtype} serving is not yet ported")
+        ``batch_size``. ``device`` defaults to the GPU.
+
+        ``compute_dtype`` "int8" or "int8_static" serves the int8 tower
+        (quant.py) with a bf16 flow between its int8 layers, as the JAX
+        service does; "int8_static" needs ``act_scales``
+        (``quant.calibrate_activations``)."""
+        quantize = (compute_dtype
+                    if compute_dtype in ("int8", "int8_static") else None)
+        flow = "bfloat16" if quantize else compute_dtype
         self.slate_length = int(slate_length)
         self.n_features = int(n_features)
         if batch_buckets:
@@ -75,7 +81,8 @@ class SlateScoringService:
             # what an operator bounding the queue at 0 means; refuse loudly
             raise ValueError(f"max_queue must be positive, got {max_queue}")
         self.device = resolve_device(device)
-        scorer = make_scorer(model, compute_dtype, device=self.device)
+        scorer = make_scorer(model, flow, device=self.device,
+                             quantize=quantize, act_scales=act_scales)
         self._scorer_by_bucket = {}
         for b in self.buckets:
             # warm each bucket shape: builds and loads the kernels once
@@ -356,7 +363,15 @@ def main(argv=None) -> None:
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["float32", "bfloat16", "int8", "int8_static"],
-                    help="int8 and int8_static are not yet ported")
+                    help="int8 serves the int8 tower (quant.py); "
+                         "int8_static uses calibrated static activation "
+                         "scales (--act-scales, or calibrates on the "
+                         "config's train split at startup)")
+    ap.add_argument("--act-scales", default=None,
+                    help="path to an act_scales.json calibration (written "
+                         "by `evaluate --quantize int8_static`); when "
+                         "omitted with int8_static, calibrates at startup")
+    ap.add_argument("--calibration-batches", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
@@ -364,6 +379,25 @@ def main(argv=None) -> None:
     config = Config.from_json(args.config_file_name)
     mdef = make_model(config.model, args.n_features)
     model = load_npz(LTRModel(mdef, device="cpu"), args.input_model_path)
+    act_scales = None
+    if args.compute_dtype == "int8_static":
+        if args.act_scales:
+            with open(args.act_scales) as f:
+                act_scales = json.load(f)
+        else:
+            from allrank_tpu_torch.data.dataset import load_dataset_role
+            from allrank_tpu_torch.quant import (
+                calibrate_activations,
+                calibration_batches_from_dataset,
+            )
+
+            ds, _ = load_dataset_role("train", config.data.path,
+                                      config.data.slate_length)
+            act_scales = calibrate_activations(
+                model.to(resolve_device(args.device)),
+                calibration_batches_from_dataset(
+                    ds, config.data.slate_length, args.batch_size,
+                    args.calibration_batches))
     service = SlateScoringService(
         model, config.data.slate_length, args.n_features,
         batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
@@ -371,6 +405,7 @@ def main(argv=None) -> None:
         batch_buckets=([int(b) for b in args.batch_buckets.split(",")]
                        if args.batch_buckets else None),
         max_queue=args.max_queue, device=args.device,
+        act_scales=act_scales,
     )
     logger = get_logger()
     logger.info("scoring service on :%d (batch %d, wait %.1f ms, %s): %s",

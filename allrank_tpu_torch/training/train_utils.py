@@ -157,15 +157,21 @@ def make_train_step(model: LTRModel, loss_fn: Callable,
 def make_eval_fns(model: LTRModel, loss_fn: Callable,
                   loss_kwargs: Optional[Dict[str, Any]], needs_rng: bool,
                   metrics: Dict[str, Sequence[int]],
-                  compute_dtype="float32"):
+                  compute_dtype="float32", forward_fn=None):
     """Build the evaluation step ``(generator, batch) -> ({metric_at: sum},
     loss_sum, n_real)``, all device tensors, without autograd; ``batch`` is
-    a ``SlateBatch`` (arrays or tensors)."""
+    a ``SlateBatch`` (arrays or tensors). ``forward_fn(x, mask, indices)``
+    replaces the model's forward (the int8 tower of ``quant.py`` for an
+    offline evaluation of quantized serving); batches go to ``model``'s
+    device."""
     dtype = as_dtype(compute_dtype)
     loss_kwargs = dict(loss_kwargs or {})
     metric_fns = {name: (get_metric(name), tuple(ats))
                   for name, ats in metrics.items()}
     dev = next(model.parameters()).device
+    if forward_fn is None:
+        def forward_fn(x, mask, indices):
+            return model(x, mask, indices, compute_dtype=dtype)
 
     @torch.inference_mode()
     def step(generator, batch):
@@ -174,7 +180,7 @@ def make_eval_fns(model: LTRModel, loss_fn: Callable,
         y = torch.as_tensor(y, dtype=torch.float32, device=dev)
         indices = torch.as_tensor(indices, device=dev).long()
         slate_mask = torch.as_tensor(slate_mask, device=dev).bool()
-        preds = model(x, y == PADDED_Y_VALUE, indices, compute_dtype=dtype)
+        preds = forward_fn(x, y == PADDED_Y_VALUE, indices)
         kw = dict(loss_kwargs)
         if needs_rng:
             kw["generator"] = generator

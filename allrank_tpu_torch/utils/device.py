@@ -7,6 +7,7 @@ thousandfold slowdown.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -28,3 +29,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def require_one_device(parallel) -> None:
+    """Refuses, as not yet ported, what the JAX package runs over several
+    devices: a ``parallel`` layout of more than one device (``data = -1``
+    means the devices the run has: here one) and a multi-process launch."""
+    sizes = {"data": max(int(parallel.data), 1), "model": int(parallel.model),
+             "sequence": int(parallel.sequence)}
+    if any(n > 1 for n in sizes.values()):
+        raise NotImplementedError(
+            f"a parallel layout of more than one device {sizes} is not yet "
+            "ported to allrank_tpu_torch")
+    if (int(os.environ.get("WORLD_SIZE", "1")) > 1
+            or os.environ.get("JAX_COORDINATOR_ADDRESS")
+            or os.environ.get("COORDINATOR_ADDRESS")):
+        raise NotImplementedError(
+            "multi-process runs are not yet ported to allrank_tpu_torch")

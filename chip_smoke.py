@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the nine kernel sources of
+1. the card, torch and CUDA versions; builds the ten kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took; turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
@@ -124,7 +124,30 @@ and never prints its last line):
     version and ``scaled_dot_product_attention`` (backward by autograd); at
     (16, 1024) the B1 sublayer beside the split block with B4 and with B5;
     both long steps with their idle share and device time by kernel;
-25. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+25. the int8 dense kernel (X1) against its plain version, bit for bit: the
+    six dense sites of the flagship's int8 tower at M = B L = 15,360 and
+    ragged shapes (M in {1, 17, 15361}, K in {1, 33}, N in {1, 7}), x in
+    fp32 and bf16, the static mode with one multiplier and with [K] and the
+    dynamic mode, inputs on exact .5 ties after scaling and a zero row;
+26. int8 serving, the fourth main path: the flagship model calibrated on 8
+    synthetic B=64, L=240 batches on the card; ``make_scorer`` in
+    ``int8_static`` and ``int8`` at B=64, L=240 (ragged lengths, one empty
+    slate), bf16 and fp32 flow: padded positions -inf, the bf16 flow within
+    0.05 x max|score| of the CPU plain tower, against the card's fp32
+    float tower a correlation above 0.999 and top-1 kept on at least 5/6
+    of slates, exactly 18 X1 and 4 B4 launches a call (B1, B2, B5 none);
+    at B=4, L=4096 18 X1 and 4 B5; ``SlateScoringService`` in
+    ``int8_static`` with buckets (1, 8, 64) behind ``run_server``
+    answering JSON and ``.npy`` requests as direct scorer calls (the
+    counts set to 0 just before and read just after); ``evaluate.run`` on
+    phase 13's dataset and NeuralNDCG ``model.npz``, float and
+    ``--quantize int8_static``, and a service on its ``act_scales.json``;
+27. times: X1 at each flagship site (device time, its bound, the plain
+    version, the ``torch._int_mm`` chain and the float layer's bf16
+    ``torch.matmul``); the scorer in fp32, bf16, int8 and int8_static with
+    its device time by kernel and idle share; the int8_static service's
+    p50;
+28. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -133,6 +156,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import io
 import json
@@ -157,7 +181,8 @@ B, L, N_FEATURES = 64, 240, 136  # the flagship serving shape
 PAPER_WIDTHS = [(128, 4), (144, 2), (96, 1)]  # (d_model, h)
 # H100 SXM published peaks (dense): fp32 on the SIMT units, bf16 on the
 # tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.int8: 1979e12}
 MEM_BYTES_PER_S = 3.35e12
 # kernel vs plain version on the same inputs:
 #  fp32: the same fp32 FMAs summed in another order;
@@ -225,6 +250,16 @@ OTHER_LOSSES = [("listNet", {}), ("binary_listNet", {}), ("listMLE", {}),
                 ("rankNet_weightByGTDiff_pow", {}),
                 ("pointwise_rmse", {"no_of_levels": 4}), ("bce", {})]
 LONG_B, LONG_L = 16, 1024
+# the flagship int8 tower's dense layers at the serving shape: (site, K, N,
+# launches per scorer call); the head's input and output are fp32, every
+# other site's bf16 in the serving flow
+Q8_SITES = [("fc/0", N_FEATURES, 128, 1), ("qkv", 128, 384, 4),
+            ("out", 128, 128, 4), ("ff1", 128, 512, 4), ("ff2", 512, 128, 4),
+            ("output", 128, 1, 1)]
+Q8_MODES = ("static", "static_channels", "dynamic")
+# the int8 tower against its float tower, JAX's own serving-quality gate
+# (tests/test_quant.py): score correlation and top-1 agreement
+Q8_MIN_CORR, Q8_MIN_TOP1 = 0.999, 5 / 6
 
 
 def card() -> str:
@@ -880,6 +915,126 @@ def post(url: str, slate: np.ndarray, binary: bool) -> np.ndarray:
         return np.asarray(json.loads(r.read())["scores"], dtype=np.float32)
 
 
+def q8_inputs(gen, m, k, n, dtype, mode, dev):
+    """X1's arguments: x [m, k] (every other row on exact .5 ties after
+    scaling by 4, row m // 2 all zero), w_t [n, k] int8, scale and b [n],
+    and the static multiplier (4.0, or a [k] vector with every third
+    channel 4.0) or None (dynamic)."""
+    x = torch.randn(m, k, generator=gen) * 3
+    x[::2] = (torch.randint(-300, 300, x[::2].shape, generator=gen)
+              + 0.5) / 4
+    x[m // 2] = 0.0
+    w_t = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    scale = torch.rand(n, generator=gen) * 0.01
+    b = torch.randn(n, generator=gen)
+    inv = {"static": torch.tensor(4.0),
+           "static_channels": torch.where(
+               torch.arange(k) % 3 == 0, 4.0,
+               torch.rand(k, generator=gen) * 30 + 1),
+           "dynamic": None}[mode]
+    return [x.to(dtype).to(dev), w_t.to(dev), scale.to(dev), b.to(dev),
+            None if inv is None else inv.to(dev)]
+
+
+def q8_work(x, w_t, inv, out_dtype) -> tuple:
+    """(operations, bytes) of X1 on these inputs: 2 M K N int8 operations;
+    x, w, scale, b and the multiplier (static) or the row scales (dynamic)
+    read once, y written once."""
+    m, k = x.shape
+    n = w_t.shape[0]
+    extra = inv.numel() * 4 if inv is not None else m * 4
+    moved = (nbytes(x, w_t) + 2 * n * 4 + extra
+             + m * n * torch.tensor([], dtype=out_dtype).element_size())
+    return 2 * m * k * n, moved
+
+
+def q8_library(x, w_t, scale, b, inv):
+    """The static int8 dense layer in library calls, a yardstick only: the
+    quantize ops, ``torch._int_mm`` and the epilogue ops; None where
+    ``_int_mm``'s shape rules refuse (M <= 16, K or N not a multiple of 8)."""
+    m, k = x.shape
+    n = w_t.shape[0]
+    if m <= 16 or k % 8 or n % 8:
+        return None
+    w_kn = w_t.t()
+
+    def run():
+        xq = torch.clamp(torch.round(x.float() * inv), -127, 127).to(
+            torch.int8)
+        return (torch._int_mm(xq, w_kn).float() * scale + b).to(x.dtype)
+
+    return run
+
+
+def calibration_batches(gen, n, dev):
+    """``n`` synthetic serve-style (x [B, L, F], lengths) batches."""
+    out = []
+    for _ in range(n):
+        x = torch.randn(B, L, N_FEATURES, generator=gen)
+        lengths = torch.randint(1, L + 1, (B,), generator=gen)
+        out.append((x.to(dev), lengths.to(dev)))
+    return out
+
+
+@contextlib.contextmanager
+def captured_attention_core():
+    """Records ``(wrapper name, q, k, v, key_mask, out)`` of every call the
+    int8 tower (``quant.py``) makes to its attention core, through the real
+    wrappers: their launches count as the main path's."""
+    import allrank_tpu_torch.quant as quant
+
+    real = {name: getattr(quant, name)
+            for name in ("attention_fused_fwd", "tiled_attention_fwd")}
+    record = []
+
+    def recording(name, fn):
+        def call(q, k, v, key_mask, *args, **kwargs):
+            out = fn(q, k, v, key_mask, *args, **kwargs)
+            record.append((name, q, k, v, key_mask, out))
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(quant, name, recording(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in real.items():
+            setattr(quant, name, fn)
+
+
+def check_captured_attention(record, want_shape) -> dict:
+    """Holds each recorded attention-core output against the kernel's plain
+    version on the same q, k, v and mask (bf16, p = 0); returns the largest
+    error by wrapper name."""
+    from allrank_tpu_torch.ops.attention_fused import attention_fused_fwd_plain
+    from allrank_tpu_torch.ops.attention_tiled import tiled_attention_fwd_plain
+
+    plain = {"attention_fused_fwd": attention_fused_fwd_plain,
+             "tiled_attention_fwd":
+             lambda *a: tiled_attention_fwd_plain(*a)[0]}
+    errs = {}
+    for name, q, k, v, key_mask, out in record:
+        assert q.dtype == torch.bfloat16 and tuple(q.shape) == want_shape, (
+            name, q.dtype, tuple(q.shape))
+        ref = plain[name](q, k, v, key_mask)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **KERNEL_TOL[torch.bfloat16])
+        errs[name] = max(errs.get(name, 0.0),
+                         float((out.float() - ref.float()).abs().max()))
+    return errs
+
+
+def quality(got, ref, valid) -> tuple:
+    """(score correlation, share of non-empty slates whose top document is
+    the same) of two [B, L] score arrays."""
+    corr = float(np.corrcoef(got[valid], ref[valid])[0, 1])
+    rows = valid.any(axis=1)
+    top = (np.where(valid, got, -np.inf).argmax(1)
+           == np.where(valid, ref, -np.inf).argmax(1))
+    return corr, float(top[rows].mean())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -955,9 +1110,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
                "neuralsort", "approx_pos", "lambda_tiled", "attention_fused",
-               "attention_tiled"]
+               "attention_tiled", "q8_dense"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the nine "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the ten "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
@@ -1456,8 +1611,9 @@ def main() -> int:
             want[loss_kernel + "_bwd"] = bwd
         return want
 
-    # removed when the script ends, also by an exception: the later CLI
-    # runs read the same dataset
+    # removed after phase 26, or when the script ends, also by an
+    # exception: the later CLI runs and the evaluate CLI read the same
+    # dataset, and phase 26 evaluates this run's NeuralNDCG model.npz
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     work_dir = work.name
     t0 = time.perf_counter()
@@ -1471,6 +1627,7 @@ def main() -> int:
     reset_counts()
     result, out_dir, losses, cli_seconds = run_cli(
         NEURAL_CONFIG, work_dir, "neuralndcg_atmax", epochs)
+    neural_out_dir = out_dir  # its model.npz is evaluated in phase 26
     cli_launches = counts()
     check_cli_outputs(result, out_dir, losses, epochs,
                       ("ndcg_5", "ndcg_10", "ndcg_30", "ndcg_60"))
@@ -1771,7 +1928,6 @@ def main() -> int:
               f"{result['val_metrics']['ndcg_5']:.4f}; launches "
               f"{ {k: v for k, v in recipe_launches[run_id].items() if v} } "
               f"{tag}")
-    work.cleanup()
     print("phase 17 ok: all seven paper recipes train through the CLI on the "
           "card with exact launch counts")
 
@@ -1975,14 +2131,17 @@ def main() -> int:
             g_err = max(g_err, err)
         return rel_err(out, ref)[0], g_err
 
-    # each kernel at the shape its own main path gives it (phase 23's train
+    # each kernel at the shapes its own main paths give it (phase 23's train
     # steps: B4 at B=16, L=1200 and B5 at B=8, L=4096, the paper config's
-    # h=4, d_k=32), at d_k=72 and at L=8192; the plain versions materialise
+    # h=4, d_k=32; phase 26's int8 tower: B4 at B=64, L=240 and B5 at B=4,
+    # L=4096), at d_k=72 and at L=8192; the plain versions materialise
     # [B, h, L, L] and its int64 mask index (their peak is printed)
     attn_errs = {}
     torch.cuda.reset_peak_memory_stats()
-    for kind, shapes in (("fused", ((16, 4, 1200, 32), (2, 2, 1100, 72))),
-                         ("tiled", ((8, 4, 4096, 32), (1, 4, 8192, 32)))):
+    for kind, shapes in (("fused", ((16, 4, 1200, 32), (64, 4, 240, 32),
+                                    (2, 2, 1100, 72))),
+                         ("tiled", ((8, 4, 4096, 32), (4, 4, 4096, 32),
+                                    (1, 4, 8192, 32)))):
         for shape in shapes:
             for dtype in (torch.float32, torch.bfloat16):
                 for p in (0.0, 0.3):
@@ -2247,7 +2406,318 @@ def main() -> int:
                         (name, ob, ol, dtype)][key]
         rows.append(row)
 
-    # -- 25: the record -------------------------------------------------------
+    # -- 25: X1 against its plain version ----------------------------------------
+    from allrank_tpu_torch.ops.q8_dense import q8_dense, q8_dense_plain
+
+    q8_errs = []
+    q8_dense.launches = 0
+    cases = [(B * L, k, n) for _, k, n, _ in Q8_SITES]
+    cases += [(m, k, n) for m in (1, 17, B * L + 1) for k in (1, 33)
+              for n in (1, 7)]
+    for m, k, n in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode in Q8_MODES:
+                args = q8_inputs(gen, m, k, n, dtype, mode, dev)
+                before = q8_dense.launches
+                y = q8_dense(*args)
+                torch.cuda.synchronize()
+                assert q8_dense.launches == before + 1, "X1 did not launch"
+                ref = q8_dense_plain(*args)
+                assert y.dtype == ref.dtype == (
+                    torch.float32 if mode == "dynamic" else dtype)
+                assert torch.isfinite(y).all(), (m, k, n, dtype, mode)
+                assert torch.equal(y, ref), (
+                    f"X1 vs plain ({m}, {k}, {n}) {dtype} {mode}: "
+                    f"{(y.float() - ref.float()).abs().max().item()}")
+                q8_errs.append((y.float() - ref.float()).abs().max().item())
+    print(f"X1 vs plain, bit for bit: the six flagship sites at M={B * L} "
+          f"and M in (1, 17, {B * L + 1}) x K in (1, 33) x N in (1, 7), fp32 "
+          f"and bf16 x, static (one multiplier and [K]) and dynamic, .5 ties "
+          f"and a zero row: {len(q8_errs)} launches, max_abs_err "
+          f"{max(q8_errs)}")
+    print("phase 25 ok: X1 is its plain version bit for bit")
+
+    # -- 26: int8 serving, the fourth main path ----------------------------------
+    from allrank_tpu_torch.evaluate import run as evaluate_run
+    from allrank_tpu_torch.interop import load_npz
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.quant import calibrate_activations
+
+    q8_kernels = (q8_dense, attention_fused_fwd, tiled_attention_fwd,
+                  attention_sublayer_fwd, ffn_sublayer_fwd)
+
+    def q8_counts():
+        return {k.__name__: k.launches for k in q8_kernels}
+
+    def q8_reset():
+        for k in q8_kernels:
+            k.launches = 0
+
+    flag = flagship_model(dev)
+    flag_cpu = copy.deepcopy(flag).to("cpu")
+    t0 = time.perf_counter()
+    act_scales = calibrate_activations(
+        flag, calibration_batches(gen, 8, dev))
+    calib_s = time.perf_counter() - t0
+    assert len(act_scales) == 18 and all(
+        all(math.isfinite(v) and v >= 0 for v in vec)
+        for vec in act_scales.values()), "calibration"
+    rng = np.random.RandomState(26)
+    x = rng.randn(B, L, N_FEATURES).astype(np.float32)
+    lengths = rng.randint(1, L + 1, size=B)
+    lengths[3] = 0
+    lengths[9] = L
+    pad = np.arange(L)[None, :] >= lengths[:, None]
+    float32_scores = make_scorer(flag, "float32")(x, lengths).cpu().numpy()
+    one_call = {"q8_dense": 18, "attention_fused_fwd": 4,
+                "tiled_attention_fwd": 0, "attention_sublayer_fwd": 0,
+                "ffn_sublayer_fwd": 0}
+    q8_scorers = {}
+    # B4 and B5 at the int8 tower's own shapes: each call it made in the
+    # counted runs, against the plain version on the same q, k, v and mask
+    q8_attn_errs = {}
+    for mode in ("int8_static", "int8"):
+        scales = act_scales if mode == "int8_static" else None
+        for flow in ("bfloat16", "float32"):
+            scorer = make_scorer(flag, flow, quantize=mode,
+                                 act_scales=scales)
+            scorer(x, lengths)  # first call: loads the kernels
+            q8_reset()
+            with captured_attention_core() as record:
+                s = scorer(x, lengths).cpu().numpy()
+            assert q8_counts() == one_call, (mode, flow, q8_counts())
+            for name, err in check_captured_attention(
+                    record, (B, 4, L, 32)).items():
+                q8_attn_errs[name] = max(q8_attn_errs.get(name, 0.0), err)
+            assert s.dtype == np.float32 and s.shape == (B, L)
+            assert np.isneginf(s[pad]).all() and np.isfinite(s[~pad]).all()
+            q8_scorers[(mode, flow)] = scorer
+            if flow == "bfloat16":
+                ref = make_scorer(flag_cpu, flow, device="cpu", quantize=mode,
+                                  act_scales=scales)(x, lengths).numpy()
+                scale = float(np.abs(ref[~pad]).max())
+                err = float(np.abs(s[~pad] - ref[~pad]).max())
+                assert err <= BF16_SCORE_TOL * scale, (
+                    f"{mode} card vs CPU plain: {err} > {BF16_SCORE_TOL} * "
+                    f"{scale}")
+            corr, top1 = quality(s, float32_scores, ~pad)
+            assert corr > Q8_MIN_CORR and top1 >= Q8_MIN_TOP1, (
+                mode, flow, corr, top1)
+            print(f"scorer {mode}, {flow} flow, B={B} L={L}: launches "
+                  f"{q8_counts()}; "
+                  + (f"vs the CPU plain tower max_abs_err {err:.3e} (tol "
+                     f"{BF16_SCORE_TOL} x max|score| {scale:.3f}); "
+                     if flow == "bfloat16" else "")
+                  + f"vs the fp32 float tower on the card: correlation "
+                  f"{corr:.6f}, top-1 kept on {top1:.3f} of slates")
+    print(f"calibration: 8 batches of B={B}, L={L} on the card in "
+          f"{calib_s:.2f} s, {len(act_scales)} sites")
+    xl = rng.randn(4, 4096, N_FEATURES).astype(np.float32)
+    ll = np.array([4096, 3000, 1, 0])
+    long_scorer = make_scorer(flag, "bfloat16", quantize="int8_static",
+                              act_scales=act_scales)
+    q8_reset()
+    with captured_attention_core() as record:
+        sl = long_scorer(xl, ll).cpu().numpy()
+    long_want = dict(one_call, attention_fused_fwd=0, tiled_attention_fwd=4)
+    assert q8_counts() == long_want, q8_counts()
+    q8_attn_errs.update(check_captured_attention(record, (4, 4, 4096, 32)))
+    del record
+    print(f"B4 / B5 on the int8 tower's own q, k and v (bf16, p=0) vs plain: "
+          f"max_abs_err {q8_attn_errs} (tol {KERNEL_TOL[torch.bfloat16]})")
+    lpad = np.arange(4096)[None, :] >= ll[:, None]
+    assert np.isneginf(sl[lpad]).all() and np.isfinite(sl[~lpad]).all()
+    print(f"scorer int8_static, bf16 flow, B=4 L=4096: launches "
+          f"{q8_counts()}")
+
+    service = SlateScoringService(flag, L, N_FEATURES, batch_size=64,
+                                  max_wait_ms=5, compute_dtype="int8_static",
+                                  act_scales=act_scales,
+                                  batch_buckets=(1, 8, 64))
+    server = run_server(service, 0, host="127.0.0.1")
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    direct = q8_scorers[("int8_static", "bfloat16")]
+    try:
+        slates = [rng.randn(n, N_FEATURES).astype(np.float32)
+                  for n in (240, 1, 17, 64, 128, 199, 240, 5, 96, 233, 2,
+                            150)]
+        waves_before = service.stats()["waves_total"]
+        q8_reset()
+        with concurrent.futures.ThreadPoolExecutor(len(slates)) as pool:
+            futs = [pool.submit(post, url, s, i % 2 == 1)
+                    for i, s in enumerate(slates)]
+            answers = [f.result(timeout=120) for f in futs]
+        q8_main_launches = q8_counts()
+        with urllib.request.urlopen(url + "/statz", timeout=30) as r:
+            stats = json.loads(r.read())
+        waves = stats["waves_total"] - waves_before
+        assert waves >= 1 and q8_main_launches == {
+            k: v * waves for k, v in one_call.items()}, (
+            q8_main_launches, waves)
+        err_q8_service = 0.0
+        for s, got in zip(slates, answers):
+            xb = np.zeros((1, L, N_FEATURES), dtype=np.float32)
+            xb[0, : len(s)] = s
+            want = direct(xb, [len(s)]).cpu().numpy()[0, : len(s)]
+            assert got.shape == (len(s),) and np.isfinite(got).all()
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+            err_q8_service = max(err_q8_service,
+                                 float(np.abs(got - want).max()))
+        print(f"service int8_static: {len(slates)} concurrent requests (JSON "
+              f"and .npy) in {waves} waves {stats['waves_by_bucket']}, "
+              f"max_abs_err vs direct scorer {err_q8_service:.3e}; launches "
+              f"{q8_main_launches}")
+        one = rng.randn(L, N_FEATURES).astype(np.float32)
+        lat = []
+        for i in range(40):
+            t = time.perf_counter()
+            post(url, one, binary=True)
+            if i >= 5:
+                lat.append((time.perf_counter() - t) * 1e3)
+        q8_service_p50 = statistics.median(lat)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    server_thread.join(timeout=10)
+
+    # the evaluate CLI on phase 13's dataset and NeuralNDCG model.npz
+    neural_cfg = os.path.join(work_dir, "neuralndcg_atmax.json")
+    neural_npz = os.path.join(neural_out_dir, "model.npz")
+    with open(neural_cfg) as f:
+        val_role = json.load(f)["data"].get("validation_ds_role", "vali")
+    evaluated = {}
+    for quantize in (None, "int8_static"):
+        run_id = f"evaluate_{quantize or 'float'}"
+        t0 = time.perf_counter()
+        evaluated[quantize] = evaluate_run(Namespace(
+            job_dir=os.path.join(work_dir, "job"), run_id=run_id,
+            config_file_name=neural_cfg, input_model_path=neural_npz,
+            roles=[val_role], quantize=quantize, calibration_role=val_role,
+            calibration_batches=8))
+        eval_s = time.perf_counter() - t0
+        eval_dir = os.path.join(work_dir, "job", "results", run_id)
+        with open(os.path.join(eval_dir, "evaluation_result.json")) as f:
+            flat = json.load(f)
+        assert 0.0 <= flat[f"{val_role}/ndcg_5"] <= 1.0, flat
+        assert math.isfinite(flat[f"{val_role}/loss"]), flat
+        print(f"evaluate --quantize {quantize}, {NEURAL_CONFIG} model of "
+              f"phase 13, role {val_role}: {flat} in {eval_s:.1f} s")
+    with open(os.path.join(eval_dir, "act_scales.json")) as f:
+        neural_scales = json.load(f)
+    ndcg_float = evaluated[None][val_role]["ndcg_5"]
+    ndcg_q8 = evaluated["int8_static"][val_role]["ndcg_5"]
+    assert abs(ndcg_q8 - ndcg_float) <= 0.05, (ndcg_q8, ndcg_float)
+    from allrank_tpu_torch.config import Config
+
+    ncfg = Config.from_json(neural_cfg)
+    neural = load_npz(LTRModel(make_model(ncfg.model, N_FEATURES),
+                               device="cpu"), neural_npz)
+    service = SlateScoringService(neural, L, N_FEATURES, batch_size=8,
+                                  compute_dtype="int8_static",
+                                  act_scales=neural_scales,
+                                  batch_buckets=(1, 8))
+    try:
+        slate = rng.randn(77, N_FEATURES).astype(np.float32)
+        got = service.score(slate, timeout=60)
+        xb = np.zeros((1, L, N_FEATURES), dtype=np.float32)
+        xb[0, :77] = slate
+        want = make_scorer(neural, "bfloat16", quantize="int8_static",
+                           act_scales=neural_scales)(xb, [77]).cpu().numpy()
+        np.testing.assert_allclose(got, want[0, :77], rtol=1e-4, atol=1e-4)
+    finally:
+        service.close()
+    print(f"evaluate's act_scales.json ({len(neural_scales)} sites) serves: "
+          f"val ndcg_5 {ndcg_q8:.4f} int8_static vs {ndcg_float:.4f} float")
+    work.cleanup()
+    print("phase 26 ok: int8 serving through make_scorer, the service and "
+          "evaluate --quantize on the card")
+
+    # -- 27: times of X1, the int8 scorers and the service -----------------------
+    q8_sites = {}
+    for site, k, n, per_call in Q8_SITES:
+        dtype = torch.float32 if site == "output" else torch.bfloat16
+        args = q8_inputs(gen, B * L, k, n, dtype, "static", dev)
+        x2, w_t, sc, bb, inv = args
+        wf = torch.randn(k, n, generator=gen).to(torch.bfloat16).to(dev)
+        bf = torch.randn(n, generator=gen).to(torch.bfloat16).to(dev)
+        lib = q8_library(*args)
+        flops, moved = q8_work(x2, w_t, inv, dtype)
+        bound_ms, bound_by = bound(flops, moved, torch.int8)
+        ms = graph_ms(lambda: q8_dense(*args))
+        call_ms, plain_ms = (median_ms(fn, iters=20) for fn in (
+            lambda: q8_dense(*args), lambda: q8_dense_plain(*args)))
+        x16 = x2.to(torch.bfloat16)
+
+        def matmul():
+            return torch.matmul(x16, wf) + bf
+
+        lib_ms = median_ms(lib, iters=20) if lib else None
+        mm_ms = median_ms(matmul, iters=20)
+        # the device's own time of the two yardsticks too, as X1's
+        lib_dev_ms = graph_ms(lib) if lib else None
+        mm_dev_ms = graph_ms(matmul)
+        q8_sites[site] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms, "bf16_matmul_ms": mm_ms,
+                          "library_device_ms": lib_dev_ms,
+                          "bf16_matmul_device_ms": mm_dev_ms,
+                          "per_call": per_call, "gflop": flops / 1e9,
+                          "mbytes": moved / 1e6}
+        print(f"time X1 {site} (M, K, N)=({B * L}, {k}, {n}) {dtype} static: "
+              f"kernel {ms:.4f} ms of device time (20 calls in one CUDA "
+              f"graph; one event-timed call {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library (quantize ops + torch._int_mm + "
+              f"epilogue) "
+              + (f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms of device time)"
+                 if lib_ms is not None else
+                 "none (_int_mm needs N a multiple of 8)")
+              + f", bf16 torch.matmul + bias {mm_ms:.4f} ms ({mm_dev_ms:.4f} "
+              f"ms of device time), bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} G int8 "
+              f"operations, {moved / 1e6:.3f} MB) {tag}")
+    per_call = {key: sum(v[key] * v["per_call"] for v in q8_sites.values())
+                for key in ("ms", "plain_ms", "bound_ms",
+                            "bf16_matmul_device_ms")}
+    print(f"time X1 per scorer call (18 launches): kernel {per_call['ms']:.4f}"
+          f" ms of device time, bound {per_call['bound_ms']:.4f} ms, plain "
+          f"{per_call['plain_ms']:.4f} ms, the float layers' bf16 matmuls "
+          f"{per_call['bf16_matmul_device_ms']:.4f} ms of device time {tag}")
+    xd = torch.as_tensor(x, device=dev)
+    ld = torch.as_tensor(lengths, device=dev)
+    q8_scorer_ms = {}
+    for label, scorer in (("float32", make_scorer(flag, "float32")),
+                          ("bfloat16", make_scorer(flag, "bfloat16")),
+                          ("int8", q8_scorers[("int8", "bfloat16")]),
+                          ("int8_static",
+                           q8_scorers[("int8_static", "bfloat16")])):
+        ms = median_ms(lambda: scorer(xd, ld), iters=20)
+        q8_scorer_ms[label] = ms
+        print(f"time scorer {label} (int8: bf16 flow) B={B} L={L}: "
+              f"{ms:.4f} ms per call, {B / ms * 1e3:.1f} slates/s (input on "
+              f"the device) {tag}")
+        profile_calls(lambda: scorer(xd, ld), f"scorer {label} {tag}",
+                      also=("q8_dense", "fused_fwd"))
+    print(f"time service p50 request latency, one {L}-doc .npy slate, "
+          f"int8_static, buckets (1, 8, 64): {q8_service_p50:.3f} ms {tag}")
+    site = q8_sites["ff1"]
+    rows.append({"name": "q8_dense", "route": "cuda",
+                 "max_abs_err": max(q8_errs), "ms": site["ms"],
+                 "call_ms": site["call_ms"], "plain_ms": site["plain_ms"],
+                 "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
+                 "library_ms": site["library_ms"],
+                 "bf16_matmul_ms": site["bf16_matmul_ms"],
+                 "library_device_ms": site["library_device_ms"],
+                 "bf16_matmul_device_ms": site["bf16_matmul_device_ms"],
+                 "shape": "ff1 (15360, 128, 512) bf16 static",
+                 "per_scorer_call_ms": per_call["ms"],
+                 "per_scorer_call_bound_ms": per_call["bound_ms"],
+                 "sites": q8_sites, "scorer_ms": q8_scorer_ms,
+                 "service_p50_ms": q8_service_p50})
+
+    # -- 28: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -2284,7 +2754,9 @@ def main() -> int:
         "tiled_attention_fwd": ("allrank_tpu_torch/csrc/attention_tiled.cu",
                                 "allrank_tpu/ops/attention_tiled.py:228"),
         "tiled_attention_bwd": ("allrank_tpu_torch/csrc/attention_tiled.cu",
-                                "allrank_tpu/ops/attention_tiled.py:265")}
+                                "allrank_tpu/ops/attention_tiled.py:265"),
+        "q8_dense": ("allrank_tpu_torch/csrc/q8_dense.cu",
+                     "tools/exp_int8_matmul_kernel.py:50")}
     # each kernel's own main path: serving (phase 5) for the sublayer
     # forwards, the train step (phase 9) for their backwards and the pair
     # chain, the CLI's NeuralNDCG run (phase 13) for the fused soft-sort, its
@@ -2302,11 +2774,21 @@ def main() -> int:
                 recipe_launches["approxndcg"]["approx_pos_bwd"],
                 "lambda_tiled_fwd": long_launches["lambda_tiled_fwd"],
                 "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
+    # X1: the int8_static service (phase 26)
+    launches["q8_dense"] = q8_main_launches["q8_dense"]
     # B4 and B5: their own long-slate steps (phase 23)
     for (b, l), (got, _, _) in long_runs.items():
         for name, n in got.items():
             if n and ("attention_fused" in name or "tiled_attention" in name):
                 launches[name] = n
+    # B4's and B5's forward errors also cover the int8 tower's calls (phase
+    # 26: bf16, p = 0, at B=64, L=240 and B=4, L=4096)
+    for row in rows:
+        if row["name"] in q8_attn_errs:
+            err = q8_attn_errs[row["name"]]
+            row["max_abs_err_q8_path"] = err
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["max_abs_err_bf16"] = max(row["max_abs_err_bf16"], err)
     for row in rows:
         name = row["name"]
         row["source"], row["replaces"] = origin[name]
@@ -2319,7 +2801,7 @@ def main() -> int:
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 18
+    assert len(rows) == 19
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(json.dumps({"kernels": rows}))
     print(card())

@@ -58,6 +58,7 @@ from allrank_tpu_torch.ops.lambda_tiled import (
     lambda_tiled_fwd,
     lambda_tiled_fwd_plain,
 )
+from allrank_tpu_torch.ops.q8_dense import q8_dense, q8_dense_plain
 from allrank_tpu_torch.ops.neuralsort import (
     soft_sort_bwd,
     soft_sort_bwd_plain,
@@ -780,3 +781,82 @@ def test_long_slate_scorer_launches_the_attention_kernels(cuda):
     with pytest.raises(NotImplementedError, match="L <= 8192"):
         make_scorer(model, device=cuda)(np.zeros((1, 8193, 10), np.float32),
                                         [5])
+
+
+@pytest.mark.parametrize("mode", ["static", "static_channels", "dynamic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(512, 136, 128), (300, 128, 384),
+                                   (64, 512, 128), (240, 128, 1), (1, 1, 1),
+                                   (17, 33, 7), (65, 64, 65)])
+def test_q8_dense_kernel_is_its_plain_version(cuda, m, k, n, dtype, mode):
+    """X1 against its plain version bit for bit: int32 sums are exact and
+    every rounding of the epilogue happens at the same place."""
+    gen = torch.Generator().manual_seed(m * 7 + k * 3 + n)
+    x = torch.randn(m, k, generator=gen) * 3
+    x[::2] = (torch.randint(-300, 300, x[::2].shape, generator=gen) + 0.5) / 4
+    x[m // 2] = 0.0  # an all-zero row
+    x = x.to(dtype).to(cuda)
+    w_t = torch.randint(-127, 128, (n, k), generator=gen,
+                        dtype=torch.int8).to(cuda)
+    scale = (torch.rand(n, generator=gen) * 0.01).to(cuda)
+    b = torch.randn(n, generator=gen).to(cuda)
+    inv = {"static": torch.tensor(4.0),
+           "static_channels": torch.rand(k, generator=gen) * 30 + 1,
+           "dynamic": None}[mode]
+    inv = None if inv is None else inv.to(cuda)
+    before = q8_dense.launches
+    y = q8_dense(x, w_t, scale, b, inv)
+    torch.cuda.synchronize()
+    assert q8_dense.launches == before + 1
+    ref = q8_dense_plain(x, w_t, scale, b, inv)
+    assert y.dtype == ref.dtype == (torch.float32 if mode == "dynamic"
+                                    else dtype)
+    assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_static"])
+def test_quantized_scorer_launches_x1_and_the_attention_kernels(cuda, mode):
+    from allrank_tpu_torch.config import (
+        FCConfig,
+        ModelConfig,
+        PostModelConfig,
+        TransformerConfig,
+    )
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.quant import calibrate_activations
+    from allrank_tpu_torch.serving import make_scorer
+
+    mdef = make_model(ModelConfig(
+        fc_model=FCConfig(sizes=[32], input_norm=True, activation="ReLU",
+                          dropout=0.0),
+        transformer=TransformerConfig(N=3, d_ff=64, h=2, dropout=0.0,
+                                      positional_encoding=None),
+        post_model=PostModelConfig(d_output=1)), 10)
+    model = LTRModel(mdef, torch.Generator().manual_seed(0), device="cpu")
+    kernels = (q8_dense, attention_fused_fwd, tiled_attention_fwd,
+               attention_sublayer_fwd, ffn_sublayer_fwd)
+    for l, want in ((20, [14, 3, 0, 0, 0]), (1300, [14, 0, 3, 0, 0])):
+        rng = np.random.RandomState(l)
+        x = rng.randn(3, l, 10).astype(np.float32)
+        lengths = np.array([l, l // 3, 0])
+        scales = (calibrate_activations(model, [(x, np.maximum(lengths, 1))])
+                  if mode == "int8_static" else None)
+        ref = make_scorer(model, "bfloat16", device="cpu", quantize=mode,
+                          act_scales=scales)(x, lengths).numpy()
+        scorer = make_scorer(model, "bfloat16", device=cuda, quantize=mode,
+                             act_scales=scales)
+        for kernel in kernels:
+            kernel.launches = 0
+        got = scorer(x, lengths).cpu().numpy()
+        assert [kernel.launches for kernel in kernels] == want
+        valid = ~np.isneginf(ref)
+        assert (np.isneginf(got) == ~valid).all() and not np.isnan(got).any()
+        # the attention core runs in bf16 on the card, fp32 on the CPU
+        scale = np.abs(ref[valid]).max()
+        assert np.abs(got[valid] - ref[valid]).max() <= 0.05 * scale
+        model.to("cpu")
+    scorer = make_scorer(model, device=cuda, quantize="int8")
+    q8_dense.launches = 0
+    with pytest.raises(NotImplementedError, match="L <= 8192"):
+        scorer(np.zeros((1, 8193, 10), np.float32), [5])
+    assert q8_dense.launches == 0  # refused before any launch

@@ -129,11 +129,17 @@ def test_bf16_scorer_tracks_fp32_and_keeps_padding():
 
 
 def test_quantized_serving_is_not_ported():
+    """Quantized serving is ported (tests/test_torch_quant.py holds it
+    against the JAX package); what stays refused is a mode that does not
+    exist and the static mode without its calibration."""
     _, _, model = _models()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_scorer(model, device="cpu", quantize="int8")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        make_scorer(model, device="cpu", quantize="int4")
+    with pytest.raises(ValueError, match="needs act_scales"):
         _service(model, compute_dtype="int8_static")
+    scores = make_scorer(model, device="cpu", quantize="int8")(
+        np.zeros((1, L, F), np.float32), [3]).numpy()
+    assert np.isfinite(scores[0, :3]).all() and np.isneginf(scores[0, 3:]).all()
 
 
 def test_batched_scores_match_direct_scorer():
