@@ -53,7 +53,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Mean and unbiased variance of one row of x (length d), by one warp; every
 // lane gets both.
 template <class T>
-__device__ __forceinline__ void row_moments(const T* __restrict__ row, int d,
+__device__ __forceinline__ void row_moments(const T* row, int d,
                                             float& mu, float& var) {
   const int lane = threadIdx.x % 32;
   float s = 0.f;
@@ -71,7 +71,7 @@ __device__ __forceinline__ void row_moments(const T* __restrict__ row, int d,
 // warp per row, the variance floored at 1e-24 first (an all-zero row has
 // variance 0). Rows in [rows, kTile) get zeros.
 template <class T>
-__device__ void ln_row_stats(const T* __restrict__ x, int rows, int d,
+__device__ void ln_row_stats(const T* x, int rows, int d,
                              float* mean, float* rdenom) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kTile; r += kThreads / 32) {

@@ -36,9 +36,13 @@
 #include "backward.cuh"
 #include "common.cuh"
 #include "dropout.cuh"
+#include "sublayer_tiles.cuh"
 
 namespace allrank {
 namespace {
+
+// The kernels are thin wrappers over the tile bodies of sublayer_tiles.cuh,
+// which the whole-encoder kernel (encoder_block.cu) shares.
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
@@ -48,104 +52,10 @@ __global__ void __launch_bounds__(kThreads)
                const float* __restrict__ b2, T* __restrict__ y, int M, int d,
                int d_ff, DropStream drop_h, DropStream drop_r) {
   extern __shared__ float smem[];
-  float* Bs = smem;                  // [kChunk][kLdB] W1 or W2 chunk
-  float* Hs = Bs + kChunk * kLdB;    // [kTile][kLdB]  hidden chunk
-  float* mean = Hs + kTile * kLdB;   // [kTile]
-  float* rdenom = mean + kTile;      // [kTile]
-  float* Ns = rdenom + kTile;        // [kTile][d + 1] LN(x) rows
-  const int ldn = d + 1;
-  const int m0 = blockIdx.x * kTile;
-  const int rows = min(kTile, M - m0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* xt = x + (size_t)m0 * d;
-  T* yt = y + (size_t)m0 * d;
-
-  ln_row_stats(xt, rows, d, mean, rdenom);
-  __syncthreads();
-  for (int e = tid; e < kTile * d; e += kThreads) {
-    const int r = e / d, k = e % d;
-    Ns[r * ldn + k] =
-        r < rows ? round_to<T>((to_float(xt[(size_t)r * d + k]) - mean[r]) *
-                                   rdenom[r] * ln_scale[k] +
-                               ln_bias[k])
-                 : 0.f;
-  }
-  __syncthreads();
-
-  float out[4][4][4] = {};  // [64-column tile of d][i][j]
-  for (int f0 = 0; f0 < d_ff; f0 += kTile) {
-    float hacc[4][4] = {};
-    for (int k0 = 0; k0 < d; k0 += kChunk) {
-      const int depth = min(kChunk, d - k0);
-      for (int e = tid; e < kChunk * kTile; e += kThreads) {
-        const int kk = e / kTile, n = e % kTile;
-        Bs[kk * kLdB + n] =
-            (kk < depth && f0 + n < d_ff)
-                ? round_to<T>(w1[(size_t)(k0 + kk) * d_ff + f0 + n])
-                : 0.f;
-      }
-      __syncthreads();
-      mma_tile(hacc, Ns + k0, ldn, Bs, kLdB, depth);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j, f = f0 + c;
-        float hv = 0.f;
-        if (f < d_ff) {
-          hv = fmaxf(hacc[i][j] + b1[f], 0.f);
-          if (drop_h.on)
-            hv = drop_keep(drop_h, (size_t)(m0 + r) * d_ff + f)
-                     ? hv / drop_h.denom
-                     : 0.f;
-        }
-        Hs[r * kLdB + c] = round_to<T>(hv);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (t * kTile < d) {
-        for (int kk0 = 0; kk0 < kTile; kk0 += kChunk) {
-          for (int e = tid; e < kChunk * kTile; e += kThreads) {
-            const int kk = e / kTile, n = e % kTile;
-            const int f = f0 + kk0 + kk, c = t * kTile + n;
-            Bs[kk * kLdB + n] =
-                (f < d_ff && c < d) ? round_to<T>(w2[(size_t)f * d + c]) : 0.f;
-          }
-          __syncthreads();
-          mma_tile(out[t], Hs + kk0, kLdB, Bs, kLdB, kChunk);
-          __syncthreads();
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, n = t * kTile + tx + 16 * j;
-        if (r < rows && n < d) {
-          const size_t o = (size_t)r * d + n;
-          float v = out[t][i][j] + b2[n];
-          if (drop_r.on)
-            v = drop_keep(drop_r, (size_t)m0 * d + o) ? v / drop_r.denom : 0.f;
-          yt[o] = from_float<T>(to_float(xt[o]) + v);
-        }
-      }
-    }
-  }
+  ffn_fwd_tile(smem, x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, d, d_ff,
+               drop_h, drop_r, blockIdx.x);
 }
 
-// Backward of 64 rows: writes n_act = round(LN(x)), dout = round(drop_r(dy)),
-// hidden = round(drop_h(relu(pre))) and dh = round((dout . W2^T) * mask *
-// gate) (the operands of the weight gradients), dx, and the tile's partial
-// sums of dg and db.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
     ffn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_scale,
@@ -157,127 +67,8 @@ __global__ void __launch_bounds__(kThreads)
                    T* __restrict__ dh, float* __restrict__ part_ln, int M,
                    int d, int d_ff, DropStream drop_h, DropStream drop_r) {
   extern __shared__ float smem[];
-  float* Bs = smem;                  // [kChunk][kLdB] W1 or W2 chunk
-  float* Hs = Bs + kChunk * kLdB;    // [kTile][kLdB]  dh chunk
-  float* mean = Hs + kTile * kLdB;   // [kTile]
-  float* rdenom = mean + kTile;      // [kTile]
-  float* Ns = rdenom + kTile;        // [kTile][d + 1] LN(x) rows, then dn
-  const int ldn = d + 1;
-  float* Ds = Ns + kTile * ldn;      // [kTile][d + 1] dout rows
-  const int m0 = blockIdx.x * kTile;
-  const int rows = min(kTile, M - m0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t o0 = (size_t)m0 * d;
-  const T* xt = x + o0;
-
-  ln_row_stats(xt, rows, d, mean, rdenom);
-  __syncthreads();
-  for (int e = tid; e < kTile * d; e += kThreads) {
-    const int r = e / d, k = e % d;
-    float n = 0.f, g = 0.f;
-    if (r < rows) {
-      n = round_to<T>((to_float(xt[e]) - mean[r]) * rdenom[r] * ln_scale[k] +
-                      ln_bias[k]);
-      n_act[o0 + e] = from_float<T>(n);
-      g = to_float(dy[o0 + e]);
-      if (drop_r.on) g = drop_keep(drop_r, o0 + e) ? g * drop_r.inv : 0.f;
-      g = round_to<T>(g);
-      dout[o0 + e] = from_float<T>(g);
-    }
-    Ns[r * ldn + k] = n;
-    Ds[r * ldn + k] = g;
-  }
-  __syncthreads();
-
-  float dn[4][4][4] = {};  // [64-column tile of d][i][j]
-  for (int f0 = 0; f0 < d_ff; f0 += kTile) {
-    float pre[4][4] = {}, dhacc[4][4] = {};
-    for (int k0 = 0; k0 < d; k0 += kChunk) {
-      const int depth = min(kChunk, d - k0);
-      for (int e = tid; e < kChunk * kTile; e += kThreads) {
-        const int kk = e / kTile, n = e % kTile;
-        Bs[kk * kLdB + n] =
-            (kk < depth && f0 + n < d_ff)
-                ? round_to<T>(w1[(size_t)(k0 + kk) * d_ff + f0 + n])
-                : 0.f;
-      }
-      __syncthreads();
-      mma_tile(pre, Ns + k0, ldn, Bs, kLdB, depth);
-      __syncthreads();
-    }
-    for (int k0 = 0; k0 < d; k0 += kChunk) {
-      const int depth = min(kChunk, d - k0);
-      // Bs[kk][n] = W2[f0 + n][k0 + kk]: read along W2's rows
-      for (int e = tid; e < kChunk * kTile; e += kThreads) {
-        const int n = e / kChunk, kk = e % kChunk;
-        Bs[kk * kLdB + n] =
-            (kk < depth && f0 + n < d_ff)
-                ? round_to<T>(w2[(size_t)(f0 + n) * d + k0 + kk])
-                : 0.f;
-      }
-      __syncthreads();
-      mma_tile(dhacc, Ds + k0, ldn, Bs, kLdB, depth);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j, f = f0 + c;
-        float hv = 0.f, g = 0.f;
-        if (f < d_ff) {
-          const float p = pre[i][j] + b1[f];
-          const float gate = p > 0.f ? 1.f : 0.f;
-          hv = fmaxf(p, 0.f);
-          g = dhacc[i][j];
-          if (drop_h.on) {
-            const bool keep = drop_keep(drop_h, (size_t)(m0 + r) * d_ff + f);
-            hv = keep ? hv * drop_h.inv : 0.f;
-            g = keep ? g * drop_h.inv : 0.f;
-          }
-          g = round_to<T>(g * gate);
-          if (r < rows) {
-            const size_t o = (size_t)(m0 + r) * d_ff + f;
-            hidden[o] = from_float<T>(hv);
-            dh[o] = from_float<T>(g);
-          }
-        }
-        Hs[r * kLdB + c] = g;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (t * kTile < d) {
-        for (int kk0 = 0; kk0 < kTile; kk0 += kChunk) {
-          // Bs[kk][n] = W1[t*64 + n][f0 + kk0 + kk]: read along W1's rows
-          for (int e = tid; e < kChunk * kTile; e += kThreads) {
-            const int n = e / kChunk, kk = e % kChunk;
-            const int f = f0 + kk0 + kk, c = t * kTile + n;
-            Bs[kk * kLdB + n] =
-                (f < d_ff && c < d) ? round_to<T>(w1[(size_t)c * d_ff + f])
-                                    : 0.f;
-          }
-          __syncthreads();
-          mma_tile(dn[t], Hs + kk0, kLdB, Bs, kLdB, kChunk);
-          __syncthreads();
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = t * kTile + tx + 16 * j;
-        if (n < d) Ns[(ty + 16 * i) * ldn + n] = dn[t][i][j];
-      }
-  __syncthreads();
-  ln_backward_tile(xt, dy + o0, dx + o0, Ns, ldn, rows, d, ln_scale,
-                   part_ln + (size_t)blockIdx.x * 2 * d, mean, rdenom);
+  ffn_bwd_tile(smem, x, ln_scale, ln_bias, w1, b1, w2, dy, dx, n_act, dout,
+               hidden, dh, part_ln, M, d, d_ff, drop_h, drop_r, blockIdx.x);
 }
 
 template <class T>
@@ -285,8 +76,7 @@ int launch_fwd(const void* x, const void* ln_scale, const void* ln_bias,
                const void* w1, const void* b1, const void* w2, const void* b2,
                void* y, int M, int d, int d_ff, DropStream drop_h,
                DropStream drop_r, cudaStream_t stream) {
-  const size_t smem =
-      (kChunk * kLdB + kTile * kLdB + 2 * kTile + kTile * (d + 1)) * sizeof(float);
+  const size_t smem = ffn_fwd_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ffn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -312,9 +102,7 @@ template <class T>
 int launch_bwd(const BwdArgs& a, DropStream drop_h, DropStream drop_r,
                cudaStream_t stream) {
   const int tiles = (a.M + kTile - 1) / kTile;
-  const size_t smem = (kChunk * kLdB + kTile * kLdB + 2 * kTile +
-                       2 * kTile * (a.d + 1)) *
-                      sizeof(float);
+  const size_t smem = ffn_bwd_smem_floats(a.d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ffn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

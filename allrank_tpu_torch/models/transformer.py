@@ -18,6 +18,17 @@ sublayer's form by slate length, the same for every block
   (``ops/attention_tiled``);
 - beyond 8192 the encoder raises ``NotImplementedError`` on the GPU.
 
+With ``MEGA_ENCODER_ENABLED`` set (off by default, as the JAX package's
+switch of the same name, ``models/transformer.py:202`` there) and the shape
+inside B10's envelope (``ops/encoder_block.check_envelope``: L <= 1024,
+d <= 256, d_ff <= 1024, N <= 16), ``Transformer.forward`` sends the whole
+encoder after the positional encoding, final LayerNorm included, through
+the whole-encoder kernel pair B10 (``ops/encoder_block.encoder_forward``)
+with the same 4N seeds; outside the envelope it takes the forms above, a gate
+before any launch as the JAX package's ``_mega_encoder_runner`` returning
+None. Turn it on from Python with
+``allrank_tpu_torch.models.transformer.MEGA_ENCODER_ENABLED = True``.
+
 1224 and 8192 are the JAX package's ``FUSED_ATTENTION_MAX_LEN`` and
 ``TILED_ATTENTION_MAX_LEN``; on this card all three are the port's envelope
 until measured, with no gate on B, dtype or heads. CPU tensors take every
@@ -57,11 +68,19 @@ from allrank_tpu_torch.ops.attention_block import MAX_LEN as SUBLAYER_MAX_LEN
 from allrank_tpu_torch.ops.attention_block import attention_sublayer
 from allrank_tpu_torch.ops.attention_fused import fused_slate_attention
 from allrank_tpu_torch.ops.attention_tiled import tiled_slate_attention
+from allrank_tpu_torch.ops.encoder_block import (
+    covers,
+    encoder_forward,
+    stack_block_weights,
+)
 from allrank_tpu_torch.ops.ffn_block import ffn_sublayer
 
 SEED_HIGH = 2 ** 31 - 1  # seeds are drawn from [0, 2**31 - 1), as in JAX
 FUSED_ATTENTION_MAX_LEN = 1224
 TILED_ATTENTION_MAX_LEN = 8192
+# the whole-encoder kernel pair B10 (ops/encoder_block.py); off, as the JAX
+# package's switch, until a benchmark judges it
+MEGA_ENCODER_ENABLED = False
 
 
 def encoder_form(l: int, device_type: str):
@@ -187,15 +206,24 @@ class Transformer(nn.Module):
         the generator on the host."""
         if self.pe is not None:
             x = self.pe(x, mask, indices)
-        attention = encoder_form(x.shape[1], x.device.type)
-        x = x.contiguous()
+        tdef = self.tdef
         n = len(self.layers)
-        p = float(self.tdef.dropout)
+        whole = MEGA_ENCODER_ENABLED and covers(
+            x.shape[0], x.shape[1], tdef.d_model, tdef.d_ff, n, x.dtype,
+            tdef.h)
+        attention = None if whole else encoder_form(x.shape[1],
+                                                    x.device.type)
+        x = x.contiguous()
+        p = float(tdef.dropout)
         if train and p > 0.0 and generator is not None:
             seeds = torch.randint(0, SEED_HIGH, (4 * n,),
                                   generator=generator).tolist()
         else:
             p, seeds = 0.0, [0] * (4 * n)
+        if whole:
+            stacks, final_scale, final_bias = stack_block_weights(self)
+            return encoder_forward(x, mask, seeds, stacks, final_scale,
+                                   final_bias, h=tdef.h, p_drop=p)
         for i, block in enumerate(self.layers):
             x = block(x, mask, p, tuple(seeds[4 * i:4 * i + 4]), attention)
         return std_layer_norm(x, self.final_ln.scale, self.final_ln.bias)

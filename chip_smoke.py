@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the ten kernel sources of
+1. the card, torch and CUDA versions; builds the eleven kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took; turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
@@ -147,7 +147,28 @@ and never prints its last line):
     ``torch.matmul``); the scorer in fp32, bf16, int8 and int8_static with
     its device time by kernel and idle share; the int8_static service's
     p50;
-28. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+28. the whole-encoder kernel pair (B10, forward and backward): its
+    cooperative grid, then against the chained B1/B2 kernels (phases 2 and
+    7's tolerances) and against its plain version (no further from it than
+    the chained kernels, plus those tolerances), output and all 15
+    gradients, at the flagship (B=64, L=240, d=128, h=4, d_ff=512, N=4)
+    and at N=1, L=1, (4, 1024), d=144 with d_ff=384, d=256 with
+    d_ff=1024, fp32 and bf16, dropout 0 and 0.3; two backwards give the
+    same bits;
+29. the fifth main path, with ``MEGA_ENCODER_ENABLED`` set for the phase
+    and restored after it: the flagship scorer in fp32 and bf16 against
+    the switched-off scorer and the CPU plain run (one B10 launch a call,
+    none of B1 or B2), ``SlateScoringService`` behind ``run_server``, and
+    20 paper-config train steps (B10 1 + 1 launches a step, B1 and B2
+    none, B3 1 + 1), step 1 at dropout 0 in fp32 against the CPU's
+    plain run with ReLU gate flips held out (the counts set to 0 just
+    before each run and read just after);
+30. times: B10 forward and backward at the flagship (event-timed, device
+    time, the bound, the plain version, the chained B1/B2 kernels and a
+    library formulation); the A/B of the switch (off, on, on, off) on the
+    train step at ``bench.py``'s configuration and the paper config and on
+    the flagship scorer, with idle share and device time by kernel;
+31. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -257,6 +278,12 @@ Q8_SITES = [("fc/0", N_FEATURES, 128, 1), ("qkv", 128, 384, 4),
             ("out", 128, 128, 4), ("ff1", 128, 512, 4), ("ff2", 512, 128, 4),
             ("output", 128, 1, 1)]
 Q8_MODES = ("static", "static_channels", "dynamic")
+# B10's cases (B, L, d, h, d_ff, N): the flagship first, then N = 1, L = 1,
+# B1's longest slate, the ordinal recipe's widths (d_k = 72) and the
+# envelope's widest
+ENCODER_CASES = [(B, L, 128, 4, 512, 4), (8, L, 128, 4, 512, 1),
+                 (3, 1, 128, 4, 512, 2), (4, 1024, 128, 4, 512, 2),
+                 (8, L, 144, 2, 384, 2), (4, 70, 256, 1, 1024, 2)]
 # the int8 tower against its float tower, JAX's own serving-quality gate
 # (tests/test_quant.py): score correlation and top-1 agreement
 Q8_MIN_CORR, Q8_MIN_TOP1 = 0.999, 5 / 6
@@ -434,26 +461,36 @@ def make_step(cfg, model, dtype, optimizer_name=None, lr=None, loss=None):
 
 def ffn_gates(model, batch, run):
     """Runs ``run()`` with every FFN sublayer call of ``model``'s encoder
-    recorded: returns (run's result, per block the [d_ff] bool of hidden
-    units whose ReLU gate is open at some valid document)."""
+    recorded (with ``MEGA_ENCODER_ENABLED``, every B10 call, replayed:
+    ``encoder_ffn_gates``): returns (run's result, per block the
+    [rows, d_ff] bools of the hidden units' ReLU gates at the valid
+    documents)."""
     import allrank_tpu_torch.models.transformer as transformer
     from allrank_tpu_torch.models.core import std_layer_norm
 
     valid = (batch[1] != -1.0).reshape(-1).cpu()
     gates, inner = [], transformer.ffn_sublayer
+    inner_encoder = transformer.encoder_forward
+    replay = encoder_ffn_gates(gates)
 
     def record(x, ln_scale, ln_bias, w1, b1, *rest):
         with torch.no_grad():
             pre = std_layer_norm(x.float(), ln_scale, ln_bias) @ w1 + b1
-            gates.append((pre.reshape(-1, pre.shape[-1]) > 0).cpu()[valid])
+            gates.append(pre.reshape(-1, pre.shape[-1]) > 0)
         return inner(x, ln_scale, ln_bias, w1, b1, *rest)
 
+    def record_encoder(*args, **kwargs):
+        replay(*args, **kwargs)
+        return inner_encoder(*args, **kwargs)
+
     transformer.ffn_sublayer = record
+    transformer.encoder_forward = record_encoder
     try:
         out = run()
     finally:
         transformer.ffn_sublayer = inner
-    return out, gates
+        transformer.encoder_forward = inner_encoder
+    return out, [g.cpu()[valid] for g in gates]
 
 
 def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None,
@@ -711,11 +748,12 @@ def short_kernel_row(name, kernel, plain, lib_fn, work, err, shape,
             "gflop": flops / 1e9, "mbytes": moved / 1e6}
 
 
-def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> None:
+def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> dict:
     """Device time by kernel name over ``calls`` calls of ``fn`` (the eight
     largest, and every kernel whose name holds one of ``also``), and the
     device's idle share of that window (torch.profiler; prints "not
-    measured" if the trace holds no device events)."""
+    measured" if the trace holds no device events). Returns the device us
+    per call by kernel name (empty without device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -732,7 +770,7 @@ def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> None:
     if not kernels:
         print(f"profile: no device events in the trace; idle share not "
               f"measured {tag}")
-        return
+        return {}
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -754,6 +792,7 @@ def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> None:
                                    if any(a in kv[0] for a in also)]:
         print(f"  {us / calls:9.1f} us per call ({us / total:.3f} of device "
               f"time) {kname[:90]}")
+    return {kname: us / calls for kname, us in by_name.items()}
 
 
 def soft_sort_inputs(gen, n, l, dev):
@@ -1035,6 +1074,195 @@ def quality(got, ref, valid) -> tuple:
     return corr, float(top[rows].mean())
 
 
+def encoder_inputs(gen, b, l, d, h, d_ff, n, dtype, dev):
+    """B10's arguments: x and an output cotangent [B, L, d] in ``dtype``,
+    the key mask (ragged lengths, slate 0 fully padded), 4N seeds, the 12
+    stacked fp32 weights [N, ...] and the final LN pair."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    x, dy = (r(b, l, d).to(dtype).to(dev) for _ in range(2))
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0] = 0
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(dev)
+    stacks = [1 + r(n, d, scale=0.1), r(n, d, scale=0.1),
+              r(n, d, 3 * d, scale=d ** -0.5), r(n, 3 * d, scale=0.1),
+              r(n, d, d, scale=d ** -0.5), r(n, d, scale=0.1),
+              1 + r(n, d, scale=0.1), r(n, d, scale=0.1),
+              r(n, d, d_ff, scale=d ** -0.5), r(n, d_ff, scale=0.1),
+              r(n, d_ff, d, scale=d_ff ** -0.5), r(n, d, scale=0.1)]
+    fs, fb = 1 + r(d, scale=0.1), r(d, scale=0.1)
+    seeds = tuple(range(300, 300 + 4 * n))
+    return (x, dy, mask, seeds, [t.to(dev) for t in stacks], fs.to(dev),
+            fb.to(dev))
+
+
+def encoder_check(y, got, chained_y, chained, plain_y, plain, dtype) -> dict:
+    """Holds B10's output and 15 gradients against the chained B1/B2
+    kernels (whose tile bodies it runs; only the final LayerNorm is
+    computed another way) by phases 2 and 7's tolerances, and against its
+    plain version: no further from it than the chained kernels are, plus
+    the same tolerance. Each sublayer kernel is held to its plain version on
+    the same inputs (phases 2, 3 and 7); through N blocks the kernels and
+    the plain chain drift apart by more: an fp32 rounding difference
+    upstream flips a ReLU gate whose pre-activation lies near 0 (a jump of
+    the gradient), and bf16 one-ulp flips compound block by block. Returns
+    the largest errors."""
+    rtol, atol = BWD_TOL[dtype]
+    assert torch.isfinite(y.float()).all(), "B10: non-finite output"
+    torch.testing.assert_close(y.float(), chained_y.float(),
+                               **KERNEL_TOL[dtype])
+    out = {"fwd_chained": rel_err(y, chained_y)[0],
+           "fwd_plain": rel_err(y, plain_y)[0],
+           "fwd_chained_plain": rel_err(chained_y, plain_y)[0],
+           "y_equal": bool(torch.equal(y, chained_y)), "bwd_chained": 0.0,
+           "bwd_chained_rel": 0.0, "bwd_plain": 0.0,
+           "bwd_chained_plain": 0.0, "grads_equal": 0}
+    tol = KERNEL_TOL[dtype]
+    allowed = tol["atol"] + tol["rtol"] * plain_y.float().abs().max().item()
+    assert out["fwd_plain"] <= out["fwd_chained_plain"] + allowed, out
+    for i, (g, c, r) in enumerate(zip(got, chained, plain)):
+        assert g.shape == r.shape and torch.isfinite(g.float()).all(), i
+        err, scale = rel_err(g, c)
+        assert err <= rtol * scale + atol, (
+            f"B10 gradient {i} vs chained: {err} > {rtol} x {scale}")
+        base, ref_scale = rel_err(c, r)
+        err_plain = rel_err(g, r)[0]
+        assert err_plain <= base + rtol * ref_scale + atol, (
+            f"B10 gradient {i} vs plain: {err_plain} > chained's {base} + "
+            f"{rtol} x {ref_scale}")
+        out["bwd_chained"] = max(out["bwd_chained"], err)
+        out["bwd_chained_rel"] = max(out["bwd_chained_rel"],
+                                     err / (rtol * scale + atol))
+        out["bwd_plain"] = max(out["bwd_plain"], err_plain)
+        out["bwd_chained_plain"] = max(out["bwd_chained_plain"], base)
+        out["grads_equal"] += int(torch.equal(g, c))
+    return out
+
+
+def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p):
+    """B10's function through the chained B1/B2 kernels (the encoder with
+    the switch off), the final LayerNorm in torch ops: (y, the state
+    ``encoder_chained_bwd`` reads)."""
+    from allrank_tpu_torch.models.core import std_layer_norm
+    from allrank_tpu_torch.ops.attention_block import attention_sublayer_fwd
+    from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
+
+    inputs, saved = [], []
+    for n in range(stacks[0].shape[0]):
+        w = [t[n] for t in stacks]
+        inputs.append(x)
+        x, sv = attention_sublayer_fwd(x, mask, *w[:6], h, p, p,
+                                       seeds[4 * n:4 * n + 2],
+                                       return_saved=True)
+        saved.append(sv)
+        inputs.append(x)
+        x = ffn_sublayer_fwd(x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
+    return std_layer_norm(x, fs, fb), (inputs, saved, x)
+
+
+def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
+    """The backward of ``encoder_chained_fwd`` through the B1/B2 backward
+    kernels: (dx, *12 stacked gradients, dfs, dfb), as B10's."""
+    from allrank_tpu_torch.ops.attention_block import (
+        attention_sublayer_bwd,
+        ln_backward,
+    )
+    from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_bwd
+
+    inputs, saved, z = state
+    n_blocks = stacks[0].shape[0]
+    dz, dfs, dfb = ln_backward(z.float(), fs, dy.float())
+    g = dz.to(z.dtype)
+    grads = [[None] * n_blocks for _ in range(12)]
+    for n in reversed(range(n_blocks)):
+        w = [t[n] for t in stacks]
+        g, *ffn = ffn_sublayer_bwd(inputs[2 * n + 1], *w[6:], g, p, p,
+                                   seeds[4 * n + 2:4 * n + 4])
+        g, *attn = attention_sublayer_bwd(inputs[2 * n], mask, *w[:6], g, h,
+                                          p, p, seeds[4 * n:4 * n + 2],
+                                          saved=saved[n])
+        for i, t in enumerate(attn + ffn):
+            grads[i][n] = t
+    return (g, *(torch.stack(t) for t in grads), dfs, dfb)
+
+
+def encoder_work(b, l, d, h, d_ff, n, dtype, backward: bool) -> tuple:
+    """(operations, bytes) of B10 on these shapes: per block B1's and B2's
+    products counted once (forward 2 M d 3d + 4 B h L^2 d_k + 2 M d^2 +
+    4 M d d_ff, backward 16 M d^2 + 12 B h L^2 d_k + 10 M d d_ff, M = B L;
+    the backward's replay of the forward is a cost of its design); x, the
+    mask and the weights read and y written, or x, dy, the mask and the
+    weights read and dx and the fp32 gradients written."""
+    m, dk = b * l, d // h
+    if backward:
+        flops = n * (16 * m * d * d + 12 * b * h * l * l * dk
+                     + 10 * m * d * d_ff)
+    else:
+        flops = n * (2 * m * d * 3 * d + 4 * b * h * l * l * dk
+                     + 2 * m * d * d + 4 * m * d * d_ff)
+    weights = 4 * (n * (4 * d * d + 2 * d * d_ff + 9 * d + d_ff) + 2 * d)
+    esz = torch.tensor([], dtype=dtype).element_size()
+    moved = (3 if backward else 2) * m * d * esz + b * l + weights * (
+        2 if backward else 1)
+    return flops, moved
+
+
+def encoder_library(x, mask, stacks, fs, fb, dy, h):
+    """B10's function in library calls, a yardstick only: per block
+    ``b1_library`` (std-LN, torch.matmul, scaled_dot_product_attention) and
+    ``b2_library`` (std-LN, torch.matmul, relu), then the final std-LN, in
+    x's dtype; returns (forward, backward by autograd) as functions that
+    run it once."""
+    from allrank_tpu_torch.models.core import std_layer_norm
+
+    dtype = x.dtype
+    mask_add = torch.zeros(x.shape[0], 1, 1, x.shape[1], dtype=dtype,
+                           device=x.device).masked_fill(
+        mask[:, None, None, :], -1e9)
+
+    def forward(xx, ws, fs_, fb_):
+        for n in range(ws[0].shape[0]):
+            w = [t[n] for t in ws]
+            xx = b1_library(xx, mask_add, *w[:6], h)
+            xx = b2_library(xx, *w[6:])
+        return std_layer_norm(xx, fs_, fb_)
+
+    leaves = [t.detach().to(dtype).requires_grad_()
+              for t in [x] + list(stacks) + [fs, fb]]
+    out = forward(leaves[0], leaves[1:13], leaves[13], leaves[14])
+    cast = [t.to(dtype) for t in stacks]
+    return (lambda: forward(x, cast, fs.to(dtype), fb.to(dtype)),
+            lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+
+
+def encoder_ffn_gates(record):
+    """``ffn_gates``' recorder for the encoder with the switch on: replays
+    each recorded B10 call through the chained sublayer forwards (the
+    kernels on the card, their plain versions on the CPU: B10's own
+    intermediates, which it does not expose) and returns per block the
+    [rows, d_ff] gates at the FFN inputs; the replay's launches are taken
+    back off the counters."""
+    from allrank_tpu_torch.models.core import std_layer_norm
+    from allrank_tpu_torch.ops.attention_block import attention_sublayer_fwd
+    from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
+
+    def call(x, mask, seeds, stacks, fs, fb, *, h, p_drop=0.0):
+        counts = (attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches)
+        with torch.no_grad():
+            hid = x
+            for n in range(stacks[0].shape[0]):
+                w = [t[n].detach() for t in stacks]
+                hid = attention_sublayer_fwd(hid, mask, *w[:6], h, p_drop,
+                                             p_drop, seeds[4 * n:4 * n + 2])
+                pre = std_layer_norm(hid.float(), w[6], w[7]) @ w[8] + w[9]
+                record.append(pre.reshape(-1, pre.shape[-1]) > 0)
+                hid = ffn_sublayer_fwd(hid, *w[6:], p_drop, p_drop,
+                                       seeds[4 * n + 2:4 * n + 4])
+        attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches = counts
+    return call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1110,9 +1338,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
                "neuralsort", "approx_pos", "lambda_tiled", "attention_fused",
-               "attention_tiled", "q8_dense"]
+               "attention_tiled", "q8_dense", "encoder_block"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the ten "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the eleven "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
@@ -2717,7 +2945,288 @@ def main() -> int:
                  "sites": q8_sites, "scorer_ms": q8_scorer_ms,
                  "service_p50_ms": q8_service_p50})
 
-    # -- 28: the record -------------------------------------------------------
+    # -- 28: B10 against its plain version and the chained kernels -----------
+    import allrank_tpu_torch.models.transformer as transformer_mod
+    from allrank_tpu_torch.ops.encoder_block import (
+        cooperative_grid,
+        encoder_backward_plain,
+        encoder_block_bwd,
+        encoder_block_fwd,
+        encoder_forward_plain,
+    )
+
+    for backward in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            grid = cooperative_grid(128, dtype, backward, dev)
+            print(f"B10 {'backward' if backward else 'forward'} {dtype} at "
+                  f"d=128: cooperative grid {grid['grid']} blocks "
+                  f"({grid['blocks_per_sm']} per SM x {grid['sms']} SMs), "
+                  f"{grid['smem_bytes']} B of shared memory a block")
+            assert grid["grid"] == grid["blocks_per_sm"] * grid["sms"]
+    enc_errs = {}
+    for b, l, d, h, d_ff, n in ENCODER_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for p in (0.0, 0.3):
+                x28, dy28, mask28, seeds28, stacks, fs, fb = encoder_inputs(
+                    gen, b, l, d, h, d_ff, n, dtype, dev)
+                args28 = (x28, mask28, seeds28, stacks, fs, fb)
+                kw = dict(h=h, p_drop=p)
+                before = (encoder_block_fwd.launches,
+                          encoder_block_bwd.launches)
+                y28 = encoder_block_fwd(*args28, **kw)
+                got = encoder_block_bwd(*args28, dy28, **kw)
+                torch.cuda.synchronize()
+                assert (encoder_block_fwd.launches,
+                        encoder_block_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+                chained_y, state = encoder_chained_fwd(*args28, h, p)
+                chained = encoder_chained_bwd(state, mask28, seeds28, stacks,
+                                              fs, dy28, h, p)
+                plain_y = encoder_forward_plain(*args28, **kw)
+                plain = encoder_backward_plain(*args28, dy28, **kw)
+                torch.cuda.synchronize()
+                again = encoder_block_bwd(*args28, dy28, **kw)
+                assert all(torch.equal(a, c) for a, c in zip(got, again)), (
+                    "two B10 backwards of the same inputs differ")
+                worst = encoder_check(y28, got, chained_y, chained, plain_y,
+                                      plain, dtype)
+                enc_errs[(b, l, d, n, dtype, p)] = worst
+                print(f"B10 B={b} L={l} d={d} h={h} d_ff={d_ff} N={n} "
+                      f"{dtype} p={p}: max_abs_err y / worst gradient vs "
+                      f"the chained B1/B2 kernels {worst['fwd_chained']:.3e} "
+                      f"/ {worst['bwd_chained']:.3e} (the worst gradient at "
+                      f"{worst['bwd_chained_rel']:.2e} of its tolerance), vs "
+                      f"plain {worst['fwd_plain']:.3e} / "
+                      f"{worst['bwd_plain']:.3e} (the chained kernels vs "
+                      f"plain {worst['fwd_chained_plain']:.3e} / "
+                      f"{worst['bwd_chained_plain']:.3e}); bit-equal to the "
+                      f"chained kernels: y {worst['y_equal']}, gradients "
+                      f"{worst['grads_equal']}/15")
+                del x28, dy28, got, again, chained, plain, state
+    torch.cuda.empty_cache()
+    print("phase 28 ok: B10 matches the chained B1/B2 kernels, and its plain "
+          "version as closely as they do, forward and backward")
+
+    # -- 29: the encoder with the switch on: scorer, service, train step ----
+    enc_kernels = (encoder_block_fwd, encoder_block_bwd,
+                   attention_sublayer_fwd, attention_sublayer_bwd,
+                   ffn_sublayer_fwd, ffn_sublayer_bwd, lambda_pairs_fwd,
+                   lambda_pairs_bwd)
+
+    def enc_counts():
+        return tuple(k.launches for k in enc_kernels)
+
+    def reset_enc():
+        for k in enc_kernels:
+            k.launches = 0
+
+    emodel = flagship_model(dev)
+    ecpu = copy.deepcopy(emodel).to("cpu")
+    rng29 = np.random.RandomState(29)
+    x29 = rng29.randn(B, L, N_FEATURES).astype(np.float32)
+    len29 = rng29.randint(1, L + 1, size=B)
+    len29[3], len29[9] = 0, L
+    pad29 = np.arange(L)[None, :] >= len29[:, None]
+    off = {label: make_scorer(emodel, dtype)(x29, len29).cpu().numpy()
+           for label, dtype in (("fp32", "float32"), ("bf16", "bfloat16"))}
+    transformer_mod.MEGA_ENCODER_ENABLED = True
+    try:
+        cpu_ref = make_scorer(ecpu, "float32", device="cpu")(
+            x29, len29).numpy()
+        on = {}
+        for label, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+            scorer = make_scorer(emodel, dtype)
+            scorer(x29, len29)
+            reset_enc()
+            on[label] = scorer(x29, len29).cpu().numpy()
+            torch.cuda.synchronize()
+            assert enc_counts() == (1, 0, 0, 0, 0, 0, 0, 0), (
+                label, enc_counts())
+            got = on[label]
+            assert got.shape == (B, L) and not np.isnan(got).any()
+            assert np.isneginf(got[pad29]).all()
+            assert np.isfinite(got[~pad29]).all()
+        err_cpu = float(np.abs(on["fp32"][~pad29] - cpu_ref[~pad29]).max())
+        assert err_cpu <= SCORE_TOL, f"B10 scorer vs CPU: {err_cpu}"
+        err_off = float(np.abs(on["fp32"][~pad29]
+                               - off["fp32"][~pad29]).max())
+        assert err_off <= SCORE_TOL, f"B10 scorer vs switch off: {err_off}"
+        scale = float(np.abs(on["fp32"][~pad29]).max())
+        err16 = float(np.abs(on["bf16"][~pad29] - on["fp32"][~pad29]).max())
+        assert err16 <= BF16_SCORE_TOL * scale, err16
+        err16_off = float(np.abs(on["bf16"][~pad29]
+                                 - off["bf16"][~pad29]).max())
+        assert err16_off <= BF16_SCORE_TOL * scale, err16_off
+        print(f"B10 scorer (switch on) B={B} L={L}: fp32 vs the CPU plain "
+              f"run {err_cpu:.3e}, vs the switched-off scorer on the card "
+              f"{err_off:.3e} (tol {SCORE_TOL}); bf16 vs fp32 {err16:.3e}, vs "
+              f"the switched-off bf16 scorer {err16_off:.3e} (tol "
+              f"{BF16_SCORE_TOL} x max|score| {scale:.3f}); one B10 launch a "
+              f"call, no B1 or B2")
+
+        service = SlateScoringService(emodel, L, N_FEATURES, batch_size=64,
+                                      max_wait_ms=5, compute_dtype="float32",
+                                      batch_buckets=(1, 8, 64))
+        server = run_server(service, 0, host="127.0.0.1")
+        server_thread = threading.Thread(target=server.serve_forever,
+                                         daemon=True)
+        server_thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        direct29 = make_scorer(emodel, "float32")
+        try:
+            slates = [rng29.randn(n, N_FEATURES).astype(np.float32)
+                      for n in (240, 1, 17, 64, 128, 199, 5, 96)]
+            waves_before = service.stats()["waves_total"]
+            reset_enc()
+            with concurrent.futures.ThreadPoolExecutor(len(slates)) as pool:
+                futs = [pool.submit(post, url, sl, i % 2 == 1)
+                        for i, sl in enumerate(slates)]
+                answers = [f.result(timeout=120) for f in futs]
+            service_counts = enc_counts()
+            waves = service.stats()["waves_total"] - waves_before
+            assert waves >= 1 and service_counts == (
+                waves, 0, 0, 0, 0, 0, 0, 0), (waves, service_counts)
+            for sl, got in zip(slates, answers):
+                xb29 = np.zeros((1, L, N_FEATURES), dtype=np.float32)
+                xb29[0, :len(sl)] = sl
+                want = direct29(xb29, [len(sl)]).cpu().numpy()[0, :len(sl)]
+                assert got.shape == (len(sl),) and np.isfinite(got).all()
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+        server_thread.join(timeout=10)
+        enc_service_launches = service_counts[0]
+        print(f"B10 service: {len(slates)} concurrent requests in {waves} "
+              f"waves, {enc_service_launches} B10 launches, none of B1 or "
+              f"B2; answers equal the direct scorer")
+
+        cfg29, model29 = paper_setup(dev)
+        batch29 = train_batch(dev)  # phase 9's batch; later phases reuse xb
+        step29 = make_step(cfg29, model29, cfg29.training.compute_dtype)
+        reset_enc()
+        losses29 = []
+        for i in range(20):
+            before = enc_counts()
+            loss, _ = step29(*batch29)
+            losses29.append(loss.item())
+            got = tuple(a - c for a, c in zip(enc_counts(), before))
+            assert got == (1, 1, 0, 0, 0, 0, 1, 1), f"step {i} {got}"
+            assert math.isfinite(losses29[-1]), losses29
+        enc_train = dict(zip((k.__name__ for k in enc_kernels),
+                             enc_counts()))
+        first = statistics.mean(losses29[:5])
+        last = statistics.mean(losses29[-5:])
+        assert last < first, f"B10 step loss did not fall: {first} -> {last}"
+        print(f"B10 train step, paper config (dropout 0.3, bf16), B={B} "
+              f"L={L}: 20 steps, loss mean of the first 5 {first:.3f}, of "
+              f"the last 5 {last:.3f}; launches {enc_train}")
+        gl, cl, worst29, flips29 = step_one_gpu_vs_cpu(
+            cfg0, paper_setup(dev, dropout=0.0)[1], batch29, gate_flips=True)
+        print(f"B10 train step 1 at dropout 0, fp32, GPU vs CPU plain: loss "
+              f"{gl:.6f} vs {cl:.6f}; worst gradient error {worst29:.3f} of "
+              f"its tolerance, FFN units with a ReLU gate flipped between "
+              f"the two held out per block {flips29} (at most "
+              f"{GATE_FLIPS_MAX})")
+    finally:
+        transformer_mod.MEGA_ENCODER_ENABLED = False
+    print("phase 29 ok: with the switch on, the scorer, the service and the "
+          "paper-config train step run through B10 alone and match")
+
+    # -- 30: times of B10, its yardsticks, and the switch's A/B -------------
+    eb, el, ed, eh, eff, en = ENCODER_CASES[0]
+    for direction in ("fwd", "bwd"):
+        row = {"name": f"encoder_block_{direction}", "route": "cuda"}
+        for dtype in (torch.float32, torch.bfloat16):
+            x30, dy30, mask30, seeds30, stacks, fs, fb = encoder_inputs(
+                gen, eb, el, ed, eh, eff, en, dtype, dev)
+            args30 = (x30, mask30, seeds30, stacks, fs, fb)
+            kw = dict(h=eh, p_drop=0.0)
+            lib = encoder_library(x30, mask30, stacks, fs, fb, dy30, eh)
+            _, state = encoder_chained_fwd(*args30, eh, 0.0)
+            if direction == "fwd":
+                fns = (lambda: encoder_block_fwd(*args30, **kw),
+                       lambda: encoder_forward_plain(*args30, **kw), lib[0],
+                       lambda: encoder_chained_fwd(*args30, eh, 0.0))
+            else:
+                fns = (lambda: encoder_block_bwd(*args30, dy30, **kw),
+                       lambda: encoder_backward_plain(*args30, dy30, **kw),
+                       lib[1],
+                       lambda: encoder_chained_bwd(state, mask30, seeds30,
+                                                   stacks, fs, dy30, eh, 0.0))
+            ms, plain_ms, lib_ms, chained_ms = (
+                median_ms(fn, iters=10, warmup=2) for fn in fns)
+            by_name = profile_calls(
+                fns[0], f"encoder_block_{direction} {dtype} {tag}",
+                also=("encoder_",))
+            dev_ms = sum(us for kname, us in by_name.items()
+                         if "encoder_" in kname) / 1e3 or None
+            flops, moved = encoder_work(eb, el, ed, eh, eff, en, dtype,
+                                        direction == "bwd")
+            bound_ms, bound_by = bound(flops, moved, dtype)
+            sfx = "" if dtype == torch.float32 else "_bf16"
+            errs28 = [v for key, v in enc_errs.items() if key[4] == dtype]
+            err = max(v[f"{direction}_plain"] for v in errs28)
+            err_chained = max(v[f"{direction}_chained"] for v in errs28)
+            row.update({f"max_abs_err{sfx}": err,
+                        f"max_abs_err_vs_chained{sfx}": err_chained,
+                        f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
+                        f"plain_ms{sfx}": plain_ms,
+                        f"bound_ms{sfx}": bound_ms,
+                        f"bound_by{sfx}": bound_by,
+                        f"library_ms{sfx}": lib_ms,
+                        f"chained_ms{sfx}": chained_ms,
+                        f"gflop{sfx}": flops / 1e9,
+                        f"mbytes{sfx}": moved / 1e6})
+            print(f"time encoder_block_{direction} {dtype} B={eb} L={el} "
+                  f"d={ed} h={eh} d_ff={eff} N={en}: kernel {ms:.4f} ms "
+                  f"({dev_ms if dev_ms is None else round(dev_ms, 4)} ms of "
+                  f"device time), the chained B1/B2 kernels {chained_ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms, library (std-LN, matmul, "
+                  f"scaled_dot_product_attention, relu"
+                  f"{', autograd' if direction == 'bwd' else ''}) "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
+            del x30, dy30, stacks, lib, state, fns
+        rows.append(row)
+    torch.cuda.empty_cache()
+
+    # the A/B: off, on, on, off in turns, on one card
+    ab = {}
+    xd = torch.as_tensor(x29, device=dev)
+    ld = torch.as_tensor(len29, device=dev)
+    ab_cases = (
+        ("train step, bench.py config (flagship, dropout 0, bf16)",
+         (cfg, flagship_model(dev))),
+        ("train step, paper config (dropout 0.3, bf16)", paper_setup(dev)))
+    for label, (cfg_t, model_t) in ab_cases:
+        step_t = make_step(cfg_t, model_t, "bfloat16", optimizer_name="Adam",
+                           lr=1e-3)
+        ab[label] = (lambda step_t=step_t: step_t(*batch29), B)
+    ab["scorer fp32, flagship"] = (
+        lambda s=make_scorer(emodel, "float32"): s(xd, ld), B)
+    ab["scorer bf16, flagship"] = (
+        lambda s=make_scorer(emodel, "bfloat16"): s(xd, ld), B)
+    ab_ms = {}
+    for label, (fn, _) in ab.items():
+        times = {"off": [], "on": []}
+        try:
+            for switch in ("off", "on", "on", "off"):
+                transformer_mod.MEGA_ENCODER_ENABLED = switch == "on"
+                times[switch].append(median_ms(fn, iters=20, warmup=3))
+            for switch in ("off", "on"):
+                transformer_mod.MEGA_ENCODER_ENABLED = switch == "on"
+                profile_calls(fn, f"{label}, switch {switch} {tag}",
+                              also=("encoder_",))
+        finally:
+            transformer_mod.MEGA_ENCODER_ENABLED = False
+        ab_ms[label] = {k: statistics.mean(v) for k, v in times.items()}
+        print(f"time A/B {label} B={B} L={L}: switch off "
+              f"{times['off']} ms, on {times['on']} ms (turns off, on, on, "
+              f"off) {tag}")
+
+    # -- 31: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -2756,7 +3265,11 @@ def main() -> int:
         "tiled_attention_bwd": ("allrank_tpu_torch/csrc/attention_tiled.cu",
                                 "allrank_tpu/ops/attention_tiled.py:265"),
         "q8_dense": ("allrank_tpu_torch/csrc/q8_dense.cu",
-                     "tools/exp_int8_matmul_kernel.py:50")}
+                     "tools/exp_int8_matmul_kernel.py:50"),
+        "encoder_block_fwd": ("allrank_tpu_torch/csrc/encoder_block.cu",
+                              "allrank_tpu/ops/encoder_block.py:302"),
+        "encoder_block_bwd": ("allrank_tpu_torch/csrc/encoder_block.cu",
+                              "allrank_tpu/ops/encoder_block.py:333")}
     # each kernel's own main path: serving (phase 5) for the sublayer
     # forwards, the train step (phase 9) for their backwards and the pair
     # chain, the CLI's NeuralNDCG run (phase 13) for the fused soft-sort, its
@@ -2776,6 +3289,10 @@ def main() -> int:
                 "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
     # X1: the int8_static service (phase 26)
     launches["q8_dense"] = q8_main_launches["q8_dense"]
+    # B10: with the switch on, its service (forward) and its 20 train steps
+    # (backward) (phase 29)
+    launches["encoder_block_fwd"] = enc_service_launches
+    launches["encoder_block_bwd"] = enc_train["encoder_block_bwd"]
     # B4 and B5: their own long-slate steps (phase 23)
     for (b, l), (got, _, _) in long_runs.items():
         for name, n in got.items():
@@ -2793,7 +3310,8 @@ def main() -> int:
         name = row["name"]
         row["source"], row["replaces"] = origin[name]
         row["launches"] = launches[name]
-        row["train_launches"] = train_launches.get(name, 0)
+        row["train_launches"] = train_launches.get(name,
+                                                   enc_train.get(name, 0))
         row["cli_launches"] = (cli_launches.get(name, 0)
                                + paper_launches.get(name, 0)
                                + sum(r.get(name, 0)
@@ -2801,8 +3319,10 @@ def main() -> int:
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 19
+    assert len(rows) == 21
     print(f"train step ms {json.dumps(step_ms)} {tag}")
+    print(f"A/B of MEGA_ENCODER_ENABLED, ms per step or call "
+          f"{json.dumps(ab_ms)} {tag}")
     print(json.dumps({"kernels": rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {

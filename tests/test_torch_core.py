@@ -171,8 +171,8 @@ def test_default_device_without_gpu_raises():
             entry()
 
 
-# the modules of the train CLI's slice, the loss zoo's and int8 serving's,
-# which the walk below must reach
+# the modules of the train CLI's slice, the loss zoo's, int8 serving's and
+# the whole encoder's, which the walk below must reach
 NEW_MODULES = [
     "allrank_tpu_torch.losses.pointwise", "allrank_tpu_torch.losses.bce",
     "allrank_tpu_torch.losses.ordinal", "allrank_tpu_torch.losses.listnet",
@@ -195,6 +195,8 @@ NEW_MODULES = [
     "allrank_tpu_torch.ops.q8_dense", "allrank_tpu_torch.quant",
     "allrank_tpu_torch.evaluate", "allrank_tpu_torch.utils.args_utils",
     "allrank_tpu_torch.utils.python_utils",
+    # the whole-encoder kernel pair B10
+    "allrank_tpu_torch.ops.encoder_block",
 ]
 
 

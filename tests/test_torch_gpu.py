@@ -9,6 +9,8 @@ only PyTorch is installed (``tests/conftest.py`` imports JAX, hence
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,13 @@ from allrank_tpu_torch.ops.attention_tiled import (
     tiled_attention_fwd,
     tiled_attention_fwd_plain,
     tiled_slate_attention,
+)
+from allrank_tpu_torch.ops.encoder_block import (
+    cooperative_grid,
+    encoder_backward_plain,
+    encoder_block_bwd,
+    encoder_block_fwd,
+    encoder_forward_plain,
 )
 from allrank_tpu_torch.ops.ffn_block import (
     ffn_sublayer_bwd,
@@ -860,3 +869,203 @@ def test_quantized_scorer_launches_x1_and_the_attention_kernels(cuda, mode):
     with pytest.raises(NotImplementedError, match="L <= 8192"):
         scorer(np.zeros((1, 8193, 10), np.float32), [5])
     assert q8_dense.launches == 0  # refused before any launch
+
+
+# ---------------------------------------------------------------------------
+# B10, the whole-encoder kernel pair
+
+
+def _encoder_inputs(gen, b, l, d, h, d_ff, n, dtype, dev):
+    """x, dy, the key mask (ragged lengths, slate 0 empty), 4N seeds, the
+    12 stacked weights and the final LN pair."""
+    x = torch.randn(b, l, d, generator=gen).to(dtype).to(dev)
+    dy = torch.randn(b, l, d, generator=gen).to(dtype).to(dev)
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0] = 0
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(dev)
+    shapes = [((d,), 1, 0.1), ((d,), 0, 0.1), ((d, 3 * d), 0, d ** -0.5),
+              ((3 * d,), 0, 0.1), ((d, d), 0, d ** -0.5), ((d,), 0, 0.1),
+              ((d,), 1, 0.1), ((d,), 0, 0.1), ((d, d_ff), 0, d ** -0.5),
+              ((d_ff,), 0, 0.1), ((d_ff, d), 0, d_ff ** -0.5),
+              ((d,), 0, 0.1)]
+    stacks = _params(gen, [((n,) + shape, c, sc) for shape, c, sc in shapes],
+                     dev)
+    fs, fb = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1)], dev)
+    seeds = tuple(range(100, 100 + 4 * n))
+    return x, dy, mask, seeds, stacks, fs, fb
+
+
+def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p):
+    """The same function through the chained B1/B2 kernels, the final
+    LayerNorm in torch ops: (y, (dx, *12 stacked gradients, dfs, dfb))."""
+    from allrank_tpu_torch.models.core import std_layer_norm
+    from allrank_tpu_torch.ops.attention_block import ln_backward
+
+    n_blocks = stacks[0].shape[0]
+    inputs, saved = [], []
+    for n in range(n_blocks):
+        w = [s[n] for s in stacks]
+        inputs.append(x)
+        x, sv = attention_sublayer_fwd(x, mask, *w[:6], h, p, p,
+                                       seeds[4 * n:4 * n + 2],
+                                       return_saved=True)
+        saved.append(sv)
+        inputs.append(x)
+        x = ffn_sublayer_fwd(x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
+    y = std_layer_norm(x, fs, fb)
+    dz, dfs, dfb = ln_backward(x.float(), fs, dy.float())
+    g = dz.to(x.dtype)
+    grads = [[None] * n_blocks for _ in range(12)]
+    for n in reversed(range(n_blocks)):
+        w = [s[n] for s in stacks]
+        g, *ffn = ffn_sublayer_bwd(inputs[2 * n + 1], *w[6:], g, p, p,
+                                   seeds[4 * n + 2:4 * n + 4])
+        g, *attn = attention_sublayer_bwd(inputs[2 * n], mask, *w[:6], g, h,
+                                          p, p, seeds[4 * n:4 * n + 2],
+                                          saved=saved[n])
+        for i, t in enumerate(attn + ffn):
+            grads[i][n] = t
+    return y, (g, *(torch.stack(t) for t in grads), dfs, dfb)
+
+
+def _no_further(got, chained, ref, dtype, what, forward=False):
+    """B10 against the plain version through N blocks: at most the chained
+    B1/B2 kernels' own distance from it plus the sublayer tolerance. Each
+    sublayer kernel is held to its plain version on the same inputs
+    (test_kernels_match_plain, test_backward_kernels_match_plain); through
+    a chain the two drift apart by more: an fp32 rounding difference
+    upstream flips a ReLU gate whose pre-activation lies near 0 (a jump of
+    the gradient, some 0.1 in dx at the flagship shape), and in bf16 one-ulp
+    rounding flips compound block by block."""
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    base = (chained.float() - ref.float()).abs().max().item()
+    if forward:
+        tol = TOL[dtype]["atol"] + TOL[dtype]["rtol"] * scale
+    else:
+        tol = (1e-4 * scale + 1e-6 if dtype == torch.float32
+               else 2 ** -5 * scale + 1e-6)
+    assert err <= base + tol, (
+        f"{what}: max|err| {err} > chained's {base} + {tol}")
+
+
+ENCODER_GRADS = ("dx", "dln1_s", "dln1_b", "dwqkv", "dbqkv", "dwout",
+                 "dbout", "dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2",
+                 "dfinal_s", "dfinal_b")
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,h,d_ff,n", [(3, 70, 64, 2, 128, 2),
+                                            (64, 240, 128, 4, 512, 4)])
+def test_encoder_kernels_match_plain_and_chained(cuda, b, l, d, h, d_ff, n,
+                                                 dtype, p):
+    gen = torch.Generator().manual_seed(b + l)
+    x, dy, mask, seeds, stacks, fs, fb = _encoder_inputs(
+        gen, b, l, d, h, d_ff, n, dtype, cuda)
+    kw = dict(h=h, p_drop=p)
+    before = (encoder_block_fwd.launches, encoder_block_bwd.launches)
+    y = encoder_block_fwd(x, mask, seeds, stacks, fs, fb, **kw)
+    got = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw)
+    torch.cuda.synchronize()
+    assert (encoder_block_fwd.launches, encoder_block_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    assert got[0].dtype == dtype
+    # against the chained kernels, whose tile bodies B10 runs: the sublayer
+    # tolerances (only the final LayerNorm is computed another way)
+    chained_y, chained = _encoder_chained(x, mask, seeds, stacks, fs, fb, dy,
+                                          h, p)
+    torch.testing.assert_close(y.float(), chained_y.float(), **TOL[dtype])
+    for name, g, c in zip(ENCODER_GRADS, got, chained):
+        assert g.shape == c.shape and torch.isfinite(g.float()).all(), name
+        _close(g, c, dtype, f"B10 vs chained {name}")
+    # against the plain version: no further than the chained kernels are
+    ref_y = encoder_forward_plain(x, mask, seeds, stacks, fs, fb, **kw)
+    _no_further(y, chained_y, ref_y, dtype, "B10 y", forward=True)
+    ref = encoder_backward_plain(x, mask, seeds, stacks, fs, fb, dy, **kw)
+    for name, g, c, r in zip(ENCODER_GRADS, got, chained, ref):
+        _no_further(g, c, r, dtype, f"B10 {name}")
+    # no atomics: a second backward gives the same bits
+    again = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_encoder_cooperative_grid_fits_the_card(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for backward in (False, True):
+        for d in (128, 256):
+            g = cooperative_grid(d, torch.float32, backward)
+            assert g["sms"] == sms and g["blocks_per_sm"] >= 1
+            assert g["grid"] == g["blocks_per_sm"] * sms
+            assert g["smem_bytes"] <= 227 * 1024
+
+
+def test_encoder_switch_launches_b10_alone(cuda, monkeypatch):
+    import allrank_tpu_torch.models.transformer as transformer
+    from allrank_tpu_torch.config import (
+        FCConfig,
+        ModelConfig,
+        PostModelConfig,
+        TransformerConfig,
+    )
+    from allrank_tpu_torch.losses import get_loss
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.serving import make_scorer
+    from allrank_tpu_torch.training import make_optimizer, make_train_step
+
+    mdef = make_model(ModelConfig(
+        fc_model=FCConfig(sizes=[32], input_norm=True, activation="ReLU",
+                          dropout=0.0),
+        transformer=TransformerConfig(N=3, d_ff=64, h=2, dropout=0.3,
+                                      positional_encoding=None),
+        post_model=PostModelConfig(d_output=1)), 10)
+    model = LTRModel(mdef, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 20, 10).astype(np.float32)
+    lengths = np.array([20, 7, 0, 1])
+    ref = make_scorer(model, device="cpu")(x, lengths).numpy()
+    kernels = (encoder_block_fwd, encoder_block_bwd, attention_sublayer_fwd,
+               attention_sublayer_bwd, ffn_sublayer_fwd, ffn_sublayer_bwd)
+    monkeypatch.setattr(transformer, "MEGA_ENCODER_ENABLED", True)
+    scorer = make_scorer(model, device=cuda)
+    for k in kernels:
+        k.launches = 0
+    got = scorer(x, lengths).cpu().numpy()
+    assert [k.launches for k in kernels] == [1, 0, 0, 0, 0, 0]
+    valid = ~np.isneginf(ref)
+    assert (np.isneginf(got) == ~valid).all() and not np.isnan(got).any()
+    np.testing.assert_allclose(got[valid], ref[valid], rtol=1e-4, atol=1e-4)
+    loss_fn, needs_rng = get_loss("lambdaLoss")
+    step = make_train_step(model, loss_fn, {"weighing_scheme":
+                                            "ndcgLoss2PP_scheme"}, needs_rng,
+                           make_optimizer("Adam", {"lr": 1e-3},
+                                          model.parameters()), None,
+                           "bfloat16")
+    y = rng.randint(0, 5, (4, 20)).astype(np.float32)
+    y[:, -4:] = -1
+    indices = np.tile(np.arange(20), (4, 1))
+    for _ in range(3):
+        for k in kernels:
+            k.launches = 0
+        loss, _ = step(x, y, indices)
+        assert math.isfinite(loss.item())
+        assert [k.launches for k in kernels] == [1, 1, 0, 0, 0, 0]
+    # outside the envelope the encoder takes its chained forms
+    for k in kernels:
+        k.launches = 0
+    make_scorer(model, device=cuda)(rng.randn(1, 1100, 10).astype(np.float32),
+                                    [900])
+    assert [k.launches for k in kernels] == [0, 0, 0, 0, 3, 0]
+
+
+def test_encoder_kernel_refuses_outside_its_envelope(cuda):
+    gen = torch.Generator().manual_seed(3)
+    x, dy, mask, seeds, stacks, fs, fb = _encoder_inputs(
+        gen, 1, 1025, 64, 2, 128, 1, torch.float32, cuda)
+    before = (encoder_block_fwd.launches, encoder_block_bwd.launches)
+    with pytest.raises(NotImplementedError, match="L <= 1024"):
+        encoder_block_fwd(x, mask, seeds, stacks, fs, fb, h=2)
+    with pytest.raises(NotImplementedError, match="L <= 1024"):
+        encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, h=2)
+    assert (encoder_block_fwd.launches, encoder_block_bwd.launches) == before
