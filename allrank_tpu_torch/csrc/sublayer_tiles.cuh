@@ -113,10 +113,28 @@ __device__ void ln_qkv_tile(float* smem, const T* x,
   }
 }
 
+// The attention core of attn_out_tile: B1 and B10 take kAttnFull; the
+// probe kernels of attention_variants.cu (X3) take the others, each with
+// one stage changed (wrong math, honest timing; no dropout, no stats):
+//   kAttnNoSoftmax    p = masked scores x 0.001 (no max, exp, sum)
+//   kAttnExp2         exp2 of the scaled scores times log2(e)
+//   kAttnNormAfterPv  P unnormalised, ctx scaled by 1 / sum after P.V
+//   kAttnNoPv         ctx = v + 0.001 p[:, :d_k] (no P.V; needs L >= d_k)
+//   kAttnFrame        ctx = q + k + v (no attention core at all)
+enum AttnMode : int {
+  kAttnFull = 0,
+  kAttnNoSoftmax,
+  kAttnExp2,
+  kAttnNormAfterPv,
+  kAttnNoPv,
+  kAttnFrame
+};
+constexpr float kLog2e = 1.4426950408889634f;
+
 // y[q0:q0+64] of one slate (q0 = q_tile * 64): attention over all heads,
 // then the out-projection, its bias, the output dropout and the residual.
 // With `stats` non-null, also each row's softmax max and sum per head.
-template <class T>
+template <class T, int kMode = kAttnFull>
 __device__ void attn_out_tile(float* smem, const T* qkv,
                               const unsigned char* __restrict__ key_mask,
                               const T* x,
@@ -143,7 +161,19 @@ __device__ void attn_out_tile(float* smem, const T* qkv,
 
   for (int e = tid; e < kTile * ldc; e += kThreads) Cs[e] = 0.f;
 
-  for (int head = 0; head < h; ++head) {
+  if constexpr (kMode == kAttnFrame) {
+    __syncthreads();
+    for (int e = tid; e < kTile * d; e += kThreads) {
+      const int r = e / d, c = e % d;
+      if (r < rows) {
+        const T* row = base + (size_t)(q0 + r) * ld;
+        Cs[r * ldc + c] = round_to<T>(
+            round_to<T>(to_float(row[c]) + to_float(row[d + c])) +
+            to_float(row[2 * d + c]));
+      }
+    }
+  }
+  for (int head = 0; head < (kMode == kAttnFrame ? 0 : h); ++head) {
     const int qoff = head * dk, koff = d + head * dk, voff = 2 * d + head * dk;
     if (tid < kTile) {
       row_max[tid] = -INFINITY;
@@ -151,7 +181,7 @@ __device__ void attn_out_tile(float* smem, const T* qkv,
     }
     __syncthreads();
     // pass 0: row max and sum of exp; pass 1: probabilities and P.V
-    for (int pass = 0; pass < 2; ++pass) {
+    for (int pass = kMode == kAttnNoSoftmax ? 1 : 0; pass < 2; ++pass) {
       for (int k0 = 0; k0 < L; k0 += kTile) {
         float acc[4][4] = {};
         for (int c0 = 0; c0 < dk; c0 += kChunk) {
@@ -200,26 +230,54 @@ __device__ void attn_out_tile(float* smem, const T* qkv,
           const float old_max = row_max[r];
           const float new_max = fmaxf(old_max, tmax);
           float tsum = 0.f;
-          for (int c = 0; c < 16; ++c) tsum += expf(prow[c] - new_max);
+          if constexpr (kMode == kAttnExp2) {
+            for (int c = 0; c < 16; ++c)
+              tsum += exp2f((prow[c] - new_max) * kLog2e);
+          } else {
+            for (int c = 0; c < 16; ++c) tsum += expf(prow[c] - new_max);
+          }
           tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
           tsum += __shfl_xor_sync(0xffffffffu, tsum, 2);
           __syncwarp();  // the row's four lanes have read row_max[r]
           if (part == 0) {
-            row_sum[r] = row_sum[r] * expf(old_max - new_max) + tsum;
+            if constexpr (kMode == kAttnExp2)
+              row_sum[r] =
+                  row_sum[r] * exp2f((old_max - new_max) * kLog2e) + tsum;
+            else
+              row_sum[r] = row_sum[r] * expf(old_max - new_max) + tsum;
             row_max[r] = new_max;
           }
         } else {
           const size_t prob0 = (((size_t)slate * h + head) * L + q0) * L + k0;
           for (int e = tid; e < kTile * kTile; e += kThreads) {
             const int r = e / kTile, c = e % kTile;
-            float p = expf(Ps[r * kLdB + c] - row_max[r]) * (1.f / row_sum[r]);
+            float p;
+            if constexpr (kMode == kAttnNoSoftmax)
+              p = k0 + c < L ? Ps[r * kLdB + c] * 0.001f : 0.f;
+            else if constexpr (kMode == kAttnExp2)
+              p = exp2f((Ps[r * kLdB + c] - row_max[r]) * kLog2e) *
+                  (1.f / row_sum[r]);
+            else if constexpr (kMode == kAttnNormAfterPv)
+              p = expf(Ps[r * kLdB + c] - row_max[r]);
+            else
+              p = expf(Ps[r * kLdB + c] - row_max[r]) * (1.f / row_sum[r]);
             if (drop_a.on)
               p = drop_keep(drop_a, prob0 + (size_t)r * L + c) ? p / drop_a.denom
                                                                : 0.f;
             Ps[r * kLdB + c] = round_to<T>(p);
           }
           __syncthreads();
-          for (int t0 = 0; t0 < dk; t0 += kTile) {
+          if constexpr (kMode == kAttnNoPv) {
+            // each (row, key < d_k) of this key tile belongs to one thread
+            for (int e = tid; e < kTile * kTile; e += kThreads) {
+              const int r = e / kTile, key = k0 + e % kTile;
+              if (r < rows && key < dk && key < L)
+                Cs[r * ldc + qoff + key] = round_to<T>(
+                    to_float(base[(size_t)(q0 + r) * ld + voff + key]) +
+                    round_to<T>(Ps[r * kLdB + e % kTile] * 0.001f));
+            }
+          }
+          for (int t0 = 0; t0 < (kMode == kAttnNoPv ? 0 : dk); t0 += kTile) {
             float cacc[4][4] = {};
             for (int kk0 = 0; kk0 < kTile; kk0 += kChunk) {
               for (int e = tid; e < kChunk * kTile; e += kThreads) {
@@ -252,6 +310,13 @@ __device__ void attn_out_tile(float* smem, const T* qkv,
         stats[o] = row_max[tid];
         stats[o + 1] = row_sum[tid];
       }
+    }
+    if constexpr (kMode == kAttnNormAfterPv) {
+      for (int e = tid; e < kTile * dk; e += kThreads) {
+        const int r = e / dk, c = e % dk;
+        Cs[r * ldc + qoff + c] *= 1.f / row_sum[r];
+      }
+      __syncthreads();  // before the next head resets row_sum
     }
   }
 

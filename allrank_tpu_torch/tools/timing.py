@@ -1,0 +1,108 @@
+"""Clocks of the probe CLIs: the counterparts of the JAX package's
+``tools/bench_util.py:15`` (``time_steps``) and
+``tools/exp_chain_sweep.py:42-64`` (``measure`` and ``fit``).
+
+On the card a step function is timed by CUDA events: either ``repeat``
+steps captured in one CUDA graph and replayed (the TPU's ``lax.scan`` of
+``repeat`` steps: the kernels run back to back with none of the host's time
+between them), or the same steps launched one by one from Python (eager:
+each boundary also carries the host's launch). On the CPU (``--device
+cpu``, the tests) the host clock times the plain versions; those numbers
+are the CPU's and say nothing of the card.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+
+def _median_event_ms(fn: Callable[[], object], iters: int,
+                     warmup: int) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _median_host_ms(fn: Callable[[], object], iters: int,
+                    warmup: int) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _chain(step, state, repeat):
+    for _ in range(repeat):
+        state = step(state)
+    return state
+
+
+def step_ms(step: Callable, state, device: torch.device, repeat: int = 16,
+            graph: bool = True, iters: int = 5) -> float:
+    """Milliseconds per step of ``repeat`` self-feeding steps
+    ``state = step(state)``: on the card captured in one CUDA graph and
+    replayed (``graph``), or launched eagerly; the median over ``iters``
+    runs. On the CPU the host clock of one eager chain."""
+    def run():
+        return _chain(step, state, repeat)
+
+    if device.type != "cuda":  # the tests' run: one pass is enough
+        return _median_host_ms(run, iters=1, warmup=0) / repeat
+    if not graph:
+        return _median_event_ms(run, iters=iters, warmup=1) / repeat
+    step(state)  # builds and loads the kernels outside the capture
+    torch.cuda.synchronize()
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        run()
+    ms = _median_event_ms(cuda_graph.replay, iters=iters, warmup=1) / repeat
+    del cuda_graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def measure(step: Callable, state, label: str, device: torch.device,
+            repeat: int = 16, graph: bool = True) -> float:
+    """``step_ms`` printed as the JAX probes print it; returns ms per
+    step."""
+    ms = step_ms(step, state, device, repeat=repeat, graph=graph)
+    print(f"{label:<52} {ms:8.3f} ms", flush=True)
+    return ms
+
+
+def fit(ks: Sequence[int], ts: Sequence[float], label: str) -> tuple:
+    """``t(K) = intercept + slope K`` by least squares over a K-sweep of
+    ms per step; prints both in us and returns (slope, intercept) in ms."""
+    slope, intercept = np.polyfit(np.asarray(ks, dtype=float),
+                                  np.asarray(ts, dtype=float), 1)
+    print(f"{label:<36} slope {slope * 1e3:7.1f} us/unit   "
+          f"intercept {intercept * 1e3:7.1f} us/iter")
+    return float(slope), float(intercept)
+
+
+def clock_note(device: torch.device) -> str:
+    """The line that says whose clock the numbers are."""
+    if device.type == "cuda":
+        return (f"device: {torch.cuda.get_device_name(device)}; CUDA events, "
+                f"device time")
+    return ("device: cpu; the plain PyTorch versions on the host clock, "
+            "no number of the card")

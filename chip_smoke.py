@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the eleven kernel sources of
+1. the card, torch and CUDA versions; builds the fourteen kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took; turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
@@ -168,7 +168,25 @@ and never prints its last line):
     library formulation); the A/B of the switch (off, on, on, off) on the
     train step at ``bench.py``'s configuration and the paper config and on
     the flagship scorer, with idle share and device time by kernel;
-31. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+31. the boundary-shift kernels (X2, plain and shifted) against their plain
+    versions at B=64, L=240, at a ragged B=3, L=37 and at B=1, L=1 (bf16,
+    d=128, d3=384); then the probe ``allrank_tpu_torch.tools.
+    exp_boundary_shift`` at its default shape, in-process (its launches are
+    the kernels' count): the per-boundary tax in one CUDA graph and eager;
+    each kernel's device time, bound, plain version and library formulation;
+32. the attention variants (X3) in all six modes against their plain
+    versions at B=64, L=240, d=128, h=4, bf16, ragged keys and one empty
+    slate, and ``full`` against B1's forward bit for bit; then the probe
+    ``exp_attn_decompose`` (three interleaved rounds of K=8 chains, the
+    stage costs, the production B1 forward and backward K-swept); times;
+33. the soft-sort with its records on chip (X4, forward and backward)
+    against B8's kernels (bit for bit) and the plain version at N=2048,
+    L=240 with a 40-document tail (the probe's case), at N=64 ragged in
+    both ``transpose`` values and at one fully padded slate; its refusal
+    past its shared-memory cap; then the probe ``exp_sinkhorn_layout``
+    (B8 against X4, forward and forward + backward, 8 steps in one CUDA
+    graph); times at N=64 beside B8's;
+34. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -1263,6 +1281,46 @@ def encoder_ffn_gates(record):
     return call
 
 
+def x2_inputs(gen, b, l, dev):
+    """x [B, L, 128], pre [B, L, 384], W1, W2 and the next kernel's W1',
+    bf16, at the JAX probe's scales."""
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            torch.bfloat16).to(dev)
+
+    return (r(b, l, 128, scale=0.5), r(b, l, 384, scale=0.5),
+            r(128, 384, scale=0.05), r(384, 128, scale=0.05),
+            r(128, 384, scale=0.05))
+
+
+def x2_library(x, pre, w1, w2, shifted):
+    """The boundary kernels in library calls, a yardstick only: the
+    no-gain std-LN in torch ops, bf16 ``torch.matmul`` and ``relu``."""
+    def ln(v):
+        c = v - v.mean(dim=-1, keepdim=True)
+        var = (c * c).sum(dim=-1, keepdim=True) / (v.shape[-1] - 1)
+        return (c / (torch.sqrt(torch.clamp(var, min=1e-24)) + 1e-6)).to(
+            torch.bfloat16)
+
+    if shifted:
+        out = x + torch.matmul(torch.relu(pre), w2)
+        return out, torch.matmul(ln(out.float()), w1)
+    return x + torch.matmul(torch.relu(torch.matmul(ln(x.float()), w1)), w2)
+
+
+def x3_work(b, l, d, h, mode) -> tuple:
+    """(operations, bytes) of one X3 call: the QKV and out-projection
+    products, and q . k^T and P . v unless the mode drops them; x, the key
+    mask and the fp32 parameters read once, y written."""
+    flops = 2 * b * l * d * 3 * d + 2 * b * l * d * d
+    if mode != "frame":
+        flops += 2 * b * l * l * d                    # q . k^T, all heads
+    if mode not in ("frame", "no_pv"):
+        flops += 2 * b * l * l * d                    # P . v
+    moved = 2 * (2 * b * l * d) + b * l + 4 * (4 * d * d + 6 * d)
+    return flops, moved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1338,9 +1396,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
                "neuralsort", "approx_pos", "lambda_tiled", "attention_fused",
-               "attention_tiled", "q8_dense", "encoder_block"]
+               "attention_tiled", "q8_dense", "encoder_block",
+               "boundary_shift", "attention_variants", "neuralsort_layout"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the eleven "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the fourteen "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
@@ -3226,7 +3285,285 @@ def main() -> int:
               f"{times['off']} ms, on {times['on']} ms (turns off, on, on, "
               f"off) {tag}")
 
-    # -- 31: the record -------------------------------------------------------
+    # -- 31: X2, the boundary-shift kernels -----------------------------------
+    from allrank_tpu_torch.ops.boundary_shift import (
+        boundary_plain,
+        boundary_plain_plain,
+        boundary_shift,
+        boundary_shift_plain,
+    )
+    from allrank_tpu_torch.tools import exp_boundary_shift as x2_tool
+
+    t31 = time.perf_counter()
+    tol16 = KERNEL_TOL[torch.bfloat16]
+    x2_errs = {"boundary_plain": 0.0, "boundary_shift": 0.0}
+    for b, l in ((B, L), (3, 37), (1, 1)):
+        x, pre, w1, w2, w1n = x2_inputs(gen, b, l, dev)
+        before = (boundary_plain.launches, boundary_shift.launches)
+        y = boundary_plain(x, w1, w2)
+        out, pre_out = boundary_shift(x, pre, w2, w1n)
+        torch.cuda.synchronize()
+        assert (boundary_plain.launches, boundary_shift.launches) == (
+            before[0] + 1, before[1] + 1), "X2 did not launch"
+        pairs = {"boundary_plain": [(y, boundary_plain_plain(x, w1, w2))],
+                 "boundary_shift": list(zip(
+                     (out, pre_out), boundary_shift_plain(x, pre, w2, w1n)))}
+        case_errs = {}
+        for name, got_ref in pairs.items():
+            for got, ref in got_ref:
+                assert got.shape == ref.shape and got.dtype == ref.dtype
+                assert torch.isfinite(got.float()).all(), name
+                torch.testing.assert_close(got.float(), ref.float(), **tol16)
+                case_errs[name] = max(case_errs.get(name, 0.0), rel_err(
+                    got.float(), ref.float())[0])
+                x2_errs[name] = max(x2_errs[name], case_errs[name])
+        print(f"X2 vs plain B={b} L={l} d=128 d3=384 bf16: max_abs_err plain "
+              f"{case_errs['boundary_plain']:.3e}, shifted (out and pre_out) "
+              f"{case_errs['boundary_shift']:.3e} (tol {tol16})")
+    # the probe's own run at its default shape: the launches of its path
+    boundary_plain.launches = boundary_shift.launches = 0
+    x2_res = x2_tool.main([])
+    x2_launches = {"boundary_plain": boundary_plain.launches,
+                   "boundary_shift": boundary_shift.launches}
+    print(f"X2 probe launches {x2_launches}; per-boundary tax (us): "
+          + ", ".join(f"{m} plain {r['tax_plain_us']:.2f} shifted "
+                      f"{r['tax_shift_us']:.2f}" for m, r in x2_res.items())
+          + f" {tag}")
+    x, pre, w1, w2, w1n = x2_inputs(gen, B, L, dev)
+    m2 = B * L
+    for name, fns, moved in (
+            ("boundary_plain",
+             (lambda: boundary_plain(x, w1, w2),
+              lambda: boundary_plain_plain(x, w1, w2),
+              lambda: x2_library(x, pre, w1, w2, False)),
+             2 * nbytes(x) + nbytes(w1, w2)),
+            ("boundary_shift",
+             (lambda: boundary_shift(x, pre, w2, w1n),
+              lambda: boundary_shift_plain(x, pre, w2, w1n),
+              lambda: x2_library(x, pre, w1n, w2, True)),
+             2 * nbytes(x, pre) + nbytes(w1n, w2))):
+        flops = 2 * 2 * m2 * 128 * 384
+        ms = graph_ms(fns[0])
+        plain_ms, lib_ms = (median_ms(fn, iters=20) for fn in fns[1:])
+        bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
+        rows.append({"name": name, "route": "cuda",
+                     "max_abs_err": x2_errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "gflop": flops / 1e9, "mbytes": moved / 1e6,
+                     "probe": x2_res})
+        print(f"time {name} bf16 B={B} L={L} d=128 d3=384: kernel {ms:.4f} "
+              f"ms of device time (20 calls in one CUDA graph), plain "
+              f"{plain_ms:.4f} ms, library (std-LN ops, bf16 torch.matmul, "
+              f"relu) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
+    del x, pre, w1, w2, w1n
+    print(f"phase 31 ok: X2 matches its plain versions; the boundary probe "
+          f"ran ({time.perf_counter() - t31:.1f} s)")
+
+    # -- 32: X3, the attention variants ---------------------------------------
+    from allrank_tpu_torch.ops.attention_variants import (
+        MODES,
+        attention_variant_fwd,
+        attention_variant_fwd_plain,
+    )
+    from allrank_tpu_torch.tools import exp_attn_decompose as x3_tool
+
+    t32 = time.perf_counter()
+    d3h = (128, 4)
+    args32 = attn_inputs(gen, B, L, d3h[0], torch.bfloat16, dev)
+    x0_32, mask0_32, plist32 = x3_tool.inputs(B, L, dev)
+    x3_errs = dict.fromkeys(MODES, 0.0)
+    x3_scaled_err = None  # no_softmax on ragged keys, held to its scale
+    for mode in MODES:
+        # the probe's own inputs (no padded key), then ragged keys with one
+        # empty slate
+        for label, args in (("the probe's inputs", [x0_32, mask0_32]
+                             + list(plist32[0])),
+                            ("ragged keys, one empty slate", args32)):
+            before = attention_variant_fwd.launches[mode]
+            y = attention_variant_fwd(*args, d3h[1], mode=mode)
+            torch.cuda.synchronize()
+            assert attention_variant_fwd.launches[mode] == before + 1, mode
+            ref = attention_variant_fwd_plain(*args, d3h[1], mode=mode)
+            assert y.dtype == ref.dtype and y.shape == ref.shape
+            assert torch.isfinite(y.float()).all(), mode
+            err, scale = rel_err(y, ref)
+            if mode == "no_softmax" and args is args32:
+                # padded keys enter P.V with weight -1e9 x 0.001: ctx
+                # reaches 1e6-1e7 and the out-projection's sums cancel, so
+                # a one-ulp flip of a bf16 ctx value moves y by up to an ulp
+                # of that scale; held relative to the output's largest value
+                assert err <= tol16["rtol"] * scale, (mode, err, scale)
+                msg = f" (tol {tol16['rtol']:g} x max|ref| {scale:.3e})"
+                x3_scaled_err = (err, scale)
+            else:
+                torch.testing.assert_close(y.float(), ref.float(), **tol16)
+                msg = f" (tol {tol16})"
+                x3_errs[mode] = max(x3_errs[mode], err)
+            if mode == "full":  # B1's own kernel code, bit for bit
+                b1_y = attention_sublayer_fwd(*args, d3h[1])
+                assert torch.equal(y, b1_y), "X3 full is not B1's forward"
+                msg += "; equal to B1's forward bit for bit"
+            print(f"X3 [{mode}] vs plain B={B} L={L} d=128 h=4 bf16 "
+                  f"({label}): max_abs_err {err:.3e}{msg}")
+    attention_variant_fwd.launches = dict.fromkeys(MODES, 0)
+    attention_sublayer_fwd.launches = attention_sublayer_bwd.launches = 0
+    x3_res = x3_tool.main([])
+    x3_launches = dict(attention_variant_fwd.launches)
+    assert attention_sublayer_fwd.launches and attention_sublayer_bwd.launches
+    print(f"X3 probe launches {x3_launches}; stages (us) "
+          f"{json.dumps(x3_res['stages_us'])} {tag}")
+    xx, mask32 = args32[:2]
+    lib_args32 = [xx, torch.zeros(B, 1, 1, L, dtype=xx.dtype,
+                                  device=dev).masked_fill(
+        mask32[:, None, None, :], -1e9)] + [
+        p.to(torch.bfloat16) for p in args32[2:]] + [d3h[1]]
+    for mode in MODES:
+        ms = graph_ms(lambda m=mode: attention_variant_fwd(*args32, d3h[1],
+                                                           mode=m))
+        plain_ms = median_ms(lambda m=mode: attention_variant_fwd_plain(
+            *args32, d3h[1], mode=m), iters=20)
+        lib_ms = (median_ms(lambda: b1_library(*lib_args32), iters=20)
+                  if mode == "full" else None)
+        flops, moved = x3_work(B, L, d3h[0], d3h[1], mode)
+        bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
+        row = {"name": f"attention_variant_{mode}", "route": "cuda",
+               "max_abs_err": x3_errs[mode], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms, "gflop": flops / 1e9,
+               "mbytes": moved / 1e6,
+               "probe_us": x3_res["modes_us"][mode]}
+        if lib_ms is None:
+            row["library_note"] = ("none: the mode changes a stage on "
+                                   "purpose, no library call computes it")
+        if mode == "no_softmax":
+            row["max_abs_err_ragged_keys"], row["max_abs_ref_ragged_keys"] = (
+                x3_scaled_err)
+        rows.append(row)
+        print(f"time attention_variant_{mode} bf16 B={B} L={L} d=128 h=4: "
+              f"kernel {ms:.4f} ms of device time (20 calls in one CUDA "
+              f"graph), plain {plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{moved / 1e6:.2f} MB) {tag}")
+    del args32, lib_args32, xx, mask32
+    print(f"phase 32 ok: X3 matches its plain versions in all six modes and "
+          f"B1 in full; the decomposition probe ran "
+          f"({time.perf_counter() - t32:.1f} s)")
+
+    # -- 33: X4, the soft-sort with its records on chip -----------------------
+    from allrank_tpu_torch.ops.neuralsort_layout import (
+        layout_soft_sort_bwd,
+        layout_soft_sort_fwd,
+        layout_vectors,
+        max_length,
+        smem_floats,
+    )
+    from allrank_tpu_torch.tools import exp_sinkhorn_layout as x4_tool
+
+    t33 = time.perf_counter()
+    T = SINKHORN_ITERS
+    for backward in (False, True):
+        assert layout_vectors(T, backward) == smem_floats(1, T, backward)
+    x4_errs = {"layout_soft_sort_fwd": 0.0, "layout_soft_sort_bwd": 0.0}
+    s0, pad0, vec0 = x4_tool.inputs(2048, L, dev)
+    cases33 = [("the probe's case", 2048, False,
+                (s0, pad0, vec0, torch.randn(2048, L, generator=gen).to(dev)))]
+    for n, transpose in ((B, False), (B, True), (1, False)):
+        cases33.append((f"ragged{', fully padded' if n == 1 else ''}", n,
+                        transpose, soft_sort_inputs(gen, n, L, dev)))
+    for label, n, transpose, (sc, pad, vec, dout) in cases33:
+        before = (layout_soft_sort_fwd.launches, layout_soft_sort_bwd.launches)
+        out, a_hist, b_hist = layout_soft_sort_fwd(sc, pad, vec, 1.0, T,
+                                                   transpose)
+        ds = layout_soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout, 1.0, T,
+                                  transpose)
+        torch.cuda.synchronize()
+        assert (layout_soft_sort_fwd.launches,
+                layout_soft_sort_bwd.launches) == (
+            before[0] + 1, before[1] + 1), "X4 did not launch"
+        b8 = soft_sort_fwd(sc, pad, vec, 1.0, T, transpose)
+        b8_ds = soft_sort_bwd(sc, pad, vec, *b8[1:], dout, 1.0, T, transpose)
+        vs_b8 = max((g - w).abs().max().item()
+                    for g, w in zip((out, a_hist, b_hist, ds), b8 + (b8_ds,)))
+        ref, ref_a, ref_b = soft_sort_fwd_plain(sc, pad, vec, 1.0, T,
+                                                transpose)
+        assert torch.isfinite(out).all() and torch.isfinite(ds).all()
+        torch.testing.assert_close(out, ref, **SOFT_TOL)
+        torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
+        torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
+        ref_ds = soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout, 1.0,
+                                     T, transpose)
+        g_err = assert_grad_close(ds, ref_ds, f"X4 ds N={n}")
+        assert not ds[pad > 0.5].any(), "a padded document's gradient"
+        f_err = rel_err(out, ref)[0]
+        x4_errs["layout_soft_sort_fwd"] = max(
+            x4_errs["layout_soft_sort_fwd"], f_err)
+        x4_errs["layout_soft_sort_bwd"] = max(
+            x4_errs["layout_soft_sort_bwd"], g_err)
+        print(f"X4 vs plain N={n} L={L} ({label}) transpose={transpose}: "
+              f"max_abs_err out {f_err:.3e} (tol {SOFT_TOL}), ds {g_err:.3e} "
+              f"of max|ref| {rel_err(ds, ref_ds)[1]:.3e} (tol "
+              f"{SOFT_GRAD_TOL[0]:g} x); max |X4 - B8| over out, a_hist, "
+              f"b_hist and ds {vs_b8:.3e}")
+        del ref, ref_a, ref_b, ref_ds, b8, b8_ds
+    too_long = torch.zeros(2, max_length(T) + 1, device=dev)
+    before = layout_soft_sort_fwd.launches
+    try:
+        layout_soft_sort_fwd(too_long, too_long, too_long, 1.0, T)
+        raise AssertionError("X4 took a slate past its cap")
+    except ValueError as e:
+        assert layout_soft_sort_fwd.launches == before
+        print(f"X4 refuses L={too_long.shape[1]}: {e}")
+    layout_soft_sort_fwd.launches = layout_soft_sort_bwd.launches = 0
+    x4_res = x4_tool.main([])
+    x4_launches = {"layout_soft_sort_fwd": layout_soft_sort_fwd.launches,
+                   "layout_soft_sort_bwd": layout_soft_sort_bwd.launches}
+    assert x4_res["max_abs_out"] == 0.0 and x4_res["max_abs_grad"] == 0.0
+    print(f"X4 probe launches {x4_launches}; X4 / B8 time "
+          f"{x4_res['ratio_fwd']:.4f} forward, {x4_res['ratio_fwd_bwd']:.4f} "
+          f"forward + backward at N=2048 L={L} {tag}")
+    sc, pad, vec, dout = soft_sort_inputs(gen, B, L, dev)
+    _, a_hist, b_hist = layout_soft_sort_fwd(sc, pad, vec, 1.0, T, False)
+    lib = soft_sort_library(sc, pad, vec, False)
+    hist_bytes = 2 * (T + 1) * 4
+    for name, fns, b8_fn, lib_fn, flops, moved in (
+            ("layout_soft_sort_fwd",
+             (lambda: layout_soft_sort_fwd(sc, pad, vec, 1.0, T, False),
+              lambda: soft_sort_fwd_plain(sc, pad, vec, 1.0, T, False)),
+             lambda: soft_sort_fwd(sc, pad, vec, 1.0, T, False), lib[0],
+             B * (4 * T + 14) * L * L, B * L * (3 * 4 + 4 + hist_bytes)),
+            ("layout_soft_sort_bwd",
+             (lambda: layout_soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout,
+                                           1.0, T, False),
+              lambda: soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
+                                          1.0, T, False)),
+             lambda: soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout, 1.0,
+                                   T, False), lib[1],
+             B * (8 * T + 31) * L * L, B * L * (4 * 4 + 4 + hist_bytes))):
+        ms, b8_ms = graph_ms(fns[0]), graph_ms(b8_fn)
+        plain_ms, lib_ms = (median_ms(fn, iters=10, warmup=2)
+                            for fn in (fns[1], lib_fn))
+        bound_ms, bound_by = bound(flops, moved, torch.float32)
+        rows.append({"name": name, "route": "cuda",
+                     "max_abs_err": x4_errs[name], "ms": ms,
+                     "b8_ms": b8_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "gflop": flops / 1e9,
+                     "mbytes": moved / 1e6, "probe": x4_res})
+        print(f"time {name} float32 N={B} L={L}: kernel {ms:.4f} ms of "
+              f"device time (20 calls in one CUDA graph), B8 {b8_ms:.4f} ms "
+              f"likewise, plain {plain_ms:.4f} ms, library (torch-op chain"
+              f"{', autograd' if name.endswith('bwd') else ''}) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB) {tag}")
+    del sc, pad, vec, dout, a_hist, b_hist, lib, s0, pad0, vec0, cases33
+    torch.cuda.empty_cache()
+    print(f"phase 33 ok: X4 is B8 bit for bit and matches the plain version; "
+          f"the layout probe ran ({time.perf_counter() - t33:.1f} s)")
+
+    # -- 34: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -3269,7 +3606,19 @@ def main() -> int:
         "encoder_block_fwd": ("allrank_tpu_torch/csrc/encoder_block.cu",
                               "allrank_tpu/ops/encoder_block.py:302"),
         "encoder_block_bwd": ("allrank_tpu_torch/csrc/encoder_block.cu",
-                              "allrank_tpu/ops/encoder_block.py:333")}
+                              "allrank_tpu/ops/encoder_block.py:333"),
+        "boundary_plain": ("allrank_tpu_torch/csrc/boundary_shift.cu",
+                           "tools/exp_boundary_shift.py:95"),
+        "boundary_shift": ("allrank_tpu_torch/csrc/boundary_shift.cu",
+                           "tools/exp_boundary_shift.py:102"),
+        "layout_soft_sort_fwd": ("allrank_tpu_torch/csrc/neuralsort_layout.cu",
+                                 "tools/exp_sinkhorn_layout.py:205"),
+        "layout_soft_sort_bwd": ("allrank_tpu_torch/csrc/neuralsort_layout.cu",
+                                 "tools/exp_sinkhorn_layout.py:231")}
+    for mode in MODES:
+        origin[f"attention_variant_{mode}"] = (
+            "allrank_tpu_torch/csrc/attention_variants.cu",
+            "tools/exp_attn_decompose.py:126")
     # each kernel's own main path: serving (phase 5) for the sublayer
     # forwards, the train step (phase 9) for their backwards and the pair
     # chain, the CLI's NeuralNDCG run (phase 13) for the fused soft-sort, its
@@ -3293,6 +3642,11 @@ def main() -> int:
     # (backward) (phase 29)
     launches["encoder_block_fwd"] = enc_service_launches
     launches["encoder_block_bwd"] = enc_train["encoder_block_bwd"]
+    # X2, X3 and X4: their probes' own runs (phases 31-33)
+    launches.update(x2_launches)
+    launches.update({f"attention_variant_{m}": n
+                     for m, n in x3_launches.items()})
+    launches.update(x4_launches)
     # B4 and B5: their own long-slate steps (phase 23)
     for (b, l), (got, _, _) in long_runs.items():
         for name, n in got.items():
@@ -3319,7 +3673,7 @@ def main() -> int:
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 21
+    assert len(rows) == 31
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(f"A/B of MEGA_ENCODER_ENABLED, ms per step or call "
           f"{json.dumps(ab_ms)} {tag}")

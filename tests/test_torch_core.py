@@ -197,6 +197,14 @@ NEW_MODULES = [
     "allrank_tpu_torch.utils.python_utils",
     # the whole-encoder kernel pair B10
     "allrank_tpu_torch.ops.encoder_block",
+    # the probe kernels X2-X4 and their CLIs
+    "allrank_tpu_torch.ops.boundary_shift",
+    "allrank_tpu_torch.ops.attention_variants",
+    "allrank_tpu_torch.ops.neuralsort_layout",
+    "allrank_tpu_torch.tools", "allrank_tpu_torch.tools.timing",
+    "allrank_tpu_torch.tools.exp_boundary_shift",
+    "allrank_tpu_torch.tools.exp_attn_decompose",
+    "allrank_tpu_torch.tools.exp_sinkhorn_layout",
 ]
 
 

@@ -68,6 +68,24 @@ from allrank_tpu_torch.ops.lambda_tiled import (
     lambda_tiled_fwd_plain,
 )
 from allrank_tpu_torch.ops.q8_dense import q8_dense, q8_dense_plain
+from allrank_tpu_torch.ops.attention_variants import (
+    MODES,
+    attention_variant_fwd,
+    attention_variant_fwd_plain,
+)
+from allrank_tpu_torch.ops.boundary_shift import (
+    boundary_plain,
+    boundary_plain_plain,
+    boundary_shift,
+    boundary_shift_plain,
+)
+from allrank_tpu_torch.ops.neuralsort_layout import (
+    layout_soft_sort_bwd,
+    layout_soft_sort_fwd,
+    layout_vectors,
+    max_length,
+    smem_floats,
+)
 from allrank_tpu_torch.ops.neuralsort import (
     soft_sort_bwd,
     soft_sort_bwd_plain,
@@ -1069,3 +1087,91 @@ def test_encoder_kernel_refuses_outside_its_envelope(cuda):
     with pytest.raises(NotImplementedError, match="L <= 1024"):
         encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, h=2)
     assert (encoder_block_fwd.launches, encoder_block_bwd.launches) == before
+
+
+# -- the probe kernels X2, X3, X4 ------------------------------------------------
+
+@pytest.mark.parametrize("b,l", [(64, 240), (3, 37), (1, 1)])
+def test_boundary_kernels_match_plain(cuda, b, l):
+    gen = torch.Generator().manual_seed(b + l)
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            torch.bfloat16).to(cuda)
+
+    x, pre = r(b, l, 128, scale=0.5), r(b, l, 384, scale=0.5)
+    w1, w2, w1n = r(128, 384, scale=0.05), r(384, 128, scale=0.05), r(
+        128, 384, scale=0.05)
+    before = (boundary_plain.launches, boundary_shift.launches)
+    y = boundary_plain(x, w1, w2)
+    out, pre_out = boundary_shift(x, pre, w2, w1n)
+    torch.cuda.synchronize()
+    assert (boundary_plain.launches, boundary_shift.launches) == (
+        before[0] + 1, before[1] + 1)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(),
+                               boundary_plain_plain(x, w1, w2).float(), **tol)
+    ref_out, ref_pre = boundary_shift_plain(x, pre, w2, w1n)
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+    torch.testing.assert_close(pre_out.float(), ref_pre.float(), **tol)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_attention_variants_match_plain(cuda, mode):
+    gen = torch.Generator().manual_seed(MODES.index(mode))
+    b, l, d, h = 8, 240, 128, 4
+    x = torch.randn(b, l, d, generator=gen).to(torch.bfloat16).to(cuda)
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0], lengths[-1] = l, 0
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(cuda)
+    params = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                           ((d, 3 * d), 0, d ** -0.5), ((3 * d,), 0, 0.1),
+                           ((d, d), 0, d ** -0.5), ((d,), 0, 0.1)], cuda)
+    params = [p.to(torch.bfloat16).float() for p in params]
+    before = attention_variant_fwd.launches[mode]
+    y = attention_variant_fwd(x, mask, *params, h, mode=mode)
+    torch.cuda.synchronize()
+    assert attention_variant_fwd.launches[mode] == before + 1
+    torch.testing.assert_close(
+        y.float(), attention_variant_fwd_plain(x, mask, *params, h,
+                                               mode=mode).float(),
+        **TOL[torch.bfloat16])
+    if mode == "full":  # B1's own forward, the same kernel code
+        assert torch.equal(y, attention_sublayer_fwd(x, mask, *params, h))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n,l", [(64, 240), (5, 259), (3, 1)])
+def test_layout_soft_sort_is_b8_bit_for_bit(cuda, n, l, transpose):
+    gen = torch.Generator().manual_seed(n + l)
+    s = torch.randn(n, l, generator=gen).to(cuda)
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0], lengths[-1] = l, 0
+    pad = (torch.arange(l)[None, :] >= lengths[:, None]).float().to(cuda)
+    vec = torch.rand(n, l, generator=gen).to(cuda)
+    dout = torch.randn(n, l, generator=gen).to(cuda)
+    before = (layout_soft_sort_fwd.launches, layout_soft_sort_bwd.launches)
+    got = layout_soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    ds = layout_soft_sort_bwd(s, pad, vec, *got[1:], dout, 1.0, 50,
+                              transpose)
+    torch.cuda.synchronize()
+    assert (layout_soft_sort_fwd.launches, layout_soft_sort_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert torch.equal(ds, soft_sort_bwd(s, pad, vec, *want[1:], dout, 1.0,
+                                         50, transpose))
+    torch.testing.assert_close(
+        got[0], soft_sort_fwd_plain(s, pad, vec, 1.0, 50, transpose)[0],
+        rtol=1e-4, atol=1e-4)
+
+
+def test_layout_soft_sort_states_its_cap_on_the_card(cuda):
+    for backward in (False, True):
+        assert layout_vectors(50, backward) == smem_floats(1, 50, backward)
+    l = max_length(50) + 1
+    s = torch.zeros(2, l, device=cuda)
+    before = layout_soft_sort_fwd.launches
+    with pytest.raises(ValueError, match="L <= 259"):
+        layout_soft_sort_fwd(s, s, s, 1.0, 50)
+    assert layout_soft_sort_fwd.launches == before
