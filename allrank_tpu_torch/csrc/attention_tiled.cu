@@ -6,42 +6,204 @@
 // ops/attention_tiled.py: forward pallas_call at line 228 (math in
 // _fwd_kernel, lines 62-101), backward at line 265 (_bwd_kernel, 104-143).
 //
-// What bounds it: as B4, the L x L products, 4 * L^2 * d_k operations per
+// What bounds it: the L x L products, 4 * L^2 * d_k operations per
 // slate-head forward and 10 * L^2 * d_k backward (S and dP rebuilt, dV, dQ,
-// dK) against O(L * d_k) bytes: operations, in fp32 and bf16 alike.
+// dK) against O(L * d_k) bytes, so operations; and beside them one exp per
+// (query, key) pair forward and two backward on the special-function unit
+// (16 a clock per SM). At d_k = 32 in bf16 the exps alone take about twice
+// the tensor cores' time: the softmax's elementwise work, not the products,
+// sets the floor.
 //
 // What the design does about it, and about the TPU kernel's assumptions:
-//  * The TPU kernel keeps a slate-head's whole query block [Lp, d_k] in
-//    VMEM and steps over key tiles in the grid's sequential axis, carrying
-//    m, l and the accumulator in scratch. A GPU grid has no order, so the
-//    key loop is inside the block: one block per (slate-head, 64-query
-//    tile) streams 64-key tiles through shared memory with the recurrence of
-//    attention_tiled.py:78-101 (m from -1e30, the denominator undropped,
-//    the keep mask on the accumulator only, O = acc * (inv / max(l, 1e-30)),
-//    lse = m + log(max(l, 1e-30))). m and l live in registers (a row's 16
-//    threads are one half warp); the accumulator [64, d_k] in registers too.
-//  * Tile width 64, not the TPU's 128-256: 64 rows by 64 keys is the
-//    register tile of common.cuh, and with d_k <= 128 a block's q rows, one
-//    key tile and one probability tile take at most 83 KB, so two blocks fit
-//    an SM. The plain version in ops/attention_tiled.py walks the same
-//    64-key tiles, so bf16 rounds at the same points.
+//  * bf16 runs on the tensor cores (attention_mma.cuh): every product is an
+//    mma.sync.m16n8k16 bf16 x bf16 -> fp32, the TPU kernel's own arithmetic
+//    (_dot with preferred_element_type=F32), and the bf16 rounding points
+//    sit where an A operand is rounded: the unnormalised p_acc before P . v
+//    (line 92), P dropped before dV (134), dS before dK and dQ (137). P and
+//    dS go from the fp32 accumulator to the next product's A fragment in
+//    registers, never through shared memory.
+//  * The TPU kernel keeps a slate-head's whole query block [Lp, d_k] in VMEM
+//    and steps over key tiles in the grid's sequential axis, carrying m, l
+//    and the accumulator in scratch. A GPU grid has no order, so the key
+//    loop is inside the block, as FlashAttention-2 has it: one block of
+//    eight warps per (slate-head, 128 queries), each warp 16 query rows,
+//    their q as A fragments in registers for the whole loop; 64-key tiles of
+//    k and v stream through a three-slot cp.async ring (two tiles in flight,
+//    one barrier a tile). m and l live in registers, a row's four threads
+//    are one quad. The recurrence is lines 78-101's: m from -1e30, the
+//    denominator sums the undropped p, the keep mask on the accumulator
+//    only, O = acc * (inv / max(l, 1e-30)), lse = m + log(max(l, 1e-30)).
+//    Exponentials are base 2 on the special-function unit; a tile of live
+//    keys only (all but a slate's padded tail) takes no mask and one FMA for
+//    each exponent.
+//  * Key tiles are kKeyTile = 64 wide, as the plain version's TILE_K in
+//    ops/attention_tiled.py: the bf16 rounding of p_acc depends on the
+//    running max, so the two must walk the same tiles.
 //  * Keys past L are skipped with weight 0, not NEG_INF_FILL: a fully
 //    padded slate therefore averages v over its L keys, as B4 and the XLA
 //    path do. The JAX kernel pads keys to a multiple of its tile with the
 //    mask set and averages over the padded length instead (ROADMAP Queue C).
-//  * In bf16 the unnormalised p_acc is rounded to v's dtype before P . v, as
-//    the TPU kernel does (line 92).
-//  * The backward (attention_core.cuh) rebuilds P = exp(s - lse) per tile,
-//    takes D = rowsum(dO * O) from the wrapper, and runs a dK/dV kernel per
-//    key tile and a dQ kernel per query tile: no atomics, no [L, L] state.
-//    The dropout masks replay from their keys.
+//  * The backward rebuilds P = exp(s - lse) per tile, takes D = rowsum(dO *
+//    O) from the wrapper, and runs two kernels with no atomics and sums in a
+//    fixed order: dK/dV per 128 keys, which computes S^T = K Q^T and dP^T =
+//    V dO^T so that P^T and dS^T come out in the A layout of dV += P_d^T dO
+//    and dK += dS^T Q, and dQ per 64 queries (dQ += dS K), both over 32-wide
+//    halves of each 64-wide tile to halve the registers S and dP take. dP
+//    sums each 16-deep step apart and adds them in fp32: dP - D cancels,
+//    and the tensor cores' truncating sums would show there. Query rows
+//    past L have no lse or D and are zeroed explicitly. The dropout masks
+//    replay from their keys.
+//  * d_k is padded with zeros to whole 16-column steps in shared memory (72
+//    to 80); the kernels are built for padded widths 32, 64 and 128. A row
+//    is copied in 16-byte pieces when d_k % 8 == 0 and element by element
+//    otherwise, a template flag of the same kernels.
+//  * fp32 keeps the SIMT kernels (tiled_fwd_kernel and attention_core.cuh's
+//    backward on fp32 FMAs): bf16 tensor cores would lose the parity that
+//    fp32 promises.
 //  * At B = 8, h = 4, L = 8192 the probability index reaches 2.1e9: it is a
 //    64-bit size_t throughout.
 #include "attention_core.cuh"
+#include "attention_mma.cuh"
 
 namespace allrank {
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr int kKeyTile = 64;    // key tile width: ops/attention_tiled.TILE_K
+constexpr int kQueryTile = 64;  // query tile the dK/dV kernel streams
+constexpr int kStages = 3;      // tiles of the cp.async ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInfFillL2 = kNegInfFill * kLog2e;
+
+// The keys of a 64-key tile as bits, for a block of at least two warps:
+// words[h] has bit i set where key k0 + 32 h + i is padded, words[2 + h]
+// where it lies past L (weight 0).
+__device__ __forceinline__ void stage_key_bits(uint32_t* words,
+                                               const unsigned char* padded,
+                                               int k0, int L) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < 2) {
+    const int key = k0 + 32 * warp + lane;
+    const bool past = key >= L;
+    const uint32_t pad = __ballot_sync(0xffffffffu, !past && padded[key]);
+    const uint32_t out = __ballot_sync(0xffffffffu, past);
+    if (lane == 0) {
+      words[warp] = pad;
+      words[2 + warp] = out;
+    }
+  }
+}
+
+// max and sum of eight values as a tree (three dependent steps, not seven)
+__device__ __forceinline__ float tree_max8(const float v[8]) {
+  const float a = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  const float b = fmaxf(fmaxf(v[4], v[5]), fmaxf(v[6], v[7]));
+  return fmaxf(a, b);
+}
+
+__device__ __forceinline__ float tree_sum8(const float v[8]) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+}
+
+// Accumulates acc[j] += A . B^T over the head: A the warp's 16 rows of As
+// (rows 16 warp.., or with kRegA their A fragments a), B the 8 kN rows of
+// Bs (C tiles j < kN), both [rows][pitch]: S = Q K^T, dP = dO V^T and their
+// transposes. With kSplit each 16-deep step sums into zeros and is added in
+// fp32 after: the tensor cores' own fp32 sums truncate, and dP - D cancels
+// (to 0 where a row has a single key), so dP takes the IEEE additions.
+template <int kDk, int kN, bool kRegA, bool kSplit>
+__device__ __forceinline__ void rows_by_rows(float (*acc)[4],
+                                             const uint32_t (*a)[4],
+                                             const bf16* As, const bf16* Bs,
+                                             int pitch, int nkc) {
+  const int lane = threadIdx.x % 32, arow = (threadIdx.x / 32) * 16;
+#pragma unroll
+  for (int kc = 0; kc < kDk / 16; ++kc) {
+    if (kc >= nkc) break;
+    uint32_t af[4];
+    if constexpr (kRegA) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) af[i] = a[kc][i];
+    } else {
+      ldmatrix_x4(af, As + (arow + lane % 16) * pitch + kc * 16 +
+                          (lane / 16) * 8);
+    }
+#pragma unroll
+    for (int j = 0; j < kN; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, Bs + (8 * j + lane % 8 + (lane / 16) * 8) * pitch +
+                         kc * 16 + ((lane / 8) % 2) * 8);
+      if (kSplit && kc > 0) {
+        float t0[4] = {}, t1[4] = {};
+        mma_bf16(t0, af, b[0], b[1]);
+        mma_bf16(t1, af, b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[j][e] += t0[e];
+          acc[j + 1][e] += t1[e];
+        }
+      } else {
+        mma_bf16(acc[j], af, b[0], b[1]);
+        mma_bf16(acc[j + 1], af, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc[n] (C tiles n < dkp / 8) += P . Bs: P the warp's 16 x 16 kKc tile as
+// fp32 C tiles p[2 kKc], rounded to bf16 into A fragments, and Bs
+// [16 kKc][pitch] the rows it weighs: O += P V, dQ += dS K, dV += P_d^T dO,
+// dK += dS^T Q.
+template <int kDk, int kKc>
+__device__ __forceinline__ void weigh_rows(float (*acc)[4],
+                                           const float (*p)[4],
+                                           const bf16* Bs, int pitch,
+                                           int nkc) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kc = 0; kc < kKc; ++kc) {
+    uint32_t pa[4];
+    acc_to_a(pa, p[2 * kc], p[2 * kc + 1]);
+#pragma unroll
+    for (int n = 0; n < kDk / 8; n += 2) {
+      if (n >= 2 * nkc) break;
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, Bs + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) *
+                                    pitch + 8 * n + (lane / 16) * 8);
+      mma_bf16(acc[n], pa, b[0], b[1]);
+      mma_bf16(acc[n + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// Writes the warp's 16 rows acc * f (rows row0 + g + 8 r, factor f[r]) to
+// dst [L, dk] in bf16, rows below L.
+template <int kDk>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           const float (*acc)[4],
+                                           const float f[2], int row0, int L,
+                                           int dk, int nkc) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    if (row >= L) continue;
+#pragma unroll
+    for (int n = 0; n < kDk / 8; ++n) {
+      if (n >= 2 * nkc) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * (lane % 4) + e;
+        if (col < dk)
+          dst[(size_t)row * dk + col] =
+              __float2bfloat16_rn(acc[n][2 * r + e] * f[r]);
+      }
+    }
+  }
+}
+
+// The fp32 forward on the SIMT units (common.cuh's 64 x 64 register tiles).
 template <class T>
 __global__ void __launch_bounds__(kThreads)
     tiled_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -131,14 +293,502 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The block shapes, measured at d_k = 32 on the H100 (PERF.md, B5 rows): the
+// forward 8 warps (128 queries a block); the dK/dV kernel 8 warps (128
+// keys), held to 128 registers so that two blocks fit an SM; the dQ kernel
+// 4 warps, held to 102 registers (five blocks). Wider heads need their
+// registers for the accumulators and take one block of each.
+constexpr int kFwdWarps = 8, kDkvWarps = 8, kDqWarps = 4;
+constexpr int dkv_min_blocks(int dk_max) { return dk_max <= 32 ? 2 : 1; }
+constexpr int dq_min_blocks(int dk_max) { return dk_max <= 32 ? 5 : 1; }
+
+// One key tile of the forward's recurrence (JAX attention_tiled.py:78-101)
+// for the warp's 16 rows: s holds the tile's scores q . k^T and leaves with
+// p, the keep mask applied, for P . v; m, l and o are rescaled. kLive (a tile
+// of live keys only: every tile but a slate's padded tail) takes no mask
+// and one FMA for each exponent; otherwise padded keys score NEG_INF_FILL
+// and keys past L weight 0. rows_at is the probability index of (the
+// warp's first row, the tile's first key).
+template <bool kLive, int kDk>
+__device__ __forceinline__ void online_softmax(float (*s)[4], float m[2],
+                                               float l[2], float (*o)[4],
+                                               const uint32_t* kb,
+                                               float scale,
+                                               const DropStream& drop,
+                                               size_t rows_at, int L) {
+  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
+  if (!kLive) {
+    const uint32_t pad[2] = {kb[0] >> col, kb[1] >> col};
+    const uint32_t past[2] = {kb[2] >> col, kb[3] >> col};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int bit = 8 * (j & 3) + (e & 1);
+        s[j][e] = (past[j >> 2] >> bit) & 1u  ? -INFINITY
+                  : (pad[j >> 2] >> bit) & 1u ? kNegInfFill
+                                              : s[j][e] * scale;
+      }
+  }
+  float mx[2][8], m_new[2], alpha[2], ml[2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r][j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // scale > 0: the largest score scaled is the largest scaled score
+    const float tmax = quad_max(tree_max8(mx[r]));
+    m_new[r] = fmaxf(m[r], kLive ? tmax * scale : tmax);
+    alpha[r] = exp2_approx((m[r] - m_new[r]) * kLog2e);
+    ml[r] = m_new[r] * kLog2e;
+  }
+  const float sl = scale * kLog2e;
+  float psum[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = kLive ? exp2_approx(fmaf(s[j][e], sl, -ml[r]))
+                      : exp2_approx((s[j][e] - m_new[r]) * kLog2e);
+      psum[r][j] = e & 1 ? psum[r][j] + p : p;
+      if (drop.on &&
+          !drop_keep(drop, rows_at + (size_t)(lane / 4 + 8 * r) * L + 8 * j +
+                               col + (e & 1)))
+        p = 0.f;
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] + quad_sum(tree_sum8(psum[r]));
+    m[r] = m_new[r];
+  }
+#pragma unroll
+  for (int n = 0; n < kDk / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+}
+
+// The forward on the tensor cores, bf16: one block of kFwdWarps warps per
+// (16 kFwdWarps queries, slate-head), each warp 16 query rows with their q
+// as A fragments in registers, the 64-key tiles streamed through the ring.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * kFwdWarps)
+    tiled_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const unsigned char* __restrict__ key_mask,
+                         bf16* __restrict__ out, float* __restrict__ lse,
+                         int L, int dk, int h, float scale, DropStream drop) {
+  constexpr int kThreads = 32 * kFwdWarps, kRows = 16 * kFwdWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dkp = mma_head_pad(dk), pitch = mma_pitch(dkp), nkc = dkp / 16;
+  const int tile = kKeyTile * pitch;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][pitch] queries
+  bf16* Ks = Qs + kRows * pitch;   // [kStages][64][pitch] key tiles
+  bf16* Vs = Ks + kStages * tile;  // [kStages][64][pitch] value tiles
+  uint32_t* bits = reinterpret_cast<uint32_t*>(Vs + kStages * tile);
+  const int g = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t base = (size_t)g * L * dk;
+  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
+  const int lane = threadIdx.x % 32, wrow = (threadIdx.x / 32) * 16;
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+
+  // key tile t into ring slot b: k, v and the keys' bits (bits[4 b..])
+  auto stage = [&](int t, int b) {
+    stage_bf16_rows<kKeyTile, kThreads, kAligned>(
+        Ks + b * tile, k + base, t * kKeyTile, L, dk, dkp);
+    stage_bf16_rows<kKeyTile, kThreads, kAligned>(
+        Vs + b * tile, v + base, t * kKeyTile, L, dk, dkp);
+    stage_key_bits(bits + 4 * b, padded, t * kKeyTile, L);
+  };
+  stage_bf16_rows<kRows, kThreads, kAligned>(Qs, q + base, q0, L, dk, dkp);
+  stage(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) stage(1, 1);
+  cp_async_commit();
+
+  uint32_t qa[kDk / 16][4];
+  float o[kDk / 8][4] = {};
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  for (int it = 0, buf = 0; it < n_tiles;
+       ++it, buf = buf == kStages - 1 ? 0 : buf + 1) {
+    // tile it has landed; after the barrier every warp is done with the
+    // slot that tile it + 2 takes
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + 2 < n_tiles) stage(it + 2, buf == 0 ? kStages - 1 : buf - 1);
+    cp_async_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < kDk / 16; ++kc)
+        if (kc < nkc)
+          ldmatrix_x4(qa[kc], Qs + (wrow + lane % 16) * pitch + kc * 16 +
+                                  (lane / 16) * 8);
+    }
+    const uint32_t* kb = bits + 4 * buf;
+    float s[8][4] = {};
+    rows_by_rows<kDk, 8, true, false>(s, qa, nullptr, Ks + buf * tile, pitch,
+                                      nkc);
+    const size_t rows_at = ((size_t)g * L + q0 + wrow) * L + it * kKeyTile;
+    if ((kb[0] | kb[1] | kb[2] | kb[3]) == 0)
+      online_softmax<true, kDk>(s, m, l, o, kb, scale, drop, rows_at, L);
+    else
+      online_softmax<false, kDk>(s, m, l, o, kb, scale, drop, rows_at, L);
+    weigh_rows<kDk, 4>(o, s, Vs + buf * tile, pitch, nkc);
+  }
+  const float inv = drop.on ? drop.inv : 1.f;
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(l[r], 1e-30f);
+    f[r] = inv / denom;
+    const int row = q0 + wrow + lane / 4 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && row < L)
+      lse[(size_t)g * L + row] = m[r] + logf(denom);
+  }
+  store_rows<kDk>(out + base, o, f, q0 + wrow, L, dk, nkc);
+}
+
+// dQ on the tensor cores, bf16: one block per (16 kDqWarps queries,
+// slate-head) walking the key tiles; per 32 keys S = Q K^T and dP = dO V^T,
+// then dS = P (dP_dropped - D) at live keys and query rows below L (zero
+// elsewhere), rounded to bf16, and dQ += dS K, scaled once at the end.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * kDqWarps, dq_min_blocks(kDk))
+    tiled_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const unsigned char* __restrict__ key_mask,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ Dg,
+                            const bf16* __restrict__ dO,
+                            bf16* __restrict__ dq, int L, int dk, int h,
+                            float scale, DropStream drop) {
+  constexpr int kThreads = 32 * kDqWarps, kRows = 16 * kDqWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dkp = mma_head_pad(dk), pitch = mma_pitch(dkp), nkc = dkp / 16;
+  const int tile = kKeyTile * pitch;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][pitch] queries
+  bf16* Os = Qs + kRows * pitch;                 // [kRows][pitch] dO rows
+  bf16* Ks = Os + kRows * pitch;   // [kStages][64][pitch] key tiles
+  bf16* Vs = Ks + kStages * tile;  // [kStages][64][pitch] value tiles
+  uint32_t* bits = reinterpret_cast<uint32_t*>(Vs + kStages * tile);
+  const int g = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t base = (size_t)g * L * dk;
+  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
+  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
+  const int row0 = q0 + (threadIdx.x / 32) * 16;
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+  const float sl = scale * kLog2e;
+
+  auto stage = [&](int t, int b) {
+    stage_bf16_rows<kKeyTile, kThreads, kAligned>(
+        Ks + b * tile, k + base, t * kKeyTile, L, dk, dkp);
+    stage_bf16_rows<kKeyTile, kThreads, kAligned>(
+        Vs + b * tile, v + base, t * kKeyTile, L, dk, dkp);
+    stage_key_bits(bits + 4 * b, padded, t * kKeyTile, L);
+  };
+  stage_bf16_rows<kRows, kThreads, kAligned>(Qs, q + base, q0, L, dk, dkp);
+  stage_bf16_rows<kRows, kThreads, kAligned>(Os, dO + base, q0, L, dk, dkp);
+  stage(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) stage(1, 1);
+  cp_async_commit();
+
+  // the rows' statistics, lse in base 2; rows past L take no part
+  bool ok[2];
+  float rl[2], rd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    ok[r] = row < L;
+    rl[r] = ok[r] ? lse[(size_t)g * L + row] * kLog2e : 0.f;
+    rd[r] = ok[r] ? Dg[(size_t)g * L + row] : 0.f;
+  }
+  float acc[kDk / 8][4] = {};
+  for (int it = 0, buf = 0; it < n_tiles;
+       ++it, buf = buf == kStages - 1 ? 0 : buf + 1) {
+    const int k0 = it * kKeyTile;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + 2 < n_tiles) stage(it + 2, buf == 0 ? kStages - 1 : buf - 1);
+    cp_async_commit();
+    const uint32_t* kb = bits + 4 * buf;
+    // the tile in two halves of 32 keys, half the registers for S and dP
+#pragma unroll 1
+    for (int hk = 0; hk < 2; ++hk) {
+      const bf16* Kh = Ks + buf * tile + 32 * hk * pitch;
+      // keys that are padded or past L take no dS
+      const uint32_t dead = (kb[hk] | kb[2 + hk]) >> col;
+      float s[4][4] = {}, dp[4][4] = {};
+      rows_by_rows<kDk, 4, false, false>(s, nullptr, Qs, Kh, pitch, nkc);
+      rows_by_rows<kDk, 4, false, true>(
+          dp, nullptr, Os, Vs + buf * tile + 32 * hk * pitch, pitch, nkc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float ds = 0.f;
+          if (ok[r] && !((dead >> (8 * j + (e & 1))) & 1u)) {
+            const float p = exp2_approx(fmaf(s[j][e], sl, -rl[r]));
+            float dpd = dp[j][e];
+            if (drop.on) {
+              const size_t index = ((size_t)g * L + row0 + lane / 4 + 8 * r) *
+                                       L + k0 + 32 * hk + 8 * j + col +
+                                   (e & 1);
+              dpd = drop_keep(drop, index) ? dpd * drop.inv : 0.f;
+            }
+            ds = p * (dpd - rd[r]);
+          }
+          s[j][e] = ds;
+        }
+      weigh_rows<kDk, 2>(acc, s, Kh, pitch, nkc);
+    }
+  }
+  const float f[2] = {scale, scale};
+  store_rows<kDk>(dq + base, acc, f, row0, L, dk, nkc);
+}
+
+// dK and dV on the tensor cores, bf16: one block per (16 kDkvWarps keys,
+// slate-head) walking 64-query tiles, with q, dO, lse and D streamed
+// through the ring. Per 32 queries S^T = K Q^T and dP^T = V dO^T (each warp
+// 16 keys), P^T = exp(S^T - lse), then dV += round(P_dropped)^T dO and
+// dK += round(dS)^T Q, scaled once at the end.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * kDkvWarps, dkv_min_blocks(kDk))
+    tiled_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const unsigned char* __restrict__ key_mask,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ Dg,
+                             const bf16* __restrict__ dO,
+                             bf16* __restrict__ dk_out,
+                             bf16* __restrict__ dv_out, int L, int dk, int h,
+                             float scale, DropStream drop) {
+  constexpr int kThreads = 32 * kDkvWarps, kRows = 16 * kDkvWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dkp = mma_head_pad(dk), pitch = mma_pitch(dkp), nkc = dkp / 16;
+  const int tile = kQueryTile * pitch;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kRows][pitch] the keys
+  bf16* Vs = Ks + kRows * pitch;                 // [kRows][pitch] the values
+  bf16* Qs = Vs + kRows * pitch;   // [kStages][64][pitch] query tiles
+  bf16* Os = Qs + kStages * tile;  // [kStages][64][pitch] dO tiles
+  // [kStages][2][64]: each query's lse in base 2 and D, zero past L
+  float* St = reinterpret_cast<float*>(Os + kStages * tile);
+  const int g = blockIdx.y, kt0 = blockIdx.x * kRows;
+  const size_t base = (size_t)g * L * dk;
+  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
+  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
+  const int key0 = kt0 + (threadIdx.x / 32) * 16;
+  const int n_tiles = (L + kQueryTile - 1) / kQueryTile;
+  const float sl = scale * kLog2e;
+
+  // query tile t into ring slot b: q, dO, lse and D
+  auto stage = [&](int t, int b) {
+    const int row0 = t * kQueryTile;
+    stage_bf16_rows<kQueryTile, kThreads, kAligned>(Qs + b * tile, q + base,
+                                                    row0, L, dk, dkp);
+    stage_bf16_rows<kQueryTile, kThreads, kAligned>(Os + b * tile, dO + base,
+                                                    row0, L, dk, dkp);
+    float* dst = St + b * 2 * kQueryTile;
+    for (int c = threadIdx.x; c < kQueryTile; c += kThreads) {
+      const bool in = row0 + c < L;
+      dst[c] = in ? lse[(size_t)g * L + row0 + c] * kLog2e : 0.f;
+      dst[kQueryTile + c] = in ? Dg[(size_t)g * L + row0 + c] : 0.f;
+    }
+  };
+  stage_bf16_rows<kRows, kThreads, kAligned>(Ks, k + base, kt0, L, dk, dkp);
+  stage_bf16_rows<kRows, kThreads, kAligned>(Vs, v + base, kt0, L, dk, dkp);
+  stage(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) stage(1, 1);
+  cp_async_commit();
+
+  // this thread's two keys: padded, past L (no part), or live
+  bool pad[2], past[2], all_live = true;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + lane / 4 + 8 * r;
+    past[r] = key >= L;
+    pad[r] = !past[r] && padded[key];
+    all_live &= !past[r] && !pad[r];
+  }
+  // a block of live keys only takes, at query tiles below L, no mask and
+  // one FMA for each exponent
+  all_live = __syncthreads_and(all_live);
+  float dk_acc[kDk / 8][4] = {}, dv_acc[kDk / 8][4] = {};
+  for (int it = 0, buf = 0; it < n_tiles;
+       ++it, buf = buf == kStages - 1 ? 0 : buf + 1) {
+    const int q0 = it * kQueryTile;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + 2 < n_tiles) stage(it + 2, buf == 0 ? kStages - 1 : buf - 1);
+    cp_async_commit();
+    const float* lse_t = St + buf * 2 * kQueryTile;
+    const float* D_t = lse_t + kQueryTile;
+    const bool live = all_live && q0 + kQueryTile <= L;
+    // the tile in two halves of 32 queries, half the registers for S^T and
+    // dP^T
+#pragma unroll 1
+    for (int hq = 0; hq < 2; ++hq) {
+      const bf16* Qh = Qs + buf * tile + 32 * hq * pitch;
+      const bf16* Oh = Os + buf * tile + 32 * hq * pitch;
+      float s[4][4] = {}, dp[4][4] = {};
+      rows_by_rows<kDk, 4, false, false>(s, nullptr, Ks, Qh, pitch, nkc);
+      rows_by_rows<kDk, 4, false, true>(dp, nullptr, Vs, Oh, pitch, nkc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c0 = 32 * hq + 8 * j + col;
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + c0);
+        const float2 D2 = *reinterpret_cast<const float2*>(D_t + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = c0 + (e & 1);
+          float pd = 0.f, ds = 0.f;
+          if (live || (q0 + c < L && !past[r])) {
+            // a padded key scores NEG_INF_FILL; on a fully padded slate
+            // lse rounds to NEG_INF_FILL, so P reads 1 there, as in the
+            // plain version
+            const float x = !live && pad[r] ? kNegInfFillL2 : s[j][e] * sl;
+            const float p = exp2_approx(x - (e & 1 ? lse2.y : lse2.x));
+            float f = 1.f;
+            if (drop.on) {
+              const size_t index =
+                  ((size_t)g * L + q0 + c) * L + key0 + lane / 4 + 8 * r;
+              f = drop_keep(drop, index) ? drop.inv : 0.f;
+            }
+            pd = p * f;
+            if (live || !pad[r])
+              ds = p * (dp[j][e] * f - (e & 1 ? D2.y : D2.x));
+          }
+          s[j][e] = pd;
+          dp[j][e] = ds;
+        }
+      }
+      weigh_rows<kDk, 2>(dv_acc, s, Oh, pitch, nkc);
+      weigh_rows<kDk, 2>(dk_acc, dp, Qh, pitch, nkc);
+    }
+  }
+  const float f_k[2] = {scale, scale}, f_v[2] = {1.f, 1.f};
+  store_rows<kDk>(dk_out + base, dk_acc, f_k, key0, L, dk, nkc);
+  store_rows<kDk>(dv_out + base, dv_acc, f_v, key0, L, dk, nkc);
+}
+
+// Shared memory of the tensor-core kernels in bytes: `rows` bf16 rows of
+// the padded head and `extra` bytes after them.
+__host__ __forceinline__ size_t mma_smem(int dk, int rows, size_t extra) {
+  return (size_t)rows * mma_pitch(mma_head_pad(dk)) * sizeof(bf16) + extra;
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The bf16 forward for head widths padded to at most kDk.
+template <int kDk, bool kAligned>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
+                           const void* key_mask, void* out, void* lse, int G,
+                           int L, int dk, int h, float scale, DropStream drop,
+                           cudaStream_t stream) {
+  constexpr int kRows = 16 * kFwdWarps;
+  auto kernel = tiled_fwd_mma_kernel<kDk, kAligned>;
+  const size_t smem = mma_smem(dk, kRows + 2 * kStages * kKeyTile,
+                               4 * kStages * sizeof(uint32_t));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((L + kRows - 1) / kRows, G), 32 * kFwdWarps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(key_mask),
+      static_cast<bf16*>(out), static_cast<float*>(lse), L, dk, h, scale,
+      drop);
+  return cudaGetLastError();
+}
+
+// The bf16 backward's two kernels, dK/dV then dQ.
+template <int kDk, bool kAligned>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
+                           const void* key_mask, const void* lse,
+                           const void* D, const void* dO, void* dq,
+                           void* dk_out, void* dv_out, int G, int L, int dk,
+                           int h, float scale, DropStream drop,
+                           cudaStream_t stream) {
+  constexpr int kRowsKv = 16 * kDkvWarps, kRowsQ = 16 * kDqWarps;
+  auto dkv = tiled_bwd_dkv_mma_kernel<kDk, kAligned>;
+  auto dqk = tiled_bwd_dq_mma_kernel<kDk, kAligned>;
+  const size_t smem_kv = mma_smem(dk, 2 * kRowsKv + 2 * kStages * kQueryTile,
+                                  2 * kStages * kQueryTile * sizeof(float));
+  const size_t smem_q = mma_smem(dk, 2 * kRowsQ + 2 * kStages * kKeyTile,
+                                 4 * kStages * sizeof(uint32_t));
+  cudaError_t err = allow_smem(dkv, smem_kv);
+  if (err != cudaSuccess) return err;
+  if ((err = allow_smem(dqk, smem_q)) != cudaSuccess) return err;
+  const auto* qt = static_cast<const bf16*>(q);
+  const auto* kt = static_cast<const bf16*>(k);
+  const auto* vt = static_cast<const bf16*>(v);
+  const auto* mask = static_cast<const unsigned char*>(key_mask);
+  const auto* st = static_cast<const float*>(lse);
+  const auto* Dg = static_cast<const float*>(D);
+  const auto* dot = static_cast<const bf16*>(dO);
+  dkv<<<dim3((L + kRowsKv - 1) / kRowsKv, G), 32 * kDkvWarps, smem_kv,
+        stream>>>(qt, kt, vt, mask, st, Dg, dot, static_cast<bf16*>(dk_out),
+                  static_cast<bf16*>(dv_out), L, dk, h, scale, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<dim3((L + kRowsQ - 1) / kRowsQ, G), 32 * kDqWarps, smem_q, stream>>>(
+      qt, kt, vt, mask, st, Dg, dot, static_cast<bf16*>(dq), L, dk, h, scale,
+      drop);
+  return cudaGetLastError();
+}
+
+// Calls launch<kDk, kAligned>(args...) for d_k's padded width class (32, 64
+// or 128) and alignment.
+#define TILED_MMA_DISPATCH(launch, dk, ...)                                \
+  do {                                                                     \
+    const int dkp_ = mma_head_pad(dk);                                     \
+    const bool aligned_ = (dk) % 8 == 0;                                   \
+    if (dkp_ <= 32)                                                        \
+      return aligned_ ? launch<32, true>(__VA_ARGS__)                      \
+                      : launch<32, false>(__VA_ARGS__);                    \
+    if (dkp_ <= 64)                                                        \
+      return aligned_ ? launch<64, true>(__VA_ARGS__)                      \
+                      : launch<64, false>(__VA_ARGS__);                    \
+    return aligned_ ? launch<128, true>(__VA_ARGS__)                       \
+                    : launch<128, false>(__VA_ARGS__);                     \
+  } while (0)
+
+cudaError_t tiled_fwd_bf16(const void* q, const void* k, const void* v,
+                           const void* key_mask, void* out, void* lse, int G,
+                           int L, int dk, int h, float scale, DropStream drop,
+                           cudaStream_t stream) {
+  TILED_MMA_DISPATCH(launch_fwd_mma, dk, q, k, v, key_mask, out, lse, G, L,
+                     dk, h, scale, drop, stream);
+}
+
+cudaError_t tiled_bwd_bf16(const void* q, const void* k, const void* v,
+                           const void* key_mask, const void* lse,
+                           const void* D, const void* dO, void* dq,
+                           void* dk_out, void* dv_out, int G, int L, int dk,
+                           int h, float scale, DropStream drop,
+                           cudaStream_t stream) {
+  TILED_MMA_DISPATCH(launch_bwd_mma, dk, q, k, v, key_mask, lse, D, dO, dq,
+                     dk_out, dv_out, G, L, dk, h, scale, drop, stream);
+}
+
 }  // namespace
 }  // namespace allrank
 
 // Launches the forward on `stream`; returns 0 or the CUDA error code. q, k,
-// v and out are [G, L, d_k] (G = B * h, d_k <= 128) in bf16 if is_bf16, else
-// fp32; key_mask is [B, L] bytes, non-zero at padded documents. lse ([G, L]
-// fp32, each row's logsumexp) may be null. drop_keys holds {k0, k1,
-// threshold} of the probability stream (ops/dropout.py), p_drop its rate.
+// v and out are [G, L, d_k] (G = B * h, d_k <= 128) in bf16 if is_bf16 (the
+// tensor-core kernel), else fp32 (the SIMT kernel); key_mask is [B, L]
+// bytes, non-zero at padded documents. lse ([G, L] fp32, each row's
+// logsumexp) may be null. drop_keys holds {k0, k1, threshold} of the
+// probability stream (ops/dropout.py), p_drop its rate.
 extern "C" int tiled_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* key_mask,
                                    void* out, void* lse, int G, int L, int dk,
@@ -148,9 +798,8 @@ extern "C" int tiled_attention_fwd(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   const auto drop = allrank::make_stream(drop_keys, p_drop);
   if (is_bf16)
-    return allrank::launch_attn_fwd<__nv_bfloat16>(
-        allrank::tiled_fwd_kernel<__nv_bfloat16>, q, k, v, key_mask, out, lse,
-        G, L, dk, h, scale, drop, s);
+    return allrank::tiled_fwd_bf16(q, k, v, key_mask, out, lse, G, L, dk, h,
+                                   scale, drop, s);
   return allrank::launch_attn_fwd<float>(allrank::tiled_fwd_kernel<float>, q,
                                          k, v, key_mask, out, lse, G, L, dk,
                                          h, scale, drop, s);
@@ -170,11 +819,10 @@ extern "C" int tiled_attention_bwd(const void* q, const void* k,
                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto drop = allrank::make_stream(drop_keys, p_drop);
-  void* Dm = const_cast<void*>(D);  // read only: the kernels with kLse
   if (is_bf16)
-    return allrank::launch_attn_bwd<__nv_bfloat16, true>(
-        q, k, v, key_mask, lse, dO, Dm, dq, dk_out, dv_out, G, L, dk, h,
-        scale, drop, s);
+    return allrank::tiled_bwd_bf16(q, k, v, key_mask, lse, D, dO, dq, dk_out,
+                                   dv_out, G, L, dk, h, scale, drop, s);
+  void* Dm = const_cast<void*>(D);  // read only: the kernels with kLse
   return allrank::launch_attn_bwd<float, true>(q, k, v, key_mask, lse, dO, Dm,
                                                dq, dk_out, dv_out, G, L, dk,
                                                h, scale, drop, s);

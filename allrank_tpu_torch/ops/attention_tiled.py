@@ -1,7 +1,8 @@
 """Masked slate attention for long slates with the K-streamed online softmax
 (B5), forward and backward: the CUDA kernels of ``csrc/attention_tiled.cu``
-for CUDA tensors and their plain PyTorch versions, of the same signatures,
-for CPU tensors; ``TiledAttention`` ties the two into autograd.
+for CUDA tensors (bf16 on the tensor cores, fp32 on fp32 FMAs) and their
+plain PyTorch versions, of the same signatures, for CPU tensors;
+``TiledAttention`` ties the two into autograd.
 
 Replaces the TPU kernel ``tiled_slate_attention`` of the JAX package's
 ``ops/attention_tiled.py`` (forward ``pallas_call`` at line 228, backward
@@ -40,7 +41,7 @@ from allrank_tpu_torch.ops.attention_fused import (
     probs_keys,
 )
 
-TILE_K = 64  # the kernel's key tile: its 64 x 64 register tile
+TILE_K = 64  # the kernels' key tile (kKeyTile in csrc/attention_tiled.cu)
 _SIGNATURES = {
     "tiled_attention_fwd": [_P] * 6 + [_I] * 4 + _TAIL,
     "tiled_attention_bwd": [_P] * 10 + [_I] * 4 + _TAIL,

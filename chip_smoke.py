@@ -11,7 +11,10 @@ and never prints its last line):
 
 1. the card, torch and CUDA versions; builds the fourteen kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
-   parallel) and prints the seconds it took; turns TF32 off;
+   parallel) and prints the seconds it took and each kernel's registers;
+   counts the ``HMMA`` instructions of B5's tensor-core kernels with
+   ``cuobjdump -sass`` (each must hold some) where the toolkit has it;
+   turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
    lengths and one lengths=0 slate, in fp32 and bf16, plus edge shapes;
@@ -106,8 +109,10 @@ and never prints its last line):
     (K-streamed online softmax), forward and backward, against their plain
     versions: B4 at (B, h, L, d_k) = (4, 4, 1200, 32) and (2, 2, 1100, 72),
     B5 at (2, 4, 4096, 32) and (1, 4, 8192, 32), fp32 and bf16, dropout 0
-    and 0.3, a fully padded slate; and the split attention block (PyTorch
-    ops around B4 or B5) against the B1 sublayer at (64, 240) and
+    and 0.3, a fully padded slate; B5 in bf16 (its tensor-core kernels) at
+    L in {1, 65, 4097} and d_k in {8, 72, 128}, dropout 0 and 0.3, a
+    second backward bit for bit the first; and the split attention block
+    (PyTorch ops around B4 or B5) against the B1 sublayer at (64, 240) and
     (16, 1024), dropout 0.3, the same seeds;
 22. long-slate serving: the paper config's model (no positional encoding)
     through ``make_scorer`` at B=4, L=8192, fp32 and bf16, ragged lengths
@@ -121,7 +126,10 @@ and never prints its last line):
     dropout 0 in fp32 at B=2, L=4096 and B=4, L=1200 against the CPU;
 24. times: B4 and B5 forward and backward at (8, 4, 1200, 32),
     (8, 4, 4096, 32) and (16, 4, 1024, 32), each with its bound, its plain
-    version and ``scaled_dot_product_attention`` (backward by autograd); at
+    version and ``scaled_dot_product_attention`` (backward by autograd); B5
+    in bf16 also at (4, 4, 8192, 32) and at dropout 0.3, with the exp floor
+    (one exponential a pair forward, two backward, at 16 a clock per SM)
+    beside each bound; at
     (16, 1024) the B1 sublayer beside the split block with B4 and with B5;
     both long steps with their idle share and device time by kernel;
 25. the int8 dense kernel (X1) against its plain version, bit for bit: the
@@ -247,6 +255,12 @@ B3_GRAD_RTOL, B3_GRAD_ATOL = 1e-4, 1e-5
 # largest value plus 1e-5 of the largest gradient of all (a gradient that
 # is zero in exact arithmetic, the output bias, is fp32 noise)
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
+# B5's times before its bf16 flow ran on the tensor cores (the SIMT kernels
+# that fp32 still runs, phase 24 on an NVIDIA H100 80GB HBM3 at 700 W; the
+# PERF.md table keeps them), at (8, 4, 4096, 32): (fp32, bf16) ms
+EARLIER_B5_MS = {"tiled_attention_fwd": (6.2062, 6.4561),
+                 "tiled_attention_bwd": (22.7111, 23.3367)}
+
 # the long-slate step 1: FFN hidden units per block whose ReLU gate may flip
 # between GPU and CPU (1.6 % of the paper config's d_ff = 512); a unit
 # flips where a pre-activation lies within fp32 rounding of 0, two or three
@@ -313,6 +327,44 @@ def card() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def sm_clock_mhz() -> float:
+    """The card's largest SM clock, MHz, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return float(out.splitlines()[0])
+
+
+def exp_floor_ms(exps: float, mhz: float) -> float:
+    """The least time the card's special-function units take for ``exps``
+    exponentials: 16 a clock on each of the 132 SMs."""
+    return exps / (132 * 16 * mhz * 1e6) * 1e3
+
+
+def hmma_counts(library: str) -> dict:
+    """``HMMA`` (and ``HGMMA``) instructions in each kernel of a built
+    library whose name holds ``tiled_``, from ``cuobjdump -sass``; None
+    where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1) if "tiled_" in found.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def median_ms(fn, iters: int = 40, warmup: int = 5) -> float:
@@ -674,17 +726,18 @@ def attention_work(b, h, l, dk, dtype, backward: bool) -> tuple:
     return flops, moved
 
 
-def sdpa_library(q, k, v, mask, do):
+def sdpa_library(q, k, v, mask, do, p_drop: float = 0.0):
     """``scaled_dot_product_attention`` with the additive key mask (-1e9 at
-    padded keys), a yardstick only: returns (forward, backward by autograd)
-    as functions that run it once."""
+    padded keys) and dropout at ``p_drop``, a yardstick only: returns
+    (forward, backward by autograd) as functions that run it once."""
     mask_add = torch.zeros(q.shape[0], 1, 1, q.shape[2], dtype=q.dtype,
                            device=q.device).masked_fill(
         mask[:, None, None, :], -1e9)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_add)
-    return (lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   attn_mask=mask_add),
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_add,
+                                         dropout_p=p_drop)
+    return (lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask_add, dropout_p=p_drop),
             lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
 
 
@@ -1406,6 +1459,20 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
+    # B5's bf16 kernels run on the tensor cores: each holds HMMA
+    hmma = hmma_counts(_build.library_path("attention_tiled"))
+    if hmma is None:
+        print("HMMA counts: not measured (no cuobjdump in the toolkit)")
+    else:
+        for kname, n in sorted(hmma.items()):
+            print(f"  attention_tiled: {n} HMMA in {kname}")
+        mma_kernels = [k for k in hmma if "_mma_kernel" in k]
+        assert len(mma_kernels) == 18 and all(hmma[k] > 0
+                                              for k in mma_kernels), hmma
+        simt = {k: n for k, n in hmma.items() if k not in mma_kernels}
+        print(f"HMMA: all {len(mma_kernels)} tensor-core tiled_ kernels "
+              f"(forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or "
+              f"not) hold HMMA; the fp32 forward {sorted(simt.values())}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1234)
@@ -2442,6 +2509,32 @@ def main() -> int:
                           f"max|ref|)")
                     del args
             torch.cuda.empty_cache()
+    # B5's bf16 tensor-core kernels at the edges of their envelope: one key,
+    # a tile and one key, the longest slate past a 64 multiple; d_k 8 (one
+    # 16-wide step, half of it padding), 72 (rows not 16-byte aligned in
+    # the padded pitch, 80 wide), 128 (the widest); slates ragged, the last
+    # fully padded; a second backward gives the same bits
+    for l in (1, 65, 4097):
+        for dk in (8, 72, 128):
+            for p in (0.0, 0.3):
+                shape = (3, 2, l, dk)
+                q, k, v, mask, do = qkv_inputs(gen, *shape, torch.bfloat16,
+                                               dev)
+                errs_fb = attention_pair("tiled", (q, k, v, mask, do), p, 304)
+                attn_errs[("tiled", shape, torch.bfloat16, p)] = errs_fb
+                out, lse = tiled_attention_fwd(q, k, v, mask, p, 304,
+                                               return_saved=True)
+                first = tiled_attention_bwd(q, k, v, mask, out, lse, do, p,
+                                            304)
+                again = tiled_attention_bwd(q, k, v, mask, out, lse, do, p,
+                                            304)
+                assert all(torch.equal(a, b) for a, b in zip(first, again)), (
+                    shape, p)
+                print(f"B5 vs plain (B, h, L, d_k)={shape} bfloat16 p={p}: "
+                      f"max_abs_err out {errs_fb[0]:.3e}, grads "
+                      f"{errs_fb[1]:.3e}; a second backward bit for bit")
+                del q, k, v, mask, do, out, lse, first, again
+            torch.cuda.empty_cache()
     print(f"B4/B5 vs plain: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB {tag}")
     # the split block with B4 and with B5 against the B1 sublayer on the
@@ -2635,6 +2728,62 @@ def main() -> int:
                       f"{b * h * l * l:.3e} exps) {tag}")
             del q, k, v, do, stats, out5, lse, lib, fns
             torch.cuda.empty_cache()
+    # B5's bf16 kernels (the tensor-core ones) at p = 0 and at the paper
+    # step's 0.3, at the shapes of its main paths (the (8, 4096) step, the
+    # (4, 8192) scorer) and at B4's (8, 1200) and (16, 1024); beside each
+    # bound the exp floor: one exponential a (query, key) pair forward, two
+    # backward (each backward kernel rebuilds P), on 16 special-function
+    # units an SM at the card's largest SM clock. The plain version at
+    # (4, 8192) and p > 0 is not timed: its dropout mask of B h L^2 elements
+    # takes some 40 GB of int64 intermediates.
+    mhz = sm_clock_mhz()
+    b5_rows = {}
+    for b, h, l, dk in ((8, 4, 4096, 32), (4, 4, 8192, 32), (8, 4, 1200, 32),
+                        (LONG_B, 4, LONG_L, 32)):
+        q, k, v, mask, do = qkv_inputs(gen, b, h, l, dk, torch.bfloat16, dev,
+                                       empty=False)
+        pairs = b * h * l * l
+        for p in (0.0, 0.3):
+            out5, lse = tiled_attention_fwd(q, k, v, mask, p, 24,
+                                            return_saved=True)
+            lib = sdpa_library(q, k, v, mask, do, p)
+            fns = {
+                "tiled_attention_fwd": (
+                    lambda: tiled_attention_fwd(q, k, v, mask, p, 24),
+                    lambda: tiled_attention_fwd_plain(q, k, v, mask, p, 24),
+                    lib[0]),
+                "tiled_attention_bwd": (
+                    lambda: tiled_attention_bwd(q, k, v, mask, out5, lse, do,
+                                                p, 24),
+                    lambda: tiled_attention_bwd_plain(q, k, v, mask, out5,
+                                                      lse, do, p, 24),
+                    lib[1])}
+            for name, (kfn, pfn, lfn) in fns.items():
+                backward = name.endswith("bwd")
+                iters = 10 if l > 2000 else 20
+                ms = median_ms(kfn, iters=iters, warmup=2)
+                lib_ms = median_ms(lfn, iters=iters, warmup=2)
+                plain_ms = (None if p and pairs > 6e8 else
+                            median_ms(pfn, iters=3, warmup=1))
+                flops, moved = attention_work(b, h, l, dk, torch.bfloat16,
+                                              backward)
+                bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
+                floor = exp_floor_ms((2 if backward else 1) * pairs, mhz)
+                b5_rows[(name, b, l, p)] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, exp_floor_ms=floor)
+                plain_txt = ("not timed" if plain_ms is None
+                             else f"{plain_ms:.4f} ms")
+                print(f"time {name} bfloat16 (B, h, L, d_k)=({b}, {h}, {l}, "
+                      f"{dk}) p={p}: kernel {ms:.4f} ms, plain {plain_txt}, "
+                      f"library (scaled_dot_product_attention, dropout_p={p}"
+                      f"{', autograd' if backward else ''}) {lib_ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms ({bound_by}), exp floor "
+                      f"{floor:.4f} ms ({(2 if backward else 1) * pairs:.3e} "
+                      f"exps at {mhz:.0f} MHz) {tag}")
+            del out5, lse, lib, fns
+        del q, k, v, mask, do
+        torch.cuda.empty_cache()
     # inside B1's envelope: the whole attention sublayer three ways, the
     # data of a later threshold between B1 and the split block
     args = attn_inputs(gen, LONG_B, LONG_L, 128, torch.float32, dev)
@@ -2691,6 +2840,14 @@ def main() -> int:
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                     row[f"{key}{sfx}_b{ob}_l{ol}"] = attn_rows[
                         (name, ob, ol, dtype)][key]
+        if kind == "tiled":
+            # the SIMT kernels' earlier times at (8, 4, 4096, 32) (fp32 runs
+            # them still), and the tensor-core kernels' at both rates
+            row["earlier_ms"], row["earlier_ms_bf16"] = EARLIER_B5_MS[name]
+            for (bname, ob, ol, p), vals in b5_rows.items():
+                if bname == name:
+                    for key, value in vals.items():
+                        row[f"{key}_bf16_b{ob}_l{ol}_p{p:g}"] = value
         rows.append(row)
 
     # -- 25: X1 against its plain version ----------------------------------------

@@ -8,6 +8,8 @@ dropout masks at p > 0."""
 
 import functools
 import math
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import allrank_tpu_torch
 from allrank_tpu.constants import NEG_INF_FILL
 from allrank_tpu.ops.attention_pallas import fused_slate_attention as jax_b4
 from allrank_tpu.ops.attention_tiled import tiled_slate_attention as jax_b5
@@ -214,3 +217,14 @@ def test_bf16_plain_versions_round_where_the_tpu_kernels_do():
         torch.testing.assert_close(out.float(), ref_b, rtol=2 ** -6,
                                    atol=2 ** -6)
     assert (ref - ref_b).abs().max() < 0.05
+
+
+def test_kernel_key_tile_is_the_plain_versions():
+    """The bf16 rounding of B5's unnormalised p_acc depends on the running
+    max, so the CUDA kernels and the plain version must walk the same key
+    tiles: the kernels' kKeyTile is ``TILE_K``."""
+    src = os.path.join(os.path.dirname(allrank_tpu_torch.__file__), "csrc",
+                       "attention_tiled.cu")
+    with open(src) as f:
+        found = re.findall(r"constexpr int kKeyTile = (\d+);", f.read())
+    assert [int(n) for n in found] == [TILE_K]

@@ -717,13 +717,22 @@ def _attention_pair(kind, q, k, v, mask, do, p, seed):
     return out, grads, ref, ref_grads
 
 
-@pytest.mark.parametrize("p", [0.0, 0.3])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,l,dk", [(3, 2, 1, 16), (3, 2, 240, 72),
-                                      (3, 2, 1100, 32), (3, 1, 1308, 96),
-                                      (1, 2, 4096, 32)])
-@pytest.mark.parametrize("kind", ["fused", "tiled"])
-def test_attention_kernels_match_plain(cuda, kind, b, h, l, dk, dtype, p):
+_ATTENTION_CASES = [
+    (kind, shape, dtype, p)
+    for kind in ("fused", "tiled")
+    for shape in ((3, 2, 1, 16), (3, 2, 240, 72), (3, 2, 1100, 32),
+                  (3, 1, 1308, 96), (1, 2, 4096, 32))
+    for dtype in (torch.float32, torch.bfloat16) for p in (0.0, 0.3)]
+# B5's bf16 tensor-core kernels at the edges of their envelope: one key, a
+# tile and one key, past a 64 multiple near the end; d_k 8, 72, 128
+_ATTENTION_CASES += [("tiled", (3, 2, l, dk), torch.bfloat16, p)
+                     for l in (1, 65, 4097) for dk in (8, 72, 128)
+                     for p in (0.0, 0.3)]
+
+
+@pytest.mark.parametrize("kind,shape,dtype,p", _ATTENTION_CASES)
+def test_attention_kernels_match_plain(cuda, kind, shape, dtype, p):
+    b, h, l, dk = shape
     q, k, v, mask, do = _qkv_inputs(b, h, l, dk, dtype, cuda, l + dk)
     fwd, bwd = ((attention_fused_fwd, attention_fused_bwd) if kind == "fused"
                 else (tiled_attention_fwd, tiled_attention_bwd))
@@ -736,6 +745,54 @@ def test_attention_kernels_match_plain(cuda, kind, b, h, l, dk, dtype, p):
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
         assert torch.isfinite(g.float()).all(), name
         _close(g, r, dtype, f"{kind} {name}")
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_tiled_bf16_fully_padded_slate_and_ragged_tail(cuda, p):
+    """B5's tensor-core kernels on a fully padded slate (every key scores
+    NEG_INF_FILL, so the output averages v over the slate's L keys and lse
+    rounds to NEG_INF_FILL) and a slate whose L = 100 is not a multiple of
+    the 64-key tile, with 37 documents: forward, lse and gradients against
+    the plain version, and a second backward bit for bit."""
+    gen = torch.Generator().manual_seed(9)
+    b, h, l, dk = 2, 2, 100, 32
+    q, k, v, do = (torch.randn(b, h, l, dk, generator=gen)
+                   .to(torch.bfloat16).to(cuda) for _ in range(4))
+    mask = (torch.arange(l)[None, :] >= torch.tensor([[0], [37]])).to(cuda)
+    out, lse = tiled_attention_fwd(q, k, v, mask, p, 5, return_saved=True)
+    grads = tiled_attention_bwd(q, k, v, mask, out, lse, do, p, 5)
+    again = tiled_attention_bwd(q, k, v, mask, out, lse, do, p, 5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    ref, ref_lse = tiled_attention_fwd_plain(q, k, v, mask, p, 5)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    assert (lse[0] == -1e9).all()
+    for name, g, r in zip(("dq", "dk", "dv"), grads,
+                          tiled_attention_bwd_plain(q, k, v, mask, out, lse,
+                                                    do, p, 5)):
+        _close(g, r, torch.bfloat16, f"tiled {name}")
+
+
+def test_tiled_attention_counts_one_launch_each_way(cuda):
+    """Through ``TiledAttention`` a bf16 forward is one launch of
+    ``tiled_attention_fwd`` and its backward one of ``tiled_attention_bwd``
+    (whose wrapper starts both backward kernels)."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 2, 300, 32, generator=gen).to(torch.bfloat16)
+               .to(cuda).requires_grad_() for _ in range(3))
+    mask = (torch.arange(300)[None, :] >= torch.tensor([[300], [150]])).to(
+        cuda)
+    before = (tiled_attention_fwd.launches, tiled_attention_bwd.launches)
+    out = tiled_slate_attention(q, k, v, mask, 0.3, 11)
+    assert (tiled_attention_fwd.launches, tiled_attention_bwd.launches) == (
+        before[0] + 1, before[1])
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tiled_attention_fwd.launches, tiled_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
 
 @pytest.mark.parametrize("form", [
