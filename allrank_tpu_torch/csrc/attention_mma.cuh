@@ -124,7 +124,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stages rows [row0, row0 + kRows) of src [L, dk] into S [kRows][pitch] with
 // a block of kThreads threads, zero past L and in the columns dk..dkp.
-// kAligned (dk % 8 == 0: every row starts on a 16-byte boundary) issues
+// kAligned (every row starts on a 16-byte boundary: dk % 8 == 0 and src
+// aligned) issues
 // 16-byte cp.async copies that land while the block computes; otherwise the
 // elements are copied one by one, synchronously. Either way the tile is
 // complete for every thread after the caller's cp_async_wait and

@@ -54,9 +54,10 @@
 //    past L have no lse or D and are zeroed explicitly. The dropout masks
 //    replay from their keys.
 //  * d_k is padded with zeros to whole 16-column steps in shared memory (72
-//    to 80); the kernels are built for padded widths 32, 64 and 128. A row
-//    is copied in 16-byte pieces when d_k % 8 == 0 and element by element
-//    otherwise, a template flag of the same kernels.
+//    to 80); the kernels are built for padded widths 32, 64 and 128. Rows
+//    are copied in 16-byte pieces when d_k % 8 == 0 and q, k, v (and dO)
+//    start on 16-byte boundaries, and element by element otherwise, a
+//    template flag of the same kernels.
 //  * fp32 keeps the SIMT kernels (tiled_fwd_kernel and attention_core.cuh's
 //    backward on fp32 FMAs): bf16 tensor cores would lose the parity that
 //    fp32 promises.
@@ -64,6 +65,9 @@
 //    64-bit size_t throughout.
 #include "attention_core.cuh"
 #include "attention_mma.cuh"
+
+#include <cstdint>
+#include <initializer_list>
 
 namespace allrank {
 namespace {
@@ -746,12 +750,22 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// True when every row of each [L, dk] bf16 array in `rows` starts on a
+// 16-byte boundary: dk % 8 == 0 and each base pointer 16-byte aligned (a
+// contiguous view may start anywhere in its storage).
+inline bool rows_aligned(int dk, std::initializer_list<const void*> rows) {
+  if (dk % 8 != 0) return false;
+  for (const void* p : rows)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 // Calls launch<kDk, kAligned>(args...) for d_k's padded width class (32, 64
-// or 128) and alignment.
-#define TILED_MMA_DISPATCH(launch, dk, ...)                                \
+// or 128) and whether the staged rows are 16-byte aligned.
+#define TILED_MMA_DISPATCH(launch, dk, aligned, ...)                       \
   do {                                                                     \
     const int dkp_ = mma_head_pad(dk);                                     \
-    const bool aligned_ = (dk) % 8 == 0;                                   \
+    const bool aligned_ = (aligned);                                       \
     if (dkp_ <= 32)                                                        \
       return aligned_ ? launch<32, true>(__VA_ARGS__)                      \
                       : launch<32, false>(__VA_ARGS__);                    \
@@ -766,8 +780,8 @@ cudaError_t tiled_fwd_bf16(const void* q, const void* k, const void* v,
                            const void* key_mask, void* out, void* lse, int G,
                            int L, int dk, int h, float scale, DropStream drop,
                            cudaStream_t stream) {
-  TILED_MMA_DISPATCH(launch_fwd_mma, dk, q, k, v, key_mask, out, lse, G, L,
-                     dk, h, scale, drop, stream);
+  TILED_MMA_DISPATCH(launch_fwd_mma, dk, rows_aligned(dk, {q, k, v}), q, k,
+                     v, key_mask, out, lse, G, L, dk, h, scale, drop, stream);
 }
 
 cudaError_t tiled_bwd_bf16(const void* q, const void* k, const void* v,
@@ -776,8 +790,9 @@ cudaError_t tiled_bwd_bf16(const void* q, const void* k, const void* v,
                            void* dk_out, void* dv_out, int G, int L, int dk,
                            int h, float scale, DropStream drop,
                            cudaStream_t stream) {
-  TILED_MMA_DISPATCH(launch_bwd_mma, dk, q, k, v, key_mask, lse, D, dO, dq,
-                     dk_out, dv_out, G, L, dk, h, scale, drop, stream);
+  TILED_MMA_DISPATCH(launch_bwd_mma, dk, rows_aligned(dk, {q, k, v, dO}), q,
+                     k, v, key_mask, lse, D, dO, dq, dk_out, dv_out, G, L, dk,
+                     h, scale, drop, stream);
 }
 
 }  // namespace

@@ -13,7 +13,7 @@ and never prints its last line):
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
    counts the ``HMMA`` instructions of B5's tensor-core kernels with
-   ``cuobjdump -sass`` (each must hold some) where the toolkit has it;
+   the toolkit's ``cuobjdump -sass`` (each must hold some);
    turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
@@ -110,8 +110,10 @@ and never prints its last line):
     versions: B4 at (B, h, L, d_k) = (4, 4, 1200, 32) and (2, 2, 1100, 72),
     B5 at (2, 4, 4096, 32) and (1, 4, 8192, 32), fp32 and bf16, dropout 0
     and 0.3, a fully padded slate; B5 in bf16 (its tensor-core kernels) at
-    L in {1, 65, 4097} and d_k in {8, 72, 128}, dropout 0 and 0.3, a
-    second backward bit for bit the first; and the split attention block
+    L in {1, 65, 4097} and d_k in {8, 20, 32, 36, 48, 72, 100, 128} (d_k
+    32 with rows off a 16-byte boundary), which runs each of its 18
+    kernels, dropout 0 and 0.3, a second backward bit for bit the first;
+    and the split attention block
     (PyTorch ops around B4 or B5) against the B1 sublayer at (64, 240) and
     (16, 1024), dropout 0.3, the same seeds;
 22. long-slate serving: the paper config's model (no positional encoding)
@@ -128,8 +130,8 @@ and never prints its last line):
     (8, 4, 4096, 32) and (16, 4, 1024, 32), each with its bound, its plain
     version and ``scaled_dot_product_attention`` (backward by autograd); B5
     in bf16 also at (4, 4, 8192, 32) and at dropout 0.3, with the exp floor
-    (one exponential a pair forward, two backward, at 16 a clock per SM)
-    beside each bound; at
+    (one exponential a pair forward, two backward, at 16 a clock on each of
+    the device's SMs) beside each bound; at
     (16, 1024) the B1 sublayer beside the split block with B4 and with B5;
     both long steps with their idle share and device time by kernel;
 25. the int8 dense kernel (X1) against its plain version, bit for bit: the
@@ -255,11 +257,6 @@ B3_GRAD_RTOL, B3_GRAD_ATOL = 1e-4, 1e-5
 # largest value plus 1e-5 of the largest gradient of all (a gradient that
 # is zero in exact arithmetic, the output bias, is fp32 noise)
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
-# B5's times before its bf16 flow ran on the tensor cores (the SIMT kernels
-# that fp32 still runs, phase 24 on an NVIDIA H100 80GB HBM3 at 700 W; the
-# PERF.md table keeps them), at (8, 4, 4096, 32): (fp32, bf16) ms
-EARLIER_B5_MS = {"tiled_attention_fwd": (6.2062, 6.4561),
-                 "tiled_attention_bwd": (22.7111, 23.3367)}
 
 # the long-slate step 1: FFN hidden units per block whose ReLU gate may flip
 # between GPU and CPU (1.6 % of the paper config's d_ff = 512); a unit
@@ -339,20 +336,21 @@ def sm_clock_mhz() -> float:
     return float(out.splitlines()[0])
 
 
-def exp_floor_ms(exps: float, mhz: float) -> float:
+def exp_floor_ms(exps: float, mhz: float, sms: int) -> float:
     """The least time the card's special-function units take for ``exps``
-    exponentials: 16 a clock on each of the 132 SMs."""
-    return exps / (132 * 16 * mhz * 1e6) * 1e3
+    exponentials: 16 a clock on each of its ``sms`` SMs."""
+    return exps / (sms * 16 * mhz * 1e6) * 1e3
 
 
 def hmma_counts(library: str) -> dict:
     """``HMMA`` (and ``HGMMA``) instructions in each kernel of a built
-    library whose name holds ``tiled_``, from ``cuobjdump -sass``; None
-    where the toolkit has no cuobjdump."""
+    library whose name holds ``tiled_``, from the toolkit's
+    ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        return None
+        raise RuntimeError(f"no cuobjdump at {tool}: the tensor-core check "
+                           "needs the toolkit's cuobjdump")
     sass = subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, name = {}, None
@@ -711,6 +709,15 @@ def qkv_inputs(gen, b, h, l, dk, dtype, dev, empty=True):
     if empty and b > 1:
         lengths[-1] = 0
     return q, k, v, (torch.arange(l)[None, :] >= lengths[:, None]).to(dev), do
+
+
+def off_boundary(t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage, so its base pointer is off the allocator's alignment."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def attention_work(b, h, l, dk, dtype, backward: bool) -> tuple:
@@ -1461,18 +1468,15 @@ def main() -> int:
                     print(f"  {src}: {line.strip()}")
     # B5's bf16 kernels run on the tensor cores: each holds HMMA
     hmma = hmma_counts(_build.library_path("attention_tiled"))
-    if hmma is None:
-        print("HMMA counts: not measured (no cuobjdump in the toolkit)")
-    else:
-        for kname, n in sorted(hmma.items()):
-            print(f"  attention_tiled: {n} HMMA in {kname}")
-        mma_kernels = [k for k in hmma if "_mma_kernel" in k]
-        assert len(mma_kernels) == 18 and all(hmma[k] > 0
-                                              for k in mma_kernels), hmma
-        simt = {k: n for k, n in hmma.items() if k not in mma_kernels}
-        print(f"HMMA: all {len(mma_kernels)} tensor-core tiled_ kernels "
-              f"(forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or "
-              f"not) hold HMMA; the fp32 forward {sorted(simt.values())}")
+    for kname, n in sorted(hmma.items()):
+        print(f"  attention_tiled: {n} HMMA in {kname}")
+    mma_kernels = [k for k in hmma if "_mma_kernel" in k]
+    assert len(mma_kernels) == 18 and all(hmma[k] > 0
+                                          for k in mma_kernels), hmma
+    simt = {k: n for k, n in hmma.items() if k not in mma_kernels}
+    print(f"HMMA: all {len(mma_kernels)} tensor-core tiled_ kernels "
+          f"(forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or "
+          f"not) hold HMMA; the fp32 forward {sorted(simt.values())}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1234)
@@ -2510,16 +2514,24 @@ def main() -> int:
                     del args
             torch.cuda.empty_cache()
     # B5's bf16 tensor-core kernels at the edges of their envelope: one key,
-    # a tile and one key, the longest slate past a 64 multiple; d_k 8 (one
-    # 16-wide step, half of it padding), 72 (rows not 16-byte aligned in
-    # the padded pitch, 80 wide), 128 (the widest); slates ragged, the last
-    # fully padded; a second backward gives the same bits
+    # a tile and one key, the longest slate past a 64 multiple; each of the
+    # 18 kernels: d_k 8 (one 16-wide step, half of it padding), 20 (rows
+    # not 16-byte aligned) and 32 (phase 21's shapes) in the 32 class, 36
+    # (not aligned) and 48 in the 64 class, 72 (padded to 80), 100 (not
+    # aligned) and 128 (the widest) in the 128 class, and d_k 32 with
+    # q, k, v and dO starting 2 bytes past a 16-byte boundary (the
+    # element-wise staging); slates ragged, the last fully padded; a second
+    # backward gives the same bits
     for l in (1, 65, 4097):
-        for dk in (8, 72, 128):
+        for dk, offset in ((8, 0), (20, 0), (32, 1), (36, 0), (48, 0),
+                           (72, 0), (100, 0), (128, 0)):
             for p in (0.0, 0.3):
                 shape = (3, 2, l, dk)
                 q, k, v, mask, do = qkv_inputs(gen, *shape, torch.bfloat16,
                                                dev)
+                if offset:
+                    q, k, v, do = (off_boundary(t, offset)
+                                   for t in (q, k, v, do))
                 errs_fb = attention_pair("tiled", (q, k, v, mask, do), p, 304)
                 attn_errs[("tiled", shape, torch.bfloat16, p)] = errs_fb
                 out, lse = tiled_attention_fwd(q, k, v, mask, p, 304,
@@ -2530,7 +2542,8 @@ def main() -> int:
                                             304)
                 assert all(torch.equal(a, b) for a, b in zip(first, again)), (
                     shape, p)
-                print(f"B5 vs plain (B, h, L, d_k)={shape} bfloat16 p={p}: "
+                print(f"B5 vs plain (B, h, L, d_k)={shape} bfloat16 p={p}"
+                      f"{f' rows {2 * offset} bytes off' if offset else ''}: "
                       f"max_abs_err out {errs_fb[0]:.3e}, grads "
                       f"{errs_fb[1]:.3e}; a second backward bit for bit")
                 del q, k, v, mask, do, out, lse, first, again
@@ -2733,10 +2746,11 @@ def main() -> int:
     # (4, 8192) scorer) and at B4's (8, 1200) and (16, 1024); beside each
     # bound the exp floor: one exponential a (query, key) pair forward, two
     # backward (each backward kernel rebuilds P), on 16 special-function
-    # units an SM at the card's largest SM clock. The plain version at
-    # (4, 8192) and p > 0 is not timed: its dropout mask of B h L^2 elements
-    # takes some 40 GB of int64 intermediates.
+    # units on each of the card's SMs at its largest SM clock. The plain
+    # version at (4, 8192) and p > 0 is not timed: its dropout mask of
+    # B h L^2 elements takes some 40 GB of int64 intermediates.
     mhz = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b5_rows = {}
     for b, h, l, dk in ((8, 4, 4096, 32), (4, 4, 8192, 32), (8, 4, 1200, 32),
                         (LONG_B, 4, LONG_L, 32)):
@@ -2768,7 +2782,8 @@ def main() -> int:
                 flops, moved = attention_work(b, h, l, dk, torch.bfloat16,
                                               backward)
                 bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
-                floor = exp_floor_ms((2 if backward else 1) * pairs, mhz)
+                floor = exp_floor_ms((2 if backward else 1) * pairs, mhz,
+                                     sms)
                 b5_rows[(name, b, l, p)] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound_ms, exp_floor_ms=floor)
@@ -2780,7 +2795,7 @@ def main() -> int:
                       f"{', autograd' if backward else ''}) {lib_ms:.4f} ms, "
                       f"bound {bound_ms:.4f} ms ({bound_by}), exp floor "
                       f"{floor:.4f} ms ({(2 if backward else 1) * pairs:.3e} "
-                      f"exps at {mhz:.0f} MHz) {tag}")
+                      f"exps at {mhz:.0f} MHz on {sms} SMs) {tag}")
             del out5, lse, lib, fns
         del q, k, v, mask, do
         torch.cuda.empty_cache()
@@ -2841,9 +2856,7 @@ def main() -> int:
                     row[f"{key}{sfx}_b{ob}_l{ol}"] = attn_rows[
                         (name, ob, ol, dtype)][key]
         if kind == "tiled":
-            # the SIMT kernels' earlier times at (8, 4, 4096, 32) (fp32 runs
-            # them still), and the tensor-core kernels' at both rates
-            row["earlier_ms"], row["earlier_ms_bf16"] = EARLIER_B5_MS[name]
+            # the tensor-core kernels' times at both rates
             for (bname, ob, ol, p), vals in b5_rows.items():
                 if bname == name:
                     for key, value in vals.items():

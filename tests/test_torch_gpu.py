@@ -724,9 +724,13 @@ _ATTENTION_CASES = [
                   (3, 1, 1308, 96), (1, 2, 4096, 32))
     for dtype in (torch.float32, torch.bfloat16) for p in (0.0, 0.3)]
 # B5's bf16 tensor-core kernels at the edges of their envelope: one key, a
-# tile and one key, past a 64 multiple near the end; d_k 8, 72, 128
+# tile and one key, past a 64 multiple near the end; d_k in each padded
+# width class, rows 16-byte aligned or not: 8 and 20 (not aligned) in the
+# 32 class, 36 (not aligned) and 48 in the 64 class, 72, 100 (not aligned)
+# and 128 in the 128 class
 _ATTENTION_CASES += [("tiled", (3, 2, l, dk), torch.bfloat16, p)
-                     for l in (1, 65, 4097) for dk in (8, 72, 128)
+                     for l in (1, 65, 4097)
+                     for dk in (8, 20, 36, 48, 72, 100, 128)
                      for p in (0.0, 0.3)]
 
 
@@ -772,6 +776,29 @@ def test_tiled_bf16_fully_padded_slate_and_ragged_tail(cuda, p):
     for name, g, r in zip(("dq", "dk", "dv"), grads,
                           tiled_attention_bwd_plain(q, k, v, mask, out, lse,
                                                     do, p, 5)):
+        _close(g, r, torch.bfloat16, f"tiled {name}")
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_tiled_bf16_rows_off_a_16_byte_boundary(cuda, p):
+    """Contiguous q, k, v and dO whose storage starts 2 bytes past a 16-byte
+    boundary (d_k = 32, a multiple of 8) take B5's element-wise staging and
+    match the plain version as the aligned ones do."""
+    q, k, v, mask, do = _qkv_inputs(3, 2, 200, 32, torch.bfloat16, cuda, 12)
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 2
+        return out
+
+    q, k, v, do = map(off, (q, k, v, do))
+    out, grads, ref, ref_grads = _attention_pair("tiled", q, k, v, mask, do,
+                                                 p, 13)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
         _close(g, r, torch.bfloat16, f"tiled {name}")
 
 
