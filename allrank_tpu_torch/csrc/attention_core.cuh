@@ -1,8 +1,10 @@
 // Pieces shared by the bare slate-attention kernels B4 (attention_fused.cu)
-// and B5 (attention_tiled.cu): tile staging for q, k, v of one slate-head
-// laid out [L, d_k], the masked score of one (query, key) pair, half-warp
-// row reductions, and the two backward kernels, which differ between B4 and
-// B5 only in how a row's probabilities are rebuilt and where D comes from.
+// and B5 (attention_tiled.cu) in fp32: tile staging for q, k, v of one
+// slate-head laid out [L, d_k], the masked score of one (query, key) pair,
+// half-warp row reductions, and the two backward kernels, which differ
+// between B4 and B5 only in how a row's probabilities are rebuilt and where
+// D comes from. (Their bf16 flows run on the tensor cores:
+// attention_mma_tiles.cuh.)
 //
 // Layout: q, k, v, out and their gradients are [G, L, d_k] with G = B * h
 // (the [B, h, L, d_k] tensors of the wrappers, contiguous); key_mask is
@@ -180,18 +182,21 @@ cudaError_t launch_attn_fwd(AttnFwdKernel<T> kernel, const void* q,
 
 // dQ of one (query tile, slate-head), looping over the key tiles:
 // dS = P (dPd - D), zero at padded keys, rounded to T, then dQ += dS . k,
-// scaled once at the end. With kLse (B5) D [G, L] is an input, rowsum(dO *
-// O); otherwise (B4) a first walk over the key tiles takes D = rowsum(dPd *
-// P) as the TPU kernel does and writes it for the dK/dV kernel.
+// scaled once at the end. D goes to Dg [G, L] for the dK/dV kernel. With
+// kLse (B5) D = rowsum(dO * O), O the forward's output, summed in mma_tile's
+// order for dP = dO . v^T, one fmaf chain over d_k: where a row has a single
+// key O is that key's v, and dP - D is 0 as in exact arithmetic, not the
+// noise of two sums in different orders. Otherwise (B4) a first walk over
+// the key tiles takes D = rowsum(dPd * P) as the TPU kernel does.
 template <class T, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const unsigned char* __restrict__ key_mask,
                        const float* __restrict__ stats,
-                       const T* __restrict__ dO, float* __restrict__ Dg,
-                       T* __restrict__ dq, int L, int dk, int h, float scale,
-                       DropStream drop) {
+                       const T* __restrict__ dO, const T* __restrict__ O,
+                       float* __restrict__ Dg, T* __restrict__ dq, int L,
+                       int dk, int h, float scale, DropStream drop) {
   extern __shared__ float smem[];
   const int dkp = head_pad(dk), ldq = dkp + 1;
   float* Qs = smem;                 // [64][ldq] query rows
@@ -214,7 +219,13 @@ __global__ void __launch_bounds__(kThreads)
     const int r = ty + 16 * i;
     const bool ok = q0 + r < L;
     rs[i] = row_softmax<kLse>(stats, (size_t)g * L + q0 + r, ok);
-    D[i] = (kLse && ok) ? Dg[(size_t)g * L + q0 + r] : 0.f;
+    D[i] = 0.f;
+    if (kLse && ok) {
+      const size_t at = base + (size_t)(q0 + r) * dk;
+      for (int c = 0; c < dk; ++c)
+        D[i] = fmaf(to_float(dO[at + c]), to_float(O[at + c]), D[i]);
+      if (tx == 0) Dg[(size_t)g * L + q0 + r] = D[i];
+    }
   }
 
   float acc[2][4][4] = {};
@@ -364,15 +375,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The two backward kernels of one call, on `stream`: for B4 (kLse false)
-// the dQ kernel first, which writes D, then the dK/dV kernel; for B5 D is
-// an input. Returns 0 or the CUDA error code.
+// The two backward kernels of one call, on `stream`: the dQ kernel first,
+// which writes D [G, L] (B5, kLse: from the forward's output O; B4: O is
+// unused and may be null), then the dK/dV kernel. Returns 0 or the CUDA
+// error code.
 template <class T, bool kLse>
 cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
                             const void* key_mask, const void* stats,
-                            const void* dO, void* D, void* dq, void* dk_out,
-                            void* dv_out, int G, int L, int dk, int h,
-                            float scale, DropStream drop,
+                            const void* dO, const void* O, void* D, void* dq,
+                            void* dk_out, void* dv_out, int G, int L, int dk,
+                            int h, float scale, DropStream drop,
                             cudaStream_t stream) {
   const size_t smem = bwd_smem_floats(dk) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -392,8 +404,8 @@ cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
   const T* dot = static_cast<const T*>(dO);
   float* Dg = static_cast<float*>(D);
   attn_bwd_dq_kernel<T, kLse><<<grid, kThreads, smem, stream>>>(
-      qt, kt, vt, mask, st, dot, Dg, static_cast<T*>(dq), L, dk, h, scale,
-      drop);
+      qt, kt, vt, mask, st, dot, static_cast<const T*>(O), Dg,
+      static_cast<T*>(dq), L, dk, h, scale, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   attn_bwd_dkv_kernel<T, kLse><<<grid, kThreads, smem, stream>>>(
       qt, kt, vt, mask, st, dot, Dg, static_cast<T*>(dk_out),

@@ -1,8 +1,9 @@
 """Masked slate attention with the exact, normalised probabilities (B4),
 ``out = drop(softmax(q . k^T / sqrt(d_k), padded keys -1e9)) . v``, forward
 and backward: the CUDA kernels of ``csrc/attention_fused.cu`` for CUDA
-tensors and their plain PyTorch versions, of the same signatures, for CPU
-tensors; ``FusedAttention`` ties the two into autograd.
+tensors (bf16 on the tensor cores, fp32 on fp32 FMAs) and their plain
+PyTorch versions, of the same signatures, for CPU tensors;
+``FusedAttention`` ties the two into autograd.
 
 Replaces the TPU kernel ``fused_slate_attention`` of the JAX package's
 ``ops/attention_pallas.py`` (forward ``pallas_call`` at line 179, backward

@@ -44,7 +44,7 @@ from allrank_tpu_torch.ops.attention_fused import (
 TILE_K = 64  # the kernels' key tile (kKeyTile in csrc/attention_tiled.cu)
 _SIGNATURES = {
     "tiled_attention_fwd": [_P] * 6 + [_I] * 4 + _TAIL,
-    "tiled_attention_bwd": [_P] * 10 + [_I] * 4 + _TAIL,
+    "tiled_attention_bwd": [_P] * 11 + [_I] * 4 + _TAIL,
 }
 
 
@@ -149,8 +149,10 @@ def tiled_attention_bwd(q, k, v, key_mask, out, lse, do, p_drop: float = 0.0,
     """``(dq, dk, dv)`` for the output gradient ``do``, from the forward's
     ``out`` and ``lse`` for the same inputs, seed and rate. A CPU tensor
     takes the plain version; a CUDA tensor launches the backward kernels
-    (D = rowsum(dO * O) taken first in PyTorch ops, as the JAX package
-    takes it in XLA) or raises."""
+    or raises. D = rowsum(dO * O) is taken first in PyTorch ops in bf16, as
+    the JAX package takes it in XLA; in fp32 the dQ kernel takes it in the
+    order it sums dP, so that dP - D cancels exactly where a row has one
+    key."""
     if q.device.type == "cpu":
         return tiled_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
                                          p_drop, seed)
@@ -161,12 +163,16 @@ def tiled_attention_bwd(q, k, v, key_mask, out, lse, do, p_drop: float = 0.0,
     check_args(q, k, v, key_mask, out=(out, (b, h, l, dk), q.dtype),
                lse=(lse, (b, h, l), torch.float32),
                do=(do, (b, h, l, dk), q.dtype))
-    delta = (do.float() * out.float()).sum(dim=-1)
+    if q.dtype == torch.bfloat16:
+        delta = (do.float() * out.float()).sum(dim=-1)
+    else:
+        delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     grads = [torch.empty_like(q) for _ in range(3)]
     lib = _build.load("attention_tiled", _SIGNATURES)
     with torch.cuda.device(q.device):
         rc = lib.tiled_attention_bwd(
-            *map(_build.ptr, (q, k, v, key_mask, lse, delta, do, *grads)),
+            *map(_build.ptr, (q, k, v, key_mask, out, lse, delta, do,
+                              *grads)),
             b * h, l, dk, h, 1.0 / math.sqrt(dk),
             int(q.dtype == torch.bfloat16), probs_keys(seed, p_drop), p_drop,
             _build.stream_of(q))

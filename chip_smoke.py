@@ -12,8 +12,8 @@ and never prints its last line):
 1. the card, torch and CUDA versions; builds the fourteen kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
-   counts the ``HMMA`` instructions of B5's tensor-core kernels with
-   the toolkit's ``cuobjdump -sass`` (each must hold some);
+   counts the ``HMMA`` instructions of B4's and B5's tensor-core kernels
+   (18 each) with the toolkit's ``cuobjdump -sass`` (each must hold some);
    turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
@@ -113,7 +113,9 @@ and never prints its last line):
     L in {1, 65, 4097} and d_k in {8, 20, 32, 36, 48, 72, 100, 128} (d_k
     32 with rows off a 16-byte boundary), which runs each of its 18
     kernels, dropout 0 and 0.3, a second backward bit for bit the first;
-    and the split attention block
+    B4 in bf16 (its 18 tensor-core kernels) likewise at L in {1, 65,
+    1224}; both in fp32 at (3, 2, 1, 128), one key, where dQ and dK are 0
+    in exact arithmetic; and the split attention block
     (PyTorch ops around B4 or B5) against the B1 sublayer at (64, 240) and
     (16, 1024), dropout 0.3, the same seeds;
 22. long-slate serving: the paper config's model (no positional encoding)
@@ -128,10 +130,12 @@ and never prints its last line):
     dropout 0 in fp32 at B=2, L=4096 and B=4, L=1200 against the CPU;
 24. times: B4 and B5 forward and backward at (8, 4, 1200, 32),
     (8, 4, 4096, 32) and (16, 4, 1024, 32), each with its bound, its plain
-    version and ``scaled_dot_product_attention`` (backward by autograd); B5
-    in bf16 also at (4, 4, 8192, 32) and at dropout 0.3, with the exp floor
-    (one exponential a pair forward, two backward, at 16 a clock on each of
-    the device's SMs) beside each bound; at
+    version and ``scaled_dot_product_attention`` (backward by autograd); B4
+    in fp32 and bf16 also at the int8 tower's (64, 4, 240, 32), and B4 and
+    B5 in bf16 (B5 also at (4, 4, 8192, 32)) at dropout 0 and 0.3, with the
+    exp floor (one exponential a pair forward, two backward, at 16 a clock
+    on each of the device's SMs) beside each bound, and for B4 the floor of
+    its own two exps a pair forward and three backward; at
     (16, 1024) the B1 sublayer beside the split block with B4 and with B5;
     both long steps with their idle share and device time by kernel;
 25. the int8 dense kernel (X1) against its plain version, bit for bit: the
@@ -342,9 +346,9 @@ def exp_floor_ms(exps: float, mhz: float, sms: int) -> float:
     return exps / (sms * 16 * mhz * 1e6) * 1e3
 
 
-def hmma_counts(library: str) -> dict:
+def hmma_counts(library: str, marker: str) -> dict:
     """``HMMA`` (and ``HGMMA``) instructions in each kernel of a built
-    library whose name holds ``tiled_``, from the toolkit's
+    library whose name holds ``marker``, from the toolkit's
     ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -357,7 +361,7 @@ def hmma_counts(library: str) -> dict:
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            name = found.group(1) if "tiled_" in found.group(1) else None
+            name = found.group(1) if marker in found.group(1) else None
             if name:
                 counts[name] = 0
         elif name and re.search(r"\bH(G)?MMA\b", line):
@@ -1466,17 +1470,20 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
-    # B5's bf16 kernels run on the tensor cores: each holds HMMA
-    hmma = hmma_counts(_build.library_path("attention_tiled"))
-    for kname, n in sorted(hmma.items()):
-        print(f"  attention_tiled: {n} HMMA in {kname}")
-    mma_kernels = [k for k in hmma if "_mma_kernel" in k]
-    assert len(mma_kernels) == 18 and all(hmma[k] > 0
-                                          for k in mma_kernels), hmma
-    simt = {k: n for k, n in hmma.items() if k not in mma_kernels}
-    print(f"HMMA: all {len(mma_kernels)} tensor-core tiled_ kernels "
-          f"(forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or "
-          f"not) hold HMMA; the fp32 forward {sorted(simt.values())}")
+    # B4's and B5's bf16 kernels run on the tensor cores: each holds HMMA
+    for src, marker in (("attention_tiled", "tiled_"),
+                        ("attention_fused", "fused_")):
+        hmma = hmma_counts(_build.library_path(src), marker)
+        for kname, n in sorted(hmma.items()):
+            print(f"  {src}: {n} HMMA in {kname}")
+        mma_kernels = [k for k in hmma if "_mma_kernel" in k]
+        assert len(mma_kernels) == 18 and all(hmma[k] > 0
+                                              for k in mma_kernels), hmma
+        simt = {k: n for k, n in hmma.items() if k not in mma_kernels}
+        print(f"HMMA: all {len(mma_kernels)} tensor-core {marker} kernels "
+              f"of {src} (forward, dK/dV, dQ at padded d_k 32, 64, 128, "
+              f"aligned or not) hold HMMA; the fp32 forward "
+              f"{sorted(simt.values())}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1234)
@@ -2522,32 +2529,57 @@ def main() -> int:
     # q, k, v and dO starting 2 bytes past a 16-byte boundary (the
     # element-wise staging); slates ragged, the last fully padded; a second
     # backward gives the same bits
-    for l in (1, 65, 4097):
-        for dk, offset in ((8, 0), (20, 0), (32, 1), (36, 0), (48, 0),
-                           (72, 0), (100, 0), (128, 0)):
-            for p in (0.0, 0.3):
-                shape = (3, 2, l, dk)
-                q, k, v, mask, do = qkv_inputs(gen, *shape, torch.bfloat16,
-                                               dev)
-                if offset:
-                    q, k, v, do = (off_boundary(t, offset)
-                                   for t in (q, k, v, do))
-                errs_fb = attention_pair("tiled", (q, k, v, mask, do), p, 304)
-                attn_errs[("tiled", shape, torch.bfloat16, p)] = errs_fb
-                out, lse = tiled_attention_fwd(q, k, v, mask, p, 304,
-                                               return_saved=True)
-                first = tiled_attention_bwd(q, k, v, mask, out, lse, do, p,
-                                            304)
-                again = tiled_attention_bwd(q, k, v, mask, out, lse, do, p,
-                                            304)
-                assert all(torch.equal(a, b) for a, b in zip(first, again)), (
-                    shape, p)
-                print(f"B5 vs plain (B, h, L, d_k)={shape} bfloat16 p={p}"
-                      f"{f' rows {2 * offset} bytes off' if offset else ''}: "
-                      f"max_abs_err out {errs_fb[0]:.3e}, grads "
-                      f"{errs_fb[1]:.3e}; a second backward bit for bit")
-                del q, k, v, mask, do, out, lse, first, again
-            torch.cuda.empty_cache()
+    # B4's likewise at L in {1, 65, 1224}: the split block's longest slate,
+    # whose last key tile holds 8 keys
+    def backward_twice(kind, q, k, v, mask, do, p, seed):
+        if kind == "fused":
+            _, stats = attention_fused_fwd(q, k, v, mask, p, seed,
+                                           return_saved=True)
+            return [attention_fused_bwd(q, k, v, mask, do, p, seed,
+                                        stats=stats) for _ in range(2)]
+        out, lse = tiled_attention_fwd(q, k, v, mask, p, seed,
+                                       return_saved=True)
+        return [tiled_attention_bwd(q, k, v, mask, out, lse, do, p, seed)
+                for _ in range(2)]
+
+    for kind, lengths in (("tiled", (1, 65, 4097)), ("fused", (1, 65, 1224))):
+        for l in lengths:
+            for dk, offset in ((8, 0), (20, 0), (32, 1), (36, 0), (48, 0),
+                               (72, 0), (100, 0), (128, 0)):
+                for p in (0.0, 0.3):
+                    shape = (3, 2, l, dk)
+                    q, k, v, mask, do = qkv_inputs(gen, *shape,
+                                                   torch.bfloat16, dev)
+                    if offset:
+                        q, k, v, do = (off_boundary(t, offset)
+                                       for t in (q, k, v, do))
+                    errs_fb = attention_pair(kind, (q, k, v, mask, do), p,
+                                             304)
+                    attn_errs[(kind, shape, torch.bfloat16, p)] = errs_fb
+                    first, again = backward_twice(kind, q, k, v, mask, do, p,
+                                                  304)
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(first, again)), (kind, shape,
+                                                                p)
+                    print(f"{'B4' if kind == 'fused' else 'B5'} vs plain "
+                          f"(B, h, L, d_k)={shape} bfloat16 p={p}"
+                          f"{f' rows {2 * offset} bytes off' if offset else ''}"
+                          f": max_abs_err out {errs_fb[0]:.3e}, grads "
+                          f"{errs_fb[1]:.3e}; a second backward bit for bit")
+                    del q, k, v, mask, do, first, again
+                torch.cuda.empty_cache()
+    # one key in fp32 (the SIMT kernels): dQ and dK are 0 in exact
+    # arithmetic, and dP - D must cancel to no more than the plain
+    # version's noise (ROADMAP Queue C3)
+    for kind in ("fused", "tiled"):
+        args = qkv_inputs(gen, 3, 2, 1, 128, torch.float32, dev)
+        errs_fb = attention_pair(kind, args, 0.0, 305)
+        attn_errs[(kind, (3, 2, 1, 128), torch.float32, 0.0)] = errs_fb
+        print(f"{'B4' if kind == 'fused' else 'B5'} vs plain (B, h, L, d_k)="
+              f"(3, 2, 1, 128) float32 p=0.0: max_abs_err out "
+              f"{errs_fb[0]:.3e}, grads {errs_fb[1]:.3e} (tol "
+              f"{BWD_TOL[torch.float32][0]:g} x max|ref| + "
+              f"{BWD_TOL[torch.float32][1]:g})")
     print(f"B4/B5 vs plain: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB {tag}")
     # the split block with B4 and with B5 against the B1 sublayer on the
@@ -2695,24 +2727,16 @@ def main() -> int:
           "L=1200 through B4, and matches the CPU")
 
     # -- 24: times of B4 and B5, and the long steps -----------------------------
+    # B5 in fp32 and bf16 at p = 0 beside its plain version and the library
     attn_rows = {}
     for b, h, l, dk in ((8, 4, 1200, 32), (8, 4, 4096, 32),
                         (LONG_B, 4, LONG_L, 32)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, do = qkv_inputs(gen, b, h, l, dk, dtype, dev,
                                            empty=False)
-            _, stats = attention_fused_fwd(q, k, v, mask, return_saved=True)
             out5, lse = tiled_attention_fwd(q, k, v, mask, return_saved=True)
             lib = sdpa_library(q, k, v, mask, do)
             fns = {
-                "attention_fused_fwd": (
-                    lambda: attention_fused_fwd(q, k, v, mask),
-                    lambda: attention_fused_fwd_plain(q, k, v, mask), lib[0]),
-                "attention_fused_bwd": (
-                    lambda: attention_fused_bwd(q, k, v, mask, do,
-                                                stats=stats),
-                    lambda: attention_fused_bwd_plain(q, k, v, mask, do),
-                    lib[1]),
                 "tiled_attention_fwd": (
                     lambda: tiled_attention_fwd(q, k, v, mask),
                     lambda: tiled_attention_fwd_plain(q, k, v, mask), lib[0]),
@@ -2739,7 +2763,71 @@ def main() -> int:
                       f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                       f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB; "
                       f"{b * h * l * l:.3e} exps) {tag}")
-            del q, k, v, do, stats, out5, lse, lib, fns
+            del q, k, v, do, out5, lse, lib, fns
+            torch.cuda.empty_cache()
+    mhz = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # B4 in fp32 (the SIMT kernels) and bf16 (the tensor-core ones) at p = 0
+    # and at the paper step's 0.3: at (8, 4, 1200, 32) (the (16, 1200)
+    # step's slates), (8, 4, 4096, 32) and (16, 4, 1024, 32) beside B5, and
+    # the int8 tower's (64, 4, 240, 32); beside each bound the exp floor
+    # (one exponential a (query, key) pair forward, two backward, at 16 a
+    # clock on each SM) and the floor of this design's own count (two a
+    # pair forward, three backward: D, dS and dK/dV each rebuild P)
+    b4_rows = {}
+    for b, h, l, dk in ((8, 4, 1200, 32), (8, 4, 4096, 32),
+                        (LONG_B, 4, LONG_L, 32), (B, 4, L, 32)):
+        pairs = b * h * l * l
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, do = qkv_inputs(gen, b, h, l, dk, dtype, dev,
+                                           empty=False)
+            for p in (0.0, 0.3):
+                _, stats = attention_fused_fwd(q, k, v, mask, p, 24,
+                                               return_saved=True)
+                lib = sdpa_library(q, k, v, mask, do, p)
+                fns = {
+                    "attention_fused_fwd": (
+                        lambda: attention_fused_fwd(q, k, v, mask, p, 24),
+                        lambda: attention_fused_fwd_plain(q, k, v, mask, p,
+                                                          24), lib[0]),
+                    "attention_fused_bwd": (
+                        lambda: attention_fused_bwd(q, k, v, mask, do, p, 24,
+                                                    stats=stats),
+                        lambda: attention_fused_bwd_plain(q, k, v, mask, do,
+                                                          p, 24), lib[1])}
+                for name, (kfn, pfn, lfn) in fns.items():
+                    backward = name.endswith("bwd")
+                    iters = 10 if l > 2000 else 20
+                    ms = median_ms(kfn, iters=iters, warmup=2)
+                    plain_ms = median_ms(pfn, iters=3 if p else iters,
+                                         warmup=1)
+                    lib_ms = median_ms(lfn, iters=iters, warmup=2)
+                    flops, moved = attention_work(b, h, l, dk, dtype,
+                                                  backward)
+                    bound_ms, bound_by = bound(flops, moved, dtype)
+                    floor = exp_floor_ms((2 if backward else 1) * pairs, mhz,
+                                         sms)
+                    design = exp_floor_ms((3 if backward else 2) * pairs,
+                                          mhz, sms)
+                    b4_rows[(name, b, l, dtype, p)] = dict(
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        exp_floor_ms=floor, design_exp_floor_ms=design,
+                        gflop=flops / 1e9, mbytes=moved / 1e6)
+                    print(f"time {name} {dtype} (B, h, L, d_k)=({b}, {h}, "
+                          f"{l}, {dk}) p={p}: kernel {ms:.4f} ms, plain "
+                          f"{plain_ms:.4f} ms, library (scaled_dot_product_"
+                          f"attention, dropout_p={p}"
+                          f"{', autograd' if backward else ''}) {lib_ms:.4f} "
+                          f"ms ({ms / lib_ms:.2f}x), bound {bound_ms:.4f} ms "
+                          f"({bound_by}: {flops / 1e9:.3f} GFLOP, "
+                          f"{moved / 1e6:.2f} MB), exp floor {floor:.4f} ms "
+                          f"({(2 if backward else 1) * pairs:.3e} exps), "
+                          f"this design's {(3 if backward else 2)} exps a "
+                          f"pair {design:.4f} ms, at {mhz:.0f} MHz on {sms} "
+                          f"SMs {tag}")
+                del stats, lib, fns
+            del q, k, v, mask, do
             torch.cuda.empty_cache()
     # B5's bf16 kernels (the tensor-core ones) at p = 0 and at the paper
     # step's 0.3, at the shapes of its main paths (the (8, 4096) step, the
@@ -2749,8 +2837,6 @@ def main() -> int:
     # units on each of the card's SMs at its largest SM clock. The plain
     # version at (4, 8192) and p > 0 is not timed: its dropout mask of
     # B h L^2 elements takes some 40 GB of int64 intermediates.
-    mhz = sm_clock_mhz()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b5_rows = {}
     for b, h, l, dk in ((8, 4, 4096, 32), (4, 4, 8192, 32), (8, 4, 1200, 32),
                         (LONG_B, 4, LONG_L, 32)):
@@ -2836,7 +2922,7 @@ def main() -> int:
         print(f"time train step {label}: {ms:.4f} ms per step, "
               f"{b / ms * 1e3:.1f} slates/s {tag}")
         profile_calls(lambda: tstep(*batch), f"train step {label} {tag}",
-                      also=("fused_fwd", "tiled_fwd", "attn_bwd", "tiled_"))
+                      also=("fused_", "tiled_", "attn_bwd"))
     for name in ("attention_fused_fwd", "attention_fused_bwd",
                  "tiled_attention_fwd", "tiled_attention_bwd"):
         kind = "fused" if "fused" in name else "tiled"
@@ -2848,10 +2934,20 @@ def main() -> int:
             row[f"max_abs_err{sfx}"] = max(
                 attn_errs[(kind, shape, dtype, p)][name.endswith("bwd")]
                 for p in (0.0, 0.3))
+            if kind == "fused":
+                # this run's times at p = 0 and 0.3 at every shape, those
+                # at (8, 1200) and p = 0 also without a suffix
+                for (bname, ob, ol, odt, p), vals in b4_rows.items():
+                    if bname != name or odt != dtype:
+                        continue
+                    for key, value in vals.items():
+                        row[f"{key}{sfx}_b{ob}_l{ol}_p{p:g}"] = value
+                        if (ob, ol, p) == (b, l, 0.0):
+                            row[f"{key}{sfx}"] = value
+                continue
             for key, value in attn_rows[(name, b, l, dtype)].items():
                 row[f"{key}{sfx}"] = value
-            for ob, ol in ((8, 4096 if kind == "fused" else 1200),
-                           (LONG_B, LONG_L)):
+            for ob, ol in ((8, 1200), (LONG_B, LONG_L)):
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                     row[f"{key}{sfx}_b{ob}_l{ol}"] = attn_rows[
                         (name, ob, ol, dtype)][key]

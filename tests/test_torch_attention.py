@@ -219,6 +219,56 @@ def test_bf16_plain_versions_round_where_the_tpu_kernels_do():
     assert (ref - ref_b).abs().max() < 0.05
 
 
+# B4 in bf16 against the JAX kernel on bf16 inputs: the plain version is the
+# card kernel's yardstick in bf16, so it must round where the TPU kernel
+# does (P dropped before P . v; P dropped before dV and dS before dQ and dK).
+# Forward 2^-6 (a rounding flip moves an output by one or two bf16 ulps);
+# each gradient 2^-5 of its largest value (an fp32 sum on the other side of
+# a rounding edge moves one bf16 dS by an ulp). One key and a 64-key tile
+# plus one, d_k 8 and 20; the second slate is fully padded at L = 1.
+BF16_TOL, BF16_GRAD_TOL = 2 ** -6, 2 ** -5
+BF16_SHAPES = [(2, 2, l, dk) for l in (1, 65) for dk in (8, 20)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_run(shape):
+    """The JAX B4's bf16 forward and sin-sum gradients, interpret mode."""
+    q, k, v, mask = _inputs(*shape, seed=21)
+    q, k, v = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v))
+    mask = jnp.asarray(mask)
+    seed = jnp.zeros((), jnp.int32)
+
+    def f(q, k, v):
+        return jax_b4(q, k, v, mask, seed, 0.0)
+
+    with pltpu.force_tpu_interpret_mode():
+        out = f(q, k, v)
+        grads = jax.grad(
+            lambda *a: jnp.sum(jnp.sin(f(*a).astype(jnp.float32))),
+            argnums=(0, 1, 2))(q, k, v)
+    assert out.dtype == jnp.bfloat16
+    return (np.asarray(out.astype(jnp.float32)),
+            tuple(np.asarray(g.astype(jnp.float32)) for g in grads))
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bf16_plain_b4_rounds_where_the_jax_kernel_does(shape):
+    ref, ref_grads = _jax_bf16_run(shape)
+    q, k, v, mask = _inputs(*shape, seed=21)
+    leaves = [torch.tensor(a).bfloat16().requires_grad_() for a in (q, k, v)]
+    out = fused_slate_attention(*leaves, torch.tensor(mask), 0.0, 0)
+    assert out.dtype == torch.bfloat16
+    torch.sin(out.float()).sum().backward()
+    np.testing.assert_allclose(out.detach().float().numpy(), ref,
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    for name, t, r in zip("qkv", leaves, ref_grads):
+        got = t.grad.float().numpy()
+        assert t.grad.dtype == torch.bfloat16 and np.isfinite(got).all()
+        err, scale = np.abs(got - r).max(), np.abs(r).max()
+        assert err <= BF16_GRAD_TOL * scale + 1e-6, (name, err, scale)
+
+
 def test_kernel_key_tile_is_the_plain_versions():
     """The bf16 rounding of B5's unnormalised p_acc depends on the running
     max, so the CUDA kernels and the plain version must walk the same key
@@ -228,3 +278,26 @@ def test_kernel_key_tile_is_the_plain_versions():
     with open(src) as f:
         found = re.findall(r"constexpr int kKeyTile = (\d+);", f.read())
     assert [int(n) for n in found] == [TILE_K]
+
+
+def test_time_attention_measures_nothing_without_a_card(monkeypatch, tmp_path,
+                                                        capsys):
+    """The card-only timing CLI exits 2 on the CPU, and reads each kernel's
+    registers and spills from an ``-Xptxas=-v`` build log by kernel name."""
+    from allrank_tpu_torch.ops import _build
+    from allrank_tpu_torch.tools import time_attention
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_attention.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    log = tmp_path / "attention_fused.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_Z3fwdv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 121 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3bwdv' for 'sm_90a'\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n")
+    monkeypatch.setattr(_build, "log_path", lambda name: str(log))
+    lines = time_attention.ptxas_lines("attention_fused")
+    assert [name for name, _ in lines] == ["_Z3fwdv", "_Z3fwdv", "_Z3bwdv"]
+    assert "121 registers" in lines[1][1] and "96 registers" in lines[2][1]

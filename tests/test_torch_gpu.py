@@ -732,6 +732,16 @@ _ATTENTION_CASES += [("tiled", (3, 2, l, dk), torch.bfloat16, p)
                      for l in (1, 65, 4097)
                      for dk in (8, 20, 36, 48, 72, 100, 128)
                      for p in (0.0, 0.3)]
+# B4's bf16 tensor-core kernels likewise: one key, a tile and one key, and
+# the split block's longest slate, whose last key tile holds 8 keys
+_ATTENTION_CASES += [("fused", (3, 2, l, dk), torch.bfloat16, p)
+                     for l in (1, 65, 1224)
+                     for dk in (8, 20, 36, 48, 72, 100, 128)
+                     for p in (0.0, 0.3)]
+# one key in fp32 (the SIMT kernels): dQ and dK are 0 in exact arithmetic,
+# and dP - D cancels to fp32 noise at most as large as the plain version's
+_ATTENTION_CASES += [(kind, (3, 2, 1, 128), torch.float32, 0.0)
+                     for kind in ("fused", "tiled")]
 
 
 @pytest.mark.parametrize("kind,shape,dtype,p", _ATTENTION_CASES)
@@ -818,6 +828,75 @@ def test_tiled_attention_counts_one_launch_each_way(cuda):
     out.float().sum().backward()
     torch.cuda.synchronize()
     assert (tiled_attention_fwd.launches, tiled_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_fused_bf16_fully_padded_slate_and_ragged_tail(cuda, p):
+    """B4's tensor-core kernels on a fully padded slate (every key scores
+    NEG_INF_FILL: the row max is NEG_INF_FILL, the sum L, so the output
+    averages v over the slate's L keys) and a slate whose L = 100 is not a
+    multiple of the 64-key tile, with 37 documents: forward and gradients
+    against the plain version, and a second backward bit for bit."""
+    gen = torch.Generator().manual_seed(19)
+    b, h, l, dk = 2, 2, 100, 32
+    q, k, v, do = (torch.randn(b, h, l, dk, generator=gen)
+                   .to(torch.bfloat16).to(cuda) for _ in range(4))
+    mask = (torch.arange(l)[None, :] >= torch.tensor([[0], [37]])).to(cuda)
+    out, stats = attention_fused_fwd(q, k, v, mask, p, 5, return_saved=True)
+    grads = attention_fused_bwd(q, k, v, mask, do, p, 5, stats=stats)
+    again = attention_fused_bwd(q, k, v, mask, do, p, 5, stats=stats)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    assert (stats[0, ..., 0] == -1e9).all() and (stats[0, ..., 1] == l).all()
+    torch.testing.assert_close(
+        out.float(), attention_fused_fwd_plain(q, k, v, mask, p, 5).float(),
+        **TOL[torch.bfloat16])
+    for name, g, r in zip(("dq", "dk", "dv"), grads,
+                          attention_fused_bwd_plain(q, k, v, mask, do, p, 5)):
+        _close(g, r, torch.bfloat16, f"fused {name}")
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_fused_bf16_rows_off_a_16_byte_boundary(cuda, p):
+    """Contiguous q, k, v and dO whose storage starts 2 bytes past a 16-byte
+    boundary (d_k = 32, a multiple of 8) take B4's element-wise staging and
+    match the plain version as the aligned ones do."""
+    q, k, v, mask, do = _qkv_inputs(3, 2, 200, 32, torch.bfloat16, cuda, 14)
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 2
+        return out
+
+    q, k, v, do = map(off, (q, k, v, do))
+    out, grads, ref, ref_grads = _attention_pair("fused", q, k, v, mask, do,
+                                                 p, 15)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        _close(g, r, torch.bfloat16, f"fused {name}")
+
+
+def test_fused_attention_counts_one_launch_each_way(cuda):
+    """Through ``FusedAttention`` a bf16 forward is one launch of
+    ``attention_fused_fwd`` and its backward one of ``attention_fused_bwd``
+    (whose wrapper starts both backward kernels)."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(2, 2, 300, 32, generator=gen).to(torch.bfloat16)
+               .to(cuda).requires_grad_() for _ in range(3))
+    mask = (torch.arange(300)[None, :] >= torch.tensor([[300], [150]])).to(
+        cuda)
+    before = (attention_fused_fwd.launches, attention_fused_bwd.launches)
+    out = fused_slate_attention(q, k, v, mask, 0.3, 11)
+    assert (attention_fused_fwd.launches, attention_fused_bwd.launches) == (
+        before[0] + 1, before[1])
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (attention_fused_fwd.launches, attention_fused_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
