@@ -162,104 +162,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The base-2 exponent x of a pair's probability P = exp2(x) * (1 / sum),
-// from its row's max in base 2, ml = max * log2(e): at a live key the score
-// s = q . k times sl = scale * log2(e), less ml, in one FMA; at a padded key
-// NEG_INF_FILL in base 2 less ml (0 on a fully padded slate, whose max is
-// NEG_INF_FILL); past L -inf, weight 0. Every bf16 kernel of B4 forms P
-// from it, pass 1 of the forward with its running max.
-__device__ __forceinline__ float b4_exponent(float s, float sl, float ml,
-                                             bool pad, bool past) {
-  return past ? -INFINITY : pad ? kNegInfFillL2 - ml : fmaf(s, sl, -ml);
-}
-
-// Pass 1 of the forward on one 64-key tile for the warp's 16 rows: s holds
-// the tile's q . k^T; each row's running max m (of the scaled, masked
-// scores) and sum l of exp2(x) are updated, l rescaled. kLive (no key of
-// the tile padded or past L) takes no mask.
-template <bool kLive>
-__device__ __forceinline__ void b4_row_stats(const float (*s)[4], float m[2],
-                                             float l[2], const uint32_t* kb,
-                                             float scale) {
-  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
-  const uint32_t pad[2] = {kb[0] >> col, kb[1] >> col};
-  const uint32_t past[2] = {kb[2] >> col, kb[3] >> col};
-  float mx[2][8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float a = s[j][2 * r], b = s[j][2 * r + 1];
-      if (!kLive) {
-        const int bit = 8 * (j & 3);
-        const uint32_t pw = pad[j >> 2] >> bit, qw = past[j >> 2] >> bit;
-        a = qw & 1u ? -INFINITY : pw & 1u ? kNegInfFill : a * scale;
-        b = (qw >> 1) & 1u ? -INFINITY : (pw >> 1) & 1u ? kNegInfFill
-                                                        : b * scale;
-      }
-      mx[r][j] = fmaxf(a, b);
-    }
-  const float sl = scale * kLog2e;
-  float ml[2], alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // scale > 0: the largest score scaled is the largest scaled score
-    const float tmax = quad_max(tree_max8(mx[r]));
-    const float m_new = fmaxf(m[r], kLive ? tmax * scale : tmax);
-    alpha[r] = exp2_approx((m[r] - m_new) * kLog2e);
-    ml[r] = m_new * kLog2e;
-    m[r] = m_new;
-  }
-  float psum[2][8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1, bit = 8 * (j & 3) + (e & 1);
-      const float x =
-          kLive ? fmaf(s[j][e], sl, -ml[r])
-                : b4_exponent(s[j][e], sl, ml[r], (pad[j >> 2] >> bit) & 1u,
-                              (past[j >> 2] >> bit) & 1u);
-      const float p = exp2_approx(x);
-      psum[r][j] = e & 1 ? psum[r][j] + p : p;
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    l[r] = l[r] * alpha[r] + quad_sum(tree_sum8(psum[r]));
-}
-
-// Pass 2 of the forward on one 64-key tile: s (the tile's q . k^T) leaves
-// as the normalised, dropped P, drop(exp2(x) * (1 / sum)) with the keep
-// mask's p / (1 - p_drop), for P . v. rows_at is the probability index of
-// (the warp's first row, the tile's first key).
-template <bool kLive>
-__device__ __forceinline__ void b4_probs(float (*s)[4], const float ml[2],
-                                         const float rinv[2],
-                                         const uint32_t* kb, float sl,
-                                         const DropStream& drop,
-                                         size_t rows_at, int L) {
-  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
-  const uint32_t pad[2] = {kb[0] >> col, kb[1] >> col};
-  const uint32_t past[2] = {kb[2] >> col, kb[3] >> col};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1, bit = 8 * (j & 3) + (e & 1);
-      const float x =
-          kLive ? fmaf(s[j][e], sl, -ml[r])
-                : b4_exponent(s[j][e], sl, ml[r], (pad[j >> 2] >> bit) & 1u,
-                              (past[j >> 2] >> bit) & 1u);
-      float p = exp2_approx(x) * rinv[r];
-      if (drop.on)
-        p = drop_keep(drop, rows_at + (size_t)(lane / 4 + 8 * r) * L + 8 * j +
-                                col + (e & 1))
-                ? p / drop.denom
-                : 0.f;
-      s[j][e] = p;
-    }
-}
-
 // The forward on the tensor cores, bf16: one block of kFwdWarps warps per
 // (16 kFwdWarps queries, slate-head), each warp 16 query rows with their q
 // as A fragments in registers; 2 n steps through the ring, n the key tiles:

@@ -1,8 +1,10 @@
 """Attention sublayer, ``y = x + drop_r((MHA_drop_a(LN(x) . Wqkv + bqkv))
-. Wout + bout)``, forward and backward: the CUDA kernels of
-``csrc/attention_block.cu`` for CUDA tensors and their plain PyTorch
-versions, of the same signatures, for CPU tensors; ``AttentionSublayer``
-ties the two into autograd.
+. Wout + bout)``, forward and backward: the CUDA kernels for CUDA tensors
+and their plain PyTorch versions, of the same signatures, for CPU tensors;
+``AttentionSublayer`` ties the two into autograd. Two routes of kernels
+(``route``): bf16 with d_k <= 128 runs on the tensor cores
+(``csrc/attention_block_mma.cu``), fp32 and bf16 with d_k > 128 on the
+SIMT units (``csrc/attention_block.cu``).
 
 Replaces the TPU kernel ``attention_sublayer`` of the JAX package's
 ``ops/attention_block.py`` (forward ``pallas_call`` at line 343, backward at
@@ -49,6 +51,16 @@ _SIGNATURES = {
     "attention_sublayer_bwd": [_P] * 25 + [_I] * 6
     + [ctypes.c_float, _I, _P, ctypes.c_double, ctypes.c_double, _P],
 }
+# the tensor-core route's entry points: the SIMT ones less is_bf16
+_SIGNATURES_MMA = {
+    "attention_sublayer_fwd_mma": [_P] * 11 + [_I] * 4
+    + [ctypes.c_float, _P, ctypes.c_double, ctypes.c_double, _P],
+    "attention_sublayer_bwd_mma": [_P] * 25 + [_I] * 6
+    + [ctypes.c_float, _P, ctypes.c_double, ctypes.c_double, _P],
+}
+# the widest head the tensor-core kernels take (d_k padded to 32, 64 or 128)
+MMA_MAX_HEAD = 128
+ROUTES = ("mma", "simt")
 
 
 def check_width(b: int, d: int, dtype, h: int = 1) -> None:
@@ -74,6 +86,17 @@ def check_envelope(b: int, l: int, d: int, dtype, h: int = 1) -> None:
     if not 1 <= l <= MAX_LEN:
         raise NotImplementedError(
             f"sublayer kernels cover 1 <= L <= {MAX_LEN}, got {l}")
+
+
+def route(dtype, d: int, h: int) -> str:
+    """The kernels a CUDA call takes, from dtype, d and h alone, before any
+    launch: ``"mma"`` (the tensor cores, ``attention_block_mma.cu``) for
+    bf16 with d_k = d / h <= 128, ``"simt"`` (``attention_block.cu``) for
+    fp32 (no TF32: fp32 keeps its parity) and for bf16 with wider heads.
+    Raises ``NotImplementedError`` outside the sublayer kernels' envelope."""
+    check_width(1, d, dtype, h)
+    return ("mma" if dtype == torch.bfloat16 and d // h <= MMA_MAX_HEAD
+            else "simt")
 
 
 def splits(m: int, k: int, n: int) -> int:
@@ -251,29 +274,54 @@ def attention_sublayer_fwd(x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
         return (y, None) if return_saved else y
     if x.device.type != "cuda":
         raise ValueError(f"no attention sublayer for device {x.device}")
+    return launch_fwd(route(x.dtype, x.shape[-1], h), x, key_mask, ln_scale,
+                      ln_bias, wqkv, bqkv, wout, bout, h, p_attn, p_resid,
+                      seeds, return_saved)
+
+
+def _check_way(way, dtype, d, h):
+    if way not in ROUTES or (way == "mma" and route(dtype, d, h) != "mma"):
+        raise ValueError(f"no {way!r} kernels for {dtype}, d={d}, h={h}")
+
+
+def launch_fwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+               h: int, p_attn: float = 0.0, p_resid: float = 0.0,
+               seeds=(0, 0), return_saved: bool = False):
+    """``attention_sublayer_fwd`` on CUDA tensors through the kernels of
+    route ``way``: the wrapper passes ``route``'s answer; B10's checks also
+    take the SIMT kernels in bf16, whose tile bodies B10 runs. Counts the
+    launch as the wrapper's."""
     p_attn, p_resid = dropout.check_rate(p_attn), dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, wqkv, bqkv, wout, bout)
     b, l, d = _check(x, key_mask, params, h)
+    _check_way(way, x.dtype, d, h)
     dev = x.device
 
-    lib = _build.load("attention_block", _SIGNATURES)
     y = torch.empty_like(x)
     qkv = torch.empty((b, l, 3 * d), dtype=x.dtype, device=dev)
     stats = (torch.empty((b, h, l, 2), dtype=torch.float32, device=dev)
              if return_saved else None)
-    with torch.cuda.device(dev):
-        rc = lib.attention_sublayer_fwd(
-            *map(_build.ptr, (x, key_mask) + params + (qkv, y)),
+    args = (*map(_build.ptr, (x, key_mask) + params + (qkv, y)),
             _build.ptr(stats) if stats is not None else None,
-            b, l, d, h, 1.0 / math.sqrt(d // h),
-            int(x.dtype == torch.bfloat16), _keys(seeds, p_attn, p_resid),
-            p_attn, p_resid, _build.stream_of(x))
-    _build.check_launch(lib, rc, "attention_sublayer_fwd")
+            b, l, d, h, 1.0 / math.sqrt(d // h))
+    tail = (_keys(seeds, p_attn, p_resid), p_attn, p_resid,
+            _build.stream_of(x))
+    with torch.cuda.device(dev):
+        if way == "mma":
+            lib = _build.load("attention_block_mma", _SIGNATURES_MMA)
+            rc = lib.attention_sublayer_fwd_mma(*args, *tail)
+        else:
+            lib = _build.load("attention_block", _SIGNATURES)
+            rc = lib.attention_sublayer_fwd(
+                *args, int(x.dtype == torch.bfloat16), *tail)
+    _build.check_launch(lib, rc, f"attention_sublayer_fwd ({way})")
     attention_sublayer_fwd.launches += 1
+    attention_sublayer_fwd.route_launches[way] += 1
     return (y, (qkv, stats)) if return_saved else y
 
 
 attention_sublayer_fwd.launches = 0
+attention_sublayer_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def attention_sublayer_bwd(x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
@@ -289,9 +337,21 @@ def attention_sublayer_bwd(x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
                                             p_attn, p_resid, seeds)
     if x.device.type != "cuda":
         raise ValueError(f"no attention sublayer for device {x.device}")
+    return launch_bwd(route(x.dtype, x.shape[-1], h), x, key_mask, ln_scale,
+                      ln_bias, wqkv, bqkv, wout, bout, dy, h, p_attn, p_resid,
+                      seeds, saved)
+
+
+def launch_bwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+               dy, h: int, p_attn: float = 0.0, p_resid: float = 0.0,
+               seeds=(0, 0), saved=None):
+    """``attention_sublayer_bwd`` on CUDA tensors through the kernels of
+    route ``way`` (see ``launch_fwd``), on ``saved`` from the same route's
+    forward. Counts the launch as the wrapper's."""
     p_attn, p_resid = dropout.check_rate(p_attn), dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, wqkv, bqkv, wout, bout)
     b, l, d = _check(x, key_mask, params, h)
+    _check_way(way, x.dtype, d, h)
     if saved is None:
         raise ValueError("the backward kernel needs the forward's saved qkv "
                          "and row statistics (return_saved=True)")
@@ -313,21 +373,28 @@ def attention_sublayer_bwd(x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
                 torch.empty(s_qkv * (3 * d * d + 3 * d), **f32),
                 torch.empty(s_out * (d * d + d), **f32),
                 torch.empty(-(-m // 64) * 2 * d, **f32)]
-    lib = _build.load("attention_block", _SIGNATURES)
-    with torch.cuda.device(dev):
-        rc = lib.attention_sublayer_bwd(
-            *map(_build.ptr, (x, key_mask, ln_scale, ln_bias, wqkv, wout,
+    args = (*map(_build.ptr, (x, key_mask, ln_scale, ln_bias, wqkv, wout,
                               qkv, stats, dy)),
             *map(_build.ptr, outs), *map(_build.ptr, scratch),
-            b, l, d, h, s_qkv, s_out, 1.0 / math.sqrt(d // h),
-            int(dtype == torch.bfloat16), _keys(seeds, p_attn, p_resid),
-            p_attn, p_resid, _build.stream_of(x))
-    _build.check_launch(lib, rc, "attention_sublayer_bwd")
+            b, l, d, h, s_qkv, s_out, 1.0 / math.sqrt(d // h))
+    tail = (_keys(seeds, p_attn, p_resid), p_attn, p_resid,
+            _build.stream_of(x))
+    with torch.cuda.device(dev):
+        if way == "mma":
+            lib = _build.load("attention_block_mma", _SIGNATURES_MMA)
+            rc = lib.attention_sublayer_bwd_mma(*args, *tail)
+        else:
+            lib = _build.load("attention_block", _SIGNATURES)
+            rc = lib.attention_sublayer_bwd(
+                *args, int(dtype == torch.bfloat16), *tail)
+    _build.check_launch(lib, rc, f"attention_sublayer_bwd ({way})")
     attention_sublayer_bwd.launches += 1
+    attention_sublayer_bwd.route_launches[way] += 1
     return tuple(outs)
 
 
 attention_sublayer_bwd.launches = 0
+attention_sublayer_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class AttentionSublayer(torch.autograd.Function):

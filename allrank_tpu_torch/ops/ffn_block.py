@@ -74,16 +74,10 @@ def ffn_sublayer_fwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
     return (x32 + out).to(dtype)
 
 
-def ffn_sublayer_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
-                           p_hidden: float = 0.0, p_resid: float = 0.0,
-                           seeds=(0, 0)):
-    """The backward in plain PyTorch ops, mirroring the TPU kernel's
-    ``ffn_sublayer_bwd_vmem`` (the JAX package's ``ops/ffn_block.py:76-132``)
-    with its rounding points. Returns ``(dx, dg, db, dw1, db1, dw2, db2)``:
-    dx in x's dtype, the parameter gradients fp32."""
-    del b2  # the output bias does not enter the backward
-    p_hidden = dropout.check_rate(p_hidden)
-    p_resid = dropout.check_rate(p_resid)
+def _bwd_parts(x, ln_scale, ln_bias, w1, b1, w2, dy, p_hidden, p_resid,
+               seeds):
+    """The backward's terms before the ReLU gate, at its rounding points:
+    ``(dy, n, pre, hidden, dout, dh, w1c)``, dh not yet gated."""
     dtype = x.dtype
     x32 = x.float()
     dy = dy.to(dtype).float()
@@ -92,7 +86,6 @@ def ffn_sublayer_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     n = std_layer_norm(x32, ln_scale, ln_bias).to(dtype).float()
     w1c, w2c = w1.to(dtype).float(), w2.to(dtype).float()
     pre = n @ w1c + b1
-    gate = (pre > 0.0).float()
     hidden = torch.relu(pre)
     if keep_h is not None:
         hidden = torch.where(keep_h, hidden * (1.0 / (1.0 - p_hidden)), 0.0)
@@ -101,15 +94,84 @@ def ffn_sublayer_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     if keep_r is not None:
         dout = torch.where(keep_r, dout * (1.0 / (1.0 - p_resid)), 0.0)
     dout = dout.to(dtype).float()
-    dw2 = torch.einsum("blf,bld->fd", hidden, dout)
     dh = dout @ w2c.t()
     if keep_h is not None:
         dh = torch.where(keep_h, dh * (1.0 / (1.0 - p_hidden)), 0.0)
-    dh = (dh * gate).to(dtype).float()
+    return dy, n, pre, hidden, dout, dh, w1c
+
+
+def ffn_sublayer_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+                           p_hidden: float = 0.0, p_resid: float = 0.0,
+                           seeds=(0, 0), flip=None):
+    """The backward in plain PyTorch ops, mirroring the TPU kernel's
+    ``ffn_sublayer_bwd_vmem`` (the JAX package's ``ops/ffn_block.py:76-132``)
+    with its rounding points. Returns ``(dx, dg, db, dw1, db1, dw2, db2)``:
+    dx in x's dtype, the parameter gradients fp32. ``flip``, a [B, L, d_ff]
+    bool mask, inverts those hidden units' ReLU gates (``gate_flips``)."""
+    del b2  # the output bias does not enter the backward
+    p_hidden = dropout.check_rate(p_hidden)
+    p_resid = dropout.check_rate(p_resid)
+    dy, n, pre, hidden, dout, dh, w1c = _bwd_parts(
+        x, ln_scale, ln_bias, w1, b1, w2, dy, p_hidden, p_resid, seeds)
+    gate = pre > 0.0
+    if flip is not None:
+        gate = gate ^ flip
+    dw2 = torch.einsum("blf,bld->fd", hidden, dout)
+    dh = (dh * gate.float()).to(x.dtype).float()
     dw1 = torch.einsum("bld,blf->df", n, dh)
-    dx_ln, dg, db = ln_backward(x32, ln_scale, dh @ w1c.t())
-    return ((dy + dx_ln).to(dtype), dg, db, dw1, dh.sum(dim=(0, 1)), dw2,
+    dx_ln, dg, db = ln_backward(x.float(), ln_scale, dh @ w1c.t())
+    return ((dy + dx_ln).to(x.dtype), dg, db, dw1, dh.sum(dim=(0, 1)), dw2,
             dout.sum(dim=(0, 1)))
+
+
+def gate_flips(dx, x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+               p_hidden: float = 0.0, p_resid: float = 0.0, seeds=(0, 0),
+               rtol: float = 2 ** -5):
+    """The ReLU gates that another backward's ``dx`` took the other way, as
+    the [B, L, d_ff] bool mask of ``ffn_sublayer_bwd_plain``'s ``flip``.
+
+    A kept hidden unit whose pre-activation lies within rounding of 0 may
+    gate either way in two sums of the same terms, and its row of dx then
+    differs by the whole unit's term: the gradient is not continuous there.
+    For each row whose ``dx`` differs from the plain one by more than half
+    of ``rtol`` times the plain dx's largest value, this tries every subset
+    of the row's four kept units closest to their kink (relative to the sum
+    of their terms' magnitudes) and keeps the subset whose dx comes
+    closest. Rows are independent in dx, so each row is searched alone."""
+    p_hidden = dropout.check_rate(p_hidden)
+    p_resid = dropout.check_rate(p_resid)
+    d, d_ff = x.shape[-1], w1.shape[-1]
+    dy32, n, pre, _, _, dh, w1c = _bwd_parts(
+        x, ln_scale, ln_bias, w1, b1, w2, dy, p_hidden, p_resid, seeds)
+    ref = ffn_sublayer_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+                                 p_hidden, p_resid, seeds)[0].float()
+    err = (dx.float() - ref).abs().reshape(-1, d).amax(dim=-1)
+    rows = torch.nonzero(err > 0.5 * rtol * ref.abs().max()).flatten()
+    flip = torch.zeros(x.shape[:-1] + (d_ff,), dtype=torch.bool,
+                       device=x.device)
+    if rows.numel() == 0:
+        return flip
+    pre_r, dh_r = pre.reshape(-1, d_ff)[rows], dh.reshape(-1, d_ff)[rows]
+    margin = pre_r.abs() / (n.reshape(-1, d)[rows].abs() @ w1c.abs()
+                            + b1.abs())
+    kept = dh_r != 0.0  # a dropped unit's gate changes nothing
+    k = min(4, d_ff)
+    near = torch.where(kept, margin, torch.inf).topk(k, largest=False).indices
+    choices = ((torch.arange(2 ** k, device=x.device)[:, None]
+                >> torch.arange(k, device=x.device)) & 1).bool()
+    tried = torch.zeros(rows.numel(), 2 ** k, d_ff, dtype=torch.bool,
+                        device=x.device)
+    tried.scatter_(2, near[:, None, :].expand(-1, 2 ** k, -1),
+                   choices[None].expand(rows.numel(), -1, -1))
+    gate = (pre_r > 0.0)[:, None, :] ^ tried
+    dh_t = (dh_r[:, None, :] * gate.float()).to(x.dtype).float()
+    x_r = x.float().reshape(-1, d)[rows][:, None, :].expand(-1, 2 ** k, -1)
+    dx_t = (dy32.reshape(-1, d)[rows][:, None, :]
+            + ln_backward(x_r, ln_scale, dh_t @ w1c.t())[0]).to(x.dtype)
+    miss = (dx_t.float() - dx.reshape(-1, d)[rows][:, None, :].float()).abs()
+    best = miss.amax(dim=-1).argmin(dim=1)
+    flip.reshape(-1, d_ff)[rows] = tried[torch.arange(rows.numel()), best]
+    return flip
 
 
 def _check(x, params):

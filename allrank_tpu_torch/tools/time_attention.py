@@ -3,8 +3,8 @@ and B5 (``ops/attention_tiled.py``) on the card: forward and backward, fp32
 and bf16, dropout 0, at the shapes of their main paths, as one JSON line
 each with the card's name and power limit: ``ms``, one call timed by CUDA
 events (median of ``--iters`` after warm-up; the host's launch is in it),
-and ``graph_ms``, the device's own time, 10 calls captured in one CUDA
-graph and replayed. ``--ptxas`` first prints each kernel's registers and
+and ``graph_ms``, the device's own time, 20 calls captured in one CUDA
+graph and replayed (``timing.graph_ms``). ``--ptxas`` first prints each kernel's registers and
 spills from the build's ``-Xptxas=-v`` log.
 
 To compare two checkouts inside one call (the only fair comparison: two
@@ -49,22 +49,6 @@ def ptxas_lines(source: str) -> list:
     return out
 
 
-def graph_ms(fn, calls: int = 10, iters: int = 5) -> float:
-    """Device time of one call: ``calls`` calls in one CUDA graph, the
-    median event-timed replay divided by ``calls``."""
-    from allrank_tpu_torch.tools.timing import _median_event_ms
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    ms = _median_event_ms(graph.replay, iters, 1) / calls
-    del graph
-    return ms
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=20)
@@ -83,7 +67,7 @@ def main(argv=None) -> int:
         tiled_attention_bwd,
         tiled_attention_fwd,
     )
-    from allrank_tpu_torch.tools.timing import _median_event_ms
+    from allrank_tpu_torch.tools.timing import _median_event_ms, graph_ms
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

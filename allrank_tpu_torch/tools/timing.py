@@ -50,6 +50,59 @@ def _median_host_ms(fn: Callable[[], object], iters: int,
     return statistics.median(times)
 
 
+def graph_ms(fn: Callable[[], object], calls: int = 20, iters: int = 20,
+             warmup: int = 3) -> float:
+    """The device's own time for one call of ``fn``: ``calls`` calls
+    captured into one CUDA graph, which the host launches as a whole, so
+    the kernels run back to back with none of the host's time between them
+    (allocation, checks, the launch: several times a kernel of 10-100 us);
+    the median event-timed replay, divided by ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = _median_event_ms(graph.replay, iters, warmup) / calls
+    del graph
+    return ms
+
+
+def trace_kernels(fn: Callable[[], object], calls: int) -> tuple:
+    """Every kernel of ``calls`` calls of ``fn`` in a torch.profiler trace,
+    after one call outside it: a list of (name, start us, end us), empty
+    if the trace holds no device events, and the host's window in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    return ([(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA], window_us)
+
+
+def kernel_ms(fn: Callable[[], object], calls: int = 10) -> dict:
+    """Device time of one call by kernel name, ms: each kernel's durations
+    in a trace of ``calls`` calls (``trace_kernels``), divided by
+    ``calls``. Their sum is the yardstick of a library backward, whose
+    autograd engine refuses CUDA-graph capture (it makes the legacy stream
+    wait on the capturing one)."""
+    spans, _ = trace_kernels(fn, calls)
+    if not spans:
+        raise RuntimeError("no device events in the profiler's trace")
+    by_name: dict = {}
+    for name, start, end in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / calls / 1e3
+    return by_name
+
+
 def _chain(step, state, repeat):
     for _ in range(repeat):
         state = step(state)

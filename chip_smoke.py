@@ -9,15 +9,18 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the fourteen kernel sources of
+1. the card, torch and CUDA versions; builds the fifteen kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
    counts the ``HMMA`` instructions of B4's and B5's tensor-core kernels
-   (18 each) with the toolkit's ``cuobjdump -sass`` (each must hold some);
-   turns TF32 off;
+   (18 each) and of B1's (22) with the toolkit's ``cuobjdump -sass`` (each
+   must hold some); turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
-   lengths and one lengths=0 slate, in fp32 and bf16, plus edge shapes;
+   lengths and one lengths=0 slate, in fp32 (its SIMT kernels) and bf16
+   (its tensor-core kernels), plus edge shapes; and in bf16 at head widths
+   8, 20, 32, 36, 48, 72, 100 and 128 x L in {1, 65, 240, 1024}, which
+   runs each of its tensor-core forward instantiations;
 3. the FFN sublayer kernel (B2) likewise, d_ff 512 and 384;
 4. the flagship ranker (136 features, FC [128], 4 blocks of d=128, h=4,
    d_ff=512, random weights from a seeded ``torch.Generator``) through
@@ -28,15 +31,23 @@ and never prints its last line):
    requests, checked against direct scorer calls; this is the main path
    whose kernel launches are counted (the counters are set to 0 just
    before the requests and read just after);
-6. times (CUDA events after warm-up, medians): each kernel, its plain
-   version and a PyTorch library yardstick at the flagship serving shape,
+6. times (CUDA events after warm-up, medians; and as device time, 20
+   calls in one CUDA graph): each kernel, its plain version and a PyTorch
+   library yardstick at the flagship serving shape (B1 in fp32 on its SIMT
+   kernels, in bf16 on its tensor cores: a row each),
    the scorer's slates/s with its device time by kernel and idle share
    (torch.profiler), the service's p50 request latency;
 7. the B1 and B2 backward kernels against their plain versions (and the
    forwards at dropout 0.3), at the flagship widths and the edge shapes of
    phases 2-3, dropout 0 and 0.3, fp32 and bf16, with bit-identical masks;
    and at B=64, L=240, d=144, h=2 (head width 72, the ordinal recipe's) at
-   dropout 0 and 0.4;
+   dropout 0 and 0.4; B1 in bf16 at phase 2's head widths and lengths,
+   dropout 0 and 0.3, and with its saved qkv 2 bytes off a 16-byte
+   boundary, a second backward bit for bit the first: each of its 22
+   tensor-core kernels; B2 on the inputs of ROADMAP Queue C5 (a seed
+   sweep at d=96, bf16, p=0.3 and one fp32 case at d=144), where its ReLU
+   gates flip: within ``BWD_TOL`` of the plain version with those gates
+   replayed (``ffn_block.gate_flips``);
 8. the lambdaLoss pair-chain kernels (B3, forward and backward) against
    their plain versions: every weighing scheme, k = all or 10,
    L in {1, 240, 384}, a dummy slate;
@@ -46,14 +57,17 @@ and never prints its last line):
    ndcgLoss2PP) for 20 steps through ``make_train_step`` on a fixed
    synthetic batch of B=64, L=240 with a 40-document padding tail; every
    loss finite, the last 5 below the first 5, and per step 4 + 4 launches
-   of each sublayer kernel's forward and backward and 1 + 1 of B3 (the
-   counters are set to 0 just before the steps and read just after); at
-   dropout 0 in fp32, step 1's loss and gradients on the GPU against the
-   same model's plain run on the CPU;
+   of each sublayer kernel's forward and backward and 1 + 1 of B3, B1's
+   all on its tensor-core route (the counters are set to 0 just before the
+   steps and read just after); at dropout 0 in fp32, step 1's loss and
+   gradients on the GPU against the same model's plain run on the CPU, B1
+   on its SIMT route;
 10. times: the train step at ``bench.py``'s configuration (the flagship
-    model, dropout 0, bf16) and at the paper config, with its idle share
-    and device time by kernel; each new kernel, its plain version and a
-    library yardstick;
+    model, dropout 0, bf16; B1 4 + 4 launches on the tensor cores) and at
+    the paper config, with its idle share
+    and device time by kernel; each backward kernel, its plain version and
+    a library yardstick (autograd; as device time the sum of its kernels in
+    a torch.profiler trace, since autograd refuses CUDA-graph capture);
 11. the fused soft-sort kernels (B8, forward and backward) against their
     plain versions at N=64, L=240 and at N=2048 (the stochastic fold), both
     ``transpose`` values, ragged lengths, one fully padded slate;
@@ -162,13 +176,15 @@ and never prints its last line):
     its device time by kernel and idle share; the int8_static service's
     p50;
 28. the whole-encoder kernel pair (B10, forward and backward): its
-    cooperative grid, then against the chained B1/B2 kernels (phases 2 and
-    7's tolerances) and against its plain version (no further from it than
+    cooperative grid, then against the chained B1/B2 kernels of its own
+    tile bodies (B1 on its SIMT route in bf16 too; phases 2 and 7's
+    tolerances) and against its plain version (no further from it than
     the chained kernels, plus those tolerances), output and all 15
     gradients, at the flagship (B=64, L=240, d=128, h=4, d_ff=512, N=4)
     and at N=1, L=1, (4, 1024), d=144 with d_ff=384, d=256 with
     d_ff=1024, fp32 and bf16, dropout 0 and 0.3; two backwards give the
-    same bits;
+    same bits; in bf16 also its distance from the chain that the encoder
+    runs with the switch off (B1 on the tensor cores), recorded;
 29. the fifth main path, with ``MEGA_ENCODER_ENABLED`` set for the phase
     and restored after it: the flagship scorer in fp32 and bf16 against
     the switched-off scorer and the CPU plain run (one B10 launch a call,
@@ -190,7 +206,8 @@ and never prints its last line):
     each kernel's device time, bound, plain version and library formulation;
 32. the attention variants (X3) in all six modes against their plain
     versions at B=64, L=240, d=128, h=4, bf16, ragged keys and one empty
-    slate, and ``full`` against B1's forward bit for bit; then the probe
+    slate, and ``full`` equal to B1's SIMT forward bit for bit and within
+    phase 2's bf16 tolerance of B1's tensor-core forward; then the probe
     ``exp_attn_decompose`` (three interleaved rounds of K=8 chains, the
     stage costs, the production B1 forward and backward K-swept); times;
 33. the soft-sort with its records on chip (X4, forward and backward)
@@ -200,7 +217,8 @@ and never prints its last line):
     past its shared-memory cap; then the probe ``exp_sinkhorn_layout``
     (B8 against X4, forward and forward + backward, 8 steps in one CUDA
     graph); times at N=64 beside B8's;
-34. a ``{"kernels": [...]}`` JSON line, the card's name and power limit as
+34. a ``{"kernels": [...]}`` JSON line (B1 a row per route), the card's
+    name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -230,8 +248,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from allrank_tpu_torch.tools.timing import graph_ms, kernel_ms, trace_kernels
+
 B, L, N_FEATURES = 64, 240, 136  # the flagship serving shape
 PAPER_WIDTHS = [(128, 4), (144, 2), (96, 1)]  # (d_model, h)
+# B1's tensor-core kernels: 6 each of the attention + out-projection, dQ and
+# dK/dV kernels (padded d_k 32, 64, 128 x rows aligned or not), and LN +
+# QKV, the backward's rows, dn + LN backward and the weight gradients
+B1_MMA_KERNELS = 22
+# (d_model, h) of each head width the bf16 B1 kernels are held to: d_k 8,
+# 20, 32 (padded to 32), 36, 48 (to 64), 72, 100, 128 (to 128); 20, 36 and
+# 100 leave rows off a 16-byte boundary
+B1_MMA_WIDTHS = [(32, 4), (80, 4), (128, 4), (144, 4), (96, 2), (144, 2),
+                 (100, 1), (256, 2)]
 # H100 SXM published peaks (dense): fp32 on the SIMT units, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
@@ -434,27 +463,6 @@ def check_kernel(name, kernel, plain, args, kwargs, dtype) -> float:
     return (y.float() - ref.float()).abs().max().item()
 
 
-def b1_library(x, mask_add, g, b, wqkv, bqkv, wout, bout, h):
-    """The attention sublayer in library calls: the std-LN in torch ops,
-    torch.matmul and scaled_dot_product_attention (a yardstick only)."""
-    from allrank_tpu_torch.models.core import std_layer_norm
-
-    bsz, l, d = x.shape
-    qkv = torch.matmul(std_layer_norm(x, g, b), wqkv) + bqkv
-    q, k, v = qkv.view(bsz, l, 3, h, d // h).permute(2, 0, 3, 1, 4)
-    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask_add)
-    ctx = ctx.transpose(1, 2).reshape(bsz, l, d)
-    return x + (torch.matmul(ctx, wout) + bout)
-
-
-def b2_library(x, g, b, w1, b1, w2, b2):
-    """The FFN sublayer in library calls: std-LN, torch.matmul, relu."""
-    from allrank_tpu_torch.models.core import std_layer_norm
-
-    hidden = torch.relu(torch.matmul(std_layer_norm(x, g, b), w1) + b1)
-    return x + (torch.matmul(hidden, w2) + b2)
-
-
 def flagship_model(dev, dropout=0.0, output_activation=None):
     """``__graft_entry__._flagship_mdef`` (the model ``bench.py`` trains)
     rebuilt in the port, random weights from a seeded generator;
@@ -631,9 +639,44 @@ def rel_err(got, ref) -> tuple:
             ref.float().abs().max().item())
 
 
+def b2_gate_flip_case(seed, d, d_ff, dtype, p, dev) -> tuple:
+    """ROADMAP Queue C5: B2's backward at (B, L) with inputs drawn from a
+    generator of ``seed`` (``ffn_inputs``, then dy), against its plain
+    version as phase 7 holds it, and against the plain version with the
+    ReLU gates that the kernel's dx shows flipped (``gate_flips``): every
+    gradient within ``BWD_TOL`` there, at most ``GATE_FLIPS_MAX`` units.
+    Returns (worst error share of the tolerance as phase 7 holds it,
+    flipped gates, worst share with them replayed)."""
+    from allrank_tpu_torch.ops.ffn_block import (
+        ffn_sublayer_bwd,
+        ffn_sublayer_bwd_plain,
+        gate_flips,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    args = ffn_inputs(gen, B, L, d, d_ff, dtype, dev)
+    dy = torch.randn(B, L, d, generator=gen).to(dtype).to(dev)
+    seeds = (101, 202)
+    got = ffn_sublayer_bwd(*args, dy, p, p, seeds)
+    rtol, atol = BWD_TOL[dtype]
+    flip = gate_flips(got[0], *args, dy, p, p, seeds, rtol=rtol)
+    shares = []
+    for replay in (None, flip):
+        ref = ffn_sublayer_bwd_plain(*args, dy, p, p, seeds, flip=replay)
+        shares.append(max(err / (rtol * scale + atol) for err, scale in
+                          (rel_err(g, r) for g, r in zip(got, ref))))
+    flips = int(flip.sum().item())
+    assert flips <= GATE_FLIPS_MAX and shares[1] <= 1.0, (
+        f"B2 backward d={d} {dtype} p={p} seed {seed}: {flips} gate flips "
+        f"replayed leave {shares[1]:.3f} of the tolerance")
+    return shares[0], flips, shares[1]
+
+
 def b1_library_bwd(args, dy, h):
     """The backward of ``b1_library`` by autograd (SDPA's and matmul's own
     backward kernels): returns a function that runs it once."""
+    from allrank_tpu_torch.tools.time_sublayers import b1_library
+
     xx, mask, g, bb, wqkv, bqkv, wout, bout = args
     dtype = xx.dtype
     leaves = [t.detach().to(dtype).requires_grad_()
@@ -646,6 +689,8 @@ def b1_library_bwd(args, dy, h):
 
 
 def b2_library_bwd(args, dy):
+    from allrank_tpu_torch.tools.time_sublayers import b2_library
+
     dtype = args[0].dtype
     leaves = [t.detach().to(dtype).requires_grad_() for t in args]
     out = b2_library(*leaves)
@@ -688,21 +733,6 @@ def approx_library(s, valid_f, alpha, eps):
             lambda: torch.autograd.grad(out, leaf, u, retain_graph=True))
 
 
-def graph_ms(fn, calls: int = 20) -> float:
-    """The device's own time for one call of a kernel's wrapper: ``calls``
-    calls captured into one CUDA graph, which the host launches as a whole,
-    so the kernels run back to back with none of the host's time between
-    them (allocation, checks, the launch: several times a kernel of 10-100
-    us); the median event-timed replay, divided by ``calls``."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return median_ms(graph.replay, iters=20, warmup=3) / calls
-
-
 def qkv_inputs(gen, b, h, l, dk, dtype, dev, empty=True):
     """q, k, v and an output cotangent [B, h, L, d_k], and the padding mask:
     slate 0 full, the others ragged, the last fully padded if ``empty``."""
@@ -722,6 +752,70 @@ def off_boundary(t, offset: int):
     out = flat[offset:].view(t.shape)
     out.copy_(t)
     return out
+
+
+def b1_mma_case(gen, b, l, d, h, p, dev, offset: int = 0) -> tuple:
+    """B1's bf16 tensor-core route against its plain version at one shape:
+    the forward (dropout ``p`` on both streams), the backward on its saved
+    state (qkv moved ``offset`` elements off the allocator's alignment) and
+    a second backward that must give the same bits; phases 2 and 7's
+    tolerances. Returns (the forward's max abs error, the backward's worst
+    error as a share of its tolerance)."""
+    from allrank_tpu_torch.ops.attention_block import (
+        attention_sublayer_bwd,
+        attention_sublayer_bwd_plain,
+        attention_sublayer_fwd,
+        attention_sublayer_fwd_plain,
+    )
+
+    bf16 = torch.bfloat16
+    seeds = (101, 202)
+    args = attn_inputs(gen, b, l, d, bf16, dev)
+    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(dev)
+    fwd_n = attention_sublayer_fwd.route_launches["mma"]
+    bwd_n = attention_sublayer_bwd.route_launches["mma"]
+    y, (qkv, stats) = attention_sublayer_fwd(*args, h, p, p, seeds,
+                                             return_saved=True)
+    if offset:
+        qkv = off_boundary(qkv, offset)
+    got = attention_sublayer_bwd(*args, dy, h, p, p, seeds,
+                                 saved=(qkv, stats))
+    again = attention_sublayer_bwd(*args, dy, h, p, p, seeds,
+                                   saved=(qkv, stats))
+    torch.cuda.synchronize()
+    assert (attention_sublayer_fwd.route_launches["mma"] == fwd_n + 1
+            and attention_sublayer_bwd.route_launches["mma"] == bwd_n + 2), (
+        "B1 did not take its tensor-core route")
+    ref_y = attention_sublayer_fwd_plain(*args, h, p, p, seeds)
+    assert torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), ref_y.float(), **KERNEL_TOL[bf16])
+    ref = attention_sublayer_bwd_plain(*args, dy, h, p, p, seeds)
+    rtol, atol = BWD_TOL[bf16]
+    worst = 0.0
+    for i, (g, r, g2) in enumerate(zip(got, ref, again)):
+        assert torch.isfinite(g.float()).all(), (b, l, d, h, p, i)
+        assert torch.equal(g, g2), (
+            f"B1 mma backward grad {i} differs between two runs "
+            f"B={b} L={l} d={d} h={h} p={p}")
+        err, scale = rel_err(g, r)
+        assert err <= rtol * scale + atol, (
+            f"B1 mma grad {i} B={b} L={l} d={d} h={h} p={p} offset={offset}:"
+            f" {err} > {rtol} x {scale} + {atol}")
+        worst = max(worst, err / (rtol * scale + atol))
+    return rel_err(y, ref_y)[0], worst
+
+
+def timing_row(rows: dict, kernel_name: str, dtype, way: str) -> tuple:
+    """(the row in ``rows`` that a timing of ``kernel_name`` in ``dtype``
+    goes to, the suffix of its keys): B1's two routes are two rows of
+    unsuffixed keys (the SIMT kernels, fp32, under the kernel's name; the
+    tensor cores, bf16, under ``<name>_mma``); any other kernel is one row,
+    its bf16 keys suffixed ``_bf16``."""
+    if kernel_name.startswith("attention_sublayer"):
+        name, sfx = kernel_name + ("_mma" if way == "mma" else ""), ""
+    else:
+        name, sfx = kernel_name, "" if dtype == torch.float32 else "_bf16"
+    return rows.setdefault(name, {"name": name, "route": "cuda"}), sfx
 
 
 def attention_work(b, h, l, dk, dtype, backward: bool) -> tuple:
@@ -833,30 +927,18 @@ def short_kernel_row(name, kernel, plain, lib_fn, work, err, shape,
 def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> dict:
     """Device time by kernel name over ``calls`` calls of ``fn`` (the eight
     largest, and every kernel whose name holds one of ``also``), and the
-    device's idle share of that window (torch.profiler; prints "not
-    measured" if the trace holds no device events). Returns the device us
-    per call by kernel name (empty without device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device's idle share of that window (``timing.trace_kernels``; prints
+    "not measured" if the trace holds no device events). Returns the device
+    us per call by kernel name (empty without device events)."""
+    kernels, window_us = trace_kernels(fn, calls)
     if not kernels:
         print(f"profile: no device events in the trace; idle share not "
               f"measured {tag}")
         return {}
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    spans = sorted((start, end) for _, start, end in kernels)
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -1222,37 +1304,35 @@ def encoder_check(y, got, chained_y, chained, plain_y, plain, dtype) -> dict:
     return out
 
 
-def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p):
-    """B10's function through the chained B1/B2 kernels (the encoder with
-    the switch off), the final LayerNorm in torch ops: (y, the state
-    ``encoder_chained_bwd`` reads)."""
+def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p, way):
+    """B10's function through the chained B1/B2 kernels, B1 on route
+    ``way`` (the encoder with the switch off takes ``route``'s; B10 runs the
+    SIMT route's tile bodies), the final LayerNorm in torch ops: (y, the
+    state ``encoder_chained_bwd`` reads)."""
     from allrank_tpu_torch.models.core import std_layer_norm
-    from allrank_tpu_torch.ops.attention_block import attention_sublayer_fwd
+    from allrank_tpu_torch.ops.attention_block import launch_fwd
     from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
 
     inputs, saved = [], []
     for n in range(stacks[0].shape[0]):
         w = [t[n] for t in stacks]
         inputs.append(x)
-        x, sv = attention_sublayer_fwd(x, mask, *w[:6], h, p, p,
-                                       seeds[4 * n:4 * n + 2],
-                                       return_saved=True)
+        x, sv = launch_fwd(way, x, mask, *w[:6], h, p, p,
+                           seeds[4 * n:4 * n + 2], return_saved=True)
         saved.append(sv)
         inputs.append(x)
         x = ffn_sublayer_fwd(x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
-    return std_layer_norm(x, fs, fb), (inputs, saved, x)
+    return std_layer_norm(x, fs, fb), (inputs, saved, x, way)
 
 
 def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
     """The backward of ``encoder_chained_fwd`` through the B1/B2 backward
-    kernels: (dx, *12 stacked gradients, dfs, dfb), as B10's."""
-    from allrank_tpu_torch.ops.attention_block import (
-        attention_sublayer_bwd,
-        ln_backward,
-    )
+    kernels, B1 on the forward's route: (dx, *12 stacked gradients, dfs,
+    dfb), as B10's."""
+    from allrank_tpu_torch.ops.attention_block import launch_bwd, ln_backward
     from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_bwd
 
-    inputs, saved, z = state
+    inputs, saved, z, way = state
     n_blocks = stacks[0].shape[0]
     dz, dfs, dfb = ln_backward(z.float(), fs, dy.float())
     g = dz.to(z.dtype)
@@ -1261,9 +1341,8 @@ def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
         w = [t[n] for t in stacks]
         g, *ffn = ffn_sublayer_bwd(inputs[2 * n + 1], *w[6:], g, p, p,
                                    seeds[4 * n + 2:4 * n + 4])
-        g, *attn = attention_sublayer_bwd(inputs[2 * n], mask, *w[:6], g, h,
-                                          p, p, seeds[4 * n:4 * n + 2],
-                                          saved=saved[n])
+        g, *attn = launch_bwd(way, inputs[2 * n], mask, *w[:6], g, h, p, p,
+                              seeds[4 * n:4 * n + 2], saved=saved[n])
         for i, t in enumerate(attn + ffn):
             grads[i][n] = t
     return (g, *(torch.stack(t) for t in grads), dfs, dfb)
@@ -1297,6 +1376,7 @@ def encoder_library(x, mask, stacks, fs, fb, dy, h):
     x's dtype; returns (forward, backward by autograd) as functions that
     run it once."""
     from allrank_tpu_torch.models.core import std_layer_norm
+    from allrank_tpu_torch.tools.time_sublayers import b1_library, b2_library
 
     dtype = x.dtype
     mask_add = torch.zeros(x.shape[0], 1, 1, x.shape[1], dtype=dtype,
@@ -1403,6 +1483,7 @@ def main() -> int:
         attention_sublayer_fwd,
         attention_sublayer_fwd_plain,
     )
+    from allrank_tpu_torch.ops.attention_block import route as b1_route
     from allrank_tpu_torch.ops.attention_fused import (
         attention_fused_bwd,
         attention_fused_bwd_plain,
@@ -1448,6 +1529,18 @@ def main() -> int:
     )
     from allrank_tpu_torch.serve_http import SlateScoringService, run_server
     from allrank_tpu_torch.serving import make_ranker, make_scorer
+    from allrank_tpu_torch.tools.time_sublayers import b1_library, b2_library
+
+    from allrank_tpu_torch.ops.attention_block import ROUTES as B1_ROUTES
+
+    def reset_b1_routes():
+        for k in (attention_sublayer_fwd, attention_sublayer_bwd):
+            k.route_launches = dict.fromkeys(B1_ROUTES, 0)
+
+    def b1_routes():
+        """B1's launches by route, forward then backward."""
+        return (dict(attention_sublayer_fwd.route_launches),
+                dict(attention_sublayer_bwd.route_launches))
 
     dev = torch.device("cuda", 0)
     name_power = card()
@@ -1458,31 +1551,38 @@ def main() -> int:
     print(f"card: {name_power}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ["attention_block", "ffn_block", "lambda_pairs", "sinkhorn",
-               "neuralsort", "approx_pos", "lambda_tiled", "attention_fused",
-               "attention_tiled", "q8_dense", "encoder_block",
-               "boundary_shift", "attention_variants", "neuralsort_layout"]
+    sources = ["attention_block", "attention_block_mma", "ffn_block",
+               "lambda_pairs", "sinkhorn", "neuralsort", "approx_pos",
+               "lambda_tiled", "attention_fused", "attention_tiled",
+               "q8_dense", "encoder_block", "boundary_shift",
+               "attention_variants", "neuralsort_layout"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the fourteen "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the fifteen "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
-    # B4's and B5's bf16 kernels run on the tensor cores: each holds HMMA
-    for src, marker in (("attention_tiled", "tiled_"),
-                        ("attention_fused", "fused_")):
+    # B4's and B5's bf16 kernels and all of B1's tensor-core route run on
+    # the tensor cores: each holds HMMA
+    for src, marker, n_mma, what in (
+            ("attention_tiled", "tiled_", 18,
+             "forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or not"),
+            ("attention_fused", "fused_", 18,
+             "forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or not"),
+            ("attention_block_mma", "b1_", B1_MMA_KERNELS,
+             "attention + out-projection, dQ, dK/dV at padded d_k 32, 64, "
+             "128, aligned or not; LN + QKV, rows, dn + LN backward, A^T B")):
         hmma = hmma_counts(_build.library_path(src), marker)
         for kname, n in sorted(hmma.items()):
             print(f"  {src}: {n} HMMA in {kname}")
         mma_kernels = [k for k in hmma if "_mma_kernel" in k]
-        assert len(mma_kernels) == 18 and all(hmma[k] > 0
-                                              for k in mma_kernels), hmma
+        assert len(mma_kernels) == n_mma and all(hmma[k] > 0
+                                                 for k in mma_kernels), hmma
         simt = {k: n for k, n in hmma.items() if k not in mma_kernels}
         print(f"HMMA: all {len(mma_kernels)} tensor-core {marker} kernels "
-              f"of {src} (forward, dK/dV, dQ at padded d_k 32, 64, 128, "
-              f"aligned or not) hold HMMA; the fp32 forward "
+              f"of {src} ({what}) hold HMMA; the others "
               f"{sorted(simt.values())}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1500,8 +1600,30 @@ def main() -> int:
                                attention_sublayer_fwd_plain, args + [h], {},
                                dtype)
             errs[("attn", b, l, d, dtype)] = err
-            print(f"B1 vs plain B={b} L={l} d={d} h={h} {dtype}: "
-                  f"max_abs_err {err:.3e} (tol {KERNEL_TOL[dtype]})")
+            print(f"B1 vs plain B={b} L={l} d={d} h={h} {dtype} "
+                  f"({b1_route(dtype, d, h)}): max_abs_err {err:.3e} (tol "
+                  f"{KERNEL_TOL[dtype]})")
+    # the bf16 tensor-core route at each head-width class, rows aligned and
+    # not, L from 1 to B1's longest; every batch holds a fully padded slate.
+    # These cases draw from a generator of their own, as phase 7's do, so
+    # that every other phase's inputs stay as they were before them
+    gen_mma = torch.Generator().manual_seed(1111)
+    for d, h in B1_MMA_WIDTHS:
+        assert b1_route(torch.bfloat16, d, h) == "mma", (d, h)
+        worst = 0.0
+        for l in (1, 65, 240, 1024):
+            b = 2 if l == 1024 else 3
+            args = attn_inputs(gen_mma, b, l, d, torch.bfloat16, dev)
+            before = attention_sublayer_fwd.route_launches["mma"]
+            err = check_kernel("attention_sublayer_fwd",
+                               attention_sublayer_fwd,
+                               attention_sublayer_fwd_plain, args + [h], {},
+                               torch.bfloat16)
+            assert attention_sublayer_fwd.route_launches["mma"] == before + 1
+            worst = max(worst, err)
+        print(f"B1 (mma) vs plain d={d} h={h} (d_k {d // h}) bf16 at L in "
+              f"(1, 65, 240, 1024): max_abs_err {worst:.3e} (tol "
+              f"{KERNEL_TOL[torch.bfloat16]})")
     print("phase 2 ok: attention sublayer kernel matches its plain version")
 
     # -- 3: B2 against its plain version --------------------------------------
@@ -1528,13 +1650,18 @@ def main() -> int:
     pad = np.arange(L)[None, :] >= lengths[:, None]
     scorer32 = make_scorer(gpu_model, "float32")
     scorer16 = make_scorer(gpu_model, "bfloat16")
-    for scorer, label in ((scorer32, "fp32"), (scorer16, "bf16")):
+    for scorer, label, way in ((scorer32, "fp32", "simt"),
+                               (scorer16, "bf16", "mma")):
         scorer(x, lengths)  # first call: loads the kernels
         attention_sublayer_fwd.launches = ffn_sublayer_fwd.launches = 0
+        reset_b1_routes()
         s = scorer(x, lengths)
         torch.cuda.synchronize()
         counts = (attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches)
         assert counts == (4, 4), f"{label} scorer launches {counts} != (4, 4)"
+        assert attention_sublayer_fwd.route_launches == {
+            **dict.fromkeys(B1_ROUTES, 0), way: 4}, (
+            label, attention_sublayer_fwd.route_launches)
     s32 = scorer32(x, lengths).cpu().numpy()
     s16 = scorer16(x, lengths).cpu().numpy()
     ref = make_scorer(cpu_model, "float32", device="cpu")(x, lengths).numpy()
@@ -1579,6 +1706,7 @@ def main() -> int:
                             150)]
         waves_before = service.stats()["waves_total"]
         attention_sublayer_fwd.launches = ffn_sublayer_fwd.launches = 0
+        reset_b1_routes()
         with concurrent.futures.ThreadPoolExecutor(len(slates)) as pool:
             futs = [pool.submit(post, url, s, i % 2 == 1)
                     for i, s in enumerate(slates)]
@@ -1586,6 +1714,10 @@ def main() -> int:
         main_launches = {"attention_sublayer_fwd":
                          attention_sublayer_fwd.launches,
                          "ffn_sublayer_fwd": ffn_sublayer_fwd.launches}
+        # an fp32 service: B1 on its SIMT route only
+        assert b1_routes()[0] == {**dict.fromkeys(B1_ROUTES, 0),
+                                  "simt": main_launches[
+                                      "attention_sublayer_fwd"]}, b1_routes()
         with urllib.request.urlopen(url + "/statz", timeout=30) as r:
             stats = json.loads(r.read())
         waves = stats["waves_total"] - waves_before
@@ -1623,9 +1755,8 @@ def main() -> int:
 
     # -- 6: times ------------------------------------------------------------
     d, h, d_ff = 128, 4, 512
-    rows = []
+    timed = {}
     for kernel_name in ("attention_sublayer_fwd", "ffn_sublayer_fwd"):
-        row = {"name": kernel_name, "route": "cuda"}
         for dtype in (torch.float32, torch.bfloat16):
             if kernel_name == "attention_sublayer_fwd":
                 args = attn_inputs(gen, B, L, d, dtype, dev)
@@ -1652,20 +1783,24 @@ def main() -> int:
                 moved = 2 * nbytes(args[0]) + nbytes(*args[1:])
                 err = errs[("ffn", B, L, d, d_ff, dtype)]
             ms, plain_ms, lib_ms = (median_ms(fn) for fn in fns)
+            dev_ms, lib_dev_ms = graph_ms(fns[0]), graph_ms(fns[2])
             bound_ms, bound_by = bound(flops, moved, dtype)
-            sfx = "" if dtype == torch.float32 else "_bf16"
+            row, sfx = timing_row(timed, kernel_name, dtype,
+                                  b1_route(dtype, d, h))
             row.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                        f"device_ms{sfx}": dev_ms,
                         f"plain_ms{sfx}": plain_ms,
                         f"bound_ms{sfx}": bound_ms,
                         f"bound_by{sfx}": bound_by,
                         f"library_ms{sfx}": lib_ms,
+                        f"library_device_ms{sfx}": lib_dev_ms,
                         f"gflop{sfx}": flops / 1e9,
                         f"mbytes{sfx}": moved / 1e6})
-            print(f"time {kernel_name} {dtype} B={B} L={L} d={d}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
+                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms (device {lib_dev_ms:.4f}), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}: "
                   f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
-        rows.append(row)
     xd = torch.as_tensor(x, device=dev)
     ld = torch.as_tensor(lengths, device=dev)
     for scorer, label in ((scorer32, "float32"), (scorer16, "bfloat16")):
@@ -1729,6 +1864,38 @@ def main() -> int:
                       f"{worst_rel['attention_sublayer_bwd']:.2e} / "
                       f"{worst_rel['ffn_sublayer_bwd']:.2e} (tol "
                       f"{BWD_TOL[dtype][0]:g})")
+    # the bf16 tensor-core route at each head-width class and L, dropout 0
+    # and 0.3; then qkv off a 16-byte boundary at aligned head widths
+    mma_bwd_worst = 0.0
+    for d, h in B1_MMA_WIDTHS:
+        for l in (1, 65, 240, 1024):
+            for p in (0.0, 0.3):
+                _, share = b1_mma_case(gen_mma, 2 if l == 1024 else 3, l, d,
+                                       h, p, dev)
+                mma_bwd_worst = max(mma_bwd_worst, share)
+        print(f"B1 (mma) fwd and bwd vs plain d={d} h={h} (d_k {d // h}) "
+              f"bf16, L in (1, 65, 240, 1024), p in (0, 0.3): ok, a second "
+              f"backward bit for bit")
+    for d, h in ((128, 4), (96, 2), (144, 2)):
+        for p in (0.0, 0.3):
+            _, share = b1_mma_case(gen_mma, 3, 65, d, h, p, dev, offset=1)
+            mma_bwd_worst = max(mma_bwd_worst, share)
+    print(f"B1 (mma) backward with qkv 2 bytes off a 16-byte boundary at "
+          f"d_k 32, 48, 72: ok; worst gradient error of all mma cases "
+          f"{mma_bwd_worst:.2f} of its tolerance")
+    # ROADMAP Queue C5: on other inputs B2's backward leaves the tolerance
+    # above where a hidden unit's pre-activation lies within rounding of 0
+    # and its ReLU gate flips; replaying the flipped gates must explain it
+    for d, d_ff, dtype, p, seeds_c5 in (
+            (96, 384, torch.bfloat16, 0.3, range(12)),
+            (144, 512, torch.float32, 0.3, (3,))):
+        c5 = [b2_gate_flip_case(s, d, d_ff, dtype, p, dev)
+              for s in seeds_c5]
+        print(f"B2 bwd vs plain, C5 sweep B={B} L={L} d={d} d_ff={d_ff} "
+              f"{dtype} p={p}, seeds {list(seeds_c5)}: error share of the "
+              f"tolerance {[round(c[0], 3) for c in c5]}, gate flips "
+              f"{[c[1] for c in c5]}, replayed {max(c[2] for c in c5):.3f} "
+              f"(ok)")
     print("phase 7 ok: B1 and B2 backward kernels (and the forwards at "
           "p=0.3 and 0.4) match their plain versions, masks bit-identical")
 
@@ -1778,6 +1945,7 @@ def main() -> int:
     step = make_step(cfg, model, cfg.training.compute_dtype)
     for k in train_kernels:
         k.launches = 0
+    reset_b1_routes()
     losses = []
     for i in range(20):
         before = [k.launches for k in train_kernels]
@@ -1788,6 +1956,10 @@ def main() -> int:
         assert math.isfinite(losses[-1]), f"step {i} loss {losses[-1]}"
     train_launches = {k.__name__: k.launches for k in train_kernels}
     assert list(train_launches.values()) == [20 * n for n in per_step]
+    # bf16 training: B1 on the tensor cores only, both ways
+    b1_train_routes = b1_routes()
+    only_mma = {**dict.fromkeys(B1_ROUTES, 0), "mma": 20 * 4}
+    assert b1_train_routes == (only_mma, only_mma), b1_train_routes
     assert n_real.item() == B
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     assert last < first, f"loss did not fall: {first} -> {last}"
@@ -1797,7 +1969,12 @@ def main() -> int:
           f"{last:.3f}; launches {train_launches}")
 
     cfg0, gpu_model = paper_setup(dev, dropout=0.0)
+    reset_b1_routes()
     gl, cl, step_err = step_one_gpu_vs_cpu(cfg0, gpu_model, (xb, yb, ib))
+    # fp32 training: B1 on the SIMT kernels only
+    b1_fp32_routes = b1_routes()
+    assert (b1_fp32_routes[0]["mma"] == b1_fp32_routes[1]["mma"] == 0
+            and b1_fp32_routes[1]["simt"] == 4), b1_fp32_routes
     print(f"train step 1 at dropout 0, fp32, GPU vs CPU plain: loss {gl:.6f} "
           f"vs {cl:.6f}; worst gradient error {step_err:.3f} of its "
           f"tolerance ({STEP_GRAD_TOL} x its tensor's max + 1e-5 x the "
@@ -1813,6 +1990,10 @@ def main() -> int:
             ("paper config (dropout 0.3, bf16)", paper_setup(dev))):
         step = make_step(cfg_t, model_t, "bfloat16", optimizer_name="Adam",
                          lr=1e-3)
+        reset_b1_routes()
+        step(xb, yb, ib)
+        only_mma = {**dict.fromkeys(B1_ROUTES, 0), "mma": 4}
+        assert b1_routes() == (only_mma, only_mma), (label, b1_routes())
         ms = median_ms(lambda: step(xb, yb, ib), iters=20, warmup=3)
         step_ms[label] = ms
         print(f"time train step {label} B={B} L={L}: {ms:.4f} ms per step, "
@@ -1822,7 +2003,6 @@ def main() -> int:
     d, h, d_ff = 128, 4, 512
     m_rows = B * L
     for kernel_name in ("attention_sublayer_bwd", "ffn_sublayer_bwd"):
-        row = {"name": kernel_name, "route": "cuda"}
         for dtype in (torch.float32, torch.bfloat16):
             esz = torch.tensor([], dtype=dtype).element_size()
             dy = torch.randn(B, L, d, generator=gen).to(dtype).to(dev)
@@ -1849,20 +2029,29 @@ def main() -> int:
                 params = nbytes(*args[1:])
                 moved = nbytes(args[0], dy) + params + m_rows * d * esz + params
             ms, plain_ms, lib_ms = (median_ms(fn, iters=20) for fn in fns)
+            dev_ms = graph_ms(fns[0])
+            # autograd's engine refuses CUDA-graph capture: the library
+            # backward's device time is the sum of its kernels in a trace
+            lib_dev_ms = sum(kernel_ms(fns[2]).values())
             bound_ms, bound_by = bound(flops, moved, dtype)
-            sfx = "" if dtype == torch.float32 else "_bf16"
+            row, sfx = timing_row(timed, kernel_name, dtype,
+                                  b1_route(dtype, d, h))
             row.update({f"max_abs_err{sfx}": bwd_errs[(kernel_name, B, L, d,
                                                        dtype, 0.0)],
-                        f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                        f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
+                        f"plain_ms{sfx}": plain_ms,
                         f"bound_ms{sfx}": bound_ms, f"bound_by{sfx}": bound_by,
                         f"library_ms{sfx}": lib_ms,
+                        f"library_device_ms{sfx}": lib_dev_ms,
                         f"gflop{sfx}": flops / 1e9,
                         f"mbytes{sfx}": moved / 1e6})
-            print(f"time {kernel_name} {dtype} B={B} L={L} d={d}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (autograd) "
-                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-                  f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
-        rows.append(row)
+            print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
+                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
+                  f"ms, library (autograd) {lib_ms:.4f} ms (device, its "
+                  f"kernels' sum: {lib_dev_ms:.4f}), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+                  f"{moved / 1e6:.2f} MB) {tag}")
+    rows = list(timed.values())
 
     # B3 at the train step's shape: the top-k block is all L=240 documents
     ts = torch.randint(0, 5, (B, L), generator=gen).float()
@@ -1960,17 +2149,25 @@ def main() -> int:
     def reset_counts():
         for k in all_kernels:
             k.launches = 0
+        reset_b1_routes()
 
     def counts():
-        return {k.__name__: k.launches for k in all_kernels}
+        got = {k.__name__: k.launches for k in all_kernels}
+        for k, by_route in zip(("attention_sublayer_fwd",
+                                "attention_sublayer_bwd"), b1_routes()):
+            got.update({f"{k}[{way}]": n for way, n in by_route.items()})
+        return got
 
     def expect(blocks, fwd, bwd, loss_kernel=None):
         """The launches of a run of ``fwd`` forward and ``bwd`` backward
-        passes through ``blocks`` encoder blocks and one loss kernel."""
+        passes through ``blocks`` encoder blocks and one loss kernel; every
+        recipe trains in bf16, so B1 takes the tensor cores only."""
         want = dict.fromkeys(counts(), 0)
         for sub in ("attention_sublayer", "ffn_sublayer"):
             want[sub + "_fwd"] = blocks * fwd
             want[sub + "_bwd"] = blocks * bwd
+        want["attention_sublayer_fwd[mma]"] = blocks * fwd
+        want["attention_sublayer_bwd[mma]"] = blocks * bwd
         if loss_kernel:
             want[loss_kernel + "_fwd"] = fwd
             want[loss_kernel + "_bwd"] = bwd
@@ -3289,6 +3486,13 @@ def main() -> int:
                   f"{grid['smem_bytes']} B of shared memory a block")
             assert grid["grid"] == grid["blocks_per_sm"] * grid["sms"]
     enc_errs = {}
+    b10_vs_mma = {}
+
+    def worst_share(got, ref):
+        """The largest max-abs error of ``got`` against ``ref``, tensor by
+        tensor, as a share of the reference tensor's largest value."""
+        return max(e / (r + 1e-30) for e, r in map(rel_err, got, ref))
+
     for b, l, d, h, d_ff, n in ENCODER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for p in (0.0, 0.3):
@@ -3304,12 +3508,24 @@ def main() -> int:
                 assert (encoder_block_fwd.launches,
                         encoder_block_bwd.launches) == (before[0] + 1,
                                                         before[1] + 1)
-                chained_y, state = encoder_chained_fwd(*args28, h, p)
+                # B10's reference: the chained kernels of the same tile
+                # bodies, B1 on its SIMT route in bf16 too
+                chained_y, state = encoder_chained_fwd(*args28, h, p, "simt")
                 chained = encoder_chained_bwd(state, mask28, seeds28, stacks,
                                               fs, dy28, h, p)
                 plain_y = encoder_forward_plain(*args28, **kw)
                 plain = encoder_backward_plain(*args28, dy28, **kw)
                 torch.cuda.synchronize()
+                if b1_route(dtype, d, h) == "mma":
+                    # the chain the encoder runs with the switch off, B1 on
+                    # the tensor cores: its distances, recorded
+                    mma_y, mstate = encoder_chained_fwd(*args28, h, p, "mma")
+                    mma = encoder_chained_bwd(mstate, mask28, seeds28,
+                                              stacks, fs, dy28, h, p)
+                    b10_vs_mma[(b, l, d, n, p)] = (
+                        worst_share(got, mma), worst_share(mma, plain),
+                        worst_share([y28], [mma_y]))
+                    del mma_y, mstate, mma
                 again = encoder_block_bwd(*args28, dy28, **kw)
                 assert all(torch.equal(a, c) for a, c in zip(got, again)), (
                     "two B10 backwards of the same inputs differ")
@@ -3329,6 +3545,13 @@ def main() -> int:
                       f"{worst['grads_equal']}/15")
                 del x28, dy28, got, again, chained, plain, state
     torch.cuda.empty_cache()
+    for (b, l, d, n, p), (grad_rel, chain_rel, y_rel) in b10_vs_mma.items():
+        print(f"B10 bf16 B={b} L={l} d={d} N={n} p={p} against the chain "
+              f"with B1 on the tensor cores (recorded, not held: the two run "
+              f"other tile bodies): worst gradient error {grad_rel:.2e} of "
+              f"its tensor's max (phase 7's tolerance {BWD_TOL[torch.bfloat16][0]:g}), "
+              f"y {y_rel:.2e}; that chain against plain, worst gradient "
+              f"{chain_rel:.2e}")
     print("phase 28 ok: B10 matches the chained B1/B2 kernels, and its plain "
           "version as closely as they do, forward and backward")
 
@@ -3469,11 +3692,12 @@ def main() -> int:
             args30 = (x30, mask30, seeds30, stacks, fs, fb)
             kw = dict(h=eh, p_drop=0.0)
             lib = encoder_library(x30, mask30, stacks, fs, fb, dy30, eh)
-            _, state = encoder_chained_fwd(*args30, eh, 0.0)
+            way30 = b1_route(dtype, ed, eh)
+            _, state = encoder_chained_fwd(*args30, eh, 0.0, way30)
             if direction == "fwd":
                 fns = (lambda: encoder_block_fwd(*args30, **kw),
                        lambda: encoder_forward_plain(*args30, **kw), lib[0],
-                       lambda: encoder_chained_fwd(*args30, eh, 0.0))
+                       lambda: encoder_chained_fwd(*args30, eh, 0.0, way30))
             else:
                 fns = (lambda: encoder_block_bwd(*args30, dy30, **kw),
                        lambda: encoder_backward_plain(*args30, dy30, **kw),
@@ -3633,6 +3857,9 @@ def main() -> int:
         attention_variant_fwd,
         attention_variant_fwd_plain,
     )
+    from allrank_tpu_torch.ops.attention_block import (
+        launch_fwd as b1_launch_fwd,
+    )
     from allrank_tpu_torch.tools import exp_attn_decompose as x3_tool
 
     t32 = time.perf_counter()
@@ -3667,10 +3894,15 @@ def main() -> int:
                 torch.testing.assert_close(y.float(), ref.float(), **tol16)
                 msg = f" (tol {tol16})"
                 x3_errs[mode] = max(x3_errs[mode], err)
-            if mode == "full":  # B1's own kernel code, bit for bit
+            if mode == "full":
+                # B1's SIMT body, bit for bit; B1's bf16 route within tol16
+                assert torch.equal(y, b1_launch_fwd("simt", *args, d3h[1])), (
+                    "X3 full is not B1's SIMT forward")
                 b1_y = attention_sublayer_fwd(*args, d3h[1])
-                assert torch.equal(y, b1_y), "X3 full is not B1's forward"
-                msg += "; equal to B1's forward bit for bit"
+                torch.testing.assert_close(y.float(), b1_y.float(), **tol16)
+                msg += (f"; equal to B1's SIMT forward bit for bit, within "
+                        f"{tol16} of B1's tensor-core forward (max_abs_err "
+                        f"{rel_err(y, b1_y)[0]:.3e})")
             print(f"X3 [{mode}] vs plain B={B} L={L} d=128 h=4 bf16 "
                   f"({label}): max_abs_err {err:.3e}{msg}")
     attention_variant_fwd.launches = dict.fromkeys(MODES, 0)
@@ -3837,6 +4069,12 @@ def main() -> int:
                              "allrank_tpu/ops/ffn_block.py:204"),
         "attention_sublayer_bwd": ("allrank_tpu_torch/csrc/attention_block.cu",
                                    "allrank_tpu/ops/attention_block.py:375"),
+        "attention_sublayer_fwd_mma": (
+            "allrank_tpu_torch/csrc/attention_block_mma.cu",
+            "allrank_tpu/ops/attention_block.py:343"),
+        "attention_sublayer_bwd_mma": (
+            "allrank_tpu_torch/csrc/attention_block_mma.cu",
+            "allrank_tpu/ops/attention_block.py:375"),
         "ffn_sublayer_bwd": ("allrank_tpu_torch/csrc/ffn_block.cu",
                              "allrank_tpu/ops/ffn_block.py:233"),
         "lambda_pairs_fwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
@@ -3902,6 +4140,12 @@ def main() -> int:
                 recipe_launches["approxndcg"]["approx_pos_bwd"],
                 "lambda_tiled_fwd": long_launches["lambda_tiled_fwd"],
                 "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
+    # B1 by route: the fp32 service (phase 5) runs the SIMT forward and the
+    # fp32 step 1 against the CPU (phase 9) its backward; the bf16 train
+    # steps (phase 9) run the tensor-core kernels both ways
+    launches["attention_sublayer_bwd"] = b1_fp32_routes[1]["simt"]
+    launches["attention_sublayer_fwd_mma"] = b1_train_routes[0]["mma"]
+    launches["attention_sublayer_bwd_mma"] = b1_train_routes[1]["mma"]
     # X1: the int8_static service (phase 26)
     launches["q8_dense"] = q8_main_launches["q8_dense"]
     # B10: with the switch on, its service (forward) and its 20 train steps
@@ -3939,7 +4183,7 @@ def main() -> int:
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 31
+    assert len(rows) == 33
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(f"A/B of MEGA_ENCODER_ENABLED, ms per step or call "
           f"{json.dumps(ab_ms)} {tag}")

@@ -22,10 +22,13 @@ from allrank_tpu_torch.ops.approx_pos import (
     approx_pos_fwd_plain,
 )
 from allrank_tpu_torch.ops.attention_block import (
+    attention_sublayer,
     attention_sublayer_bwd,
     attention_sublayer_bwd_plain,
     attention_sublayer_fwd,
     attention_sublayer_fwd_plain,
+    launch_fwd,
+    route,
 )
 from allrank_tpu_torch.ops.attention_fused import (
     attention_fused_bwd,
@@ -53,6 +56,7 @@ from allrank_tpu_torch.ops.ffn_block import (
     ffn_sublayer_bwd_plain,
     ffn_sublayer_fwd,
     ffn_sublayer_fwd_plain,
+    gate_flips,
 )
 from allrank_tpu_torch.ops.lambda_pairs import (
     SCHEMES,
@@ -293,6 +297,134 @@ def test_backward_kernels_match_plain(cuda, d, h, d_ff, l, dtype, p):
         _close(g, r, dtype, f"ffn {name}")
     again = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("d,d_ff,dtype,p,seed", [
+    (96, 384, torch.bfloat16, 0.3, 1), (96, 384, torch.bfloat16, 0.3, 5),
+    (96, 384, torch.bfloat16, 0.0, 1), (144, 512, torch.float32, 0.3, 3),
+    (144, 512, torch.float32, 0.0, 3)])
+def test_ffn_backward_differs_from_plain_only_by_gate_flips(cuda, d, d_ff,
+                                                            dtype, p, seed):
+    """ROADMAP Queue C5: on these inputs (chip_smoke phase 7's draw at B=64,
+    L=240 from a generator of ``seed``) a hidden unit's pre-activation lies
+    within rounding of 0 and its ReLU gate differs between the kernel and
+    the plain version, which moves dx past ``_close``'s tolerance. With the
+    flipped gates replayed (``gate_flips``) every gradient is within it."""
+    gen = torch.Generator().manual_seed(seed)
+    ffn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                        ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
+                        ((d_ff, d), 0, d_ff ** -0.5), ((d,), 0, 0.1)], cuda)
+    x = torch.randn(64, 240, d, generator=gen).to(dtype).to(cuda)
+    dy = torch.randn(64, 240, d, generator=gen).to(dtype).to(cuda)
+    seeds = (101, 202)
+    got = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
+    flip = gate_flips(got[0], x, *ffn, dy, p, p, seeds,
+                      rtol=1e-4 if dtype == torch.float32 else 2 ** -5)
+    # the flips C5 found: a fix of B2's gates, or a new flip rule, shows here
+    assert 1 <= int(flip.sum()) <= 8, int(flip.sum())
+    ref = ffn_sublayer_bwd_plain(x, *ffn, dy, p, p, seeds, flip=flip)
+    for name, g, r in zip(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"),
+                          got, ref):
+        _close(g, r, dtype, f"ffn {name}, {int(flip.sum())} gates flipped")
+
+
+# (d_model, h) of each head width of B1's bf16 tensor-core kernels: d_k 8,
+# 20, 32 (padded to 32), 36, 48 (to 64), 72, 100, 128 (to 128); 20, 36 and
+# 100 leave rows off a 16-byte boundary
+B1_MMA_WIDTHS = [(32, 4), (80, 4), (128, 4), (144, 4), (96, 2), (144, 2),
+                 (100, 1), (256, 2)]
+
+
+def _b1_mma_case(cuda, b, l, d, h, p, seed, offset=0):
+    """B1 in bf16 through its tensor-core route against the plain version:
+    the forward, the backward on the forward's saved state (qkv moved
+    ``offset`` elements off a 16-byte boundary), a second backward bit for
+    bit; slate 0 fully padded."""
+    gen = torch.Generator().manual_seed(seed)
+    bf16 = torch.bfloat16
+    x = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
+    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0] = 0
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(cuda)
+    attn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                         ((d, 3 * d), 0, d ** -0.5), ((3 * d,), 0, 0.1),
+                         ((d, d), 0, d ** -0.5), ((d,), 0, 0.1)], cuda)
+    seeds = (21, 22)
+    before = (attention_sublayer_fwd.route_launches["mma"],
+              attention_sublayer_bwd.route_launches["mma"])
+    y, (qkv, stats) = attention_sublayer_fwd(x, mask, *attn, h, p, p, seeds,
+                                             return_saved=True)
+    if offset:
+        flat = torch.empty(qkv.numel() + offset, dtype=bf16, device=cuda)
+        moved = flat[offset:].view(qkv.shape)
+        moved.copy_(qkv)
+        assert moved.data_ptr() % 16 != 0
+        qkv = moved
+    got = attention_sublayer_bwd(x, mask, *attn, dy, h, p, p, seeds,
+                                 saved=(qkv, stats))
+    again = attention_sublayer_bwd(x, mask, *attn, dy, h, p, p, seeds,
+                                   saved=(qkv, stats))
+    torch.cuda.synchronize()
+    assert (attention_sublayer_fwd.route_launches["mma"],
+            attention_sublayer_bwd.route_launches["mma"]) == (
+        before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(
+        y.float(), attention_sublayer_fwd_plain(x, mask, *attn, h, p, p,
+                                                seeds).float(), **TOL[bf16])
+    ref = attention_sublayer_bwd_plain(x, mask, *attn, dy, h, p, p, seeds)
+    for name, g, r, g2 in zip(("dx", "dg", "db", "dwqkv", "dbqkv", "dwout",
+                               "dbout"), got, ref, again):
+        assert torch.isfinite(g.float()).all(), name
+        _close(g, r, bf16, f"attention (mma) {name}")
+        assert torch.equal(g, g2), f"{name} differs between two backwards"
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("l", [1, 65, 240, 1024])
+@pytest.mark.parametrize("d,h", B1_MMA_WIDTHS)
+def test_b1_mma_kernels_match_plain(cuda, d, h, l, p):
+    """Each of B1's tensor-core instantiations (padded d_k 32, 64, 128,
+    rows aligned or not) at L from 1 to B1's longest, dropout 0 and 0.3."""
+    _b1_mma_case(cuda, 2 if l == 1024 else 3, l, d, h, p, seed=7 * d + l)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("d,h", [(128, 4), (96, 2), (144, 2)])
+def test_b1_mma_rows_off_a_16_byte_boundary(cuda, d, h, p):
+    """A saved qkv whose storage starts 2 bytes past a 16-byte boundary
+    takes the element-wise staging at head widths 32, 48 and 72, whose rows
+    are otherwise aligned."""
+    _b1_mma_case(cuda, 3, 65, d, h, p, seed=d + h, offset=1)
+
+
+def test_b1_routes_count_their_launches(cuda):
+    """bf16 with d_k <= 128 takes the tensor cores, fp32 and bf16 with a
+    wider head the SIMT kernels: each route counts its own launches, the
+    totals count both."""
+    gen = torch.Generator().manual_seed(5)
+    for d, h, dtype, way in ((128, 4, torch.bfloat16, "mma"),
+                             (128, 4, torch.float32, "simt"),
+                             (256, 1, torch.bfloat16, "simt")):
+        assert route(dtype, d, h) == way
+        x = torch.randn(2, 33, d, generator=gen).to(dtype).to(cuda)
+        mask = torch.zeros(2, 33, dtype=torch.bool, device=cuda)
+        attn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                             ((d, 3 * d), 0, d ** -0.5), ((3 * d,), 0, 0.1),
+                             ((d, d), 0, d ** -0.5), ((d,), 0, 0.1)], cuda)
+        fwd_before = dict(attention_sublayer_fwd.route_launches)
+        bwd_before = dict(attention_sublayer_bwd.route_launches)
+        totals = (attention_sublayer_fwd.launches,
+                  attention_sublayer_bwd.launches)
+        xx = x.clone().requires_grad_()
+        attention_sublayer(xx, mask, *attn, h).float().sum().backward()
+        torch.cuda.synchronize()
+        for k, before in ((attention_sublayer_fwd, fwd_before),
+                          (attention_sublayer_bwd, bwd_before)):
+            assert k.route_launches == {**before, way: before[way] + 1}
+        assert (attention_sublayer_fwd.launches,
+                attention_sublayer_bwd.launches) == (totals[0] + 1,
+                                                     totals[1] + 1)
 
 
 @pytest.mark.parametrize("k", [None, 10])
@@ -1077,19 +1209,19 @@ def _encoder_inputs(gen, b, l, d, h, d_ff, n, dtype, dev):
 
 
 def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p):
-    """The same function through the chained B1/B2 kernels, the final
-    LayerNorm in torch ops: (y, (dx, *12 stacked gradients, dfs, dfb))."""
+    """The same function through the chained B1/B2 kernels of B10's own
+    tile bodies (B1 on its SIMT route, in bf16 too), the final LayerNorm in
+    torch ops: (y, (dx, *12 stacked gradients, dfs, dfb))."""
     from allrank_tpu_torch.models.core import std_layer_norm
-    from allrank_tpu_torch.ops.attention_block import ln_backward
+    from allrank_tpu_torch.ops.attention_block import launch_bwd, ln_backward
 
     n_blocks = stacks[0].shape[0]
     inputs, saved = [], []
     for n in range(n_blocks):
         w = [s[n] for s in stacks]
         inputs.append(x)
-        x, sv = attention_sublayer_fwd(x, mask, *w[:6], h, p, p,
-                                       seeds[4 * n:4 * n + 2],
-                                       return_saved=True)
+        x, sv = launch_fwd("simt", x, mask, *w[:6], h, p, p,
+                           seeds[4 * n:4 * n + 2], return_saved=True)
         saved.append(sv)
         inputs.append(x)
         x = ffn_sublayer_fwd(x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
@@ -1101,9 +1233,8 @@ def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p):
         w = [s[n] for s in stacks]
         g, *ffn = ffn_sublayer_bwd(inputs[2 * n + 1], *w[6:], g, p, p,
                                    seeds[4 * n + 2:4 * n + 4])
-        g, *attn = attention_sublayer_bwd(inputs[2 * n], mask, *w[:6], g, h,
-                                          p, p, seeds[4 * n:4 * n + 2],
-                                          saved=saved[n])
+        g, *attn = launch_bwd("simt", inputs[2 * n], mask, *w[:6], g, h, p,
+                              p, seeds[4 * n:4 * n + 2], saved=saved[n])
         for i, t in enumerate(attn + ffn):
             grads[i][n] = t
     return y, (g, *(torch.stack(t) for t in grads), dfs, dfb)
@@ -1153,8 +1284,9 @@ def test_encoder_kernels_match_plain_and_chained(cuda, b, l, d, h, d_ff, n,
         before[0] + 1, before[1] + 1)
     assert y.dtype == dtype and torch.isfinite(y.float()).all()
     assert got[0].dtype == dtype
-    # against the chained kernels, whose tile bodies B10 runs: the sublayer
-    # tolerances (only the final LayerNorm is computed another way)
+    # against the chained kernels whose tile bodies B10 runs (B1's SIMT
+    # route): the sublayer tolerances (only the final LayerNorm is computed
+    # another way)
     chained_y, chained = _encoder_chained(x, mask, seeds, stacks, fs, fb, dy,
                                           h, p)
     torch.testing.assert_close(y.float(), chained_y.float(), **TOL[dtype])
@@ -1299,8 +1431,11 @@ def test_attention_variants_match_plain(cuda, mode):
         y.float(), attention_variant_fwd_plain(x, mask, *params, h,
                                                mode=mode).float(),
         **TOL[torch.bfloat16])
-    if mode == "full":  # B1's own forward, the same kernel code
-        assert torch.equal(y, attention_sublayer_fwd(x, mask, *params, h))
+    if mode == "full":  # B1's SIMT body; B1's tensor-core forward
+        assert torch.equal(y, launch_fwd("simt", x, mask, *params, h))
+        torch.testing.assert_close(
+            y.float(), attention_sublayer_fwd(x, mask, *params, h).float(),
+            **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("transpose", [False, True])
