@@ -1,7 +1,9 @@
 """FFN sublayer, ``y = x + drop_r(drop_h(relu(LN(x) . W1 + b1)) . W2 + b2)``,
-forward and backward: the CUDA kernels of ``csrc/ffn_block.cu`` for CUDA
-tensors and their plain PyTorch versions, of the same signatures, for CPU
-tensors; ``FFNSublayer`` ties the two into autograd.
+forward and backward: the CUDA kernels for CUDA tensors and their plain
+PyTorch versions, of the same signatures, for CPU tensors; ``FFNSublayer``
+ties the two into autograd. Two routes of kernels (``route``): bf16 runs on
+the tensor cores (``csrc/ffn_block_mma.cu``), fp32 on the SIMT units
+(``csrc/ffn_block.cu``, no TF32: fp32 keeps its parity).
 
 Replaces the TPU kernel ``ffn_sublayer`` of the JAX package's
 ``ops/ffn_block.py`` (forward ``pallas_call`` at line 204, backward at line
@@ -40,6 +42,32 @@ _SIGNATURES = {
     "ffn_sublayer_bwd": [_P] * 21 + [_I] * 6
     + [_P, ctypes.c_double, ctypes.c_double, _P],
 }
+# the tensor-core route's entry points: the SIMT ones less is_bf16, plus
+# the scratch of the weights rounded to bf16 (w1b, w2b)
+_SIGNATURES_MMA = {
+    "ffn_sublayer_fwd_mma": [_P] * 10 + [_I] * 3
+    + [_P, ctypes.c_double, ctypes.c_double, _P],
+    "ffn_sublayer_bwd_mma": [_P] * 23 + [_I] * 5
+    + [_P, ctypes.c_double, ctypes.c_double, _P],
+}
+ROUTES = ("mma", "simt")
+
+
+def route(dtype, d: int, d_ff: int) -> str:
+    """The kernels a CUDA call takes, from dtype, d and d_ff alone, before
+    any launch: ``"mma"`` (the tensor cores, ``ffn_block_mma.cu``) for
+    bf16, ``"simt"`` (``ffn_block.cu``) for fp32. Raises
+    ``NotImplementedError`` outside the kernels' envelope (d <= 256,
+    d_ff <= 1024)."""
+    check_width(1, d, dtype)
+    if not 1 <= d_ff <= MAX_FF:
+        raise NotImplementedError(
+            f"FFN kernel covers d_ff <= {MAX_FF}, got {d_ff}")
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def _pad(n: int, step: int) -> int:
+    return -(-n // step) * step
 
 
 def _masks(m_shape, d_ff, p_hidden, p_resid, seeds, device):
@@ -174,16 +202,18 @@ def gate_flips(dx, x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     return flip
 
 
+def _d_ff(w1) -> int:
+    return w1.shape[-1] if isinstance(w1, torch.Tensor) and w1.dim() == 2 \
+        else -1
+
+
 def _check(x, params):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, L, d], got {tuple(x.shape)}")
     b, l, d = x.shape
     check_width(b, d, x.dtype)
-    w1 = params[2]
-    d_ff = w1.shape[-1] if w1.dim() == 2 else -1
-    if not 1 <= d_ff <= MAX_FF:
-        raise NotImplementedError(
-            f"FFN kernel covers d_ff <= {MAX_FF}, got {d_ff}")
+    d_ff = _d_ff(params[2])
+    route(x.dtype, d, d_ff)
     if l < 1 or b * l * d_ff >= MAX_HIDDEN:
         raise NotImplementedError(
             f"FFN kernel covers L >= 1 and B * L * d_ff < 2**31, got "
@@ -208,30 +238,64 @@ def ffn_sublayer_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
                      seeds=(0, 0)):
     """``x`` [B, L, d] float32/bfloat16; ``seeds`` the two streams' int
     seeds. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernels of ``route``'s answer or raises."""
     if x.device.type == "cpu":
         return ffn_sublayer_fwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                       p_hidden, p_resid, seeds)
     if x.device.type != "cuda":
         raise ValueError(f"no FFN sublayer for device {x.device}")
+    return launch_fwd(route(x.dtype, x.shape[-1], _d_ff(w1)), x, ln_scale,
+                      ln_bias, w1, b1, w2, b2, p_hidden, p_resid, seeds)
+
+
+def _check_way(way, dtype, d, d_ff):
+    if way not in ROUTES or (way == "mma" and route(dtype, d, d_ff) != "mma"):
+        raise ValueError(f"no {way!r} kernels for {dtype}, d={d}, "
+                         f"d_ff={d_ff}")
+
+
+def _rounded_weights(d, d_ff, dev):
+    """Scratch of the tensor-core route: W1 and W2 rounded to bf16, padded
+    with zeros to whole 16-row and 64-column steps."""
+    dpad, ffp = _pad(d, 16), _pad(d_ff, 64)
+    return (torch.empty((dpad, ffp), dtype=torch.bfloat16, device=dev),
+            torch.empty((ffp, dpad), dtype=torch.bfloat16, device=dev))
+
+
+def launch_fwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2,
+               p_hidden: float = 0.0, p_resid: float = 0.0, seeds=(0, 0)):
+    """``ffn_sublayer_fwd`` on CUDA tensors through the kernels of route
+    ``way``: the wrapper passes ``route``'s answer; B10's checks also take
+    the SIMT kernels in bf16, whose tile bodies B10 runs. Counts the launch
+    as the wrapper's."""
     p_hidden = dropout.check_rate(p_hidden)
     p_resid = dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
     m, d, d_ff = _check(x, params)
+    _check_way(way, x.dtype, d, d_ff)
 
-    lib = _build.load("ffn_block", _SIGNATURES)
     y = torch.empty_like(x)
+    head = (*map(_build.ptr, (x,) + params + (y,)),)
+    tail = (_keys(seeds, p_hidden, p_resid), p_hidden, p_resid,
+            _build.stream_of(x))
     with torch.cuda.device(x.device):
-        rc = lib.ffn_sublayer_fwd(
-            *map(_build.ptr, (x,) + params + (y,)), m, d, d_ff,
-            int(x.dtype == torch.bfloat16), _keys(seeds, p_hidden, p_resid),
-            p_hidden, p_resid, _build.stream_of(x))
-    _build.check_launch(lib, rc, "ffn_sublayer_fwd")
+        if way == "mma":
+            lib = _build.load("ffn_block_mma", _SIGNATURES_MMA)
+            rounded = _rounded_weights(d, d_ff, x.device)
+            rc = lib.ffn_sublayer_fwd_mma(*head, *map(_build.ptr, rounded),
+                                          m, d, d_ff, *tail)
+        else:
+            lib = _build.load("ffn_block", _SIGNATURES)
+            rc = lib.ffn_sublayer_fwd(*head, m, d, d_ff,
+                                      int(x.dtype == torch.bfloat16), *tail)
+    _build.check_launch(lib, rc, f"ffn_sublayer_fwd ({way})")
     ffn_sublayer_fwd.launches += 1
+    ffn_sublayer_fwd.route_launches[way] += 1
     return y
 
 
 ffn_sublayer_fwd.launches = 0
+ffn_sublayer_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def ffn_sublayer_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
@@ -239,17 +303,26 @@ def ffn_sublayer_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
                      seeds=(0, 0)):
     """``(dx, dg, db, dw1, db1, dw2, db2)`` of the sublayer at x for the
     output gradient ``dy``. A CPU tensor takes the plain version; a CUDA
-    tensor launches the backward kernels (they recompute the forward from
-    x; nothing is saved) or raises."""
+    tensor launches the backward kernels of ``route``'s answer (they
+    recompute the forward from x; nothing is saved) or raises."""
     if x.device.type == "cpu":
         return ffn_sublayer_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                       dy, p_hidden, p_resid, seeds)
     if x.device.type != "cuda":
         raise ValueError(f"no FFN sublayer for device {x.device}")
+    return launch_bwd(route(x.dtype, x.shape[-1], _d_ff(w1)), x, ln_scale,
+                      ln_bias, w1, b1, w2, b2, dy, p_hidden, p_resid, seeds)
+
+
+def launch_bwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+               p_hidden: float = 0.0, p_resid: float = 0.0, seeds=(0, 0)):
+    """``ffn_sublayer_bwd`` on CUDA tensors through the kernels of route
+    ``way`` (see ``launch_fwd``). Counts the launch as the wrapper's."""
     p_hidden = dropout.check_rate(p_hidden)
     p_resid = dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
     m, d, d_ff = _check(x, params)
+    _check_way(way, x.dtype, d, d_ff)
     dev, dtype = x.device, x.dtype
     _build.require(dy, "dy", tuple(x.shape), dtype, dev)
 
@@ -258,27 +331,38 @@ def ffn_sublayer_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     outs = [torch.empty_like(x), torch.empty(d, **f32), torch.empty(d, **f32),
             torch.empty((d, d_ff), **f32), torch.empty(d_ff, **f32),
             torch.empty((d_ff, d), **f32), torch.empty(d, **f32)]
-    scratch = [torch.empty((m, d), dtype=dtype, device=dev),
-               torch.empty((m, d), dtype=dtype, device=dev),
-               torch.empty((m, d_ff), dtype=dtype, device=dev),
-               torch.empty((m, d_ff), dtype=dtype, device=dev),
+    # the weight gradients' operands: the tensor-core route pads their rows
+    # to whole 16-byte steps (d to 16, d_ff to 64 columns)
+    dw, fw = (_pad(d, 16), _pad(d_ff, 64)) if way == "mma" else (d, d_ff)
+    scratch = [torch.empty((m, dw), dtype=dtype, device=dev),
+               torch.empty((m, dw), dtype=dtype, device=dev),
+               torch.empty((m, fw), dtype=dtype, device=dev),
+               torch.empty((m, fw), dtype=dtype, device=dev),
                torch.empty(s1 * (d * d_ff + d_ff), **f32),
                torch.empty(s2 * (d_ff * d + d), **f32),
                torch.empty(-(-m // 64) * 2 * d, **f32)]
-    lib = _build.load("ffn_block", _SIGNATURES)
-    with torch.cuda.device(dev):
-        rc = lib.ffn_sublayer_bwd(
-            *map(_build.ptr, (x, ln_scale, ln_bias, w1, b1, w2, dy)),
-            *map(_build.ptr, outs), *map(_build.ptr, scratch),
-            m, d, d_ff, s1, s2, int(dtype == torch.bfloat16),
-            _keys(seeds, p_hidden, p_resid), p_hidden, p_resid,
+    head = (*map(_build.ptr, (x, ln_scale, ln_bias, w1, b1, w2, dy)),
+            *map(_build.ptr, outs), *map(_build.ptr, scratch))
+    tail = (_keys(seeds, p_hidden, p_resid), p_hidden, p_resid,
             _build.stream_of(x))
-    _build.check_launch(lib, rc, "ffn_sublayer_bwd")
+    with torch.cuda.device(dev):
+        if way == "mma":
+            lib = _build.load("ffn_block_mma", _SIGNATURES_MMA)
+            rounded = _rounded_weights(d, d_ff, dev)
+            rc = lib.ffn_sublayer_bwd_mma(*head, *map(_build.ptr, rounded),
+                                          m, d, d_ff, s1, s2, *tail)
+        else:
+            lib = _build.load("ffn_block", _SIGNATURES)
+            rc = lib.ffn_sublayer_bwd(*head, m, d, d_ff, s1, s2,
+                                      int(dtype == torch.bfloat16), *tail)
+    _build.check_launch(lib, rc, f"ffn_sublayer_bwd ({way})")
     ffn_sublayer_bwd.launches += 1
+    ffn_sublayer_bwd.route_launches[way] += 1
     return tuple(outs)
 
 
 ffn_sublayer_bwd.launches = 0
+ffn_sublayer_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class FFNSublayer(torch.autograd.Function):

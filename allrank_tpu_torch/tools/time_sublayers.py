@@ -13,6 +13,12 @@ kernels' durations in a torch.profiler trace of 10 calls
 (``timing.kernel_ms``). ``--profile`` adds each wrapper's
 device time by kernel from such a trace; ``--ptxas SOURCE ...`` first
 prints each kernel's registers and spills from those sources' build logs.
+``--step`` instead times ``bench.py``'s train step (the flagship model:
+136 features, FC [128], 4 blocks of d=128, h=4, d_ff=512, dropout 0, bf16,
+Adam at 1e-3, lambdaLoss with ndcgLoss2PP at B=64, L=240 with a
+40-document padding tail): the step's ms (CUDA events, the host's time in
+it), the device's busy ms a step and its idle share, and its device time
+by kernel, from a torch.profiler trace of 5 steps.
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -102,12 +108,84 @@ def library_fns(kind, x, mask, params, dy):
             lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
 
 
+def flagship_step(dev):
+    """``bench.py``'s train step on a model of seeded random weights, and
+    its batch: (step, (x, y, indices))."""
+    import numpy as np
+
+    from allrank_tpu_torch.config import (
+        FCConfig,
+        ModelConfig,
+        PositionalEncodingConfig,
+        PostModelConfig,
+        TransformerConfig,
+    )
+    from allrank_tpu_torch.losses import get_loss
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.training import make_optimizer, make_train_step
+
+    features = 136
+    mdef = make_model(ModelConfig(
+        fc_model=FCConfig(sizes=[128], input_norm=True, activation="ReLU",
+                          dropout=0.0),
+        transformer=TransformerConfig(
+            N=4, d_ff=D_FF, h=H, dropout=0.0,
+            positional_encoding=PositionalEncodingConfig(
+                strategy="fixed", max_indices=256)),
+        post_model=PostModelConfig(d_output=1)), features)
+    model = LTRModel(mdef, torch.Generator().manual_seed(0), device=dev)
+    loss_fn, needs_rng = get_loss("lambdaLoss")
+    step = make_train_step(
+        model, loss_fn, {"weighing_scheme": "ndcgLoss2PP_scheme", "mu": 10.0},
+        needs_rng, make_optimizer("Adam", {"lr": 1e-3}, model.parameters()),
+        None, "bfloat16")
+    rng = np.random.RandomState(0)
+    x = rng.randn(B, L, features).astype(np.float32)
+    y = np.clip(np.round(2.0 + x[..., 0] + 0.5 * rng.randn(B, L)), 0,
+                4).astype(np.float32)
+    indices = np.tile(np.arange(L), (B, 1))
+    y[:, -40:] = -1.0
+    indices[:, -40:] = -1
+    return step, tuple(torch.as_tensor(t, device=dev)
+                       for t in (x, y, indices))
+
+
+def time_step(card: str, package: str, iters: int) -> dict:
+    """``--step``'s line: the flagship step's ms, device busy ms a step,
+    idle share and device ms a step by kernel (the ten largest)."""
+    from allrank_tpu_torch.tools.timing import (
+        _median_event_ms,
+        busy_us,
+        trace_kernels,
+    )
+
+    dev = torch.device("cuda", 0)
+    step, batch = flagship_step(dev)
+    calls = 5
+    ms = _median_event_ms(lambda: step(*batch), iters, 3)
+    spans, window_us = trace_kernels(lambda: step(*batch), calls)
+    if not spans:
+        raise RuntimeError("no device events in the profiler's trace")
+    by_name = {}
+    for name, start, end in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / calls / 1e3
+    busy = busy_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"step": "bench.py config, flagship, bf16", "shape": [B, L],
+            "ms": ms, "device_busy_ms": busy / calls / 1e3,
+            "idle_share": 1 - busy / window_us,
+            "by_kernel_ms": {k[:80]: v for k, v in top},
+            "card": card, "package": package}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--ptxas", nargs="*", default=())
     parser.add_argument("--profile", action="store_true",
                         help="also each kernel's device time by name")
+    parser.add_argument("--step", action="store_true",
+                        help="time bench.py's train step instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_sublayers: no CUDA device", file=sys.stderr)
@@ -129,7 +207,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip()
     package = allrank_tpu_torch.__file__
     sources = [s for s in ("attention_block", "attention_block_mma",
-                           "ffn_block", *args.ptxas)
+                           "ffn_block", "ffn_block_mma", *args.ptxas)
                if os.path.exists(_build.source_path(s))]
     _build.build(sorted(set(sources)))
     for source in args.ptxas:
@@ -137,13 +215,20 @@ def main(argv=None) -> int:
             print(f"ptxas {source} {name}: {line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.step:
+        print(json.dumps(time_step(card, package, args.iters)), flush=True)
+        return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         x, mask, ap, fp, dy = inputs(gen, dtype, dev)
         _, saved = b1.attention_sublayer_fwd(x, mask, *ap, H,
                                              return_saved=True)
-        route = b1.route(dtype, D, H) if hasattr(b1, "route") else "simt"
+        # an older checkout, whose modules have no route, runs SIMT alone
+        routes = {"attention": (b1.route(dtype, D, H)
+                                if hasattr(b1, "route") else "simt"),
+                  "ffn": (b2.route(dtype, D, D_FF)
+                          if hasattr(b2, "route") else "simt")}
         kernels = {
             "attention_sublayer_fwd": lambda: b1.attention_sublayer_fwd(
                 x, mask, *ap, H),
@@ -163,7 +248,7 @@ def main(argv=None) -> int:
             print(json.dumps({
                 "kernel": name, "shape": [B, L, D, H, D_FF],
                 "dtype": str(dtype).split(".")[-1],
-                "route": route if name.startswith("attention") else "simt",
+                "route": routes[name.split("_")[0]],
                 "ms": _median_event_ms(fn, args.iters, 3),
                 "graph_ms": graph_ms(fn),
                 "library_ms": _median_event_ms(lib_fn, args.iters, 3),

@@ -88,6 +88,20 @@ def trace_kernels(fn: Callable[[], object], calls: int) -> tuple:
              if e.device_type == torch.autograd.DeviceType.CUDA], window_us)
 
 
+def busy_us(spans) -> float:
+    """The device's busy time in a trace: the union of the (name, start us,
+    end us) spans of ``trace_kernels``, overlaps counted once."""
+    ordered = sorted((start, end) for _, start, end in spans)
+    busy, (lo, hi) = 0.0, ordered[0]
+    for start, end in ordered[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return busy + hi - lo
+
+
 def kernel_ms(fn: Callable[[], object], calls: int = 10) -> dict:
     """Device time of one call by kernel name, ms: each kernel's durations
     in a trace of ``calls`` calls (``trace_kernels``), divided by

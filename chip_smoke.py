@@ -9,19 +9,22 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the fifteen kernel sources of
+1. the card, torch and CUDA versions; builds the sixteen kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
    counts the ``HMMA`` instructions of B4's and B5's tensor-core kernels
-   (18 each) and of B1's (22) with the toolkit's ``cuobjdump -sass`` (each
-   must hold some); turns TF32 off;
+   (18 each), of B1's (22) and of B2's (5) with the toolkit's ``cuobjdump
+   -sass`` (each must hold some); turns TF32 off;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
    lengths and one lengths=0 slate, in fp32 (its SIMT kernels) and bf16
    (its tensor-core kernels), plus edge shapes; and in bf16 at head widths
    8, 20, 32, 36, 48, 72, 100 and 128 x L in {1, 65, 240, 1024}, which
    runs each of its tensor-core forward instantiations;
-3. the FFN sublayer kernel (B2) likewise, d_ff 512 and 384;
+3. the FFN sublayer kernel (B2) likewise, d_ff 512 and 384, in fp32 (its
+   SIMT kernels) and bf16 (its tensor-core kernels); and in bf16 at d in
+   {32, 96, 128, 144, 256} x d_ff in {384, 512, 1024} x L in {1, 65, 240,
+   1024}, which runs each of its tensor-core instantiations;
 4. the flagship ranker (136 features, FC [128], 4 blocks of d=128, h=4,
    d_ff=512, random weights from a seeded ``torch.Generator``) through
    ``make_scorer``/``make_ranker`` on the GPU against the same model's
@@ -44,10 +47,15 @@ and never prints its last line):
    dropout 0 and 0.4; B1 in bf16 at phase 2's head widths and lengths,
    dropout 0 and 0.3, and with its saved qkv 2 bytes off a 16-byte
    boundary, a second backward bit for bit the first: each of its 22
-   tensor-core kernels; B2 on the inputs of ROADMAP Queue C5 (a seed
-   sweep at d=96, bf16, p=0.3 and one fp32 case at d=144), where its ReLU
-   gates flip: within ``BWD_TOL`` of the plain version with those gates
-   replayed (``ffn_block.gate_flips``);
+   tensor-core kernels; B2 in bf16 at phase 3's widths and lengths,
+   dropout 0 and 0.3, with x and dy 2 bytes off a 16-byte boundary and at
+   d < 16 and d_ff not a multiple of 64, a second backward bit for bit the
+   first: each of its 5 tensor-core kernels. Every B2 backward is held
+   under ROADMAP Queue C5's replay: the ReLU gates that its dx shows
+   flipped (a pre-activation within rounding of 0) replayed in the plain
+   version (``ffn_block.gate_flips``), at most ``GATE_FLIPS_MAX`` a case;
+   and on C5's own inputs (a seed sweep at d=96, bf16, p=0.3 and one fp32
+   case at d=144);
 8. the lambdaLoss pair-chain kernels (B3, forward and backward) against
    their plain versions: every weighing scheme, k = all or 10,
    L in {1, 240, 384}, a dummy slate;
@@ -57,11 +65,11 @@ and never prints its last line):
    ndcgLoss2PP) for 20 steps through ``make_train_step`` on a fixed
    synthetic batch of B=64, L=240 with a 40-document padding tail; every
    loss finite, the last 5 below the first 5, and per step 4 + 4 launches
-   of each sublayer kernel's forward and backward and 1 + 1 of B3, B1's
-   all on its tensor-core route (the counters are set to 0 just before the
-   steps and read just after); at dropout 0 in fp32, step 1's loss and
-   gradients on the GPU against the same model's plain run on the CPU, B1
-   on its SIMT route;
+   of each sublayer kernel's forward and backward and 1 + 1 of B3, B1's and
+   B2's all on their tensor-core routes (the counters are set to 0 just
+   before the steps and read just after); at dropout 0 in fp32, step 1's
+   loss and gradients on the GPU against the same model's plain run on the
+   CPU, B1 and B2 on their SIMT routes;
 10. times: the train step at ``bench.py``'s configuration (the flagship
     model, dropout 0, bf16; B1 4 + 4 launches on the tensor cores) and at
     the paper config, with its idle share
@@ -177,14 +185,16 @@ and never prints its last line):
     p50;
 28. the whole-encoder kernel pair (B10, forward and backward): its
     cooperative grid, then against the chained B1/B2 kernels of its own
-    tile bodies (B1 on its SIMT route in bf16 too; phases 2 and 7's
+    tile bodies (both on their SIMT routes in bf16 too; phases 2 and 7's
     tolerances) and against its plain version (no further from it than
     the chained kernels, plus those tolerances), output and all 15
     gradients, at the flagship (B=64, L=240, d=128, h=4, d_ff=512, N=4)
     and at N=1, L=1, (4, 1024), d=144 with d_ff=384, d=256 with
     d_ff=1024, fp32 and bf16, dropout 0 and 0.3; two backwards give the
     same bits; in bf16 also its distance from the chain that the encoder
-    runs with the switch off (B1 on the tensor cores), recorded;
+    runs with the switch off (B1 and B2 on the tensor cores), recorded, and
+    at ROADMAP C4's case (8, 240, 144, N=2) B10's, that chain's and the
+    SIMT chain's distance from the fp32 plain chain on the same inputs;
 29. the fifth main path, with ``MEGA_ENCODER_ENABLED`` set for the phase
     and restored after it: the flagship scorer in fp32 and bf16 against
     the switched-off scorer and the CPU plain run (one B10 launch a call,
@@ -217,7 +227,7 @@ and never prints its last line):
     past its shared-memory cap; then the probe ``exp_sinkhorn_layout``
     (B8 against X4, forward and forward + backward, 8 steps in one CUDA
     graph); times at N=64 beside B8's;
-34. a ``{"kernels": [...]}`` JSON line (B1 a row per route), the card's
+34. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route), the card's
     name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
@@ -248,7 +258,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from allrank_tpu_torch.tools.timing import graph_ms, kernel_ms, trace_kernels
+from allrank_tpu_torch.tools.timing import (
+    busy_us,
+    graph_ms,
+    kernel_ms,
+    trace_kernels,
+)
 
 B, L, N_FEATURES = 64, 240, 136  # the flagship serving shape
 PAPER_WIDTHS = [(128, 4), (144, 2), (96, 1)]  # (d_model, h)
@@ -261,6 +276,15 @@ B1_MMA_KERNELS = 22
 # 100 leave rows off a 16-byte boundary
 B1_MMA_WIDTHS = [(32, 4), (80, 4), (128, 4), (144, 4), (96, 2), (144, 2),
                  (100, 1), (256, 2)]
+# B2's tensor-core kernels: the forward and the backward's row kernel at
+# d <= 128 and d > 128 (two warps a row group), and the split A^T B
+B2_MMA_KERNELS = 5
+# the widths B2's bf16 kernels are held to: d within one warp's 128
+# output columns (32, 96, 128) or split over two warps (144, whose second
+# warp takes 16 columns, and 256), d_ff whole 64-unit chunks; phase 7's
+# edge cases take d and d_ff off those steps
+B2_MMA_WIDTHS = [(d, d_ff) for d in (32, 96, 128, 144, 256)
+                 for d_ff in (384, 512, 1024)]
 # H100 SXM published peaks (dense): fp32 on the SIMT units, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
@@ -346,6 +370,11 @@ Q8_MODES = ("static", "static_channels", "dynamic")
 ENCODER_CASES = [(B, L, 128, 4, 512, 4), (8, L, 128, 4, 512, 1),
                  (3, 1, 128, 4, 512, 2), (4, 1024, 128, 4, 512, 2),
                  (8, L, 144, 2, 384, 2), (4, 70, 256, 1, 1024, 2)]
+# ROADMAP Queue C4's case (B, L, d, N): B10 in bf16, the switch-off chain
+# (B1 and B2 on the tensor cores) and the SIMT chain, each against the fp32
+# plain chain on the same bf16 inputs and masks; C4 is no fault if B10 is
+# no farther from that reference than the tensor-core chain (at most 1.5x)
+C4_CASE, C4_RATIO = (8, L, 144, 2), 1.5
 # the int8 tower against its float tower, JAX's own serving-quality gate
 # (tests/test_quant.py): score correlation and top-1 agreement
 Q8_MIN_CORR, Q8_MIN_TOP1 = 0.999, 5 / 6
@@ -639,18 +668,53 @@ def rel_err(got, ref) -> tuple:
             ref.float().abs().max().item())
 
 
+def b2_replay(got, args, dy, p, seeds) -> tuple:
+    """ROADMAP Queue C5: holds a B2 backward ``got`` (dx and six gradients,
+    on ``args`` = x and the six parameters, ``dy``, rate ``p`` on both
+    streams) against its plain version with the ReLU gates that its dx
+    shows flipped replayed (``ffn_block.gate_flips``): a hidden unit whose
+    pre-activation lies within rounding of 0 gates either way in two sums
+    of the same terms, and its row of dx then differs by the unit's whole
+    term. At most ``GATE_FLIPS_MAX`` units (a fault upstream moves every
+    pre-activation and flips far more), every gradient within ``BWD_TOL``.
+    Returns (worst max abs error, worst relative to its tensor's max
+    |ref|, worst share of the tolerance, flipped gates)."""
+    from allrank_tpu_torch.ops.ffn_block import (
+        ffn_sublayer_bwd_plain,
+        gate_flips,
+    )
+
+    dtype = args[0].dtype
+    rtol, atol = BWD_TOL[dtype]
+    flip = gate_flips(got[0], *args, dy, p, p, seeds, rtol=rtol)
+    flips = int(flip.sum().item())
+    shape = tuple(args[0].shape) + (args[3].shape[-1],)
+    assert flips <= GATE_FLIPS_MAX, (
+        f"B2 backward {shape} {dtype} p={p}: {flips} ReLU gates flipped "
+        f"(at most {GATE_FLIPS_MAX})")
+    ref = ffn_sublayer_bwd_plain(*args, dy, p, p, seeds, flip=flip)
+    worst = worst_rel = share = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.isfinite(g.float()).all(), (shape, dtype, p, i)
+        err, scale = rel_err(g, r)
+        assert err <= rtol * scale + atol, (
+            f"ffn_sublayer_bwd grad {i} {shape} {dtype} p={p}, {flips} "
+            f"gates flipped replayed: {err} > {rtol} x {scale} + {atol}")
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / (scale + atol))
+        share = max(share, err / (rtol * scale + atol))
+    return worst, worst_rel, share, flips
+
+
 def b2_gate_flip_case(seed, d, d_ff, dtype, p, dev) -> tuple:
     """ROADMAP Queue C5: B2's backward at (B, L) with inputs drawn from a
     generator of ``seed`` (``ffn_inputs``, then dy), against its plain
-    version as phase 7 holds it, and against the plain version with the
-    ReLU gates that the kernel's dx shows flipped (``gate_flips``): every
-    gradient within ``BWD_TOL`` there, at most ``GATE_FLIPS_MAX`` units.
-    Returns (worst error share of the tolerance as phase 7 holds it,
-    flipped gates, worst share with them replayed)."""
+    version without the replay, and with it (``b2_replay``). Returns (worst
+    error share of the tolerance without the replay, flipped gates, worst
+    share with them replayed)."""
     from allrank_tpu_torch.ops.ffn_block import (
         ffn_sublayer_bwd,
         ffn_sublayer_bwd_plain,
-        gate_flips,
     )
 
     gen = torch.Generator().manual_seed(seed)
@@ -659,17 +723,50 @@ def b2_gate_flip_case(seed, d, d_ff, dtype, p, dev) -> tuple:
     seeds = (101, 202)
     got = ffn_sublayer_bwd(*args, dy, p, p, seeds)
     rtol, atol = BWD_TOL[dtype]
-    flip = gate_flips(got[0], *args, dy, p, p, seeds, rtol=rtol)
-    shares = []
-    for replay in (None, flip):
-        ref = ffn_sublayer_bwd_plain(*args, dy, p, p, seeds, flip=replay)
-        shares.append(max(err / (rtol * scale + atol) for err, scale in
-                          (rel_err(g, r) for g, r in zip(got, ref))))
-    flips = int(flip.sum().item())
-    assert flips <= GATE_FLIPS_MAX and shares[1] <= 1.0, (
-        f"B2 backward d={d} {dtype} p={p} seed {seed}: {flips} gate flips "
-        f"replayed leave {shares[1]:.3f} of the tolerance")
-    return shares[0], flips, shares[1]
+    ref = ffn_sublayer_bwd_plain(*args, dy, p, p, seeds)
+    unreplayed = max(err / (rtol * scale + atol) for err, scale in
+                     (rel_err(g, r) for g, r in zip(got, ref)))
+    _, _, replayed, flips = b2_replay(got, args, dy, p, seeds)
+    return unreplayed, flips, replayed
+
+
+def b2_mma_case(gen, b, l, d, d_ff, p, dev, offset: int = 0) -> tuple:
+    """B2's bf16 tensor-core route against its plain version at one shape:
+    the forward (dropout ``p`` on both streams), the backward with the C5
+    replay (``b2_replay``) and a second backward that must give the same
+    bits; x and dy moved ``offset`` elements off the allocator's alignment.
+    Phases 3 and 7's tolerances. Returns (the forward's max abs error, the
+    backward's worst share of its tolerance, flipped gates)."""
+    from allrank_tpu_torch.ops.ffn_block import (
+        ffn_sublayer_bwd,
+        ffn_sublayer_fwd,
+        ffn_sublayer_fwd_plain,
+    )
+
+    bf16 = torch.bfloat16
+    seeds = (101, 202)
+    args = ffn_inputs(gen, b, l, d, d_ff, bf16, dev)
+    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(dev)
+    if offset:
+        args[0], dy = off_boundary(args[0], offset), off_boundary(dy, offset)
+    fwd_n = ffn_sublayer_fwd.route_launches["mma"]
+    bwd_n = ffn_sublayer_bwd.route_launches["mma"]
+    y = ffn_sublayer_fwd(*args, p, p, seeds)
+    got = ffn_sublayer_bwd(*args, dy, p, p, seeds)
+    again = ffn_sublayer_bwd(*args, dy, p, p, seeds)
+    torch.cuda.synchronize()
+    assert (ffn_sublayer_fwd.route_launches["mma"] == fwd_n + 1
+            and ffn_sublayer_bwd.route_launches["mma"] == bwd_n + 2), (
+        "B2 did not take its tensor-core route")
+    ref_y = ffn_sublayer_fwd_plain(*args, p, p, seeds)
+    assert torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), ref_y.float(), **KERNEL_TOL[bf16])
+    for i, (g, g2) in enumerate(zip(got, again)):
+        assert torch.equal(g, g2), (
+            f"B2 mma backward grad {i} differs between two runs B={b} L={l} "
+            f"d={d} d_ff={d_ff} p={p}")
+    _, _, share, flips = b2_replay(got, args, dy, p, seeds)
+    return rel_err(y, ref_y)[0], share, flips
 
 
 def b1_library_bwd(args, dy, h):
@@ -807,11 +904,11 @@ def b1_mma_case(gen, b, l, d, h, p, dev, offset: int = 0) -> tuple:
 
 def timing_row(rows: dict, kernel_name: str, dtype, way: str) -> tuple:
     """(the row in ``rows`` that a timing of ``kernel_name`` in ``dtype``
-    goes to, the suffix of its keys): B1's two routes are two rows of
-    unsuffixed keys (the SIMT kernels, fp32, under the kernel's name; the
+    goes to, the suffix of its keys): B1's and B2's two routes are two rows
+    of unsuffixed keys (the SIMT kernels, fp32, under the kernel's name; the
     tensor cores, bf16, under ``<name>_mma``); any other kernel is one row,
     its bf16 keys suffixed ``_bf16``."""
-    if kernel_name.startswith("attention_sublayer"):
+    if kernel_name.startswith(("attention_sublayer", "ffn_sublayer")):
         name, sfx = kernel_name + ("_mma" if way == "mma" else ""), ""
     else:
         name, sfx = kernel_name, "" if dtype == torch.float32 else "_bf16"
@@ -938,15 +1035,7 @@ def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> dict:
     by_name = {}
     for name, start, end in kernels:
         by_name[name] = by_name.get(name, 0.0) + end - start
-    spans = sorted((start, end) for _, start, end in kernels)
-    busy, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy += hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    busy += hi - lo
+    busy = busy_us(kernels)
     print(f"profile: {calls} calls, host window {window_us / calls:.1f} us "
           f"per call, device busy {busy / calls:.1f} us per call, idle "
           f"share {1 - busy / window_us:.3f} {tag}")
@@ -1305,13 +1394,13 @@ def encoder_check(y, got, chained_y, chained, plain_y, plain, dtype) -> dict:
 
 
 def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p, way):
-    """B10's function through the chained B1/B2 kernels, B1 on route
+    """B10's function through the chained B1/B2 kernels, B1 and B2 on route
     ``way`` (the encoder with the switch off takes ``route``'s; B10 runs the
-    SIMT route's tile bodies), the final LayerNorm in torch ops: (y, the
+    SIMT routes' tile bodies), the final LayerNorm in torch ops: (y, the
     state ``encoder_chained_bwd`` reads)."""
     from allrank_tpu_torch.models.core import std_layer_norm
     from allrank_tpu_torch.ops.attention_block import launch_fwd
-    from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
+    from allrank_tpu_torch.ops.ffn_block import launch_fwd as ffn_launch_fwd
 
     inputs, saved = [], []
     for n in range(stacks[0].shape[0]):
@@ -1321,16 +1410,16 @@ def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p, way):
                            seeds[4 * n:4 * n + 2], return_saved=True)
         saved.append(sv)
         inputs.append(x)
-        x = ffn_sublayer_fwd(x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
+        x = ffn_launch_fwd(way, x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
     return std_layer_norm(x, fs, fb), (inputs, saved, x, way)
 
 
 def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
     """The backward of ``encoder_chained_fwd`` through the B1/B2 backward
-    kernels, B1 on the forward's route: (dx, *12 stacked gradients, dfs,
-    dfb), as B10's."""
+    kernels on the forward's route: (dx, *12 stacked gradients, dfs, dfb),
+    as B10's."""
     from allrank_tpu_torch.ops.attention_block import launch_bwd, ln_backward
-    from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_bwd
+    from allrank_tpu_torch.ops.ffn_block import launch_bwd as ffn_launch_bwd
 
     inputs, saved, z, way = state
     n_blocks = stacks[0].shape[0]
@@ -1339,8 +1428,8 @@ def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
     grads = [[None] * n_blocks for _ in range(12)]
     for n in reversed(range(n_blocks)):
         w = [t[n] for t in stacks]
-        g, *ffn = ffn_sublayer_bwd(inputs[2 * n + 1], *w[6:], g, p, p,
-                                   seeds[4 * n + 2:4 * n + 4])
+        g, *ffn = ffn_launch_bwd(way, inputs[2 * n + 1], *w[6:], g, p, p,
+                                 seeds[4 * n + 2:4 * n + 4])
         g, *attn = launch_bwd(way, inputs[2 * n], mask, *w[:6], g, h, p, p,
                               seeds[4 * n:4 * n + 2], saved=saved[n])
         for i, t in enumerate(attn + ffn):
@@ -1411,6 +1500,8 @@ def encoder_ffn_gates(record):
 
     def call(x, mask, seeds, stacks, fs, fb, *, h, p_drop=0.0):
         counts = (attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches)
+        routes = (dict(attention_sublayer_fwd.route_launches),
+                  dict(ffn_sublayer_fwd.route_launches))
         with torch.no_grad():
             hid = x
             for n in range(stacks[0].shape[0]):
@@ -1422,6 +1513,8 @@ def encoder_ffn_gates(record):
                 hid = ffn_sublayer_fwd(hid, *w[6:], p_drop, p_drop,
                                        seeds[4 * n + 2:4 * n + 4])
         attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches = counts
+        (attention_sublayer_fwd.route_launches,
+         ffn_sublayer_fwd.route_launches) = routes
     return call
 
 
@@ -1532,15 +1625,25 @@ def main() -> int:
     from allrank_tpu_torch.tools.time_sublayers import b1_library, b2_library
 
     from allrank_tpu_torch.ops.attention_block import ROUTES as B1_ROUTES
+    from allrank_tpu_torch.ops.ffn_block import ROUTES as B2_ROUTES
+    from allrank_tpu_torch.ops.ffn_block import route as b2_route
 
-    def reset_b1_routes():
+    def reset_routes():
+        """B1's and B2's launches by route back to 0."""
         for k in (attention_sublayer_fwd, attention_sublayer_bwd):
             k.route_launches = dict.fromkeys(B1_ROUTES, 0)
+        for k in (ffn_sublayer_fwd, ffn_sublayer_bwd):
+            k.route_launches = dict.fromkeys(B2_ROUTES, 0)
 
     def b1_routes():
         """B1's launches by route, forward then backward."""
         return (dict(attention_sublayer_fwd.route_launches),
                 dict(attention_sublayer_bwd.route_launches))
+
+    def b2_routes():
+        """B2's launches by route, forward then backward."""
+        return (dict(ffn_sublayer_fwd.route_launches),
+                dict(ffn_sublayer_bwd.route_launches))
 
     dev = torch.device("cuda", 0)
     name_power = card()
@@ -1552,20 +1655,20 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     sources = ["attention_block", "attention_block_mma", "ffn_block",
-               "lambda_pairs", "sinkhorn", "neuralsort", "approx_pos",
-               "lambda_tiled", "attention_fused", "attention_tiled",
-               "q8_dense", "encoder_block", "boundary_shift",
-               "attention_variants", "neuralsort_layout"]
+               "ffn_block_mma", "lambda_pairs", "sinkhorn", "neuralsort",
+               "approx_pos", "lambda_tiled", "attention_fused",
+               "attention_tiled", "q8_dense", "encoder_block",
+               "boundary_shift", "attention_variants", "neuralsort_layout"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the fifteen "
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the sixteen "
           f"sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
-    # B4's and B5's bf16 kernels and all of B1's tensor-core route run on
-    # the tensor cores: each holds HMMA
+    # B4's and B5's bf16 kernels and all of B1's and B2's tensor-core
+    # routes run on the tensor cores: each holds HMMA
     for src, marker, n_mma, what in (
             ("attention_tiled", "tiled_", 18,
              "forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or not"),
@@ -1573,7 +1676,9 @@ def main() -> int:
              "forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or not"),
             ("attention_block_mma", "b1_", B1_MMA_KERNELS,
              "attention + out-projection, dQ, dK/dV at padded d_k 32, 64, "
-             "128, aligned or not; LN + QKV, rows, dn + LN backward, A^T B")):
+             "128, aligned or not; LN + QKV, rows, dn + LN backward, A^T B"),
+            ("ffn_block_mma", "b2_", B2_MMA_KERNELS,
+             "forward and backward rows at d <= 128 and d > 128, A^T B")):
         hmma = hmma_counts(_build.library_path(src), marker)
         for kname, n in sorted(hmma.items()):
             print(f"  {src}: {n} HMMA in {kname}")
@@ -1635,8 +1740,28 @@ def main() -> int:
             err = check_kernel("ffn_sublayer_fwd", ffn_sublayer_fwd,
                                ffn_sublayer_fwd_plain, args, {}, dtype)
             errs[("ffn", b, l, d, d_ff, dtype)] = err
-            print(f"B2 vs plain B={b} L={l} d={d} d_ff={d_ff} {dtype}: "
-                  f"max_abs_err {err:.3e} (tol {KERNEL_TOL[dtype]})")
+            print(f"B2 vs plain B={b} L={l} d={d} d_ff={d_ff} {dtype} "
+                  f"({b2_route(dtype, d, d_ff)}): max_abs_err {err:.3e} (tol "
+                  f"{KERNEL_TOL[dtype]})")
+    # the bf16 tensor-core route at each width class and L, from a generator
+    # of its own (as B1's), so that every other phase's inputs stay as they
+    # were before them
+    gen_b2 = torch.Generator().manual_seed(2222)
+    for d, d_ff in B2_MMA_WIDTHS:
+        assert b2_route(torch.bfloat16, d, d_ff) == "mma", (d, d_ff)
+        worst = 0.0
+        for l in (1, 65, 240, 1024):
+            b = 2 if l == 1024 else 3
+            args = ffn_inputs(gen_b2, b, l, d, d_ff, torch.bfloat16, dev)
+            before = ffn_sublayer_fwd.route_launches["mma"]
+            err = check_kernel("ffn_sublayer_fwd", ffn_sublayer_fwd,
+                               ffn_sublayer_fwd_plain, args, {},
+                               torch.bfloat16)
+            assert ffn_sublayer_fwd.route_launches["mma"] == before + 1
+            worst = max(worst, err)
+        print(f"B2 (mma) vs plain d={d} d_ff={d_ff} bf16 at L in (1, 65, 240, "
+              f"1024): max_abs_err {worst:.3e} (tol "
+              f"{KERNEL_TOL[torch.bfloat16]})")
     print("phase 3 ok: FFN sublayer kernel matches its plain version")
 
     # -- 4: the flagship scorer and ranker -------------------------------------
@@ -1654,7 +1779,7 @@ def main() -> int:
                                (scorer16, "bf16", "mma")):
         scorer(x, lengths)  # first call: loads the kernels
         attention_sublayer_fwd.launches = ffn_sublayer_fwd.launches = 0
-        reset_b1_routes()
+        reset_routes()
         s = scorer(x, lengths)
         torch.cuda.synchronize()
         counts = (attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches)
@@ -1662,6 +1787,9 @@ def main() -> int:
         assert attention_sublayer_fwd.route_launches == {
             **dict.fromkeys(B1_ROUTES, 0), way: 4}, (
             label, attention_sublayer_fwd.route_launches)
+        assert ffn_sublayer_fwd.route_launches == {
+            **dict.fromkeys(B2_ROUTES, 0), way: 4}, (
+            label, ffn_sublayer_fwd.route_launches)
     s32 = scorer32(x, lengths).cpu().numpy()
     s16 = scorer16(x, lengths).cpu().numpy()
     ref = make_scorer(cpu_model, "float32", device="cpu")(x, lengths).numpy()
@@ -1706,7 +1834,7 @@ def main() -> int:
                             150)]
         waves_before = service.stats()["waves_total"]
         attention_sublayer_fwd.launches = ffn_sublayer_fwd.launches = 0
-        reset_b1_routes()
+        reset_routes()
         with concurrent.futures.ThreadPoolExecutor(len(slates)) as pool:
             futs = [pool.submit(post, url, s, i % 2 == 1)
                     for i, s in enumerate(slates)]
@@ -1714,10 +1842,13 @@ def main() -> int:
         main_launches = {"attention_sublayer_fwd":
                          attention_sublayer_fwd.launches,
                          "ffn_sublayer_fwd": ffn_sublayer_fwd.launches}
-        # an fp32 service: B1 on its SIMT route only
+        # an fp32 service: B1 and B2 on their SIMT routes only
         assert b1_routes()[0] == {**dict.fromkeys(B1_ROUTES, 0),
                                   "simt": main_launches[
                                       "attention_sublayer_fwd"]}, b1_routes()
+        assert b2_routes()[0] == {**dict.fromkeys(B2_ROUTES, 0),
+                                  "simt": main_launches[
+                                      "ffn_sublayer_fwd"]}, b2_routes()
         with urllib.request.urlopen(url + "/statz", timeout=30) as r:
             stats = json.loads(r.read())
         waves = stats["waves_total"] - waves_before
@@ -1785,8 +1916,9 @@ def main() -> int:
             ms, plain_ms, lib_ms = (median_ms(fn) for fn in fns)
             dev_ms, lib_dev_ms = graph_ms(fns[0]), graph_ms(fns[2])
             bound_ms, bound_by = bound(flops, moved, dtype)
-            row, sfx = timing_row(timed, kernel_name, dtype,
-                                  b1_route(dtype, d, h))
+            way = (b1_route(dtype, d, h) if kernel_name.startswith("attention")
+                   else b2_route(dtype, d, d_ff))
+            row, sfx = timing_row(timed, kernel_name, dtype, way)
             row.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
                         f"device_ms{sfx}": dev_ms,
                         f"plain_ms{sfx}": plain_ms,
@@ -1835,29 +1967,33 @@ def main() -> int:
                                                       seeds).float(),
                     **KERNEL_TOL[dtype])
                 worst, worst_rel = {}, {}
-                for kname, got, ref in (
-                        ("attention_sublayer_bwd",
-                         attention_sublayer_bwd(*a_args, dy, h, p, p, seeds,
-                                                saved=saved),
-                         attention_sublayer_bwd_plain(*a_args, dy, h, p, p,
-                                                      seeds)),
-                        ("ffn_sublayer_bwd",
-                         ffn_sublayer_bwd(*f_args, dy, p, p, seeds),
-                         ffn_sublayer_bwd_plain(*f_args, dy, p, p, seeds))):
-                    torch.cuda.synchronize()
-                    rtol, atol = BWD_TOL[dtype]
-                    for i, (g, r) in enumerate(zip(got, ref)):
-                        assert torch.isfinite(g.float()).all(), (kname, i)
-                        err, scale = rel_err(g, r)
-                        assert err <= rtol * scale + atol, (
-                            f"{kname} grad {i} B={b} L={l} d={d} {dtype} "
-                            f"p={p}: {err} > {rtol} x {scale} + {atol}")
-                        worst[kname] = max(worst.get(kname, 0.0), err)
-                        worst_rel[kname] = max(worst_rel.get(kname, 0.0),
-                                               err / (scale + atol))
-                    bwd_errs[(kname, b, l, d, dtype, p)] = worst[kname]
+                kname = "attention_sublayer_bwd"
+                got = attention_sublayer_bwd(*a_args, dy, h, p, p, seeds,
+                                             saved=saved)
+                ref = attention_sublayer_bwd_plain(*a_args, dy, h, p, p,
+                                                   seeds)
+                torch.cuda.synchronize()
+                rtol, atol = BWD_TOL[dtype]
+                for i, (g, r) in enumerate(zip(got, ref)):
+                    assert torch.isfinite(g.float()).all(), (kname, i)
+                    err, scale = rel_err(g, r)
+                    assert err <= rtol * scale + atol, (
+                        f"{kname} grad {i} B={b} L={l} d={d} {dtype} "
+                        f"p={p}: {err} > {rtol} x {scale} + {atol}")
+                    worst[kname] = max(worst.get(kname, 0.0), err)
+                    worst_rel[kname] = max(worst_rel.get(kname, 0.0),
+                                           err / (scale + atol))
+                bwd_errs[(kname, b, l, d, dtype, p)] = worst[kname]
+                # B2 under the C5 replay: its ReLU gates may flip
+                kname = "ffn_sublayer_bwd"
+                got = ffn_sublayer_bwd(*f_args, dy, p, p, seeds)
+                torch.cuda.synchronize()
+                worst[kname], worst_rel[kname], _, flips = b2_replay(
+                    got, f_args, dy, p, seeds)
+                bwd_errs[(kname, b, l, d, dtype, p)] = worst[kname]
                 print(f"B1/B2 bwd vs plain B={b} L={l} d={d} h={h} "
-                      f"d_ff={d_ff} {dtype} p={p}: max_abs_err "
+                      f"d_ff={d_ff} {dtype} p={p} (B2 {flips} gate flips "
+                      f"replayed): max_abs_err "
                       f"{worst['attention_sublayer_bwd']:.3e} / "
                       f"{worst['ffn_sublayer_bwd']:.3e}, worst relative to "
                       f"its tensor's max|ref| "
@@ -1883,6 +2019,38 @@ def main() -> int:
     print(f"B1 (mma) backward with qkv 2 bytes off a 16-byte boundary at "
           f"d_k 32, 48, 72: ok; worst gradient error of all mma cases "
           f"{mma_bwd_worst:.2f} of its tolerance")
+    # B2's bf16 tensor-core route at each width class and L, dropout 0 and
+    # 0.3, with the C5 replay; then x and dy off a 16-byte boundary
+    b2_bwd_worst, b2_flips = 0.0, 0
+    for d, d_ff in B2_MMA_WIDTHS:
+        for l in (1, 65, 240, 1024):
+            for p in (0.0, 0.3):
+                _, share, flips = b2_mma_case(gen_b2, 2 if l == 1024 else 3,
+                                              l, d, d_ff, p, dev)
+                b2_bwd_worst = max(b2_bwd_worst, share)
+                b2_flips += flips
+        print(f"B2 (mma) fwd and bwd vs plain d={d} d_ff={d_ff} bf16, L in "
+              f"(1, 65, 240, 1024), p in (0, 0.3): ok, a second backward bit "
+              f"for bit")
+    for d, d_ff in ((128, 512), (96, 384), (144, 512)):
+        for p in (0.0, 0.3):
+            _, share, flips = b2_mma_case(gen_b2, 3, 65, d, d_ff, p, dev,
+                                          offset=1)
+            b2_bwd_worst = max(b2_bwd_worst, share)
+            b2_flips += flips
+    # the edges: d < 16 and d_ff not a whole 64-unit chunk; d not a whole
+    # 16-column step, d_ff 1000; one row of the widest
+    for b, l, d, d_ff in ((3, 70, 8, 72), (2, 65, 100, 1000),
+                          (1, 1, 256, 1000)):
+        for p in (0.0, 0.3):
+            _, share, flips = b2_mma_case(gen_b2, b, l, d, d_ff, p, dev)
+            b2_bwd_worst = max(b2_bwd_worst, share)
+            b2_flips += flips
+    print(f"B2 (mma) with x and dy 2 bytes off a 16-byte boundary at d 128, "
+          f"96, 144, and at the edges (d, d_ff) = (8, 72), (100, 1000), "
+          f"(256, 1000) at L = 1: ok; worst gradient error of all mma cases "
+          f"{b2_bwd_worst:.2f} of its tolerance, {b2_flips} gate flips "
+          f"replayed in all")
     # ROADMAP Queue C5: on other inputs B2's backward leaves the tolerance
     # above where a hidden unit's pre-activation lies within rounding of 0
     # and its ReLU gate flips; replaying the flipped gates must explain it
@@ -1945,7 +2113,7 @@ def main() -> int:
     step = make_step(cfg, model, cfg.training.compute_dtype)
     for k in train_kernels:
         k.launches = 0
-    reset_b1_routes()
+    reset_routes()
     losses = []
     for i in range(20):
         before = [k.launches for k in train_kernels]
@@ -1956,10 +2124,11 @@ def main() -> int:
         assert math.isfinite(losses[-1]), f"step {i} loss {losses[-1]}"
     train_launches = {k.__name__: k.launches for k in train_kernels}
     assert list(train_launches.values()) == [20 * n for n in per_step]
-    # bf16 training: B1 on the tensor cores only, both ways
-    b1_train_routes = b1_routes()
+    # bf16 training: B1 and B2 on the tensor cores only, both ways
+    b1_train_routes, b2_train_routes = b1_routes(), b2_routes()
     only_mma = {**dict.fromkeys(B1_ROUTES, 0), "mma": 20 * 4}
     assert b1_train_routes == (only_mma, only_mma), b1_train_routes
+    assert b2_train_routes == (only_mma, only_mma), b2_train_routes
     assert n_real.item() == B
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     assert last < first, f"loss did not fall: {first} -> {last}"
@@ -1969,12 +2138,13 @@ def main() -> int:
           f"{last:.3f}; launches {train_launches}")
 
     cfg0, gpu_model = paper_setup(dev, dropout=0.0)
-    reset_b1_routes()
+    reset_routes()
     gl, cl, step_err = step_one_gpu_vs_cpu(cfg0, gpu_model, (xb, yb, ib))
-    # fp32 training: B1 on the SIMT kernels only
-    b1_fp32_routes = b1_routes()
-    assert (b1_fp32_routes[0]["mma"] == b1_fp32_routes[1]["mma"] == 0
-            and b1_fp32_routes[1]["simt"] == 4), b1_fp32_routes
+    # fp32 training: B1 and B2 on the SIMT kernels only
+    b1_fp32_routes, b2_fp32_routes = b1_routes(), b2_routes()
+    for routes in (b1_fp32_routes, b2_fp32_routes):
+        assert (routes[0]["mma"] == routes[1]["mma"] == 0
+                and routes[1]["simt"] == 4), routes
     print(f"train step 1 at dropout 0, fp32, GPU vs CPU plain: loss {gl:.6f} "
           f"vs {cl:.6f}; worst gradient error {step_err:.3f} of its "
           f"tolerance ({STEP_GRAD_TOL} x its tensor's max + 1e-5 x the "
@@ -1990,10 +2160,11 @@ def main() -> int:
             ("paper config (dropout 0.3, bf16)", paper_setup(dev))):
         step = make_step(cfg_t, model_t, "bfloat16", optimizer_name="Adam",
                          lr=1e-3)
-        reset_b1_routes()
+        reset_routes()
         step(xb, yb, ib)
         only_mma = {**dict.fromkeys(B1_ROUTES, 0), "mma": 4}
         assert b1_routes() == (only_mma, only_mma), (label, b1_routes())
+        assert b2_routes() == (only_mma, only_mma), (label, b2_routes())
         ms = median_ms(lambda: step(xb, yb, ib), iters=20, warmup=3)
         step_ms[label] = ms
         print(f"time train step {label} B={B} L={L}: {ms:.4f} ms per step, "
@@ -2034,8 +2205,9 @@ def main() -> int:
             # backward's device time is the sum of its kernels in a trace
             lib_dev_ms = sum(kernel_ms(fns[2]).values())
             bound_ms, bound_by = bound(flops, moved, dtype)
-            row, sfx = timing_row(timed, kernel_name, dtype,
-                                  b1_route(dtype, d, h))
+            way = (b1_route(dtype, d, h) if kernel_name.startswith("attention")
+                   else b2_route(dtype, d, d_ff))
+            row, sfx = timing_row(timed, kernel_name, dtype, way)
             row.update({f"max_abs_err{sfx}": bwd_errs[(kernel_name, B, L, d,
                                                        dtype, 0.0)],
                         f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
@@ -2149,25 +2321,25 @@ def main() -> int:
     def reset_counts():
         for k in all_kernels:
             k.launches = 0
-        reset_b1_routes()
+        reset_routes()
 
     def counts():
         got = {k.__name__: k.launches for k in all_kernels}
         for k, by_route in zip(("attention_sublayer_fwd",
-                                "attention_sublayer_bwd"), b1_routes()):
+                                "attention_sublayer_bwd", "ffn_sublayer_fwd",
+                                "ffn_sublayer_bwd"),
+                               b1_routes() + b2_routes()):
             got.update({f"{k}[{way}]": n for way, n in by_route.items()})
         return got
 
     def expect(blocks, fwd, bwd, loss_kernel=None):
         """The launches of a run of ``fwd`` forward and ``bwd`` backward
         passes through ``blocks`` encoder blocks and one loss kernel; every
-        recipe trains in bf16, so B1 takes the tensor cores only."""
+        recipe trains in bf16, so B1 and B2 take the tensor cores only."""
         want = dict.fromkeys(counts(), 0)
         for sub in ("attention_sublayer", "ffn_sublayer"):
-            want[sub + "_fwd"] = blocks * fwd
-            want[sub + "_bwd"] = blocks * bwd
-        want["attention_sublayer_fwd[mma]"] = blocks * fwd
-        want["attention_sublayer_bwd[mma]"] = blocks * bwd
+            want[sub + "_fwd"] = want[sub + "_fwd[mma]"] = blocks * fwd
+            want[sub + "_bwd"] = want[sub + "_bwd[mma]"] = blocks * bwd
         if loss_kernel:
             want[loss_kernel + "_fwd"] = fwd
             want[loss_kernel + "_bwd"] = bwd
@@ -3486,7 +3658,7 @@ def main() -> int:
                   f"{grid['smem_bytes']} B of shared memory a block")
             assert grid["grid"] == grid["blocks_per_sm"] * grid["sms"]
     enc_errs = {}
-    b10_vs_mma = {}
+    b10_vs_mma, c4 = {}, {}
 
     def worst_share(got, ref):
         """The largest max-abs error of ``got`` against ``ref``, tensor by
@@ -3517,14 +3689,21 @@ def main() -> int:
                 plain = encoder_backward_plain(*args28, dy28, **kw)
                 torch.cuda.synchronize()
                 if b1_route(dtype, d, h) == "mma":
-                    # the chain the encoder runs with the switch off, B1 on
-                    # the tensor cores: its distances, recorded
+                    # the chain the encoder runs with the switch off, B1 and
+                    # B2 on the tensor cores: its distances, recorded
                     mma_y, mstate = encoder_chained_fwd(*args28, h, p, "mma")
                     mma = encoder_chained_bwd(mstate, mask28, seeds28,
                                               stacks, fs, dy28, h, p)
                     b10_vs_mma[(b, l, d, n, p)] = (
                         worst_share(got, mma), worst_share(mma, plain),
                         worst_share([y28], [mma_y]))
+                    if (b, l, d, n) == C4_CASE:
+                        ref32 = encoder_backward_plain(
+                            x28.float(), mask28, seeds28, stacks, fs, fb,
+                            dy28.float(), **kw)
+                        c4[p] = tuple(worst_share(t, ref32)
+                                      for t in (got, mma, chained))
+                        del ref32
                     del mma_y, mstate, mma
                 again = encoder_block_bwd(*args28, dy28, **kw)
                 assert all(torch.equal(a, c) for a, c in zip(got, again)), (
@@ -3547,11 +3726,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     for (b, l, d, n, p), (grad_rel, chain_rel, y_rel) in b10_vs_mma.items():
         print(f"B10 bf16 B={b} L={l} d={d} N={n} p={p} against the chain "
-              f"with B1 on the tensor cores (recorded, not held: the two run "
-              f"other tile bodies): worst gradient error {grad_rel:.2e} of "
+              f"with B1 and B2 on the tensor cores (recorded, not held: the "
+              f"two run other tile bodies): worst gradient error "
+              f"{grad_rel:.2e} of "
               f"its tensor's max (phase 7's tolerance {BWD_TOL[torch.bfloat16][0]:g}), "
               f"y {y_rel:.2e}; that chain against plain, worst gradient "
               f"{chain_rel:.2e}")
+    for p, (b10_share, mma_share, simt_share) in c4.items():
+        print(f"C4: at (B, L, d, N)={C4_CASE} bf16 p={p}, the worst gradient "
+              f"error against the fp32 plain chain on the same bf16 inputs "
+              f"and masks, as a share of the reference tensor's max: B10 "
+              f"{b10_share:.4f}, the tensor-core chain (B1 and B2 mma) "
+              f"{mma_share:.4f}, the SIMT chain {simt_share:.4f}; B10 / "
+              f"tensor-core chain {b10_share / mma_share:.3f} (C4 settled "
+              f"if <= {C4_RATIO}: "
+              f"{'yes' if b10_share <= C4_RATIO * mma_share else 'no'})")
     print("phase 28 ok: B10 matches the chained B1/B2 kernels, and its plain "
           "version as closely as they do, forward and backward")
 
@@ -4077,6 +4266,10 @@ def main() -> int:
             "allrank_tpu/ops/attention_block.py:375"),
         "ffn_sublayer_bwd": ("allrank_tpu_torch/csrc/ffn_block.cu",
                              "allrank_tpu/ops/ffn_block.py:233"),
+        "ffn_sublayer_fwd_mma": ("allrank_tpu_torch/csrc/ffn_block_mma.cu",
+                                 "allrank_tpu/ops/ffn_block.py:204"),
+        "ffn_sublayer_bwd_mma": ("allrank_tpu_torch/csrc/ffn_block_mma.cu",
+                                 "allrank_tpu/ops/ffn_block.py:233"),
         "lambda_pairs_fwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
                              "allrank_tpu/ops/lambda_pallas.py:174"),
         "lambda_pairs_bwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
@@ -4140,12 +4333,15 @@ def main() -> int:
                 recipe_launches["approxndcg"]["approx_pos_bwd"],
                 "lambda_tiled_fwd": long_launches["lambda_tiled_fwd"],
                 "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
-    # B1 by route: the fp32 service (phase 5) runs the SIMT forward and the
-    # fp32 step 1 against the CPU (phase 9) its backward; the bf16 train
-    # steps (phase 9) run the tensor-core kernels both ways
-    launches["attention_sublayer_bwd"] = b1_fp32_routes[1]["simt"]
-    launches["attention_sublayer_fwd_mma"] = b1_train_routes[0]["mma"]
-    launches["attention_sublayer_bwd_mma"] = b1_train_routes[1]["mma"]
+    # B1 and B2 by route: the fp32 service (phase 5) runs the SIMT forwards
+    # and the fp32 step 1 against the CPU (phase 9) their backwards; the
+    # bf16 train steps (phase 9) run the tensor-core kernels both ways
+    for sub, fp32_routes, train_routes in (
+            ("attention_sublayer", b1_fp32_routes, b1_train_routes),
+            ("ffn_sublayer", b2_fp32_routes, b2_train_routes)):
+        launches[f"{sub}_bwd"] = fp32_routes[1]["simt"]
+        launches[f"{sub}_fwd_mma"] = train_routes[0]["mma"]
+        launches[f"{sub}_bwd_mma"] = train_routes[1]["mma"]
     # X1: the int8_static service (phase 26)
     launches["q8_dense"] = q8_main_launches["q8_dense"]
     # B10: with the switch on, its service (forward) and its 20 train steps
@@ -4183,7 +4379,7 @@ def main() -> int:
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 33
+    assert len(rows) == 35
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(f"A/B of MEGA_ENCODER_ENABLED, ms per step or call "
           f"{json.dumps(ab_ms)} {tag}")

@@ -52,12 +52,16 @@ from allrank_tpu_torch.ops.encoder_block import (
     encoder_forward_plain,
 )
 from allrank_tpu_torch.ops.ffn_block import (
+    ffn_sublayer,
     ffn_sublayer_bwd,
     ffn_sublayer_bwd_plain,
     ffn_sublayer_fwd,
     ffn_sublayer_fwd_plain,
     gate_flips,
 )
+from allrank_tpu_torch.ops.ffn_block import launch_bwd as ffn_launch_bwd
+from allrank_tpu_torch.ops.ffn_block import launch_fwd as ffn_launch_fwd
+from allrank_tpu_torch.ops.ffn_block import route as ffn_route
 from allrank_tpu_torch.ops.lambda_pairs import (
     SCHEMES,
     lambda_pairs_bwd,
@@ -248,6 +252,29 @@ def _close(got, ref, dtype, what):
     assert err <= tol, f"{what}: max|err| {err} > {tol} (max|ref| {scale})"
 
 
+# ReLU gates a B2 backward may take the other way from the plain version
+# (a pre-activation within rounding of 0), chip_smoke.py's GATE_FLIPS_MAX:
+# a fault upstream moves every pre-activation and flips far more
+GATE_FLIPS_MAX = 8
+FFN_GRADS = ("dx", "dg", "db", "dw1", "db1", "dw2", "db2")
+
+
+def _ffn_replayed_close(got, x, ffn, dy, p, seeds, dtype, what):
+    """ROADMAP Queue C5: a B2 backward against its plain version with the
+    ReLU gates that its dx shows flipped replayed (``gate_flips``): at most
+    ``GATE_FLIPS_MAX`` units, every gradient within ``_close``. Returns the
+    number of flipped gates."""
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -5
+    flip = gate_flips(got[0], x, *ffn, dy, p, p, seeds, rtol=rtol)
+    flips = int(flip.sum())
+    assert flips <= GATE_FLIPS_MAX, f"{what}: {flips} gates flipped"
+    ref = ffn_sublayer_bwd_plain(x, *ffn, dy, p, p, seeds, flip=flip)
+    for name, g, r in zip(FFN_GRADS, got, ref):
+        assert torch.isfinite(g.float()).all(), name
+        _close(g, r, dtype, f"{what} {name}, {flips} gates flipped")
+    return flips
+
+
 @pytest.mark.parametrize("p", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,d_ff,l", [(128, 4, 512, 240), (96, 1, 384, 70),
@@ -290,11 +317,7 @@ def test_backward_kernels_match_plain(cuda, d, h, d_ff, l, dtype, p):
         z.float(), ffn_sublayer_fwd_plain(x, *ffn, p, p, seeds).float(),
         **TOL[dtype])
     got = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
-    ref = ffn_sublayer_bwd_plain(x, *ffn, dy, p, p, seeds)
-    for name, g, r in zip(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"),
-                          got, ref):
-        assert torch.isfinite(g.float()).all(), name
-        _close(g, r, dtype, f"ffn {name}")
+    _ffn_replayed_close(got, x, ffn, dy, p, seeds, dtype, "ffn")
     again = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -307,9 +330,10 @@ def test_ffn_backward_differs_from_plain_only_by_gate_flips(cuda, d, d_ff,
                                                             dtype, p, seed):
     """ROADMAP Queue C5: on these inputs (chip_smoke phase 7's draw at B=64,
     L=240 from a generator of ``seed``) a hidden unit's pre-activation lies
-    within rounding of 0 and its ReLU gate differs between the kernel and
-    the plain version, which moves dx past ``_close``'s tolerance. With the
-    flipped gates replayed (``gate_flips``) every gradient is within it."""
+    within rounding of 0 and its ReLU gate differs between the SIMT kernel
+    (the route that found C5, in bf16 too) and the plain version, which
+    moves dx past ``_close``'s tolerance. With the flipped gates replayed
+    (``gate_flips``) every gradient is within it."""
     gen = torch.Generator().manual_seed(seed)
     ffn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
                         ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
@@ -317,7 +341,7 @@ def test_ffn_backward_differs_from_plain_only_by_gate_flips(cuda, d, d_ff,
     x = torch.randn(64, 240, d, generator=gen).to(dtype).to(cuda)
     dy = torch.randn(64, 240, d, generator=gen).to(dtype).to(cuda)
     seeds = (101, 202)
-    got = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
+    got = ffn_launch_bwd("simt", x, *ffn, dy, p, p, seeds)
     flip = gate_flips(got[0], x, *ffn, dy, p, p, seeds,
                       rtol=1e-4 if dtype == torch.float32 else 2 ** -5)
     # the flips C5 found: a fix of B2's gates, or a new flip rule, shows here
@@ -326,6 +350,131 @@ def test_ffn_backward_differs_from_plain_only_by_gate_flips(cuda, d, d_ff,
     for name, g, r in zip(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"),
                           got, ref):
         _close(g, r, dtype, f"ffn {name}, {int(flip.sum())} gates flipped")
+
+
+@pytest.mark.parametrize("d,d_ff,p,seed", [
+    (96, 384, 0.3, 1), (96, 384, 0.3, 5), (96, 384, 0.0, 1)])
+def test_ffn_mma_backward_on_c5_inputs_differs_only_by_gate_flips(
+        cuda, d, d_ff, p, seed):
+    """C5's bf16 inputs through the tensor-core route, which sums in
+    another order than the SIMT kernels: its flips (if any) replayed, every
+    gradient within ``_close``."""
+    gen = torch.Generator().manual_seed(seed)
+    ffn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                        ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
+                        ((d_ff, d), 0, d_ff ** -0.5), ((d,), 0, 0.1)], cuda)
+    x = torch.randn(64, 240, d, generator=gen).to(torch.bfloat16).to(cuda)
+    dy = torch.randn(64, 240, d, generator=gen).to(torch.bfloat16).to(cuda)
+    seeds = (101, 202)
+    got = ffn_launch_bwd("mma", x, *ffn, dy, p, p, seeds)
+    _ffn_replayed_close(got, x, ffn, dy, p, seeds, torch.bfloat16,
+                        "ffn (mma)")
+
+
+# B2's bf16 widths: d within one warp's 128 output columns (32, 96, 128) or
+# split over two warps (144, 256), d_ff whole 64-unit chunks;
+# test_b2_mma_edge_shapes takes d and d_ff off those steps
+B2_MMA_WIDTHS = [(d, d_ff) for d in (32, 96, 128, 144, 256)
+                 for d_ff in (384, 512, 1024)]
+
+
+def _b2_mma_case(cuda, b, l, d, d_ff, p, seed, offset=0):
+    """B2 in bf16 through its tensor-core route against the plain version:
+    the forward, the backward with the C5 replay, a second backward bit for
+    bit; x and dy moved ``offset`` elements off a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(seed)
+    bf16 = torch.bfloat16
+    x = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
+    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
+    if offset:
+        moved = []
+        for t in (x, dy):
+            flat = torch.empty(t.numel() + offset, dtype=bf16, device=cuda)
+            m = flat[offset:].view(t.shape)
+            m.copy_(t)
+            assert m.data_ptr() % 16 != 0
+            moved.append(m)
+        x, dy = moved
+    ffn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                        ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
+                        ((d_ff, d), 0, d_ff ** -0.5), ((d,), 0, 0.1)], cuda)
+    seeds = (31, 32)
+    before = (ffn_sublayer_fwd.route_launches["mma"],
+              ffn_sublayer_bwd.route_launches["mma"])
+    y = ffn_sublayer_fwd(x, *ffn, p, p, seeds)
+    got = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
+    again = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
+    torch.cuda.synchronize()
+    assert (ffn_sublayer_fwd.route_launches["mma"],
+            ffn_sublayer_bwd.route_launches["mma"]) == (
+        before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(
+        y.float(), ffn_sublayer_fwd_plain(x, *ffn, p, p, seeds).float(),
+        **TOL[bf16])
+    _ffn_replayed_close(got, x, ffn, dy, p, seeds, bf16, "ffn (mma)")
+    for name, g, g2 in zip(FFN_GRADS, got, again):
+        assert torch.equal(g, g2), f"{name} differs between two backwards"
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("l", [1, 65, 240, 1024])
+@pytest.mark.parametrize("d,d_ff", B2_MMA_WIDTHS)
+def test_b2_mma_kernels_match_plain(cuda, d, d_ff, l, p):
+    """Each of B2's tensor-core instantiations (d <= 128 and above) at
+    ragged d and d_ff, L from 1 to 1024, dropout 0 and 0.3."""
+    _b2_mma_case(cuda, 2 if l == 1024 else 3, l, d, d_ff, p,
+                 seed=7 * d + d_ff + l)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("d,d_ff", [(128, 512), (96, 384), (144, 512)])
+def test_b2_mma_rows_off_a_16_byte_boundary(cuda, d, d_ff, p):
+    """x and dy whose storage starts 2 bytes past a 16-byte boundary: the
+    kernels read them element by element."""
+    _b2_mma_case(cuda, 3, 65, d, d_ff, p, seed=d + d_ff, offset=1)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("b,l,d,d_ff", [(3, 70, 8, 72), (2, 65, 100, 1000),
+                                        (1, 1, 256, 1000)])
+def test_b2_mma_edge_shapes(cuda, b, l, d, d_ff, p):
+    """d < 16 (padded to one 16-column step) and d_ff short of a whole
+    64-unit chunk; d not a whole step with d_ff 1000; one row at the widest
+    d."""
+    _b2_mma_case(cuda, b, l, d, d_ff, p, seed=d + d_ff + l)
+
+
+def test_b2_routes_count_their_launches(cuda):
+    """bf16 takes the tensor cores, fp32 the SIMT kernels: each route counts
+    its own launches, the totals count both; the SIMT kernels also take
+    bf16 when asked by name (B10's reference chain)."""
+    gen = torch.Generator().manual_seed(6)
+    d, d_ff = 128, 512
+    ffn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
+                        ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
+                        ((d_ff, d), 0, d_ff ** -0.5), ((d,), 0, 0.1)], cuda)
+    for dtype, way in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+        assert ffn_route(dtype, d, d_ff) == way
+        x = torch.randn(2, 33, d, generator=gen).to(dtype).to(cuda)
+        fwd_before = dict(ffn_sublayer_fwd.route_launches)
+        bwd_before = dict(ffn_sublayer_bwd.route_launches)
+        totals = (ffn_sublayer_fwd.launches, ffn_sublayer_bwd.launches)
+        xx = x.clone().requires_grad_()
+        ffn_sublayer(xx, *ffn).float().sum().backward()
+        torch.cuda.synchronize()
+        for k, before in ((ffn_sublayer_fwd, fwd_before),
+                          (ffn_sublayer_bwd, bwd_before)):
+            assert k.route_launches == {**before, way: before[way] + 1}
+        assert (ffn_sublayer_fwd.launches, ffn_sublayer_bwd.launches) == (
+            totals[0] + 1, totals[1] + 1)
+    x = torch.randn(2, 33, d, generator=gen).to(torch.bfloat16).to(cuda)
+    before = ffn_sublayer_fwd.route_launches["simt"]
+    y = ffn_launch_fwd("simt", x, *ffn)
+    assert ffn_sublayer_fwd.route_launches["simt"] == before + 1
+    torch.testing.assert_close(y.float(), ffn_sublayer_fwd_plain(x, *ffn)
+                               .float(), **TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="no 'mma' kernels"):
+        ffn_launch_fwd("mma", x.float(), *ffn)
 
 
 # (d_model, h) of each head width of B1's bf16 tensor-core kernels: d_k 8,
@@ -1208,10 +1357,12 @@ def _encoder_inputs(gen, b, l, d, h, d_ff, n, dtype, dev):
     return x, dy, mask, seeds, stacks, fs, fb
 
 
-def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p):
-    """The same function through the chained B1/B2 kernels of B10's own
-    tile bodies (B1 on its SIMT route, in bf16 too), the final LayerNorm in
-    torch ops: (y, (dx, *12 stacked gradients, dfs, dfb))."""
+def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p, way="simt"):
+    """The same function through the chained B1/B2 kernels of route ``way``:
+    by default B10's own tile bodies (both on their SIMT routes, in bf16
+    too), ``"mma"`` the tensor cores as the encoder runs them with the
+    switch off in bf16; the final LayerNorm in torch ops: (y, (dx, *12
+    stacked gradients, dfs, dfb))."""
     from allrank_tpu_torch.models.core import std_layer_norm
     from allrank_tpu_torch.ops.attention_block import launch_bwd, ln_backward
 
@@ -1220,20 +1371,20 @@ def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p):
     for n in range(n_blocks):
         w = [s[n] for s in stacks]
         inputs.append(x)
-        x, sv = launch_fwd("simt", x, mask, *w[:6], h, p, p,
+        x, sv = launch_fwd(way, x, mask, *w[:6], h, p, p,
                            seeds[4 * n:4 * n + 2], return_saved=True)
         saved.append(sv)
         inputs.append(x)
-        x = ffn_sublayer_fwd(x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
+        x = ffn_launch_fwd(way, x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
     y = std_layer_norm(x, fs, fb)
     dz, dfs, dfb = ln_backward(x.float(), fs, dy.float())
     g = dz.to(x.dtype)
     grads = [[None] * n_blocks for _ in range(12)]
     for n in reversed(range(n_blocks)):
         w = [s[n] for s in stacks]
-        g, *ffn = ffn_sublayer_bwd(inputs[2 * n + 1], *w[6:], g, p, p,
-                                   seeds[4 * n + 2:4 * n + 4])
-        g, *attn = launch_bwd("simt", inputs[2 * n], mask, *w[:6], g, h, p,
+        g, *ffn = ffn_launch_bwd(way, inputs[2 * n + 1], *w[6:], g, p, p,
+                                 seeds[4 * n + 2:4 * n + 4])
+        g, *attn = launch_bwd(way, inputs[2 * n], mask, *w[:6], g, h, p,
                               p, seeds[4 * n:4 * n + 2], saved=saved[n])
         for i, t in enumerate(attn + ffn):
             grads[i][n] = t
@@ -1261,6 +1412,21 @@ def _no_further(got, chained, ref, dtype, what, forward=False):
         f"{what}: max|err| {err} > chained's {base} + {tol}")
 
 
+# ROADMAP Queue C4's case (B, L, d, h, d_ff, N) and its rule: B10 in bf16
+# is no fault if it lies no farther from the fp32 plain chain on the same
+# bf16 inputs and masks than the tensor-core chain the encoder runs with the
+# switch off does (at most 1.5x its distance)
+C4_CASE, C4_RATIO = (8, 240, 144, 2, 384, 2), 1.5
+
+
+def _worst_share(got, ref):
+    """The largest max-abs error of ``got`` against ``ref``, tensor by
+    tensor, as a share of the reference tensor's largest value."""
+    return max((g.float() - r.float()).abs().max().item()
+               / (r.float().abs().max().item() + 1e-30)
+               for g, r in zip(got, ref))
+
+
 ENCODER_GRADS = ("dx", "dln1_s", "dln1_b", "dwqkv", "dbqkv", "dwout",
                  "dbout", "dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2",
                  "dfinal_s", "dfinal_b")
@@ -1269,7 +1435,8 @@ ENCODER_GRADS = ("dx", "dln1_s", "dln1_b", "dwqkv", "dbqkv", "dwout",
 @pytest.mark.parametrize("p", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,l,d,h,d_ff,n", [(3, 70, 64, 2, 128, 2),
-                                            (64, 240, 128, 4, 512, 4)])
+                                            (64, 240, 128, 4, 512, 4),
+                                            C4_CASE])
 def test_encoder_kernels_match_plain_and_chained(cuda, b, l, d, h, d_ff, n,
                                                  dtype, p):
     gen = torch.Generator().manual_seed(b + l)
@@ -1302,6 +1469,18 @@ def test_encoder_kernels_match_plain_and_chained(cuda, b, l, d, h, d_ff, n,
     # no atomics: a second backward gives the same bits
     again = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    if (b, l, d, h, d_ff, n) == C4_CASE and dtype == torch.bfloat16:
+        # C4: B10, the tensor-core chain and the SIMT chain against the
+        # fp32 plain chain on the same bf16 inputs and masks
+        _, mma = _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p,
+                                  way="mma")
+        ref32 = encoder_backward_plain(x.float(), mask, seeds, stacks, fs,
+                                       fb, dy.float(), **kw)
+        shares = [_worst_share(t, ref32) for t in (got, mma, chained)]
+        assert shares[0] <= C4_RATIO * shares[1], (
+            f"C4: B10 {shares[0]:.4f} of the reference's max, the "
+            f"tensor-core chain {shares[1]:.4f}, the SIMT chain "
+            f"{shares[2]:.4f}")
 
 
 def test_encoder_cooperative_grid_fits_the_card(cuda):

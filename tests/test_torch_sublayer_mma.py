@@ -194,3 +194,26 @@ def test_the_library_yardstick_computes_b1s_function(h):
                                attention_sublayer_fwd_plain(xt, mt, *pt, h),
                                rtol=1e-4, atol=1e-5)
 
+
+
+def test_busy_time_counts_overlapping_spans_once():
+    """The device's busy time in a trace (``time_sublayers --step``, chip
+    smoke's profiles): the union of the kernels' spans."""
+    from allrank_tpu_torch.tools.timing import busy_us
+
+    spans = [("a", 0.0, 10.0), ("b", 5.0, 12.0), ("c", 20.0, 25.0),
+             ("d", 21.0, 22.0)]
+    assert busy_us(spans) == 17.0
+    assert busy_us(spans[::-1]) == 17.0  # in any order
+
+
+def test_the_step_tool_builds_bench_configs_step():
+    """``time_sublayers --step``'s step: bench.py's configuration (the
+    flagship model, bf16, lambdaLoss) takes a step with a finite loss over
+    all 64 slates; on the CPU it runs the plain versions."""
+    from allrank_tpu_torch.tools.time_sublayers import B, L, flagship_step
+
+    step, (x, y, indices) = flagship_step(torch.device("cpu"))
+    assert x.shape == (B, L, 136) and (indices[:, -40:] == -1).all()
+    loss, n_real = step(x, y, indices)
+    assert torch.isfinite(loss) and n_real.item() == B
