@@ -46,16 +46,25 @@
 //    P^T and dS^T come out as the A fragments of dV += round(P_d)^T dO and
 //    dK += round(dS)^T Q. Both take S and dP over 32-wide halves of a tile;
 //    dP sums each 16-deep step from zero and adds the steps in fp32.
-//  * fp32 keeps the SIMT kernels, fp32 FMAs (the parity fp32 promises):
-//    fused_fwd_kernel here and attention_core.cuh's backward.
+//  * fp32 runs on the tensor cores as 3xTF32 split products
+//    (attention_tf32x3.cuh: three TF32 products an fp32 one, some 2^-21 of
+//    it, the parity fp32 promises), in the bf16 kernels' flow: the forward's
+//    two passes (fused_fwd_tf32x3_kernel), then a dQ kernel whose first walk
+//    takes D = rowsum(dPd * P) and a dK/dV kernel, both shared with B5. Its
+//    bound is the operations at a third of the card's 495 TFLOP/s TF32
+//    rate: 0.036 / 0.089 ms at (8, 4, 1200, 32), 0.42 / 1.04 ms at
+//    (8, 4, 4096, 32), where the SIMT fp32 FMAs it replaces were bound at
+//    0.088 / 0.22 and 1.03 / 2.56 ms. Every fp32 kernel forms P
+//    from the scaled score less the row's max (f32_prob), so where a row
+//    has a single key P is exactly 1 and dP - D exactly 0.
 //  * Keys past L have weight 0 and padded keys score -1e9, so a fully padded
 //    slate averages v over its L keys, never NaN: its max is NEG_INF_FILL,
 //    and each exponent NEG_INF_FILL in base 2 less that max in base 2, both
 //    rounded alike, exactly 0.
 //  * At B = 8, h = 4, L = 8192 the probability index reaches 2.1e9: it is a
 //    64-bit size_t throughout.
-#include "attention_core.cuh"
 #include "attention_mma_tiles.cuh"
+#include "attention_tf32x3.cuh"
 
 namespace allrank {
 namespace {
@@ -68,99 +77,6 @@ constexpr int kFusedQueryTile = 64;  // queries a tile of the dK/dV kernel
 // timed, the (16, 1200) step's among them (PERF.md section 6, B4's
 // redesign).
 constexpr int fused_dq_min_blocks(int dk_max) { return dk_max <= 32 ? 4 : 1; }
-
-// The fp32 forward on the SIMT units (common.cuh's 64 x 64 register tiles).
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-    fused_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const unsigned char* __restrict__ key_mask,
-                     T* __restrict__ out, float* __restrict__ stats, int L,
-                     int dk, int h, float scale, DropStream drop) {
-  extern __shared__ float smem[];
-  const int dkp = head_pad(dk), ldq = dkp + 1;
-  float* Qs = smem;                // [64][ldq] query rows
-  float* Ps = Qs + kTile * ldq;    // [64][kLdB] probabilities
-  float* KV = Ps + kTile * kLdB;   // keys transposed [dk][kLdB], then values [64][dkp]
-  const int g = blockIdx.y, q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)g * L * dk;
-  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nt = dkp / kTile;
-
-  stage_rows_tile(Qs, ldq, q + base, q0, L, dk, dkp);
-  float m[4], l[4], o[2][4][4] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  // pass 0: row max and sum; pass 1: probabilities and P . v
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < L; k0 += kTile) {
-      stage_cols_tile(KV, k + base, k0, L, dk);
-      __syncthreads();
-      float s[4][4] = {};
-      mma_tile(s, Qs, ldq, KV, kLdB, dk);
-      __syncthreads();
-      if (pass == 1) stage_rows_tile(KV, dkp, v + base, k0, L, dk, dkp);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + tx + 16 * j;
-          s[i][j] = key < L ? masked_score(s[i][j], scale, key, padded)
-                            : -INFINITY;
-        }
-        if (pass == 0) {
-          float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-          const float new_max = fmaxf(m[i], half_max(tmax));
-          float tsum = 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) tsum += expf(s[i][j] - new_max);
-          l[i] = l[i] * expf(m[i] - new_max) + half_sum(tsum);
-          m[i] = new_max;
-        } else {
-          const size_t prob0 = ((size_t)g * L + q0 + r) * L + k0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = tx + 16 * j;
-            float p = expf(s[i][j] - m[i]) * (1.f / l[i]);
-            if (drop.on)
-              p = drop_keep(drop, prob0 + c) ? p / drop.denom : 0.f;
-            Ps[r * kLdB + c] = round_to<T>(p);
-          }
-        }
-      }
-      if (pass == 0) continue;
-      __syncthreads();
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        if (t < nt) mma_tile(o[t], Ps, kLdB, KV + t * kTile, dkp, kTile);
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= L) continue;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = t * kTile + tx + 16 * j;
-        if (t < nt && c < dk)
-          out[base + (size_t)(q0 + r) * dk + c] = from_float<T>(o[t][i][j]);
-      }
-    }
-    if (stats != nullptr && tx == 0) {
-      const size_t row = (size_t)g * L + q0 + r;
-      stats[2 * row] = m[i];
-      stats[2 * row + 1] = l[i];
-    }
-  }
-}
 
 // The forward on the tensor cores, bf16: one block of kFwdWarps warps per
 // (16 kFwdWarps queries, slate-head), each warp 16 query rows with their q
@@ -619,13 +535,271 @@ cudaError_t fused_bwd_bf16(const void* q, const void* k, const void* v,
                   dk, h, scale, drop, stream);
 }
 
+
+// ---- fp32: 3xTF32 on the tensor cores (attention_tf32x3.cuh) ----
+
+// The masked, scaled scores of one 64-key tile for the warp's 16 rows, in
+// place: padded keys NEG_INF_FILL, keys past L -inf (weight 0); kLive (no
+// key of the tile padded or past L) only scales.
+template <bool kLive>
+__device__ __forceinline__ void b4_scores_f32(float (*s)[4],
+                                              const uint32_t* kb,
+                                              float scale) {
+  const int col = 2 * (threadIdx.x % 4);
+  const uint32_t pad[2] = {kb[0] >> col, kb[1] >> col};
+  const uint32_t past[2] = {kb[2] >> col, kb[3] >> col};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int bit = 8 * (j & 3) + (e & 1);
+      const bool pad_key = !kLive && ((pad[j >> 2] >> bit) & 1u);
+      const bool past_key = !kLive && ((past[j >> 2] >> bit) & 1u);
+      s[j][e] = past_key  ? -INFINITY
+                : pad_key ? kNegInfFill
+                          : __fmul_rn(s[j][e], scale);
+    }
+}
+
+// The fp32 forward: one block of f32_fwd_warps(kDk) warps per (16 warps
+// queries, slate-head), each warp 16 query rows, their q split once into
+// hi and lo planes; 2 n steps through the ring, n the key tiles: pass 1
+// stages keys only and takes each row's max and sum (online, rescaled per
+// tile), pass 2 keys and values for P = exp2((sc - max) log2(e)) * (1 /
+// sum), dropped, and P . v, each tile's summed from zero and added in fp32.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * f32_fwd_warps(kDk))
+    fused_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const unsigned char* __restrict__ key_mask,
+                            float* __restrict__ out,
+                            float* __restrict__ stats, int L, int dk, int h,
+                            float scale, DropStream drop) {
+  constexpr int kSt = f32_fwd_stages(kDk);
+  constexpr int kThreads = 32 * f32_fwd_warps(kDk);
+  constexpr int kRows = 16 * f32_fwd_warps(kDk);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dkp = f32_head_pad(dk), pitch = f32_pitch(dkp), nk = dkp / 8;
+  const int tile = kFusedKeyTile * pitch;
+  float* Qh = reinterpret_cast<float*>(smem_raw);  // [kRows][pitch] q, hi
+  float* Ql = Qh + kRows * pitch;                  // q, lo
+  float* Ks = Ql + kRows * pitch;   // [kSt][64][pitch] key tiles
+  float* Vs = Ks + kSt * tile;      // [kSt][64][pitch] value tiles
+  uint32_t* bits = reinterpret_cast<uint32_t*>(Vs + kSt * tile);
+  const int g = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t base = (size_t)g * L * dk;
+  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
+  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
+  const int wrow = (threadIdx.x / 32) * 16;
+  const int n_tiles = (L + kFusedKeyTile - 1) / kFusedKeyTile;
+  const int n_steps = 2 * n_tiles;
+
+  // step i into ring slot b: key tile i mod n, its keys' bits and, in pass
+  // 2, its values
+  auto stage = [&](int i, int b) {
+    const int k0 = (i < n_tiles ? i : i - n_tiles) * kFusedKeyTile;
+    stage_f32_rows<kFusedKeyTile, kThreads, kAligned>(Ks + b * tile, k + base,
+                                                      k0, L, dk, dkp);
+    if (i >= n_tiles)
+      stage_f32_rows<kFusedKeyTile, kThreads, kAligned>(Vs + b * tile,
+                                                        v + base, k0, L, dk,
+                                                        dkp);
+    stage_key_bits(bits + 4 * b, padded, k0, L);
+  };
+  stage_f32_rows<kRows, kThreads, kAligned>(Qh, q + base, q0, L, dk, dkp);
+#pragma unroll
+  for (int i = 0; i < kSt - 1; ++i) {
+    stage(i, i);  // n_steps >= 2
+    cp_async_commit();
+  }
+  cp_async_wait<kSt - 2>();
+  __syncthreads();
+  split_planes<kRows, kThreads>(Qh, Ql, pitch, dkp);
+
+  float o[kDk / 8][4] = {};
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, rinv[2];
+  for (int it = 0, buf = 0; it < n_steps;
+       ++it, buf = buf == kSt - 1 ? 0 : buf + 1) {
+    // step it has landed; after the barrier every warp is done with the
+    // slot that step it + kSt - 1 takes
+    cp_async_wait<kSt - 2>();
+    __syncthreads();
+    if (it + kSt - 1 < n_steps)
+      stage(it + kSt - 1, buf == 0 ? kSt - 1 : buf - 1);
+    cp_async_commit();
+    const uint32_t* kb = bits + 4 * buf;
+    float s[8][4] = {};
+    rows_by_rows_f32<kDk, 8, true>(s, Qh, Ql, wrow, Ks + buf * tile, pitch,
+                                   nk);
+    if ((kb[0] | kb[1] | kb[2] | kb[3]) == 0)
+      b4_scores_f32<true>(s, kb, scale);
+    else
+      b4_scores_f32<false>(s, kb, scale);
+    if (it < n_tiles) {
+      // pass 1: the rows' running max and sum
+      float mx[2][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          mx[r][j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+      float m_new[2], psum[2][8];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m_new[r] = fmaxf(m[r], quad_max(tree_max8(mx[r])));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = f32_prob(s[j][e], m_new[e >> 1], 1.f);
+          psum[e >> 1][j] = e & 1 ? psum[e >> 1][j] + p : p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * f32_prob(m[r], m_new[r], 1.f) +
+               quad_sum(tree_sum8(psum[r]));
+        m[r] = m_new[r];
+      }
+      continue;
+    }
+    if (it == n_tiles) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) rinv[r] = 1.f / l[r];
+    }
+    // pass 2: P, dropped, and P . v
+    const size_t rows_at = ((size_t)g * L + q0 + wrow) * L +
+                           (size_t)(it - n_tiles) * kFusedKeyTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = f32_prob(s[j][e], m[r], rinv[r]);
+        if (drop.on)
+          p = drop_keep(drop, rows_at + (size_t)(lane / 4 + 8 * r) * L +
+                                  8 * j + col + (e & 1))
+                  ? p / drop.denom
+                  : 0.f;
+        s[j][e] = p;
+      }
+    float t[kDk / 8][4] = {};
+    weigh_rows_f32<kDk, 8>(t, s, Vs + buf * tile, pitch, nk);
+    add_tiles<kDk>(o, t);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wrow + lane / 4 + 8 * r;
+    if (stats != nullptr && lane % 4 == 0 && row < L) {
+      stats[2 * ((size_t)g * L + row)] = m[r];
+      stats[2 * ((size_t)g * L + row) + 1] = l[r];
+    }
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows_f32<kDk>(out + base, o, one, q0 + wrow, L, dk, nk);
+}
+
+// The fp32 backward (attention_tf32x3.cuh): dQ, whose first walk takes
+// D = rowsum(dPd P), then dK/dV, each from the rows' max and sum.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * f32_dq_warps(kDk))
+    fused_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const unsigned char* __restrict__ key_mask,
+                               const float* __restrict__ stats,
+                               const float* __restrict__ dO,
+                               const float* __restrict__ O,
+                               float* __restrict__ Dg, float* __restrict__ dq,
+                               int L, int dk, int h, float scale,
+                               DropStream drop) {
+  bwd_dq_tf32x3<false, kDk, kAligned>(q, k, v, key_mask, stats, dO, O, Dg,
+                                      dq, L, dk, h, scale, drop);
+}
+
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * f32_dkv_warps(kDk))
+    fused_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const unsigned char* __restrict__ key_mask,
+                                const float* __restrict__ stats,
+                                const float* __restrict__ Dg,
+                                const float* __restrict__ dO,
+                                float* __restrict__ dk_out,
+                                float* __restrict__ dv_out, int L, int dk,
+                                int h, float scale, DropStream drop) {
+  bwd_dkv_tf32x3<false, kDk, kAligned>(q, k, v, key_mask, stats, Dg, dO,
+                                       dk_out, dv_out, L, dk, h, scale, drop);
+}
+
+// The fp32 forward for head widths padded to at most kDk.
+template <int kDk, bool kAligned>
+cudaError_t launch_fused_fwd_tf32x3(const void* q, const void* k,
+                                    const void* v, const void* key_mask,
+                                    void* out, void* stats, int G, int L,
+                                    int dk, int h, float scale,
+                                    DropStream drop, cudaStream_t stream) {
+  constexpr int kSt = f32_fwd_stages(kDk);
+  constexpr int kRows = 16 * f32_fwd_warps(kDk);
+  auto kernel = fused_fwd_tf32x3_kernel<kDk, kAligned>;
+  const size_t smem = f32_smem(dk, 2 * kRows + 2 * kSt * kFusedKeyTile,
+                               4 * kSt * sizeof(uint32_t));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((L + kRows - 1) / kRows, G), 32 * f32_fwd_warps(kDk), smem,
+           stream>>>(static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const unsigned char*>(key_mask),
+                     static_cast<float*>(out), static_cast<float*>(stats), L,
+                     dk, h, scale, drop);
+  return cudaGetLastError();
+}
+
+// The fp32 backward's two kernels, dQ (which writes D) then dK/dV.
+template <int kDk, bool kAligned>
+cudaError_t launch_fused_bwd_tf32x3(const void* q, const void* k,
+                                    const void* v, const void* key_mask,
+                                    const void* stats, const void* dO,
+                                    void* D, void* dq, void* dk_out,
+                                    void* dv_out, int G, int L, int dk, int h,
+                                    float scale, DropStream drop,
+                                    cudaStream_t stream) {
+  return launch_bwd_tf32x3<kDk>(fused_bwd_dq_tf32x3_kernel<kDk, kAligned>,
+                                fused_bwd_dkv_tf32x3_kernel<kDk, kAligned>, q,
+                                k, v, key_mask, stats, dO, nullptr, D, dq,
+                                dk_out, dv_out, G, L, dk, h, scale, drop,
+                                stream);
+}
+
+cudaError_t fused_fwd_f32(const void* q, const void* k, const void* v,
+                          const void* key_mask, void* out, void* stats, int G,
+                          int L, int dk, int h, float scale, DropStream drop,
+                          cudaStream_t stream) {
+  MMA_DK_DISPATCH(launch_fused_fwd_tf32x3, dk,
+                  rows_aligned(dk, {q, k, v}, 4), q, k, v, key_mask, out,
+                  stats, G, L, dk, h, scale, drop, stream);
+}
+
+cudaError_t fused_bwd_f32(const void* q, const void* k, const void* v,
+                          const void* key_mask, const void* stats,
+                          const void* dO, void* D, void* dq, void* dk_out,
+                          void* dv_out, int G, int L, int dk, int h,
+                          float scale, DropStream drop, cudaStream_t stream) {
+  MMA_DK_DISPATCH(launch_fused_bwd_tf32x3, dk,
+                  rows_aligned(dk, {q, k, v, dO}, 4), q, k, v, key_mask,
+                  stats, dO, D, dq, dk_out, dv_out, G, L, dk, h, scale, drop,
+                  stream);
+}
+
 }  // namespace
 }  // namespace allrank
 
 // Launches the forward on `stream`; returns 0 or the CUDA error code. q, k,
-// v and out are [G, L, d_k] (G = B * h, d_k <= 128) in bf16 if is_bf16 (the
-// tensor-core kernel), else fp32 (the SIMT kernel); key_mask is [B, L]
-// bytes, non-zero at padded documents. stats ([G, L, 2] fp32: each row's max
+// v and out are [G, L, d_k] (G = B * h, d_k <= 128) in bf16 if is_bf16,
+// else fp32 (3xTF32), both on the tensor cores; key_mask is [B, L] bytes,
+// non-zero at padded documents. stats ([G, L, 2] fp32: each row's max
 // and sum) may be null. drop_keys holds {k0, k1, threshold} of the
 // probability stream (ops/dropout.py), p_drop its rate (0: no dropout).
 extern "C" int attention_fused_fwd(const void* q, const void* k,
@@ -639,9 +813,8 @@ extern "C" int attention_fused_fwd(const void* q, const void* k,
   if (is_bf16)
     return allrank::fused_fwd_bf16(q, k, v, key_mask, out, stats, G, L, dk, h,
                                    scale, drop, s);
-  return allrank::launch_attn_fwd<float>(allrank::fused_fwd_kernel<float>, q,
-                                         k, v, key_mask, out, stats, G, L, dk,
-                                         h, scale, drop, s);
+  return allrank::fused_fwd_f32(q, k, v, key_mask, out, stats, G, L, dk, h,
+                                scale, drop, s);
 }
 
 // Launches the backward's two kernels on `stream`; returns 0 or the CUDA
@@ -660,8 +833,6 @@ extern "C" int attention_fused_bwd(const void* q, const void* k,
   if (is_bf16)
     return allrank::fused_bwd_bf16(q, k, v, key_mask, stats, dO, D, dq, dk_out,
                                    dv_out, G, L, dk, h, scale, drop, s);
-  return allrank::launch_attn_bwd<float, false>(q, k, v, key_mask, stats, dO,
-                                                nullptr, D, dq, dk_out,
-                                                dv_out, G, L, dk, h, scale,
-                                                drop, s);
+  return allrank::fused_bwd_f32(q, k, v, key_mask, stats, dO, D, dq, dk_out,
+                                dv_out, G, L, dk, h, scale, drop, s);
 }

@@ -274,11 +274,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// True when every row of each [L, dk] bf16 array in `rows` starts on a
-// 16-byte boundary: dk % 8 == 0 and each base pointer 16-byte aligned (a
+// True when every row of each [L, dk] array in `rows`, of elements of
+// elem_bytes (bf16 by default), starts on a 16-byte boundary: dk elements a
+// whole number of 16-byte units and each base pointer 16-byte aligned (a
 // contiguous view may start anywhere in its storage).
-inline bool rows_aligned(int dk, std::initializer_list<const void*> rows) {
-  if (dk % 8 != 0) return false;
+inline bool rows_aligned(int dk, std::initializer_list<const void*> rows,
+                         int elem_bytes = 2) {
+  if (dk * elem_bytes % 16 != 0) return false;
   for (const void* p : rows)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;

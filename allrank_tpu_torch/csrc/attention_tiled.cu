@@ -58,110 +58,33 @@
 //    are copied in 16-byte pieces when d_k % 8 == 0 and q, k, v (and dO)
 //    start on 16-byte boundaries, and element by element otherwise, a
 //    template flag of the same kernels.
-//  * fp32 keeps the SIMT kernels (tiled_fwd_kernel and attention_core.cuh's
-//    backward on fp32 FMAs): bf16 tensor cores would lose the parity that
-//    fp32 promises. There the dQ kernel takes D = rowsum(dO * O) itself, in
-//    the order it sums dP, so that dP - D cancels where a row has one key.
+//  * fp32 runs on the tensor cores too, each product as three TF32
+//    products (3xTF32, attention_tf32x3.cuh), some 2^-21 of a product where
+//    bf16 would lose the parity fp32 promises. Its bound: 4 (forward) or 10
+//    (backward) B h L^2 d_k operations at a third of the card's 495 TFLOP/s
+//    TF32 rate, 0.42 / 1.04 ms at (8, 4, 4096, 32), where the SIMT fp32 FMAs
+//    it replaces were bound at 1.03 / 2.56 ms and took 6.05 / 22.43 ms of
+//    device time on an H100 SXM (PERF.md, B5's rows).
+//    The design is the bf16 one in fp32 tiles: q split once into hi and lo
+//    planes, k and v split as each warp reads its fragments, P kept in
+//    registers by permuting the keys of each k8 step (no shared-memory
+//    trip), every tile's P . v summed from zero because the tensor cores
+//    truncate their sums; block shapes fp32's shared memory allows
+//    (f32_fwd_warps, f32_dq_warps, f32_dkv_warps, their stages). The dQ
+//    kernel takes D = rowsum(dO * O) itself, through the split product that
+//    gives dP, so that dP - D cancels exactly where a row has one key
+//    (ROADMAP C3); under dropout, where O carries 1 / (1 - p), B4's
+//    D = rowsum(dPd * P) from a first walk over the keys.
 //  * At B = 8, h = 4, L = 8192 the probability index reaches 2.1e9: it is a
 //    64-bit size_t throughout.
-#include "attention_core.cuh"
 #include "attention_mma_tiles.cuh"
+#include "attention_tf32x3.cuh"
 
 namespace allrank {
 namespace {
 
 constexpr int kKeyTile = 64;    // key tile width: ops/attention_tiled.TILE_K
 constexpr int kQueryTile = 64;  // query tile the dK/dV kernel streams
-
-// The fp32 forward on the SIMT units (common.cuh's 64 x 64 register tiles).
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-    tiled_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const unsigned char* __restrict__ key_mask,
-                     T* __restrict__ out, float* __restrict__ lse, int L,
-                     int dk, int h, float scale, DropStream drop) {
-  extern __shared__ float smem[];
-  const int dkp = head_pad(dk), ldq = dkp + 1;
-  float* Qs = smem;                // [64][ldq] query rows
-  float* Ps = Qs + kTile * ldq;    // [64][kLdB] unnormalised probabilities
-  float* KV = Ps + kTile * kLdB;   // keys transposed [dk][kLdB], then values [64][dkp]
-  const int g = blockIdx.y, q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)g * L * dk;
-  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nt = dkp / kTile;
-
-  stage_rows_tile(Qs, ldq, q + base, q0, L, dk, dkp);
-  float m[4], l[4], o[2][4][4] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    stage_cols_tile(KV, k + base, k0, L, dk);
-    __syncthreads();
-    float s[4][4] = {};
-    mma_tile(s, Qs, ldq, KV, kLdB, dk);
-    __syncthreads();
-    stage_rows_tile(KV, dkp, v + base, k0, L, dk, dkp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        s[i][j] = key < L ? masked_score(s[i][j], scale, key, padded)
-                          : -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(tmax));
-      const float alpha = expf(m[i] - m_new);
-      const size_t prob0 = ((size_t)g * L + q0 + r) * L + k0;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] - m_new);
-        psum += p;
-        if (drop.on && !drop_keep(drop, prob0 + c)) p = 0.f;
-        Ps[r * kLdB + c] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + half_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[t][i][j] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-      if (t < nt) mma_tile(o[t], Ps, kLdB, KV + t * kTile, dkp, kTile);
-    __syncthreads();
-  }
-  const float inv = drop.on ? drop.inv : 1.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= L) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    const float f = inv / denom;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = t * kTile + tx + 16 * j;
-        if (t < nt && c < dk)
-          out[base + (size_t)(q0 + r) * dk + c] = from_float<T>(o[t][i][j] * f);
-      }
-    }
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)g * L + q0 + r] = m[i] + logf(denom);
-  }
-}
 
 // One key tile of the forward's recurrence (JAX attention_tiled.py:78-101)
 // for the warp's 16 rows: s holds the tile's scores q . k^T and leaves with
@@ -613,13 +536,257 @@ cudaError_t tiled_bwd_bf16(const void* q, const void* k, const void* v,
                      h, scale, drop, stream);
 }
 
+
+// ---- fp32: 3xTF32 on the tensor cores (attention_tf32x3.cuh) ----
+
+// One key tile of the fp32 forward's recurrence (JAX attention_tiled.py:
+// 78-101) for the warp's 16 rows: s holds the tile's q . k^T and leaves with
+// p, the keep mask applied, for P . v; m and l are updated and alpha, the
+// rescaling of the rows' running sums, returned. Scores are scaled first,
+// so a row's max is in the units of f32_prob and where the row has one key
+// its exponent is exactly 0. kLive (a tile of live keys only) takes no
+// mask; otherwise padded keys score NEG_INF_FILL and keys past L weigh 0.
+template <bool kLive>
+__device__ __forceinline__ void online_softmax_f32(float (*s)[4], float m[2],
+                                                   float l[2], float alpha[2],
+                                                   const uint32_t* kb,
+                                                   float scale,
+                                                   const DropStream& drop,
+                                                   size_t rows_at, int L) {
+  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
+  const uint32_t pad[2] = {kb[0] >> col, kb[1] >> col};
+  const uint32_t past[2] = {kb[2] >> col, kb[3] >> col};
+  float mx[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int bit = 8 * (j & 3) + (e & 1);
+      const bool pad_key = !kLive && ((pad[j >> 2] >> bit) & 1u);
+      const bool past_key = !kLive && ((past[j >> 2] >> bit) & 1u);
+      s[j][e] = past_key  ? -INFINITY
+                : pad_key ? kNegInfFill
+                          : __fmul_rn(s[j][e], scale);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r][j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+  }
+  float m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_new[r] = fmaxf(m[r], quad_max(tree_max8(mx[r])));
+    alpha[r] = exp2_approx((m[r] - m_new[r]) * kLog2e);
+  }
+  float psum[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = f32_prob(s[j][e], m_new[r], 1.f);
+      psum[r][j] = e & 1 ? psum[r][j] + p : p;
+      if (drop.on &&
+          !drop_keep(drop, rows_at + (size_t)(lane / 4 + 8 * r) * L + 8 * j +
+                               col + (e & 1)))
+        p = 0.f;
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] + quad_sum(tree_sum8(psum[r]));
+    m[r] = m_new[r];
+  }
+}
+
+// The fp32 forward: one block of f32_fwd_warps(kDk) warps per (16 warps
+// queries, slate-head), each warp 16 query rows, their q split once into
+// hi and lo planes; the 64-key tiles of k and v streamed through the ring.
+// Each tile's P . v sums from zero (the tensor cores truncate their sums)
+// and joins the rescaled running sum in fp32.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * f32_fwd_warps(kDk))
+    tiled_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const unsigned char* __restrict__ key_mask,
+                            float* __restrict__ out, float* __restrict__ lse,
+                            int L, int dk, int h, float scale,
+                            DropStream drop) {
+  constexpr int kSt = f32_fwd_stages(kDk);
+  constexpr int kThreads = 32 * f32_fwd_warps(kDk);
+  constexpr int kRows = 16 * f32_fwd_warps(kDk);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dkp = f32_head_pad(dk), pitch = f32_pitch(dkp), nk = dkp / 8;
+  const int tile = kKeyTile * pitch;
+  float* Qh = reinterpret_cast<float*>(smem_raw);  // [kRows][pitch] q, hi
+  float* Ql = Qh + kRows * pitch;                  // q, lo
+  float* Ks = Ql + kRows * pitch;   // [kSt][64][pitch] key tiles
+  float* Vs = Ks + kSt * tile;      // [kSt][64][pitch] value tiles
+  uint32_t* bits = reinterpret_cast<uint32_t*>(Vs + kSt * tile);
+  const int g = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t base = (size_t)g * L * dk;
+  const unsigned char* padded = key_mask + (size_t)(g / h) * L;
+  const int lane = threadIdx.x % 32, wrow = (threadIdx.x / 32) * 16;
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+
+  // key tile t into ring slot b: k, v and the keys' bits (bits[4 b..])
+  auto stage = [&](int t, int b) {
+    stage_f32_rows<kKeyTile, kThreads, kAligned>(Ks + b * tile, k + base,
+                                                 t * kKeyTile, L, dk, dkp);
+    stage_f32_rows<kKeyTile, kThreads, kAligned>(Vs + b * tile, v + base,
+                                                 t * kKeyTile, L, dk, dkp);
+    stage_key_bits(bits + 4 * b, padded, t * kKeyTile, L);
+  };
+  stage_f32_rows<kRows, kThreads, kAligned>(Qh, q + base, q0, L, dk, dkp);
+#pragma unroll
+  for (int i = 0; i < kSt - 1; ++i) {
+    if (i < n_tiles) stage(i, i);
+    cp_async_commit();
+  }
+  cp_async_wait<kSt - 2>();
+  __syncthreads();
+  split_planes<kRows, kThreads>(Qh, Ql, pitch, dkp);
+
+  float o[kDk / 8][4] = {};
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  for (int it = 0, buf = 0; it < n_tiles;
+       ++it, buf = buf == kSt - 1 ? 0 : buf + 1) {
+    // tile it has landed; after the barrier every warp is done with the
+    // slot that tile it + kSt - 1 takes
+    cp_async_wait<kSt - 2>();
+    __syncthreads();
+    if (it + kSt - 1 < n_tiles)
+      stage(it + kSt - 1, buf == 0 ? kSt - 1 : buf - 1);
+    cp_async_commit();
+    const uint32_t* kb = bits + 4 * buf;
+    float s[8][4] = {};
+    rows_by_rows_f32<kDk, 8, true>(s, Qh, Ql, wrow, Ks + buf * tile, pitch,
+                                   nk);
+    const size_t rows_at = ((size_t)g * L + q0 + wrow) * L + it * kKeyTile;
+    float alpha[2];
+    if ((kb[0] | kb[1] | kb[2] | kb[3]) == 0)
+      online_softmax_f32<true>(s, m, l, alpha, kb, scale, drop, rows_at, L);
+    else
+      online_softmax_f32<false>(s, m, l, alpha, kb, scale, drop, rows_at, L);
+    float t[kDk / 8][4] = {};
+    weigh_rows_f32<kDk, 8>(t, s, Vs + buf * tile, pitch, nk);
+#pragma unroll
+    for (int n = 0; n < kDk / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = fmaf(o[n][e], alpha[e >> 1], t[n][e]);
+  }
+  const float inv = drop.on ? drop.inv : 1.f;
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(l[r], 1e-30f);
+    f[r] = inv / denom;
+    const int row = q0 + wrow + lane / 4 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && row < L)
+      lse[(size_t)g * L + row] = m[r] + logf(denom);
+  }
+  store_rows_f32<kDk>(out + base, o, f, q0 + wrow, L, dk, nk);
+}
+
+// The fp32 backward (attention_tf32x3.cuh): dQ, which takes D from the
+// forward's output, then dK/dV, each from the row logsumexp.
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * f32_dq_warps(kDk))
+    tiled_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const unsigned char* __restrict__ key_mask,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dO,
+                               const float* __restrict__ O,
+                               float* __restrict__ Dg, float* __restrict__ dq,
+                               int L, int dk, int h, float scale,
+                               DropStream drop) {
+  bwd_dq_tf32x3<true, kDk, kAligned>(q, k, v, key_mask, lse, dO, O, Dg, dq, L,
+                                     dk, h, scale, drop);
+}
+
+template <int kDk, bool kAligned>
+__global__ void __launch_bounds__(32 * f32_dkv_warps(kDk))
+    tiled_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const unsigned char* __restrict__ key_mask,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ Dg,
+                                const float* __restrict__ dO,
+                                float* __restrict__ dk_out,
+                                float* __restrict__ dv_out, int L, int dk,
+                                int h, float scale, DropStream drop) {
+  bwd_dkv_tf32x3<true, kDk, kAligned>(q, k, v, key_mask, lse, Dg, dO, dk_out,
+                                      dv_out, L, dk, h, scale, drop);
+}
+
+// The fp32 forward for head widths padded to at most kDk.
+template <int kDk, bool kAligned>
+cudaError_t launch_fwd_tf32x3(const void* q, const void* k, const void* v,
+                              const void* key_mask, void* out, void* lse,
+                              int G, int L, int dk, int h, float scale,
+                              DropStream drop, cudaStream_t stream) {
+  constexpr int kSt = f32_fwd_stages(kDk);
+  constexpr int kRows = 16 * f32_fwd_warps(kDk);
+  auto kernel = tiled_fwd_tf32x3_kernel<kDk, kAligned>;
+  const size_t smem = f32_smem(dk, 2 * kRows + 2 * kSt * kKeyTile,
+                               4 * kSt * sizeof(uint32_t));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((L + kRows - 1) / kRows, G), 32 * f32_fwd_warps(kDk), smem,
+           stream>>>(static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const unsigned char*>(key_mask),
+                     static_cast<float*>(out), static_cast<float*>(lse), L,
+                     dk, h, scale, drop);
+  return cudaGetLastError();
+}
+
+// The fp32 backward's two kernels, dQ (which writes D) then dK/dV.
+template <int kDk, bool kAligned>
+cudaError_t launch_bwd_tf32x3_lse(const void* q, const void* k, const void* v,
+                                  const void* key_mask, const void* lse,
+                                  const void* dO, const void* O, void* D,
+                                  void* dq, void* dk_out, void* dv_out, int G,
+                                  int L, int dk, int h, float scale,
+                                  DropStream drop, cudaStream_t stream) {
+  return launch_bwd_tf32x3<kDk>(tiled_bwd_dq_tf32x3_kernel<kDk, kAligned>,
+                                tiled_bwd_dkv_tf32x3_kernel<kDk, kAligned>, q,
+                                k, v, key_mask, lse, dO, O, D, dq, dk_out,
+                                dv_out, G, L, dk, h, scale, drop, stream);
+}
+
+cudaError_t tiled_fwd_f32(const void* q, const void* k, const void* v,
+                          const void* key_mask, void* out, void* lse, int G,
+                          int L, int dk, int h, float scale, DropStream drop,
+                          cudaStream_t stream) {
+  MMA_DK_DISPATCH(launch_fwd_tf32x3, dk, rows_aligned(dk, {q, k, v}, 4), q,
+                  k, v, key_mask, out, lse, G, L, dk, h, scale, drop, stream);
+}
+
+cudaError_t tiled_bwd_f32(const void* q, const void* k, const void* v,
+                          const void* key_mask, const void* out,
+                          const void* lse, void* D, const void* dO, void* dq,
+                          void* dk_out, void* dv_out, int G, int L, int dk,
+                          int h, float scale, DropStream drop,
+                          cudaStream_t stream) {
+  MMA_DK_DISPATCH(launch_bwd_tf32x3_lse, dk,
+                  rows_aligned(dk, {q, k, v, dO}, 4), q, k, v, key_mask, lse,
+                  dO, out, D, dq, dk_out, dv_out, G, L, dk, h, scale, drop,
+                  stream);
+}
+
 }  // namespace
 }  // namespace allrank
 
 // Launches the forward on `stream`; returns 0 or the CUDA error code. q, k,
-// v and out are [G, L, d_k] (G = B * h, d_k <= 128) in bf16 if is_bf16 (the
-// tensor-core kernel), else fp32 (the SIMT kernel); key_mask is [B, L]
-// bytes, non-zero at padded documents. lse ([G, L] fp32, each row's
+// v and out are [G, L, d_k] (G = B * h, d_k <= 128) in bf16 if is_bf16,
+// else fp32 (3xTF32), both on the tensor cores; key_mask is [B, L] bytes,
+// non-zero at padded documents. lse ([G, L] fp32, each row's
 // logsumexp) may be null. drop_keys holds {k0, k1, threshold} of the
 // probability stream (ops/dropout.py), p_drop its rate.
 extern "C" int tiled_attention_fwd(const void* q, const void* k,
@@ -633,16 +800,15 @@ extern "C" int tiled_attention_fwd(const void* q, const void* k,
   if (is_bf16)
     return allrank::tiled_fwd_bf16(q, k, v, key_mask, out, lse, G, L, dk, h,
                                    scale, drop, s);
-  return allrank::launch_attn_fwd<float>(allrank::tiled_fwd_kernel<float>, q,
-                                         k, v, key_mask, out, lse, G, L, dk,
-                                         h, scale, drop, s);
+  return allrank::tiled_fwd_f32(q, k, v, key_mask, out, lse, G, L, dk, h,
+                                scale, drop, s);
 }
 
 // Launches the backward's two kernels on `stream`; returns 0 or the CUDA
 // error code. Inputs q, k, v, key_mask, out and lse from the forward and dO
 // ([G, L, d_k], q's dtype); outputs dq, dk, dv in q's dtype. D ([G, L]
 // fp32, rowsum(dO * O)) is an input in bf16; in fp32 the dQ kernel takes it
-// from out and dO and writes it there (attention_core.cuh).
+// from out and dO and writes it there (attention_tf32x3.cuh).
 extern "C" int tiled_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* key_mask,
                                    const void* out, const void* lse, void* D,
@@ -656,7 +822,6 @@ extern "C" int tiled_attention_bwd(const void* q, const void* k,
   if (is_bf16)
     return allrank::tiled_bwd_bf16(q, k, v, key_mask, lse, D, dO, dq, dk_out,
                                    dv_out, G, L, dk, h, scale, drop, s);
-  return allrank::launch_attn_bwd<float, true>(q, k, v, key_mask, lse, dO,
-                                               out, D, dq, dk_out, dv_out, G,
-                                               L, dk, h, scale, drop, s);
+  return allrank::tiled_bwd_f32(q, k, v, key_mask, out, lse, D, dO, dq,
+                                dk_out, dv_out, G, L, dk, h, scale, drop, s);
 }

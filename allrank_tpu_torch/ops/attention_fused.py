@@ -1,9 +1,13 @@
 """Masked slate attention with the exact, normalised probabilities (B4),
 ``out = drop(softmax(q . k^T / sqrt(d_k), padded keys -1e9)) . v``, forward
 and backward: the CUDA kernels of ``csrc/attention_fused.cu`` for CUDA
-tensors (bf16 on the tensor cores, fp32 on fp32 FMAs) and their plain
-PyTorch versions, of the same signatures, for CPU tensors;
-``FusedAttention`` ties the two into autograd.
+tensors and their plain PyTorch versions, of the same signatures, for CPU
+tensors; ``FusedAttention`` ties the two into autograd. Two routes of
+kernels (``route``), both on the tensor cores: bf16 on bf16 products
+(``"mma"``), fp32 on 3xTF32 split products (``"tf32x3"``,
+``csrc/attention_tf32x3.cuh``: each fp32 operand split into two TF32
+halves, three TF32 products summed in fp32, some 2^-21 of a product
+against fp32's 2^-24).
 
 Replaces the TPU kernel ``fused_slate_attention`` of the JAX package's
 ``ops/attention_pallas.py`` (forward ``pallas_call`` at line 179, backward
@@ -18,7 +22,8 @@ in the backward P dropped before dV and dS before dQ and dK. The backward's
 row term is D = rowsum(dPd * P), the TPU kernel's.
 
 The envelope of both bare attention kernels (B4 here and B5 in
-``ops/attention_tiled.py``) is ``check_envelope``'s: d_k <= 128, L <= 8192.
+``ops/attention_tiled.py``) is ``check_envelope``'s: d_k <= 128, L <= 8192;
+``route`` names the kernels a call takes before any launch.
 """
 
 from __future__ import annotations
@@ -42,6 +47,18 @@ _SIGNATURES = {
     "attention_fused_fwd": [_P] * 6 + [_I] * 4 + _TAIL,
     "attention_fused_bwd": [_P] * 10 + [_I] * 4 + _TAIL,
 }
+
+
+ROUTES = ("mma", "tf32x3")
+
+
+def route(dtype, dk: int) -> str:
+    """The kernels a CUDA call of B4 or B5 takes, from dtype and d_k alone,
+    before any launch: ``"mma"`` (bf16 x bf16 products) for bf16,
+    ``"tf32x3"`` (three TF32 products an fp32 product) for fp32. Raises
+    ``NotImplementedError`` outside the kernels' envelope."""
+    check_envelope(1, 1, 1, dk, dtype)
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def check_envelope(b: int, h: int, l: int, dk: int, dtype) -> None:
@@ -136,10 +153,10 @@ def attention_fused_bwd_plain(q, k, v, key_mask, do, p_drop: float = 0.0,
 def attention_fused_fwd(q, k, v, key_mask, p_drop: float = 0.0,
                         seed: int = 0, return_saved: bool = False):
     """``out`` [B, h, L, d_k] in q's dtype. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises. With
-    ``return_saved`` returns ``(out, stats)``: on CUDA each row's softmax
-    max and sum [B, h, L, 2] fp32, which the backward kernels read; on the
-    CPU None."""
+    version; a CUDA tensor launches the kernel of ``route``'s answer or
+    raises. With ``return_saved`` returns ``(out, stats)``: on CUDA each
+    row's softmax max and sum [B, h, L, 2] fp32, which the backward kernels
+    read; on the CPU None."""
     if q.device.type == "cpu":
         out = attention_fused_fwd_plain(q, k, v, key_mask, p_drop, seed)
         return (out, None) if return_saved else out
@@ -147,6 +164,7 @@ def attention_fused_fwd(q, k, v, key_mask, p_drop: float = 0.0,
         raise ValueError(f"no fused attention for device {q.device}")
     p_drop = dropout.check_rate(p_drop)
     b, h, l, dk = check_args(q, k, v, key_mask)
+    way = route(q.dtype, dk)
     out = torch.empty_like(q)
     stats = (torch.empty((b, h, l, 2), dtype=torch.float32, device=q.device)
              if return_saved else None)
@@ -160,10 +178,12 @@ def attention_fused_fwd(q, k, v, key_mask, p_drop: float = 0.0,
             _build.stream_of(q))
     _build.check_launch(lib, rc, "attention_fused_fwd")
     attention_fused_fwd.launches += 1
+    attention_fused_fwd.route_launches[way] += 1
     return (out, stats) if return_saved else out
 
 
 attention_fused_fwd.launches = 0
+attention_fused_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def attention_fused_bwd(q, k, v, key_mask, do, p_drop: float = 0.0,
@@ -183,6 +203,7 @@ def attention_fused_bwd(q, k, v, key_mask, do, p_drop: float = 0.0,
     b, h, l, dk = q.shape
     check_args(q, k, v, key_mask, do=(do, (b, h, l, dk), q.dtype),
                stats=(stats, (b, h, l, 2), torch.float32))
+    way = route(q.dtype, dk)
     grads = [torch.empty_like(q) for _ in range(3)]
     d_rows = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     lib = _build.load("attention_fused", _SIGNATURES)
@@ -194,10 +215,12 @@ def attention_fused_bwd(q, k, v, key_mask, do, p_drop: float = 0.0,
             _build.stream_of(q))
     _build.check_launch(lib, rc, "attention_fused_bwd")
     attention_fused_bwd.launches += 1
+    attention_fused_bwd.route_launches[way] += 1
     return tuple(grads)
 
 
 attention_fused_bwd.launches = 0
+attention_fused_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class FusedAttention(torch.autograd.Function):

@@ -1,7 +1,8 @@
 """Masked slate attention for long slates with the K-streamed online softmax
 (B5), forward and backward: the CUDA kernels of ``csrc/attention_tiled.cu``
-for CUDA tensors (bf16 on the tensor cores, fp32 on fp32 FMAs) and their
-plain PyTorch versions, of the same signatures, for CPU tensors;
+for CUDA tensors (B4's routes, ``ops/attention_fused.route``: bf16 and fp32
+both on the tensor cores, fp32 as 3xTF32 split products) and their plain
+PyTorch versions, of the same signatures, for CPU tensors;
 ``TiledAttention`` ties the two into autograd.
 
 Replaces the TPU kernel ``tiled_slate_attention`` of the JAX package's
@@ -36,9 +37,11 @@ from allrank_tpu_torch.ops.attention_fused import (
     _I,
     _P,
     _TAIL,
+    ROUTES,
     check_args,
     probs_keep,
     probs_keys,
+    route,
 )
 
 TILE_K = 64  # the kernels' key tile (kKeyTile in csrc/attention_tiled.cu)
@@ -116,8 +119,9 @@ def tiled_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
 def tiled_attention_fwd(q, k, v, key_mask, p_drop: float = 0.0,
                         seed: int = 0, return_saved: bool = False):
     """``out`` [B, h, L, d_k] in q's dtype. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises. With
-    ``return_saved`` returns ``(out, lse)``, lse [B, h, L] fp32."""
+    version; a CUDA tensor launches the kernel of ``route``'s answer or
+    raises. With ``return_saved`` returns ``(out, lse)``, lse [B, h, L]
+    fp32."""
     if q.device.type == "cpu":
         out, lse = tiled_attention_fwd_plain(q, k, v, key_mask, p_drop, seed)
         return (out, lse) if return_saved else out
@@ -125,6 +129,7 @@ def tiled_attention_fwd(q, k, v, key_mask, p_drop: float = 0.0,
         raise ValueError(f"no tiled attention for device {q.device}")
     p_drop = dropout.check_rate(p_drop)
     b, h, l, dk = check_args(q, k, v, key_mask)
+    way = route(q.dtype, dk)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
            if return_saved else None)
@@ -138,10 +143,12 @@ def tiled_attention_fwd(q, k, v, key_mask, p_drop: float = 0.0,
             _build.stream_of(q))
     _build.check_launch(lib, rc, "tiled_attention_fwd")
     tiled_attention_fwd.launches += 1
+    tiled_attention_fwd.route_launches[way] += 1
     return (out, lse) if return_saved else out
 
 
 tiled_attention_fwd.launches = 0
+tiled_attention_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def tiled_attention_bwd(q, k, v, key_mask, out, lse, do, p_drop: float = 0.0,
@@ -149,10 +156,11 @@ def tiled_attention_bwd(q, k, v, key_mask, out, lse, do, p_drop: float = 0.0,
     """``(dq, dk, dv)`` for the output gradient ``do``, from the forward's
     ``out`` and ``lse`` for the same inputs, seed and rate. A CPU tensor
     takes the plain version; a CUDA tensor launches the backward kernels
-    or raises. D = rowsum(dO * O) is taken first in PyTorch ops in bf16, as
-    the JAX package takes it in XLA; in fp32 the dQ kernel takes it in the
-    order it sums dP, so that dP - D cancels exactly where a row has one
-    key."""
+    of ``route``'s answer or raises. D = rowsum(dO * O) is taken first in
+    PyTorch ops in bf16, as the JAX package takes it in XLA; in fp32 the dQ
+    kernel takes it through the split product it takes dP by (under
+    dropout as rowsum(dPd * P), B4's row term), so that dP - D cancels
+    exactly where a row has one key."""
     if q.device.type == "cpu":
         return tiled_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
                                          p_drop, seed)
@@ -163,6 +171,7 @@ def tiled_attention_bwd(q, k, v, key_mask, out, lse, do, p_drop: float = 0.0,
     check_args(q, k, v, key_mask, out=(out, (b, h, l, dk), q.dtype),
                lse=(lse, (b, h, l), torch.float32),
                do=(do, (b, h, l, dk), q.dtype))
+    way = route(q.dtype, dk)
     if q.dtype == torch.bfloat16:
         delta = (do.float() * out.float()).sum(dim=-1)
     else:
@@ -178,10 +187,12 @@ def tiled_attention_bwd(q, k, v, key_mask, out, lse, do, p_drop: float = 0.0,
             _build.stream_of(q))
     _build.check_launch(lib, rc, "tiled_attention_bwd")
     tiled_attention_bwd.launches += 1
+    tiled_attention_bwd.route_launches[way] += 1
     return tuple(grads)
 
 
 tiled_attention_bwd.launches = 0
+tiled_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class TiledAttention(torch.autograd.Function):

@@ -164,8 +164,6 @@ def time_step(card: str, package: str, iters: int) -> dict:
     calls = 5
     ms = _median_event_ms(lambda: step(*batch), iters, 3)
     spans, window_us = trace_kernels(lambda: step(*batch), calls)
-    if not spans:
-        raise RuntimeError("no device events in the profiler's trace")
     by_name = {}
     for name, start, end in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / calls / 1e3

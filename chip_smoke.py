@@ -12,9 +12,11 @@ and never prints its last line):
 1. the card, torch and CUDA versions; builds the sixteen kernel sources of
    ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
-   counts the ``HMMA`` instructions of B4's and B5's tensor-core kernels
-   (18 each), of B1's (22) and of B2's (5) with the toolkit's ``cuobjdump
-   -sass`` (each must hold some); turns TF32 off;
+   counts the ``HMMA`` instructions of B4's and B5's bf16 kernels (18
+   each) and fp32 kernels (18 each, 3xTF32: TF32 ``HMMA``; the two sources
+   hold no other kernel), of B1's (22) and of B2's (5) with the toolkit's
+   ``cuobjdump -sass`` (each must hold some); turns TF32 off for PyTorch's
+   own products;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
    lengths and one lengths=0 slate, in fp32 (its SIMT kernels) and bf16
@@ -136,20 +138,24 @@ and never prints its last line):
     32 with rows off a 16-byte boundary), which runs each of its 18
     kernels, dropout 0 and 0.3, a second backward bit for bit the first;
     B4 in bf16 (its 18 tensor-core kernels) likewise at L in {1, 65,
-    1224}; both in fp32 at (3, 2, 1, 128), one key, where dQ and dK are 0
+    1224}; both in fp32 (their 18 3xTF32 kernels each) at the same cases,
+    rows one element off a 16-byte boundary at d_k 20, 32, 36 and 100;
+    both in fp32 at (3, 2, 1, 128), one key, where dQ and dK are 0
     in exact arithmetic; and the split attention block
     (PyTorch ops around B4 or B5) against the B1 sublayer at (64, 240) and
     (16, 1024), dropout 0.3, the same seeds;
 22. long-slate serving: the paper config's model (no positional encoding)
     through ``make_scorer`` at B=4, L=8192, fp32 and bf16, ragged lengths
     and an empty slate, against its plain forward on the card; 4 launches
-    each of B5 and B2 forward per call, none of B1 or B4; one 7,000-document
+    each of B5 and B2 forward per call, none of B1 or B4, B5's on the route
+    of the dtype (fp32 "tf32x3", bf16 "mma"); one 7,000-document
     request through ``SlateScoringService`` at ``slate_length=8192``;
 23. long-slate training, the paper config through ``make_train_step``:
     10 steps at (B, L) = (8, 4096) with a 400-document tail (B5 and B2
     4 + 4 launches per step, B6 1 + 1) and at (16, 1200) with a
     120-document tail (B4 4 + 4); losses finite and falling; step 1 at
-    dropout 0 in fp32 at B=2, L=4096 and B=4, L=1200 against the CPU;
+    dropout 0 in fp32 at B=2, L=4096 and B=16, L=1200 against the CPU,
+    B5 and B4 there on their fp32 route both ways;
 24. times: B4 and B5 forward and backward at (8, 4, 1200, 32),
     (8, 4, 4096, 32) and (16, 4, 1024, 32), each with its bound, its plain
     version and ``scaled_dot_product_attention`` (backward by autograd); B4
@@ -157,7 +163,12 @@ and never prints its last line):
     B5 in bf16 (B5 also at (4, 4, 8192, 32)) at dropout 0 and 0.3, with the
     exp floor (one exponential a pair forward, two backward, at 16 a clock
     on each of the device's SMs) beside each bound, and for B4 the floor of
-    its own two exps a pair forward and three backward; at
+    its own two exps a pair forward and three backward; B4 and B5 in fp32
+    (the 3xTF32 kernels, bound at a third of the 495 TFLOP/s TF32 rate) and
+    bf16 as device time (20 calls in a CUDA graph) beside the library
+    forward's (the library backward's device time is
+    ``tools/time_attention.py --library``'s) and, for fp32, the SIMT bound
+    too; at
     (16, 1024) the B1 sublayer beside the split block with B4 and with B5;
     both long steps with their idle share and device time by kernel;
 25. the int8 dense kernel (X1) against its plain version, bit for bit: the
@@ -256,9 +267,10 @@ from argparse import Namespace
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from allrank_tpu_torch.tools.time_attention import library_fns
 from allrank_tpu_torch.tools.timing import (
+    IncompleteTrace,
     busy_us,
     graph_ms,
     kernel_ms,
@@ -276,6 +288,10 @@ B1_MMA_KERNELS = 22
 # 100 leave rows off a 16-byte boundary
 B1_MMA_WIDTHS = [(32, 4), (80, 4), (128, 4), (144, 4), (96, 2), (144, 2),
                  (100, 1), (256, 2)]
+# B4's and B5's fp32 kernels (3xTF32 on the tensor cores) in each source:
+# the forward, dQ and dK/dV kernels at padded d_k 32, 64, 128, aligned or
+# not
+ATTN_F32_KERNELS = 18
 # B2's tensor-core kernels: the forward and the backward's row kernel at
 # d <= 128 and d > 128 (two warps a row group), and the split A^T B
 B2_MMA_KERNELS = 5
@@ -289,6 +305,9 @@ B2_MMA_WIDTHS = [(d, d_ff) for d in (32, 96, 128, 144, 256)
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.int8: 1979e12}
+# fp32 work as 3xTF32 on the tensor cores (B4's and B5's fp32 kernels):
+# three TF32 products at 495 TFLOP/s an fp32 product
+TF32X3_FLOPS = 495e12 / 3
 MEM_BYTES_PER_S = 3.35e12
 # kernel vs plain version on the same inputs:
 #  fp32: the same fp32 FMAs summed in another order;
@@ -404,8 +423,10 @@ def exp_floor_ms(exps: float, mhz: float, sms: int) -> float:
     return exps / (sms * 16 * mhz * 1e6) * 1e3
 
 
-def hmma_counts(library: str, marker: str) -> dict:
-    """``HMMA`` (and ``HGMMA``) instructions in each kernel of a built
+def hmma_counts(library: str, marker: str,
+                pattern: str = r"\bH(G)?MMA\b") -> dict:
+    """The instructions matching ``pattern`` (by default ``HMMA`` and
+    ``HGMMA``; ``TF32_HMMA`` the TF32 ones) in each kernel of a built
     library whose name holds ``marker``, from the toolkit's
     ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -422,9 +443,13 @@ def hmma_counts(library: str, marker: str) -> dict:
             name = found.group(1) if marker in found.group(1) else None
             if name:
                 counts[name] = 0
-        elif name and re.search(r"\bH(G)?MMA\b", line):
+        elif name and re.search(pattern, line):
             counts[name] += 1
     return counts
+
+
+# a TF32 tensor-core product in SASS, as HMMA.1688.F32.TF32
+TF32_HMMA = r"\bHMMA\.\S*\.TF32\b"
 
 
 def median_ms(fn, iters: int = 40, warmup: int = 5) -> float:
@@ -445,7 +470,10 @@ def median_ms(fn, iters: int = 40, warmup: int = 5) -> float:
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    """(least ms, "operations" or "bytes"): ``dtype`` a torch dtype, or
+    "tf32x3" for fp32 work as 3xTF32 split products."""
+    rate = TF32X3_FLOPS if dtype == "tf32x3" else PEAK_FLOPS[dtype]
+    t_ops = flops / rate * 1e3
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -928,19 +956,10 @@ def attention_work(b, h, l, dk, dtype, backward: bool) -> tuple:
     return flops, moved
 
 
-def sdpa_library(q, k, v, mask, do, p_drop: float = 0.0):
-    """``scaled_dot_product_attention`` with the additive key mask (-1e9 at
-    padded keys) and dropout at ``p_drop``, a yardstick only: returns
-    (forward, backward by autograd) as functions that run it once."""
-    mask_add = torch.zeros(q.shape[0], 1, 1, q.shape[2], dtype=q.dtype,
-                           device=q.device).masked_fill(
-        mask[:, None, None, :], -1e9)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_add,
-                                         dropout_p=p_drop)
-    return (lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask_add, dropout_p=p_drop),
-            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+def attention_rate(dtype):
+    """The peak B4's and B5's kernels of ``dtype`` are bound by: bf16 on the
+    tensor cores; fp32 as 3xTF32 on them ("tf32x3")."""
+    return "tf32x3" if dtype == torch.float32 else dtype
 
 
 def plain_scores(model, x, lengths, dtype):
@@ -1025,12 +1044,13 @@ def profile_calls(fn, tag: str, calls: int = 5, also: tuple = ()) -> dict:
     """Device time by kernel name over ``calls`` calls of ``fn`` (the eight
     largest, and every kernel whose name holds one of ``also``), and the
     device's idle share of that window (``timing.trace_kernels``; prints
-    "not measured" if the trace holds no device events). Returns the device
-    us per call by kernel name (empty without device events)."""
-    kernels, window_us = trace_kernels(fn, calls)
-    if not kernels:
-        print(f"profile: no device events in the trace; idle share not "
-              f"measured {tag}")
+    "not measured" where every trace lost device events). Returns the
+    device us per call by kernel name (empty if not measured)."""
+    try:
+        kernels, window_us = trace_kernels(fn, calls)
+    except IncompleteTrace as err:
+        print(f"profile: {err}; device time and idle share not measured "
+              f"{tag}")
         return {}
     by_name = {}
     for name, start, end in kernels:
@@ -1577,6 +1597,8 @@ def main() -> int:
         attention_sublayer_fwd_plain,
     )
     from allrank_tpu_torch.ops.attention_block import route as b1_route
+    from allrank_tpu_torch.ops.attention_fused import ROUTES as B45_ROUTES
+    from allrank_tpu_torch.ops.attention_fused import route as b45_route
     from allrank_tpu_torch.ops.attention_fused import (
         attention_fused_bwd,
         attention_fused_bwd_plain,
@@ -1667,13 +1689,28 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
-    # B4's and B5's bf16 kernels and all of B1's and B2's tensor-core
-    # routes run on the tensor cores: each holds HMMA
+    # B4's and B5's kernels, bf16 and (3xTF32) fp32, and all of B1's and
+    # B2's tensor-core routes run on the tensor cores: each holds HMMA, and
+    # the two attention sources hold no other kernel (no SIMT one is left)
+    for src, marker in (("attention_tiled", "tiled_"),
+                        ("attention_fused", "fused_")):
+        hmma = hmma_counts(_build.library_path(src), "")
+        tf32 = hmma_counts(_build.library_path(src), "", TF32_HMMA)
+        for kname, n in sorted(hmma.items()):
+            print(f"  {src}: {n} HMMA, {tf32[kname]} of them TF32, in "
+                  f"{kname}")
+        bf16 = [k for k in hmma if "_mma_kernel" in k and marker in k]
+        assert len(bf16) == 18 and all(hmma[k] > 0 for k in bf16), hmma
+        # every tensor-core product of the fp32 kernels is a TF32 one
+        f32 = [k for k in hmma if "_tf32x3_kernel" in k and marker in k]
+        assert len(f32) == ATTN_F32_KERNELS and all(
+            0 < tf32[k] == hmma[k] for k in f32), (hmma, tf32)
+        assert len(hmma) == 18 + ATTN_F32_KERNELS, sorted(hmma)
+        print(f"HMMA: all 18 bf16 {marker} kernels of {src} hold HMMA and "
+              f"all {ATTN_F32_KERNELS} fp32 (3xTF32) ones TF32 HMMA only "
+              f"(forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or "
+              f"not); no other kernel")
     for src, marker, n_mma, what in (
-            ("attention_tiled", "tiled_", 18,
-             "forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or not"),
-            ("attention_fused", "fused_", 18,
-             "forward, dK/dV, dQ at padded d_k 32, 64, 128, aligned or not"),
             ("attention_block_mma", "b1_", B1_MMA_KERNELS,
              "attention + out-projection, dQ, dK/dV at padded d_k 32, 64, "
              "128, aligned or not; LN + QKV, rows, dn + LN backward, A^T B"),
@@ -2203,7 +2240,12 @@ def main() -> int:
             dev_ms = graph_ms(fns[0])
             # autograd's engine refuses CUDA-graph capture: the library
             # backward's device time is the sum of its kernels in a trace
-            lib_dev_ms = sum(kernel_ms(fns[2]).values())
+            # (not measured where every trace lost device events)
+            try:
+                lib_dev_ms = sum(kernel_ms(fns[2]).values())
+            except IncompleteTrace as err:
+                print(f"library backward: {err} {tag}")
+                lib_dev_ms = None
             bound_ms, bound_by = bound(flops, moved, dtype)
             way = (b1_route(dtype, d, h) if kernel_name.startswith("attention")
                    else b2_route(dtype, d, d_ff))
@@ -2217,10 +2259,12 @@ def main() -> int:
                         f"library_device_ms{sfx}": lib_dev_ms,
                         f"gflop{sfx}": flops / 1e9,
                         f"mbytes{sfx}": moved / 1e6})
+            lib_txt = ("not measured" if lib_dev_ms is None
+                       else f"{lib_dev_ms:.4f}")
             print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
                   f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
                   f"ms, library (autograd) {lib_ms:.4f} ms (device, its "
-                  f"kernels' sum: {lib_dev_ms:.4f}), bound "
+                  f"kernels' sum: {lib_txt}), bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
                   f"{moved / 1e6:.2f} MB) {tag}")
     rows = list(timed.values())
@@ -2826,9 +2870,12 @@ def main() -> int:
     from allrank_tpu_torch.ops.attention_fused import fused_slate_attention
     from allrank_tpu_torch.ops.attention_tiled import tiled_slate_attention
 
-    def attention_pair(kind, args, p, seed):
+    def attention_pair(kind, args, p, seed, one_key=False):
         """One kernel forward and backward against the plain versions on
-        the same inputs; returns (max abs err of out, of the gradients)."""
+        the same inputs; returns (max abs err of out, of the gradients).
+        ``one_key`` (fp32 at L = 1): dq and dk are 0 in exact arithmetic
+        and held to exactly 0, not to the plain version, whose own fp32
+        noise there reaches the absolute tolerance (ROADMAP Queue C6)."""
         q, k, v, mask, do = args
         dtype = q.dtype
         if kind == "fused":
@@ -2858,6 +2905,9 @@ def main() -> int:
         g_err = 0.0
         for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
             assert torch.isfinite(g.float()).all(), (kind, name)
+            if one_key and name != "dv":
+                assert not g.any(), (kind, name, tuple(q.shape), p)
+                continue
             err, scale = rel_err(g, r)
             assert err <= rtol * scale + atol, (
                 f"{kind} {name} {tuple(q.shape)} {dtype} p={p}: {err} > "
@@ -2911,44 +2961,63 @@ def main() -> int:
         return [tiled_attention_bwd(q, k, v, mask, out, lse, do, p, seed)
                 for _ in range(2)]
 
-    for kind, lengths in (("tiled", (1, 65, 4097)), ("fused", (1, 65, 1224))):
-        for l in lengths:
-            for dk, offset in ((8, 0), (20, 0), (32, 1), (36, 0), (48, 0),
-                               (72, 0), (100, 0), (128, 0)):
-                for p in (0.0, 0.3):
-                    shape = (3, 2, l, dk)
-                    q, k, v, mask, do = qkv_inputs(gen, *shape,
-                                                   torch.bfloat16, dev)
-                    if offset:
-                        q, k, v, do = (off_boundary(t, offset)
-                                       for t in (q, k, v, do))
-                    errs_fb = attention_pair(kind, (q, k, v, mask, do), p,
-                                             304)
-                    attn_errs[(kind, shape, torch.bfloat16, p)] = errs_fb
-                    first, again = backward_twice(kind, q, k, v, mask, do, p,
-                                                  304)
-                    assert all(torch.equal(a, b)
-                               for a, b in zip(first, again)), (kind, shape,
-                                                                p)
-                    print(f"{'B4' if kind == 'fused' else 'B5'} vs plain "
-                          f"(B, h, L, d_k)={shape} bfloat16 p={p}"
-                          f"{f' rows {2 * offset} bytes off' if offset else ''}"
-                          f": max_abs_err out {errs_fb[0]:.3e}, grads "
-                          f"{errs_fb[1]:.3e}; a second backward bit for bit")
-                    del q, k, v, mask, do, first, again
-                torch.cuda.empty_cache()
-    # one key in fp32 (the SIMT kernels): dQ and dK are 0 in exact
-    # arithmetic, and dP - D must cancel to no more than the plain
-    # version's noise (ROADMAP Queue C3)
+    # The fp32 kernels (3xTF32 on the tensor cores) likewise, each of their
+    # 18 a source: d_k 20, 32, 36 and 100 with rows one element (4 bytes)
+    # off a 16-byte boundary reach the element-wise staging of each class.
+    # They run after the one-key case below, which keeps its inputs.
+    offsets = {torch.bfloat16: ((8, 0), (20, 0), (32, 1), (36, 0), (48, 0),
+                                (72, 0), (100, 0), (128, 0)),
+               torch.float32: ((8, 0), (20, 1), (32, 1), (36, 1), (48, 0),
+                               (72, 0), (100, 1), (128, 0))}
+
+    def edge_cases(dtype):
+        for kind, lengths in (("tiled", (1, 65, 4097)),
+                              ("fused", (1, 65, 1224))):
+            for l in lengths:
+                for dk, offset in offsets[dtype]:
+                    for p in (0.0, 0.3):
+                        shape = (3, 2, l, dk)
+                        q, k, v, mask, do = qkv_inputs(gen, *shape, dtype,
+                                                       dev)
+                        if offset:
+                            q, k, v, do = (off_boundary(t, offset)
+                                           for t in (q, k, v, do))
+                        one = dtype == torch.float32 and l == 1
+                        errs_fb = attention_pair(kind, (q, k, v, mask, do),
+                                                 p, 304, one_key=one)
+                        attn_errs[(kind, shape, dtype, p)] = errs_fb
+                        first, again = backward_twice(kind, q, k, v, mask,
+                                                      do, p, 304)
+                        assert all(torch.equal(a, b)
+                                   for a, b in zip(first, again)), (
+                            kind, shape, dtype, p)
+                        off = offset * q.element_size()
+                        print(f"{'B4' if kind == 'fused' else 'B5'} vs plain "
+                              f"(B, h, L, d_k)={shape} {dtype} p={p}"
+                              f"{f' rows {off} bytes off' if offset else ''}"
+                              f": max_abs_err out {errs_fb[0]:.3e}, grads "
+                              f"{errs_fb[1]:.3e}"
+                              f"{' (dv; dq, dk exactly 0)' if one else ''}"
+                              f"; a second backward bit for bit")
+                        del q, k, v, mask, do, first, again
+                    torch.cuda.empty_cache()
+
+    edge_cases(torch.bfloat16)
+    # one key in fp32: dQ and dK are 0 in exact arithmetic, and dP - D must
+    # cancel to no more than the plain version's noise (ROADMAP Queue C3);
+    # the 3xTF32 kernels cancel it exactly, so their dQ and dK are 0
     for kind in ("fused", "tiled"):
         args = qkv_inputs(gen, 3, 2, 1, 128, torch.float32, dev)
         errs_fb = attention_pair(kind, args, 0.0, 305)
         attn_errs[(kind, (3, 2, 1, 128), torch.float32, 0.0)] = errs_fb
+        dq1, dk1, _ = backward_twice(kind, *args[:4], args[4], 0.0, 305)[0]
+        assert not dq1.any() and not dk1.any(), kind
         print(f"{'B4' if kind == 'fused' else 'B5'} vs plain (B, h, L, d_k)="
               f"(3, 2, 1, 128) float32 p=0.0: max_abs_err out "
               f"{errs_fb[0]:.3e}, grads {errs_fb[1]:.3e} (tol "
               f"{BWD_TOL[torch.float32][0]:g} x max|ref| + "
-              f"{BWD_TOL[torch.float32][1]:g})")
+              f"{BWD_TOL[torch.float32][1]:g}); dq and dk exactly 0")
+    edge_cases(torch.float32)
     print(f"B4/B5 vs plain: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB {tag}")
     # the split block with B4 and with B5 against the B1 sublayer on the
@@ -2996,12 +3065,21 @@ def main() -> int:
                     tiled_attention_bwd, ffn_sublayer_bwd, lambda_pairs_fwd,
                     lambda_pairs_bwd, lambda_tiled_fwd, lambda_tiled_bwd)
 
+    b45_kernels = (attention_fused_fwd, attention_fused_bwd,
+                   tiled_attention_fwd, tiled_attention_bwd)
+
     def long_counts():
         return {k.__name__: k.launches for k in attn_kernels}
 
     def reset_long():
         for k in attn_kernels:
             k.launches = 0
+        for k in b45_kernels:
+            k.route_launches = dict.fromkeys(B45_ROUTES, 0)
+
+    def b45_routes():
+        """B4's and B5's launches by route, wrapper by wrapper."""
+        return {k.__name__: dict(k.route_launches) for k in b45_kernels}
 
     _, smodel = paper_setup(dev, dropout=0.0)
     rng22 = np.random.RandomState(22)
@@ -3009,7 +3087,7 @@ def main() -> int:
     len22 = np.array([serve_l, 5000, 0, 1])
     len22_dev = torch.as_tensor(len22, device=dev)
     pad22 = np.arange(serve_l)[None, :] >= len22[:, None]
-    serve_launches = {}
+    serve_launches, serve_routes = {}, {}
     for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         scorer = make_scorer(smodel, dtype)
         scorer(x22, len22)
@@ -3020,6 +3098,10 @@ def main() -> int:
         assert serve_launches[label] == {"tiled_attention_fwd": 4,
                                          "ffn_sublayer_fwd": 4}, (
             label, serve_launches[label])
+        # fp32 through the 3xTF32 kernels, bf16 through the bf16 ones
+        way = b45_route(dtype, 32)
+        serve_routes[label] = b45_routes()["tiled_attention_fwd"]
+        assert serve_routes[label][way] == 4, (label, serve_routes[label])
         got = got.cpu().numpy()
         ref = plain_scores(smodel, torch.as_tensor(x22, device=dev),
                            len22_dev, dtype).cpu().numpy()
@@ -3032,7 +3114,8 @@ def main() -> int:
         print(f"long-slate scorer, paper-config model (no positional "
               f"encoding), B={serve_b} L={serve_l} {label}, lengths "
               f"{len22.tolist()}: max_abs_err vs the plain forward on the card "
-              f"{err:.3e} (tol {tol:.3e}); launches {serve_launches[label]}")
+              f"{err:.3e} (tol {tol:.3e}); launches {serve_launches[label]}, "
+              f"B5 by route {serve_routes[label]}")
     service = SlateScoringService(smodel, serve_l, N_FEATURES, batch_size=4,
                                   max_wait_ms=5, compute_dtype="float32",
                                   batch_buckets=(1, 4))
@@ -3081,16 +3164,26 @@ def main() -> int:
               f"padding tail: 10 steps in {seconds:.1f} s, loss mean of the "
               f"first 3 {first:.3f}, of the last 3 {last:.3f}; launches "
               f"{ {k: v for k, v in long_counts().items() if v} }")
+    f32_step_routes = {}
     for b, l, tail in ((2, 4096, 400), (16, 1200, 120)):
         t0 = time.perf_counter()
+        reset_long()
         gl, cl, worst, flips = step_one_gpu_vs_cpu(
             lcfg, paper_setup(dev, dropout=0.0)[1],
             train_batch(dev, seed=24, b=b, l=l, tail=tail), gate_flips=True)
+        # the fp32 step's attention ran through the 3xTF32 kernels, both ways
+        attn = "tiled_attention" if l > 1224 else "attention_fused"
+        routes = b45_routes()
+        for name in (f"{attn}_fwd", f"{attn}_bwd"):
+            assert routes[name]["tf32x3"] > 0 and not routes[name]["mma"], (
+                name, routes[name])
+            f32_step_routes[name] = routes[name]["tf32x3"]
         print(f"long-slate train step 1 at dropout 0, fp32, B={b} L={l}, GPU "
               f"vs CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
               f"{worst:.3f} of its tolerance, FFN units with a ReLU gate "
               f"flipped between the two held out per block {flips} (at most "
-              f"{GATE_FLIPS_MAX}) "
+              f"{GATE_FLIPS_MAX}); B4/B5 by route "
+              f"{ {k: v for k, v in routes.items() if any(v.values())} } "
               f"({time.perf_counter() - t0:.1f} s)")
     print("phase 23 ok: the paper config trains at L=4096 through B5 and at "
           "L=1200 through B4, and matches the CPU")
@@ -3104,7 +3197,7 @@ def main() -> int:
             q, k, v, mask, do = qkv_inputs(gen, b, h, l, dk, dtype, dev,
                                            empty=False)
             out5, lse = tiled_attention_fwd(q, k, v, mask, return_saved=True)
-            lib = sdpa_library(q, k, v, mask, do)
+            lib = library_fns(q, k, v, mask, do)
             fns = {
                 "tiled_attention_fwd": (
                     lambda: tiled_attention_fwd(q, k, v, mask),
@@ -3119,7 +3212,7 @@ def main() -> int:
                                         for fn in (kfn, pfn, lfn))
                 flops, moved = attention_work(b, h, l, dk, dtype,
                                               name.endswith("bwd"))
-                bound_ms, bound_by = bound(flops, moved, dtype)
+                bound_ms, bound_by = bound(flops, moved, attention_rate(dtype))
                 key = (name, b, l, dtype)
                 attn_rows[key] = dict(ms=ms, plain_ms=plain_ms,
                                       library_ms=lib_ms, bound_ms=bound_ms,
@@ -3136,7 +3229,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     mhz = sm_clock_mhz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # B4 in fp32 (the SIMT kernels) and bf16 (the tensor-core ones) at p = 0
+    # B4 in fp32 (the 3xTF32 kernels) and bf16 (the bf16 ones) at p = 0
     # and at the paper step's 0.3: at (8, 4, 1200, 32) (the (16, 1200)
     # step's slates), (8, 4, 4096, 32) and (16, 4, 1024, 32) beside B5, and
     # the int8 tower's (64, 4, 240, 32); beside each bound the exp floor
@@ -3153,7 +3246,7 @@ def main() -> int:
             for p in (0.0, 0.3):
                 _, stats = attention_fused_fwd(q, k, v, mask, p, 24,
                                                return_saved=True)
-                lib = sdpa_library(q, k, v, mask, do, p)
+                lib = library_fns(q, k, v, mask, do, p)
                 fns = {
                     "attention_fused_fwd": (
                         lambda: attention_fused_fwd(q, k, v, mask, p, 24),
@@ -3173,7 +3266,8 @@ def main() -> int:
                     lib_ms = median_ms(lfn, iters=iters, warmup=2)
                     flops, moved = attention_work(b, h, l, dk, dtype,
                                                   backward)
-                    bound_ms, bound_by = bound(flops, moved, dtype)
+                    bound_ms, bound_by = bound(flops, moved,
+                                               attention_rate(dtype))
                     floor = exp_floor_ms((2 if backward else 1) * pairs, mhz,
                                          sms)
                     design = exp_floor_ms((3 if backward else 2) * pairs,
@@ -3215,7 +3309,7 @@ def main() -> int:
         for p in (0.0, 0.3):
             out5, lse = tiled_attention_fwd(q, k, v, mask, p, 24,
                                             return_saved=True)
-            lib = sdpa_library(q, k, v, mask, do, p)
+            lib = library_fns(q, k, v, mask, do, p)
             fns = {
                 "tiled_attention_fwd": (
                     lambda: tiled_attention_fwd(q, k, v, mask, p, 24),
@@ -3254,6 +3348,58 @@ def main() -> int:
             del out5, lse, lib, fns
         del q, k, v, mask, do
         torch.cuda.empty_cache()
+    # B4 and B5 as device time, fp32 (the 3xTF32 kernels) and bf16, p = 0:
+    # 20 calls in one CUDA graph, beside the library's device time, the
+    # fp32 SIMT bound (67 TFLOP/s) and the 3xTF32 bound (a third of 495
+    # TFLOP/s TF32): its forward in a graph, its backward, which autograd
+    # keeps out of a graph, as its kernels' profiler sum (not measured
+    # where every trace lost device events, as traces late in this long
+    # process have)
+    dev_rows = {}
+    for b, h, l, dk in ((8, 4, 1200, 32), (8, 4, 4096, 32),
+                        (LONG_B, 4, LONG_L, 32), (B, 4, L, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, do = qkv_inputs(gen, b, h, l, dk, dtype, dev,
+                                           empty=False)
+            _, stats = attention_fused_fwd(q, k, v, mask, return_saved=True)
+            out5, lse = tiled_attention_fwd(q, k, v, mask, return_saved=True)
+            lib = library_fns(q, k, v, mask, do)
+            lib_dev = {False: graph_ms(lib[0])}
+            try:
+                lib_dev[True] = sum(kernel_ms(lib[1]).values())
+            except IncompleteTrace as err:
+                print(f"library backward: {err} {tag}")
+                lib_dev[True] = None
+            fns = {
+                "attention_fused_fwd": lambda: attention_fused_fwd(q, k, v,
+                                                                   mask),
+                "attention_fused_bwd": lambda: attention_fused_bwd(
+                    q, k, v, mask, do, stats=stats),
+                "tiled_attention_fwd": lambda: tiled_attention_fwd(q, k, v,
+                                                                   mask),
+                "tiled_attention_bwd": lambda: tiled_attention_bwd(
+                    q, k, v, mask, out5, lse, do)}
+            for name, fn in fns.items():
+                backward = name.endswith("bwd")
+                flops, moved = attention_work(b, h, l, dk, dtype, backward)
+                row = dict(graph_ms=graph_ms(fn),
+                           bound_ms=bound(flops, moved,
+                                          attention_rate(dtype))[0])
+                row["library_device_ms"] = lib_ms = lib_dev[backward]
+                lib_txt = ("library not measured" if lib_ms is None else
+                           f"library {lib_ms:.4f} ms "
+                           f"({row['graph_ms'] / lib_ms:.2f}x)")
+                if dtype == torch.float32:
+                    row["bound_simt_ms"] = bound(flops, moved, dtype)[0]
+                dev_rows[(name, b, l, dtype)] = row
+                print(f"time {name} {dtype} (B, h, L, d_k)=({b}, {h}, {l}, "
+                      f"{dk}) p=0, device time: kernel "
+                      f"({b45_route(dtype, dk)}) {row['graph_ms']:.4f} ms, "
+                      f"{lib_txt}, bound {row['bound_ms']:.4f} ms"
+                      + (f" (3xTF32; SIMT fp32 {row['bound_simt_ms']:.4f} ms)"
+                         if dtype == torch.float32 else "") + f" {tag}")
+            del q, k, v, mask, do, stats, out5, lse, fns, lib
+            torch.cuda.empty_cache()
     # inside B1's envelope: the whole attention sublayer three ways, the
     # data of a later threshold between B1 and the split block
     args = attn_inputs(gen, LONG_B, LONG_L, 128, torch.float32, dev)
@@ -3291,7 +3437,7 @@ def main() -> int:
         print(f"time train step {label}: {ms:.4f} ms per step, "
               f"{b / ms * 1e3:.1f} slates/s {tag}")
         profile_calls(lambda: tstep(*batch), f"train step {label} {tag}",
-                      also=("fused_", "tiled_", "attn_bwd"))
+                      also=("fused_", "tiled_"))
     for name in ("attention_fused_fwd", "attention_fused_bwd",
                  "tiled_attention_fwd", "tiled_attention_bwd"):
         kind = "fused" if "fused" in name else "tiled"
@@ -3326,6 +3472,19 @@ def main() -> int:
                 if bname == name:
                     for key, value in vals.items():
                         row[f"{key}_bf16_b{ob}_l{ol}_p{p:g}"] = value
+        # device time at p = 0 beside the library forward's and the SIMT
+        # fp32 bound, at every shape timed; at the row's own shape also
+        # without the shape in the key
+        for (dname, ob, ol, odt), vals in dev_rows.items():
+            if dname != name:
+                continue
+            sfx = "" if odt == torch.float32 else "_bf16"
+            for key, value in vals.items():
+                if key == "bound_ms":
+                    continue
+                row[f"{key}{sfx}_b{ob}_l{ol}"] = value
+                if (ob, ol) == (b, l):
+                    row[f"{key}{sfx}"] = value
         rows.append(row)
 
     # -- 25: X1 against its plain version ----------------------------------------
@@ -4358,6 +4517,17 @@ def main() -> int:
         for name, n in got.items():
             if n and ("attention_fused" in name or "tiled_attention" in name):
                 launches[name] = n
+    # B4's and B5's launches by route: bf16 ("mma") in their long-slate
+    # steps (phase 23), fp32 ("tf32x3") in the fp32 scorer at L=8192 (phase
+    # 22) and the fp32 step 1 against the CPU (phase 23)
+    for row in rows:
+        name = row["name"]
+        if name in f32_step_routes:
+            row["launches_mma"] = launches[name]
+            row["launches_tf32x3"] = f32_step_routes[name] + (
+                serve_routes["fp32"]["tf32x3"]
+                if name == "tiled_attention_fwd" else 0)
+            assert row["launches_tf32x3"] > 0, name
     # B4's and B5's forward errors also cover the int8 tower's calls (phase
     # 26: bf16, p = 0, at B=64, L=240 and B=4, L=4096)
     for row in rows:
@@ -4380,6 +4550,8 @@ def main() -> int:
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
     assert len(rows) == 35
+    print(f"profiler: {trace_kernels.lost} traces of this run lost device "
+          f"events and were taken again {tag}")
     print(f"train step ms {json.dumps(step_ms)} {tag}")
     print(f"A/B of MEGA_ENCODER_ENABLED, ms per step or call "
           f"{json.dumps(ab_ms)} {tag}")

@@ -301,3 +301,38 @@ def test_time_attention_measures_nothing_without_a_card(monkeypatch, tmp_path,
     lines = time_attention.ptxas_lines("attention_fused")
     assert [name for name, _ in lines] == ["_Z3fwdv", "_Z3fwdv", "_Z3bwdv"]
     assert "121 registers" in lines[1][1] and "96 registers" in lines[2][1]
+
+
+def test_time_attention_library_path_measures_nothing_without_a_card(
+        monkeypatch, capsys):
+    """With ``--library`` (the yardstick's device time beside the kernels')
+    or ``--scorer`` (the fp32 long-slate scorer) the timing CLI still exits
+    2 on the CPU, before it times anything."""
+    from allrank_tpu_torch.tools import time_attention
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_attention.main(["--library"]) == 2
+    assert time_attention.main(["--scorer"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_time_attention_library_is_the_plain_function():
+    """The yardstick time_attention times beside B4 and B5 (never called by
+    the port) computes their function: scaled_dot_product_attention with
+    the additive -1e9 key mask, forward and its autograd backward, against
+    B4's plain versions on the CPU. On a fully padded slate the forward
+    agrees (both average v) and the backward does not: the kernels zero dS
+    at padded keys, autograd of the additive mask does not, so there the
+    gradients are compared on the other slates."""
+    from allrank_tpu_torch.tools.time_attention import library_fns
+
+    q, k, v, mask = _inputs(3, 2, 70, 16, seed=5, lengths=[70, 31, 0])
+    q, k, v, mask = (torch.tensor(a) for a in (q, k, v, mask))
+    do = torch.tensor(np.random.RandomState(6).randn(3, 2, 70, 16)
+                      .astype(np.float32))
+    fwd, bwd = library_fns(q, k, v, mask, do)
+    torch.testing.assert_close(fwd(), attention_fused_fwd_plain(q, k, v,
+                                                                mask),
+                               rtol=TOL, atol=TOL)
+    for got, ref in zip(bwd(), attention_fused_bwd_plain(q, k, v, mask, do)):
+        torch.testing.assert_close(got[:2], ref[:2], rtol=1e-4, atol=1e-5)

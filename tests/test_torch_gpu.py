@@ -37,6 +37,7 @@ from allrank_tpu_torch.ops.attention_fused import (
     attention_fused_fwd_plain,
     fused_slate_attention,
 )
+from allrank_tpu_torch.ops.attention_fused import route as attention_route
 from allrank_tpu_torch.ops.attention_tiled import (
     tiled_attention_bwd,
     tiled_attention_bwd_plain,
@@ -1019,10 +1020,20 @@ _ATTENTION_CASES += [("fused", (3, 2, l, dk), torch.bfloat16, p)
                      for l in (1, 65, 1224)
                      for dk in (8, 20, 36, 48, 72, 100, 128)
                      for p in (0.0, 0.3)]
-# one key in fp32 (the SIMT kernels): dQ and dK are 0 in exact arithmetic,
-# and dP - D cancels to fp32 noise at most as large as the plain version's
+# one key in fp32: dQ and dK are 0 in exact arithmetic, and dP - D cancels
+# to fp32 noise at most as large as the plain version's (ROADMAP Queue C3)
 _ATTENTION_CASES += [(kind, (3, 2, 1, 128), torch.float32, 0.0)
                      for kind in ("fused", "tiled")]
+# B4's and B5's fp32 kernels (3xTF32 on the tensor cores) at the bf16
+# cases' edges: one key, a tile and one key, the longest slate of each past
+# a 64 multiple, d_k in each padded width class (test_f32_rows_off_a_16_
+# byte_boundary reaches the element-wise staging)
+_ATTENTION_CASES += [(kind, (3, 2, l, dk), torch.float32, p)
+                     for kind, lengths in (("tiled", (1, 65, 4097)),
+                                           ("fused", (1, 65, 1224)))
+                     for l in lengths
+                     for dk in (8, 20, 36, 48, 72, 100, 128)
+                     for p in (0.0, 0.3)]
 
 
 @pytest.mark.parametrize("kind,shape,dtype,p", _ATTENTION_CASES)
@@ -1091,6 +1102,66 @@ def test_tiled_bf16_rows_off_a_16_byte_boundary(cuda, p):
                                **TOL[torch.bfloat16])
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
         _close(g, r, torch.bfloat16, f"tiled {name}")
+
+
+@pytest.mark.parametrize("kind", ["fused", "tiled"])
+@pytest.mark.parametrize("dk", [20, 32, 36, 100])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_f32_rows_off_a_16_byte_boundary(cuda, kind, dk, p):
+    """Contiguous fp32 q, k, v and dO whose storage starts one element (4
+    bytes) past a 16-byte boundary take the element-wise staging of the
+    fp32 kernels, in each padded width class (d_k 20 and 32: 32; 36: 64;
+    100: 128), and match the plain version as the aligned ones do, a second
+    backward bit for bit."""
+    q, k, v, mask, do = _qkv_inputs(3, 2, 200, dk, torch.float32, cuda, dk)
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+
+    q, k, v, do = map(off, (q, k, v, do))
+    out, grads, ref, ref_grads = _attention_pair(kind, q, k, v, mask, do,
+                                                 p, 16)
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        _close(g, r, torch.float32, f"{kind} {name}")
+
+
+@pytest.mark.parametrize("kind", ["fused", "tiled"])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_f32_one_key_gradients_are_exactly_zero(cuda, kind, p):
+    """Where a row has a single key (L = 1) dQ and dK are 0 in exact
+    arithmetic; the fp32 kernels cancel dP - D exactly there (ROADMAP Queue
+    C3), with and without dropout, so theirs are 0, at every head width
+    class; dV is the plain version's."""
+    for dk in (8, 36, 128):
+        q, k, v, mask, do = _qkv_inputs(3, 2, 1, dk, torch.float32, cuda,
+                                        dk + 7)
+        out, (dq, dk_, dv), ref, (_, _, ref_dv) = _attention_pair(
+            kind, q, k, v, mask, do, p, 21)
+        assert not dq.any() and not dk_.any(), (kind, dk, p)
+        _close(dv, ref_dv, torch.float32, f"{kind} dv")
+
+
+@pytest.mark.parametrize("kind", ["fused", "tiled"])
+def test_attention_routes_count_their_launches(cuda, kind):
+    """fp32 takes the 3xTF32 kernels and bf16 the bf16 ones, each wrapper
+    counting the launch under ``route``'s answer."""
+    fwd, bwd = ((attention_fused_fwd, attention_fused_bwd)
+                if kind == "fused" else (tiled_attention_fwd,
+                                         tiled_attention_bwd))
+    for dtype, way in ((torch.float32, "tf32x3"), (torch.bfloat16, "mma")):
+        q, k, v, mask, do = _qkv_inputs(2, 2, 100, 32, dtype, cuda, 3)
+        assert attention_route(dtype, 32) == way
+        before = (dict(fwd.route_launches), dict(bwd.route_launches))
+        _attention_pair(kind, q, k, v, mask, do, 0.0, 3)
+        assert fwd.route_launches[way] == before[0][way] + 1
+        assert bwd.route_launches[way] == before[1][way] + 2
+        assert sum(fwd.route_launches.values()) == sum(
+            before[0].values()) + 1
 
 
 def test_tiled_attention_counts_one_launch_each_way(cuda):

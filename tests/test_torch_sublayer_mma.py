@@ -207,6 +207,43 @@ def test_busy_time_counts_overlapping_spans_once():
     assert busy_us(spans[::-1]) == 17.0  # in any order
 
 
+@pytest.mark.parametrize("spans, complete", [
+    ([("a", 0, 1), ("b", 1, 2)] * 3, True),
+    ([("a", 0, 1), ("b", 1, 2)] * 3 + [("c", 2, 3)], False),  # another
+    ([("a", 0, 1), ("b", 1, 2)] * 2 + [("a", 0, 1)], False),  # lost one
+    ([("b", 1, 2), ("a", 0, 1)] * 3, True),  # in any order
+    ([], False),
+])
+def test_a_trace_that_lost_kernels_is_incomplete(spans, complete):
+    """A trace of 3 calls is complete when it holds each kernel of a trace
+    of one call 3 times as often and no other (``timing.trace_complete``):
+    the profiler has lost some or all of a trace's device events."""
+    from allrank_tpu_torch.tools.timing import trace_complete
+
+    one_call = [("a", 0, 1), ("b", 1, 2)]
+    assert trace_complete(spans, one_call, 3) is complete
+    assert not trace_complete(spans, [], 3)  # one call's trace lost all
+
+
+def test_trace_kernels_takes_a_lossy_trace_again(monkeypatch):
+    """``timing.trace_kernels`` takes a trace that lost events again, and
+    raises ``IncompleteTrace`` when every attempt lost some, so that a lost
+    kernel cannot read as a low time."""
+    from allrank_tpu_torch.tools import timing
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    one = [("k", 0.0, 1.0)]
+    traces = iter([(one, 1.0), (one, 2.0), (one, 1.0), (one * 2, 2.0)])
+    monkeypatch.setattr(timing, "_trace", lambda fn, calls: next(traces))
+    monkeypatch.setattr(timing.trace_kernels, "lost", 0)
+    assert timing.trace_kernels(lambda: None, 2) == (one * 2, 2.0)
+    assert timing.trace_kernels.lost == 1
+    monkeypatch.setattr(timing, "_trace", lambda fn, calls: (one, 1.0))
+    with pytest.raises(timing.IncompleteTrace):
+        timing.trace_kernels(lambda: None, 2)
+    assert timing.trace_kernels.lost == 1 + timing.TRACE_ATTEMPTS
+
+
 def test_the_step_tool_builds_bench_configs_step():
     """``time_sublayers --step``'s step: bench.py's configuration (the
     flagship model, bf16, lambdaLoss) takes a step with a finite loss over
