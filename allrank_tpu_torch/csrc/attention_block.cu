@@ -49,8 +49,11 @@
 //    softmax, never NaN; its dS is zero at every padded key.
 //  * Products run as fp32 FMAs on 64 x 64 register tiles (common.cuh); the
 //    bf16 rounding points are the TPU kernel's: LN output, qkv,
-//    probabilities, ctx, and in the backward da, dO, dS and dqkv. Tensor
-//    cores (wgmma) are later work.
+//    probabilities, ctx, and in the backward da, dO, dS and dqkv. The
+//    tensor-core routes (attention_block_mma.cu in bf16,
+//    attention_block_tf32x3.cu in fp32) take heads up to 128 wide; these
+//    kernels take wider heads, and B10 (encoder_block.cu) inlines their
+//    tile bodies.
 #include "backward.cuh"
 #include "common.cuh"
 #include "dropout.cuh"

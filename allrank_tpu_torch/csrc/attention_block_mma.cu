@@ -12,8 +12,9 @@
 // Replaces the TPU kernel `attention_sublayer` of the JAX package's
 // ops/attention_block.py for bf16 activations with d_k <= 128: forward
 // pallas_call at line 343 (attn_sublayer_fwd_vmem, lines 122-144),
-// backward at line 375 (attn_sublayer_bwd_vmem, lines 159-254). fp32, and
-// bf16 with d_k > 128, keep the SIMT kernels of attention_block.cu; the
+// backward at line 375 (attn_sublayer_bwd_vmem, lines 159-254). fp32 with
+// d_k <= 128 takes attention_block_tf32x3.cu (3xTF32 on the tensor cores),
+// and d_k > 128 in either dtype the SIMT kernels of attention_block.cu; the
 // route is chosen in ops/attention_block.py from dtype, d and h alone.
 //
 // What bounds it: operations. At the flagship shape (B=64, L=240, d=128,

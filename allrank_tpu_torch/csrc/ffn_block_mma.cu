@@ -12,9 +12,9 @@
 // Replaces the TPU kernel `ffn_sublayer` of the JAX package's
 // ops/ffn_block.py for bf16 activations: forward pallas_call at line 204
 // (ffn_sublayer_fwd_vmem, lines 40-63), backward at line 233
-// (ffn_sublayer_bwd_vmem, lines 76-132). fp32 keeps the SIMT kernels of
-// ffn_block.cu; the route is chosen in ops/ffn_block.py from dtype, d and
-// d_ff alone.
+// (ffn_sublayer_bwd_vmem, lines 76-132). fp32 takes ffn_block_tf32x3.cu
+// (3xTF32 on the tensor cores); the route is chosen in ops/ffn_block.py
+// from dtype, d and d_ff alone.
 //
 // What bounds it: operations. At the flagship shape (B=64, L=240, d=128,
 // d_ff=512) the forward does 4.0 GFLOP (LN(x) . W1, hidden . W2) and the

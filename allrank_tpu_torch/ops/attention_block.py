@@ -1,10 +1,12 @@
 """Attention sublayer, ``y = x + drop_r((MHA_drop_a(LN(x) . Wqkv + bqkv))
 . Wout + bout)``, forward and backward: the CUDA kernels for CUDA tensors
 and their plain PyTorch versions, of the same signatures, for CPU tensors;
-``AttentionSublayer`` ties the two into autograd. Two routes of kernels
-(``route``): bf16 with d_k <= 128 runs on the tensor cores
-(``csrc/attention_block_mma.cu``), fp32 and bf16 with d_k > 128 on the
-SIMT units (``csrc/attention_block.cu``).
+``AttentionSublayer`` ties the two into autograd. Three routes of kernels
+(``route``): with d_k <= 128 bf16 runs on the tensor cores
+(``csrc/attention_block_mma.cu``) and fp32 on them as 3xTF32 split
+products (``csrc/attention_block_tf32x3.cu``, three TF32 products an fp32
+one, fp32's parity); heads wider than 128 run on the SIMT units
+(``csrc/attention_block.cu``) in either dtype.
 
 Replaces the TPU kernel ``attention_sublayer`` of the JAX package's
 ``ops/attention_block.py`` (forward ``pallas_call`` at line 343, backward at
@@ -58,9 +60,21 @@ _SIGNATURES_MMA = {
     "attention_sublayer_bwd_mma": [_P] * 25 + [_I] * 6
     + [ctypes.c_float, _P, ctypes.c_double, ctypes.c_double, _P],
 }
+# the 3xTF32 route's entry points: the tensor-core route's, the forward
+# with the scratch ctx [B, L, d] after stats
+_SIGNATURES_TF32X3 = {
+    "attention_sublayer_fwd_tf32x3": [_P] * 12 + [_I] * 4
+    + [ctypes.c_float, _P, ctypes.c_double, ctypes.c_double, _P],
+    "attention_sublayer_bwd_tf32x3":
+    _SIGNATURES_MMA["attention_sublayer_bwd_mma"],
+}
 # the widest head the tensor-core kernels take (d_k padded to 32, 64 or 128)
 MMA_MAX_HEAD = 128
-ROUTES = ("mma", "simt")
+ROUTES = ("mma", "tf32x3", "simt")
+# each route's library and entry points
+_LIBRARIES = {"mma": ("attention_block_mma", _SIGNATURES_MMA),
+              "tf32x3": ("attention_block_tf32x3", _SIGNATURES_TF32X3),
+              "simt": ("attention_block", _SIGNATURES)}
 
 
 def check_width(b: int, d: int, dtype, h: int = 1) -> None:
@@ -90,21 +104,31 @@ def check_envelope(b: int, l: int, d: int, dtype, h: int = 1) -> None:
 
 def route(dtype, d: int, h: int) -> str:
     """The kernels a CUDA call takes, from dtype, d and h alone, before any
-    launch: ``"mma"`` (the tensor cores, ``attention_block_mma.cu``) for
-    bf16 with d_k = d / h <= 128, ``"simt"`` (``attention_block.cu``) for
-    fp32 (no TF32: fp32 keeps its parity) and for bf16 with wider heads.
+    launch: with d_k = d / h <= 128 ``"mma"`` (the tensor cores,
+    ``attention_block_mma.cu``) for bf16 and ``"tf32x3"`` (the tensor cores
+    as 3xTF32 split products, ``attention_block_tf32x3.cu``) for fp32;
+    ``"simt"`` (``attention_block.cu``) for wider heads in either dtype.
     Raises ``NotImplementedError`` outside the sublayer kernels' envelope."""
     check_width(1, d, dtype, h)
-    return ("mma" if dtype == torch.bfloat16 and d // h <= MMA_MAX_HEAD
-            else "simt")
+    if d // h > MMA_MAX_HEAD:
+        return "simt"
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
-def splits(m: int, k: int, n: int) -> int:
+# blocks of a weight-gradient product the splits aim at: two waves of
+# 64 x 64 output tiles on 132 SMs; the 3xTF32 tile (72 KB of shared memory,
+# three blocks an SM) one full wave of three, which took 6 % less of B2's
+# fp32 backward device time than 264 (PERF.md)
+SPLIT_BLOCKS = 264
+SPLIT_BLOCKS_TF32X3 = 396
+
+
+def splits(m: int, k: int, n: int, blocks: int = SPLIT_BLOCKS) -> int:
     """Row splits of a weight-gradient product ``A^T . B`` over ``m`` rows
-    into a ``[k, n]`` result: about two waves of 64 x 64 output tiles on
-    132 SMs, and at least 32 rows per split."""
+    into a ``[k, n]`` result: about ``blocks`` blocks of 64 x 64 output
+    tiles, and at least 32 rows per split."""
     tiles = -(-k // 64) * -(-n // 64)
-    return max(1, min(-(-264 // tiles), -(-m // 32)))
+    return max(1, min(-(-blocks // tiles), -(-m // 32)))
 
 
 def _masks(b, l, d, h, p_attn, p_resid, seeds, device):
@@ -280,7 +304,7 @@ def attention_sublayer_fwd(x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
 
 
 def _check_way(way, dtype, d, h):
-    if way not in ROUTES or (way == "mma" and route(dtype, d, h) != "mma"):
+    if way not in ROUTES or (way != "simt" and route(dtype, d, h) != way):
         raise ValueError(f"no {way!r} kernels for {dtype}, d={d}, h={h}")
 
 
@@ -289,8 +313,8 @@ def launch_fwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                seeds=(0, 0), return_saved: bool = False):
     """``attention_sublayer_fwd`` on CUDA tensors through the kernels of
     route ``way``: the wrapper passes ``route``'s answer; B10's checks also
-    take the SIMT kernels in bf16, whose tile bodies B10 runs. Counts the
-    launch as the wrapper's."""
+    take the SIMT kernels, whose tile bodies B10 runs. Counts the launch as
+    the wrapper's."""
     p_attn, p_resid = dropout.check_rate(p_attn), dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, wqkv, bqkv, wout, bout)
     b, l, d = _check(x, key_mask, params, h)
@@ -307,11 +331,14 @@ def launch_fwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     tail = (_keys(seeds, p_attn, p_resid), p_attn, p_resid,
             _build.stream_of(x))
     with torch.cuda.device(dev):
+        lib = _build.load(*_LIBRARIES[way])
         if way == "mma":
-            lib = _build.load("attention_block_mma", _SIGNATURES_MMA)
             rc = lib.attention_sublayer_fwd_mma(*args, *tail)
+        elif way == "tf32x3":
+            ctx = torch.empty((b, l, d), dtype=x.dtype, device=dev)
+            rc = lib.attention_sublayer_fwd_tf32x3(
+                *args[:11], _build.ptr(ctx), *args[11:], *tail)
         else:
-            lib = _build.load("attention_block", _SIGNATURES)
             rc = lib.attention_sublayer_fwd(
                 *args, int(x.dtype == torch.bfloat16), *tail)
     _build.check_launch(lib, rc, f"attention_sublayer_fwd ({way})")
@@ -362,7 +389,8 @@ def launch_bwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     _build.require(dy, "dy", (b, l, d), dtype, dev)
 
     m = b * l
-    s_qkv, s_out = splits(m, d, 3 * d), splits(m, d, d)
+    blocks = SPLIT_BLOCKS_TF32X3 if way == "tf32x3" else SPLIT_BLOCKS
+    s_qkv, s_out = splits(m, d, 3 * d, blocks), splits(m, d, d, blocks)
     f32 = dict(dtype=torch.float32, device=dev)
     outs = [torch.empty_like(x), torch.empty(d, **f32), torch.empty(d, **f32),
             torch.empty((d, 3 * d), **f32), torch.empty(3 * d, **f32),
@@ -380,11 +408,12 @@ def launch_bwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     tail = (_keys(seeds, p_attn, p_resid), p_attn, p_resid,
             _build.stream_of(x))
     with torch.cuda.device(dev):
+        lib = _build.load(*_LIBRARIES[way])
         if way == "mma":
-            lib = _build.load("attention_block_mma", _SIGNATURES_MMA)
             rc = lib.attention_sublayer_bwd_mma(*args, *tail)
+        elif way == "tf32x3":
+            rc = lib.attention_sublayer_bwd_tf32x3(*args, *tail)
         else:
-            lib = _build.load("attention_block", _SIGNATURES)
             rc = lib.attention_sublayer_bwd(
                 *args, int(dtype == torch.bfloat16), *tail)
     _build.check_launch(lib, rc, f"attention_sublayer_bwd ({way})")

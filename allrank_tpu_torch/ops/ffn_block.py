@@ -1,9 +1,12 @@
 """FFN sublayer, ``y = x + drop_r(drop_h(relu(LN(x) . W1 + b1)) . W2 + b2)``,
 forward and backward: the CUDA kernels for CUDA tensors and their plain
 PyTorch versions, of the same signatures, for CPU tensors; ``FFNSublayer``
-ties the two into autograd. Two routes of kernels (``route``): bf16 runs on
-the tensor cores (``csrc/ffn_block_mma.cu``), fp32 on the SIMT units
-(``csrc/ffn_block.cu``, no TF32: fp32 keeps its parity).
+ties the two into autograd. Two routes of kernels (``route``), both on the
+tensor cores: bf16 (``csrc/ffn_block_mma.cu``) and fp32 as 3xTF32 split
+products (``csrc/ffn_block_tf32x3.cu``, three TF32 products an fp32 one,
+fp32's parity). The SIMT kernels (``csrc/ffn_block.cu``), whose tile
+bodies the whole-encoder kernel B10 runs, stay as a third route that only
+an explicit ``launch_fwd`` / ``launch_bwd`` takes.
 
 Replaces the TPU kernel ``ffn_sublayer`` of the JAX package's
 ``ops/ffn_block.py`` (forward ``pallas_call`` at line 204, backward at line
@@ -25,6 +28,8 @@ import torch
 from allrank_tpu_torch.models.core import std_layer_norm
 from allrank_tpu_torch.ops import _build, dropout
 from allrank_tpu_torch.ops.attention_block import (
+    SPLIT_BLOCKS,
+    SPLIT_BLOCKS_TF32X3,
     check_width,
     ln_backward,
     splits,
@@ -50,20 +55,35 @@ _SIGNATURES_MMA = {
     "ffn_sublayer_bwd_mma": [_P] * 23 + [_I] * 5
     + [_P, ctypes.c_double, ctypes.c_double, _P],
 }
-ROUTES = ("mma", "simt")
+# the 3xTF32 route's entry points: the SIMT ones less is_bf16
+_SIGNATURES_TF32X3 = {
+    "ffn_sublayer_fwd_tf32x3": [_P] * 8 + [_I] * 3
+    + [_P, ctypes.c_double, ctypes.c_double, _P],
+    "ffn_sublayer_bwd_tf32x3": [_P] * 21 + [_I] * 5
+    + [_P, ctypes.c_double, ctypes.c_double, _P],
+}
+ROUTES = ("mma", "tf32x3", "simt")
+# each route's library and entry points
+_LIBRARIES = {"mma": ("ffn_block_mma", _SIGNATURES_MMA),
+              "tf32x3": ("ffn_block_tf32x3", _SIGNATURES_TF32X3),
+              "simt": ("ffn_block", _SIGNATURES)}
 
 
 def route(dtype, d: int, d_ff: int) -> str:
     """The kernels a CUDA call takes, from dtype, d and d_ff alone, before
     any launch: ``"mma"`` (the tensor cores, ``ffn_block_mma.cu``) for
-    bf16, ``"simt"`` (``ffn_block.cu``) for fp32. Raises
+    bf16, ``"tf32x3"`` (the tensor cores as 3xTF32 split products,
+    ``ffn_block_tf32x3.cu``) for fp32, across the whole envelope: fp32's
+    operands fit in shared memory at every d <= 256 (128 rows a block and
+    64-unit hidden chunks forward at d <= 128, 64 rows and 32-unit chunks
+    above; the backward's 32- and 16-unit chunks). Raises
     ``NotImplementedError`` outside the kernels' envelope (d <= 256,
     d_ff <= 1024)."""
     check_width(1, d, dtype)
     if not 1 <= d_ff <= MAX_FF:
         raise NotImplementedError(
             f"FFN kernel covers d_ff <= {MAX_FF}, got {d_ff}")
-    return "mma" if dtype == torch.bfloat16 else "simt"
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _pad(n: int, step: int) -> int:
@@ -249,7 +269,7 @@ def ffn_sublayer_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
 
 
 def _check_way(way, dtype, d, d_ff):
-    if way not in ROUTES or (way == "mma" and route(dtype, d, d_ff) != "mma"):
+    if way not in ROUTES or (way != "simt" and route(dtype, d, d_ff) != way):
         raise ValueError(f"no {way!r} kernels for {dtype}, d={d}, "
                          f"d_ff={d_ff}")
 
@@ -266,8 +286,8 @@ def launch_fwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2,
                p_hidden: float = 0.0, p_resid: float = 0.0, seeds=(0, 0)):
     """``ffn_sublayer_fwd`` on CUDA tensors through the kernels of route
     ``way``: the wrapper passes ``route``'s answer; B10's checks also take
-    the SIMT kernels in bf16, whose tile bodies B10 runs. Counts the launch
-    as the wrapper's."""
+    the SIMT kernels, whose tile bodies B10 runs. Counts the launch as the
+    wrapper's."""
     p_hidden = dropout.check_rate(p_hidden)
     p_resid = dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
@@ -279,13 +299,14 @@ def launch_fwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2,
     tail = (_keys(seeds, p_hidden, p_resid), p_hidden, p_resid,
             _build.stream_of(x))
     with torch.cuda.device(x.device):
+        lib = _build.load(*_LIBRARIES[way])
         if way == "mma":
-            lib = _build.load("ffn_block_mma", _SIGNATURES_MMA)
             rounded = _rounded_weights(d, d_ff, x.device)
             rc = lib.ffn_sublayer_fwd_mma(*head, *map(_build.ptr, rounded),
                                           m, d, d_ff, *tail)
+        elif way == "tf32x3":
+            rc = lib.ffn_sublayer_fwd_tf32x3(*head, m, d, d_ff, *tail)
         else:
-            lib = _build.load("ffn_block", _SIGNATURES)
             rc = lib.ffn_sublayer_fwd(*head, m, d, d_ff,
                                       int(x.dtype == torch.bfloat16), *tail)
     _build.check_launch(lib, rc, f"ffn_sublayer_fwd ({way})")
@@ -326,7 +347,8 @@ def launch_bwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     dev, dtype = x.device, x.dtype
     _build.require(dy, "dy", tuple(x.shape), dtype, dev)
 
-    s1, s2 = splits(m, d, d_ff), splits(m, d_ff, d)
+    blocks = SPLIT_BLOCKS_TF32X3 if way == "tf32x3" else SPLIT_BLOCKS
+    s1, s2 = splits(m, d, d_ff, blocks), splits(m, d_ff, d, blocks)
     f32 = dict(dtype=torch.float32, device=dev)
     outs = [torch.empty_like(x), torch.empty(d, **f32), torch.empty(d, **f32),
             torch.empty((d, d_ff), **f32), torch.empty(d_ff, **f32),
@@ -346,13 +368,15 @@ def launch_bwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
     tail = (_keys(seeds, p_hidden, p_resid), p_hidden, p_resid,
             _build.stream_of(x))
     with torch.cuda.device(dev):
+        lib = _build.load(*_LIBRARIES[way])
         if way == "mma":
-            lib = _build.load("ffn_block_mma", _SIGNATURES_MMA)
             rounded = _rounded_weights(d, d_ff, dev)
             rc = lib.ffn_sublayer_bwd_mma(*head, *map(_build.ptr, rounded),
                                           m, d, d_ff, s1, s2, *tail)
+        elif way == "tf32x3":
+            rc = lib.ffn_sublayer_bwd_tf32x3(*head, m, d, d_ff, s1, s2,
+                                             *tail)
         else:
-            lib = _build.load("ffn_block", _SIGNATURES)
             rc = lib.ffn_sublayer_bwd(*head, m, d, d_ff, s1, s2,
                                       int(dtype == torch.bfloat16), *tail)
     _build.check_launch(lib, rc, f"ffn_sublayer_bwd ({way})")

@@ -48,12 +48,13 @@ SHAPES = ((16, 4, 1200, 32), (8, 4, 1200, 32), (8, 4, 4096, 32),
           (16, 4, 1024, 32), (64, 4, 240, 32))
 
 
-def ptxas_lines(source: str) -> list:
-    """(kernel, registers and spill lines) from ``source``'s build log."""
+def ptxas_lines(source: str, log=None) -> list:
+    """(kernel, registers and spill lines) from ``source``'s build log, or
+    from the log file ``log``."""
     from allrank_tpu_torch.ops import _build
 
     out, name = [], None
-    with open(_build.log_path(source)) as f:
+    with open(log or _build.log_path(source)) as f:
         for line in f:
             found = re.search(r"Compiling entry function '(\S+)'", line)
             if found:

@@ -14,11 +14,13 @@ kernels' durations in a torch.profiler trace of 10 calls
 device time by kernel from such a trace; ``--ptxas SOURCE ...`` first
 prints each kernel's registers and spills from those sources' build logs.
 ``--step`` instead times ``bench.py``'s train step (the flagship model:
-136 features, FC [128], 4 blocks of d=128, h=4, d_ff=512, dropout 0, bf16,
-Adam at 1e-3, lambdaLoss with ndcgLoss2PP at B=64, L=240 with a
-40-document padding tail): the step's ms (CUDA events, the host's time in
-it), the device's busy ms a step and its idle share, and its device time
-by kernel, from a torch.profiler trace of 5 steps.
+136 features, FC [128], 4 blocks of d=128, h=4, d_ff=512, dropout 0, Adam
+at 1e-3, lambdaLoss with ndcgLoss2PP at B=64, L=240 with a 40-document
+padding tail), in fp32 (``make_train_step``'s default) and in bf16
+(``bench.py``'s): the step's ms (CUDA events, the host's time in it), the
+device's busy ms a step and its idle share, and its device time by kernel,
+from a torch.profiler trace of 5 steps; then the flagship scorer's ms a
+call in both dtypes.
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -43,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 B, L, D, H, D_FF = 64, 240, 128, 4, 512
+FEATURES = 136
 
 
 def b1_library(x, mask_add, g, b, wqkv, bqkv, wout, bout, h):
@@ -108,11 +111,9 @@ def library_fns(kind, x, mask, params, dy):
             lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
 
 
-def flagship_step(dev):
-    """``bench.py``'s train step on a model of seeded random weights, and
-    its batch: (step, (x, y, indices))."""
-    import numpy as np
-
+def flagship_model(dev):
+    """``bench.py``'s model (the flagship) of seeded random weights on
+    ``dev``."""
     from allrank_tpu_torch.config import (
         FCConfig,
         ModelConfig,
@@ -120,11 +121,8 @@ def flagship_step(dev):
         PostModelConfig,
         TransformerConfig,
     )
-    from allrank_tpu_torch.losses import get_loss
     from allrank_tpu_torch.models.factory import LTRModel, make_model
-    from allrank_tpu_torch.training import make_optimizer, make_train_step
 
-    features = 136
     mdef = make_model(ModelConfig(
         fc_model=FCConfig(sizes=[128], input_norm=True, activation="ReLU",
                           dropout=0.0),
@@ -132,15 +130,26 @@ def flagship_step(dev):
             N=4, d_ff=D_FF, h=H, dropout=0.0,
             positional_encoding=PositionalEncodingConfig(
                 strategy="fixed", max_indices=256)),
-        post_model=PostModelConfig(d_output=1)), features)
-    model = LTRModel(mdef, torch.Generator().manual_seed(0), device=dev)
+        post_model=PostModelConfig(d_output=1)), FEATURES)
+    return LTRModel(mdef, torch.Generator().manual_seed(0), device=dev)
+
+
+def flagship_step(dev, dtype: str = "bfloat16", model=None):
+    """``bench.py``'s train step in ``dtype`` on ``model`` (by default
+    ``flagship_model``), and its batch: (step, (x, y, indices))."""
+    import numpy as np
+
+    from allrank_tpu_torch.losses import get_loss
+    from allrank_tpu_torch.training import make_optimizer, make_train_step
+
+    model = flagship_model(dev) if model is None else model
     loss_fn, needs_rng = get_loss("lambdaLoss")
     step = make_train_step(
         model, loss_fn, {"weighing_scheme": "ndcgLoss2PP_scheme", "mu": 10.0},
         needs_rng, make_optimizer("Adam", {"lr": 1e-3}, model.parameters()),
-        None, "bfloat16")
+        None, dtype)
     rng = np.random.RandomState(0)
-    x = rng.randn(B, L, features).astype(np.float32)
+    x = rng.randn(B, L, FEATURES).astype(np.float32)
     y = np.clip(np.round(2.0 + x[..., 0] + 0.5 * rng.randn(B, L)), 0,
                 4).astype(np.float32)
     indices = np.tile(np.arange(L), (B, 1))
@@ -150,9 +159,11 @@ def flagship_step(dev):
                        for t in (x, y, indices))
 
 
-def time_step(card: str, package: str, iters: int) -> dict:
-    """``--step``'s line: the flagship step's ms, device busy ms a step,
-    idle share and device ms a step by kernel (the ten largest)."""
+def time_step(card: str, package: str, iters: int, dtype: str) -> dict:
+    """``--step``'s line in ``dtype``: the flagship step's ms, device busy
+    ms a step, idle share and device ms a step by kernel (the ten largest),
+    and the flagship scorer's ms a call (CUDA events) on the same model."""
+    from allrank_tpu_torch.serving import make_scorer
     from allrank_tpu_torch.tools.timing import (
         _median_event_ms,
         busy_us,
@@ -160,20 +171,25 @@ def time_step(card: str, package: str, iters: int) -> dict:
     )
 
     dev = torch.device("cuda", 0)
-    step, batch = flagship_step(dev)
+    model = flagship_model(dev)
+    step, batch = flagship_step(dev, dtype, model)
     calls = 5
     ms = _median_event_ms(lambda: step(*batch), iters, 3)
     spans, window_us = trace_kernels(lambda: step(*batch), calls)
+    # the scorer last: make_scorer puts the model in eval mode
+    scorer = make_scorer(model, dtype)
+    lengths = (batch[2] >= 0).sum(dim=1)
+    scorer_ms = _median_event_ms(lambda: scorer(batch[0], lengths), iters, 3)
     by_name = {}
     for name, start, end in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / calls / 1e3
     busy = busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"step": "bench.py config, flagship, bf16", "shape": [B, L],
+    return {"step": f"bench.py config, flagship, {dtype}", "shape": [B, L],
             "ms": ms, "device_busy_ms": busy / calls / 1e3,
             "idle_share": 1 - busy / window_us,
             "by_kernel_ms": {k[:80]: v for k, v in top},
-            "card": card, "package": package}
+            "scorer_ms": scorer_ms, "card": card, "package": package}
 
 
 def main(argv=None) -> int:
@@ -214,7 +230,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.step:
-        print(json.dumps(time_step(card, package, args.iters)), flush=True)
+        for dtype in ("float32", "bfloat16"):
+            print(json.dumps(time_step(card, package, args.iters, dtype)),
+                  flush=True)
         return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)

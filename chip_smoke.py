@@ -9,24 +9,27 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the sixteen kernel sources of
-   ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
+1. the card, torch and CUDA versions; builds the eighteen kernel sources
+   of ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
    counts the ``HMMA`` instructions of B4's and B5's bf16 kernels (18
    each) and fp32 kernels (18 each, 3xTF32: TF32 ``HMMA``; the two sources
-   hold no other kernel), of B1's (22) and of B2's (5) with the toolkit's
-   ``cuobjdump -sass`` (each must hold some); turns TF32 off for PyTorch's
-   own products;
+   hold no other kernel), of B1's bf16 (22) and of B2's bf16 (5), and of
+   B1's fp32 (23 ``b1_*_tf32x3_kernel``) and B2's fp32 (5
+   ``b2_*_tf32x3_kernel``: TF32 ``HMMA`` only, none in the other kernels
+   of their sources) with the toolkit's ``cuobjdump -sass`` (each must
+   hold some); turns TF32 off for PyTorch's own products;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
-   lengths and one lengths=0 slate, in fp32 (its SIMT kernels) and bf16
-   (its tensor-core kernels), plus edge shapes; and in bf16 at head widths
-   8, 20, 32, 36, 48, 72, 100 and 128 x L in {1, 65, 240, 1024}, which
-   runs each of its tensor-core forward instantiations;
+   lengths and one lengths=0 slate, in fp32 (its 3xTF32 kernels) and bf16
+   (its tensor-core kernels), plus edge shapes (d_k 256 on the SIMT
+   kernels); and in bf16 and fp32 at head widths 8, 20, 32, 36, 48, 72,
+   100 and 128 x L in {1, 65, 240, 1024}, which runs each of its
+   tensor-core forward instantiations of both dtypes;
 3. the FFN sublayer kernel (B2) likewise, d_ff 512 and 384, in fp32 (its
-   SIMT kernels) and bf16 (its tensor-core kernels); and in bf16 at d in
-   {32, 96, 128, 144, 256} x d_ff in {384, 512, 1024} x L in {1, 65, 240,
-   1024}, which runs each of its tensor-core instantiations;
+   3xTF32 kernels) and bf16 (its tensor-core kernels); and in both at d
+   in {32, 96, 128, 144, 256} x d_ff in {384, 512, 1024} x L in {1, 65,
+   240, 1024}, which runs each of its tensor-core instantiations;
 4. the flagship ranker (136 features, FC [128], 4 blocks of d=128, h=4,
    d_ff=512, random weights from a seeded ``torch.Generator``) through
    ``make_scorer``/``make_ranker`` on the GPU against the same model's
@@ -38,8 +41,9 @@ and never prints its last line):
    before the requests and read just after);
 6. times (CUDA events after warm-up, medians; and as device time, 20
    calls in one CUDA graph): each kernel, its plain version and a PyTorch
-   library yardstick at the flagship serving shape (B1 in fp32 on its SIMT
-   kernels, in bf16 on its tensor cores: a row each),
+   library yardstick at the flagship serving shape (B1 and B2 a row per
+   route: fp32 on the 3xTF32 kernels with their bound beside the SIMT one,
+   fp32 on the SIMT kernels by name, bf16 on the tensor cores),
    the scorer's slates/s with its device time by kernel and idle share
    (torch.profiler), the service's p50 request latency;
 7. the B1 and B2 backward kernels against their plain versions (and the
@@ -52,7 +56,9 @@ and never prints its last line):
    tensor-core kernels; B2 in bf16 at phase 3's widths and lengths,
    dropout 0 and 0.3, with x and dy 2 bytes off a 16-byte boundary and at
    d < 16 and d_ff not a multiple of 64, a second backward bit for bit the
-   first: each of its 5 tensor-core kernels. Every B2 backward is held
+   first: each of its 5 tensor-core kernels; the same cases in fp32, rows
+   one element off a 16-byte boundary: each of B1's 23 and B2's 5 3xTF32
+   kernels, at the unchanged fp32 tolerances. Every B2 backward is held
    under ROADMAP Queue C5's replay: the ReLU gates that its dx shows
    flipped (a pre-activation within rounding of 0) replayed in the plain
    version (``ffn_block.gate_flips``), at most ``GATE_FLIPS_MAX`` a case;
@@ -71,7 +77,7 @@ and never prints its last line):
    B2's all on their tensor-core routes (the counters are set to 0 just
    before the steps and read just after); at dropout 0 in fp32, step 1's
    loss and gradients on the GPU against the same model's plain run on the
-   CPU, B1 and B2 on their SIMT routes;
+   CPU, B1 and B2 on their 3xTF32 routes;
 10. times: the train step at ``bench.py``'s configuration (the flagship
     model, dropout 0, bf16; B1 4 + 4 launches on the tensor cores) and at
     the paper config, with its idle share
@@ -238,7 +244,10 @@ and never prints its last line):
     past its shared-memory cap; then the probe ``exp_sinkhorn_layout``
     (B8 against X4, forward and forward + backward, 8 steps in one CUDA
     graph); times at N=64 beside B8's;
-34. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route), the card's
+34. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
+    3xTF32 rows count the fp32 service's and step's launches, the SIMT
+    rows those of B10's reference chain in phase 28 and carry
+    ``"launch_source": "b10_reference_chain"``), the card's
     name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
@@ -295,6 +304,12 @@ ATTN_F32_KERNELS = 18
 # B2's tensor-core kernels: the forward and the backward's row kernel at
 # d <= 128 and d > 128 (two warps a row group), and the split A^T B
 B2_MMA_KERNELS = 5
+# B1's and B2's fp32 kernels (3xTF32 on the tensor cores): B1's attention
+# core, dQ and dK/dV kernels at padded d_k 32, 64, 128, aligned or not, and
+# LN + QKV, the out-projection, the backward's rows, dn + LN backward and
+# the weight gradients; B2's forward and backward row kernel at d <= 128
+# and d > 128, and the weight gradients
+B1_F32_KERNELS, B2_F32_KERNELS = 23, 5
 # the widths B2's bf16 kernels are held to: d within one warp's 128
 # output columns (32, 96, 128) or split over two warps (144, whose second
 # warp takes 16 columns, and 256), d_ff whole 64-unit chunks; phase 7's
@@ -340,6 +355,11 @@ STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
 # in all four blocks at some 5,000-7,000 rows, more with more rows; a fault
 # upstream of the FFN moves every pre-activation and flips far more
 GATE_FLIPS_MAX = 8
+# a step-1 check's gate that the FFN kernel's own sums may take the other
+# way: a CPU pre-activation within this share of the sum of its terms'
+# magnitudes from 0; 16 times the worst rounding of a 256-term fp32 sum
+# (256 x 2^-24), to cover the drift the blocks upstream carry in
+FLIP_MARGIN = 2.0 ** -12
 # flagship scores, GPU kernels vs the CPU plain run, fp32 through 4 blocks
 SCORE_TOL = 1e-3
 # flagship scores, bf16 vs fp32 on the GPU: bf16 keeps 8 mantissa bits and
@@ -596,12 +616,14 @@ def make_step(cfg, model, dtype, optimizer_name=None, lr=None, loss=None):
                            generator=torch.Generator().manual_seed(1))
 
 
-def ffn_gates(model, batch, run):
+def ffn_gates(model, batch, run, calls=None):
     """Runs ``run()`` with every FFN sublayer call of ``model``'s encoder
     recorded (with ``MEGA_ENCODER_ENABLED``, every B10 call, replayed:
     ``encoder_ffn_gates``): returns (run's result, per block the
     [rows, d_ff] bools of the hidden units' ReLU gates at the valid
-    documents)."""
+    documents). A list ``calls`` gains, per sublayer call, its arguments
+    and the gradient its backward takes (``"dy"``), for
+    ``replay_kernel_flips``."""
     import allrank_tpu_torch.models.transformer as transformer
     from allrank_tpu_torch.models.core import std_layer_norm
 
@@ -614,7 +636,14 @@ def ffn_gates(model, batch, run):
         with torch.no_grad():
             pre = std_layer_norm(x.float(), ln_scale, ln_bias) @ w1 + b1
             gates.append(pre.reshape(-1, pre.shape[-1]) > 0)
-        return inner(x, ln_scale, ln_bias, w1, b1, *rest)
+        out = inner(x, ln_scale, ln_bias, w1, b1, *rest)
+        if calls is not None and out.requires_grad:
+            call = {"args": [t.detach() for t in (x, ln_scale, ln_bias, w1,
+                                                  b1, *rest[:2])],
+                    "rates": rest[2:]}
+            calls.append(call)
+            out.register_hook(lambda g: call.__setitem__("dy", g.detach()))
+        return out
 
     def record_encoder(*args, **kwargs):
         replay(*args, **kwargs)
@@ -639,20 +668,28 @@ def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None,
     returns (GPU loss, CPU loss, the worst gradient error as a share of its
     tolerance).
 
-    With ``gate_flips`` it also returns, per block, the number of FFN
-    hidden units whose ReLU gate differs between the two runs at some valid
-    document (pre-activations within fp32 rounding of 0), and holds the FFN
-    weights of those units (columns of W1 and b1, rows of W2) out of the
-    rule: a gradient is not continuous there. At most ``GATE_FLIPS_MAX``
-    units of a block may flip; the rest of every gradient, and every other
-    gradient whole, stays under the rule."""
+    With ``gate_flips`` it also returns, per block, the FFN hidden units
+    whose ReLU gate flipped between the two runs at some valid document,
+    as (held out, replayed); at most ``GATE_FLIPS_MAX`` a block. A gradient
+    is not continuous at a gate. Where the recorded gates of the two runs'
+    pre-activations differ (a flip carried in from upstream), the unit's
+    FFN weights (columns of W1 and b1, rows of W2) are held out of the
+    rule. Where they agree and the unit's b1 gradient breaks the rule, the
+    flip can only lie inside the FFN kernel's own sums, whose order the
+    recorded torch ops do not share: ``replay_kernel_flips`` must show it
+    (pre-activations within ``FLIP_MARGIN`` of 0 on the CPU, and the
+    plain backward with those gates flipped), and the unit's b1, W1 and W2
+    gradients are then held to the rule against that replayed reference.
+    The rest of every gradient, and every other gradient whole, stays under
+    the rule."""
     cpu_model = copy.deepcopy(gpu_model).to("cpu")
-    results, gates = [], []
+    results, gates, calls = [], [], []
     for m, b in ((gpu_model, batch), (cpu_model, [t.cpu() for t in batch])):
         step = make_step(cfg, m, "float32", optimizer_name="SGD", lr=0.0,
                          loss=loss)
         if gate_flips:
-            (value, _), g = ffn_gates(m, b, lambda: step(*b))
+            (value, _), g = ffn_gates(m, b, lambda: step(*b),
+                                      calls if m is cpu_model else None)
             gates.append(g)
         else:
             value, _ = step(*b)
@@ -661,15 +698,38 @@ def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None,
     (gl, gg), (cl, cg) = results
     assert math.isfinite(gl) and abs(gl - cl) <= STEP_LOSS_RTOL * abs(cl), (
         loss, gl, cl)
-    keep = {}
-    if gate_flips:
-        for i, (a, c) in enumerate(zip(*gates)):
-            same = ~(a != c).any(dim=0)
-            pre = f"transformer.layers.{i}."
-            keep[pre + "ff1.w"] = same[None, :].expand_as(cg[pre + "ff1.w"])
-            keep[pre + "ff1.b"] = same
-            keep[pre + "ff2.w"] = same[:, None].expand_as(cg[pre + "ff2.w"])
+    if not gate_flips:
+        return gl, cl, step_grad_rule(gg, cg, loss)[0]
+    valid = (batch[1] != -1.0).reshape(-1).cpu()
+    worst, flips = step_grad_rule(gg, cg, loss, gates, calls, valid)
+    return gl, cl, worst, flips
+
+
+def step_grad_rule(gg, cg, loss=None, gates=None, calls=(), valid=None):
+    """``step_one_gpu_vs_cpu``'s rule on the GPU step's gradients ``gg``
+    against the CPU step's ``cg`` (by parameter name): returns (the worst
+    error as a share of its tolerance, per block the FFN units (held out,
+    replayed), or None without ``gates``). ``gates`` = the two runs'
+    recorded gates per block (``ffn_gates``), ``calls`` the CPU run's
+    sublayer calls, ``valid`` the [rows] bools of the valid documents."""
+    cg, keep, flips = dict(cg), {}, []
     top = max(v.abs().max().item() for v in cg.values())
+    for i, (a, c) in enumerate(zip(*gates) if gates else ()):
+        pre = f"transformer.layers.{i}."
+        names = (pre + "ff1.b", pre + "ff1.w", pre + "ff2.w")
+        same = ~(a != c).any(dim=0)
+        b_tol = (STEP_GRAD_TOL * cg[names[0]][same].abs().max().item()
+                 + 1e-5 * top)
+        bad = same & ((gg[names[0]] - cg[names[0]]).abs() > b_tol)
+        if bad.any():
+            replayed = replay_kernel_flips(
+                calls[i] if len(calls) == len(gates[0]) else None, valid,
+                bad, [gg[k] for k in names], [cg[k] for k in names])
+            cg.update(zip(names, replayed))
+        keep[names[0]] = same
+        keep[names[1]] = same[None, :].expand_as(cg[names[1]])
+        keep[names[2]] = same[:, None].expand_as(cg[names[2]])
+        flips.append((int((~same).sum()), int(bad.sum())))
     worst = 0.0
     for name, ref in cg.items():
         assert torch.isfinite(gg[name]).all(), (loss, name)
@@ -680,14 +740,76 @@ def step_one_gpu_vs_cpu(cfg, gpu_model, batch, loss=None,
         allowed = STEP_GRAD_TOL * scale + 1e-5 * top
         assert err <= allowed, (loss, name, err, scale)
         worst = max(worst, err / allowed)
-    if gate_flips:
-        flips = [int((~keep[f"transformer.layers.{i}.ff1.b"]).sum().item())
-                 for i in range(len(gates[0]))]
-        assert max(flips) <= GATE_FLIPS_MAX, (
+    if gates:
+        assert max(sum(f) for f in flips) <= GATE_FLIPS_MAX, (
             f"FFN units with a ReLU gate flipped between GPU and CPU, per "
-            f"block: {flips} (at most {GATE_FLIPS_MAX})")
-        return gl, cl, worst, flips
-    return gl, cl, worst
+            f"block (held out, replayed): {flips} (at most {GATE_FLIPS_MAX})")
+        return worst, flips
+    return worst, None
+
+
+def replay_kernel_flips(call, valid, units, got, ref) -> tuple:
+    """The CPU step's FFN gradients ``ref`` = (b1, W1, W2) of one block
+    with the ReLU gates that the GPU's FFN kernel took the other way
+    replayed, for the hidden ``units`` whose b1 gradient in the GPU step's
+    ``got`` misses the CPU's. ``call`` is the block's recorded CPU
+    sublayer call (``ffn_gates``). A candidate gate is one at a ``valid``
+    row whose backward term is not 0 and whose CPU pre-activation lies
+    within ``FLIP_MARGIN`` of 0, relative to the sum of its terms'
+    magnitudes (``ffn_block.gate_flips``' margin); of each unit's four
+    nearest, the subset whose flip comes closest to the miss is taken, and
+    ``ffn_sublayer_bwd_plain`` runs again with those gates flipped: its
+    change, scaled as the step scaled the sublayer's gradients (the
+    global-norm clip), is added to ``ref``. A unit with no candidate fails
+    here; the caller holds the replayed gradients to its unchanged rule."""
+    from allrank_tpu_torch.ops.ffn_block import (
+        _bwd_parts,
+        ffn_sublayer_bwd_plain,
+    )
+
+    assert call is not None and "dy" in call, (
+        "an FFN b1 gradient misses the CPU's, and no CPU sublayer call was "
+        "recorded to replay a gate flip in")
+    x, ln_scale, ln_bias, w1, b1, w2, b2 = call["args"]
+    dy, (p_hidden, p_resid, seeds) = call["dy"], call["rates"]
+    d, d_ff = x.shape[-1], w1.shape[-1]
+    with torch.no_grad():
+        # n, the pre-activations and each gate's term (dh before the gate;
+        # 0 where dropout dropped the unit) as the plain backward has them
+        _, n, pre, _, _, terms, w1c = _bwd_parts(
+            x, ln_scale, ln_bias, w1, b1, w2, dy, p_hidden, p_resid, seeds)
+        n, pre, terms = (n.reshape(-1, d), pre.reshape(-1, d_ff),
+                         terms.reshape(-1, d_ff))
+        margin = pre.abs() / (n.abs() @ w1c.abs() + b1.abs())
+        args = (x, ln_scale, ln_bias, w1, b1, w2, b2, dy, p_hidden, p_resid,
+                seeds)
+        plain = ffn_sublayer_bwd_plain(*args)
+        raw = [plain[k] for k in (4, 3, 5)]
+        scale = (sum((r * c).sum() for r, c in zip(raw, ref))
+                 / sum((r * r).sum() for r in raw)).item()
+    miss = (got[0] - ref[0]) / scale
+    flip = torch.zeros(x.shape[:-1] + (d_ff,), dtype=torch.bool)
+    flat = flip.reshape(-1, d_ff)
+    for j in torch.nonzero(units).flatten().tolist():
+        near = valid & (terms[:, j] != 0.0) & (margin[:, j] <= FLIP_MARGIN)
+        rows = torch.nonzero(near).flatten()
+        assert rows.numel(), (
+            f"FFN unit {j}: b1 gradient off by {miss[j].item()}, and no "
+            f"valid row holds its pre-activation within {FLIP_MARGIN} of 0 "
+            f"(nearest {margin[valid, j].min().item()})")
+        rows = rows[margin[rows, j].argsort()[:4]]
+        # flipping an open gate takes its term away, a shut one adds it
+        signed = torch.where(pre[rows, j] > 0.0, -terms[rows, j],
+                             terms[rows, j])
+        subsets = [[k for k in range(rows.numel()) if s >> k & 1]
+                   for s in range(1, 2 ** rows.numel())]
+        best = min(subsets, key=lambda ks: abs(
+            signed[ks].sum().item() - miss[j].item()))
+        flat[rows[best], j] = True
+    with torch.no_grad():
+        flipped = ffn_sublayer_bwd_plain(*args, flip=flip)
+    return tuple(c + scale * (flipped[k] - r)
+                 for c, k, r in zip(ref, (4, 3, 5), raw))
 
 
 def rel_err(got, ref) -> tuple:
@@ -758,41 +880,43 @@ def b2_gate_flip_case(seed, d, d_ff, dtype, p, dev) -> tuple:
     return unreplayed, flips, replayed
 
 
-def b2_mma_case(gen, b, l, d, d_ff, p, dev, offset: int = 0) -> tuple:
-    """B2's bf16 tensor-core route against its plain version at one shape:
-    the forward (dropout ``p`` on both streams), the backward with the C5
-    replay (``b2_replay``) and a second backward that must give the same
-    bits; x and dy moved ``offset`` elements off the allocator's alignment.
-    Phases 3 and 7's tolerances. Returns (the forward's max abs error, the
-    backward's worst share of its tolerance, flipped gates)."""
+def b2_mma_case(gen, b, l, d, d_ff, p, dev, offset: int = 0,
+                dtype=torch.bfloat16) -> tuple:
+    """B2's tensor-core route of ``dtype`` (bf16 "mma", fp32 "tf32x3")
+    against its plain version at one shape: the forward (dropout ``p`` on
+    both streams), the backward with the C5 replay (``b2_replay``) and a
+    second backward that must give the same bits; x and dy moved ``offset``
+    elements off the allocator's alignment. Phases 3 and 7's tolerances.
+    Returns (the forward's max abs error, the backward's worst share of its
+    tolerance, flipped gates)."""
     from allrank_tpu_torch.ops.ffn_block import (
         ffn_sublayer_bwd,
         ffn_sublayer_fwd,
         ffn_sublayer_fwd_plain,
     )
 
-    bf16 = torch.bfloat16
+    way = "mma" if dtype == torch.bfloat16 else "tf32x3"
     seeds = (101, 202)
-    args = ffn_inputs(gen, b, l, d, d_ff, bf16, dev)
-    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(dev)
+    args = ffn_inputs(gen, b, l, d, d_ff, dtype, dev)
+    dy = torch.randn(b, l, d, generator=gen).to(dtype).to(dev)
     if offset:
         args[0], dy = off_boundary(args[0], offset), off_boundary(dy, offset)
-    fwd_n = ffn_sublayer_fwd.route_launches["mma"]
-    bwd_n = ffn_sublayer_bwd.route_launches["mma"]
+    fwd_n = ffn_sublayer_fwd.route_launches[way]
+    bwd_n = ffn_sublayer_bwd.route_launches[way]
     y = ffn_sublayer_fwd(*args, p, p, seeds)
     got = ffn_sublayer_bwd(*args, dy, p, p, seeds)
     again = ffn_sublayer_bwd(*args, dy, p, p, seeds)
     torch.cuda.synchronize()
-    assert (ffn_sublayer_fwd.route_launches["mma"] == fwd_n + 1
-            and ffn_sublayer_bwd.route_launches["mma"] == bwd_n + 2), (
-        "B2 did not take its tensor-core route")
+    assert (ffn_sublayer_fwd.route_launches[way] == fwd_n + 1
+            and ffn_sublayer_bwd.route_launches[way] == bwd_n + 2), (
+        f"B2 did not take its {way} route")
     ref_y = ffn_sublayer_fwd_plain(*args, p, p, seeds)
     assert torch.isfinite(y.float()).all()
-    torch.testing.assert_close(y.float(), ref_y.float(), **KERNEL_TOL[bf16])
+    torch.testing.assert_close(y.float(), ref_y.float(), **KERNEL_TOL[dtype])
     for i, (g, g2) in enumerate(zip(got, again)):
         assert torch.equal(g, g2), (
-            f"B2 mma backward grad {i} differs between two runs B={b} L={l} "
-            f"d={d} d_ff={d_ff} p={p}")
+            f"B2 {way} backward grad {i} differs between two runs B={b} "
+            f"L={l} d={d} d_ff={d_ff} p={p}")
     _, _, share, flips = b2_replay(got, args, dy, p, seeds)
     return rel_err(y, ref_y)[0], share, flips
 
@@ -879,13 +1003,15 @@ def off_boundary(t, offset: int):
     return out
 
 
-def b1_mma_case(gen, b, l, d, h, p, dev, offset: int = 0) -> tuple:
-    """B1's bf16 tensor-core route against its plain version at one shape:
-    the forward (dropout ``p`` on both streams), the backward on its saved
-    state (qkv moved ``offset`` elements off the allocator's alignment) and
-    a second backward that must give the same bits; phases 2 and 7's
-    tolerances. Returns (the forward's max abs error, the backward's worst
-    error as a share of its tolerance)."""
+def b1_mma_case(gen, b, l, d, h, p, dev, offset: int = 0,
+                dtype=torch.bfloat16) -> tuple:
+    """B1's tensor-core route of ``dtype`` (bf16 "mma", fp32 "tf32x3")
+    against its plain version at one shape: the forward (dropout ``p`` on
+    both streams), the backward on its saved state (qkv moved ``offset``
+    elements off the allocator's alignment) and a second backward that must
+    give the same bits; phases 2 and 7's tolerances. Returns (the forward's
+    max abs error, the backward's worst error as a share of its
+    tolerance)."""
     from allrank_tpu_torch.ops.attention_block import (
         attention_sublayer_bwd,
         attention_sublayer_bwd_plain,
@@ -893,12 +1019,12 @@ def b1_mma_case(gen, b, l, d, h, p, dev, offset: int = 0) -> tuple:
         attention_sublayer_fwd_plain,
     )
 
-    bf16 = torch.bfloat16
+    way = "mma" if dtype == torch.bfloat16 else "tf32x3"
     seeds = (101, 202)
-    args = attn_inputs(gen, b, l, d, bf16, dev)
-    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(dev)
-    fwd_n = attention_sublayer_fwd.route_launches["mma"]
-    bwd_n = attention_sublayer_bwd.route_launches["mma"]
+    args = attn_inputs(gen, b, l, d, dtype, dev)
+    dy = torch.randn(b, l, d, generator=gen).to(dtype).to(dev)
+    fwd_n = attention_sublayer_fwd.route_launches[way]
+    bwd_n = attention_sublayer_bwd.route_launches[way]
     y, (qkv, stats) = attention_sublayer_fwd(*args, h, p, p, seeds,
                                              return_saved=True)
     if offset:
@@ -908,36 +1034,42 @@ def b1_mma_case(gen, b, l, d, h, p, dev, offset: int = 0) -> tuple:
     again = attention_sublayer_bwd(*args, dy, h, p, p, seeds,
                                    saved=(qkv, stats))
     torch.cuda.synchronize()
-    assert (attention_sublayer_fwd.route_launches["mma"] == fwd_n + 1
-            and attention_sublayer_bwd.route_launches["mma"] == bwd_n + 2), (
-        "B1 did not take its tensor-core route")
+    assert (attention_sublayer_fwd.route_launches[way] == fwd_n + 1
+            and attention_sublayer_bwd.route_launches[way] == bwd_n + 2), (
+        f"B1 did not take its {way} route")
     ref_y = attention_sublayer_fwd_plain(*args, h, p, p, seeds)
     assert torch.isfinite(y.float()).all()
-    torch.testing.assert_close(y.float(), ref_y.float(), **KERNEL_TOL[bf16])
+    torch.testing.assert_close(y.float(), ref_y.float(), **KERNEL_TOL[dtype])
     ref = attention_sublayer_bwd_plain(*args, dy, h, p, p, seeds)
-    rtol, atol = BWD_TOL[bf16]
+    rtol, atol = BWD_TOL[dtype]
     worst = 0.0
     for i, (g, r, g2) in enumerate(zip(got, ref, again)):
         assert torch.isfinite(g.float()).all(), (b, l, d, h, p, i)
         assert torch.equal(g, g2), (
-            f"B1 mma backward grad {i} differs between two runs "
+            f"B1 {way} backward grad {i} differs between two runs "
             f"B={b} L={l} d={d} h={h} p={p}")
         err, scale = rel_err(g, r)
         assert err <= rtol * scale + atol, (
-            f"B1 mma grad {i} B={b} L={l} d={d} h={h} p={p} offset={offset}:"
-            f" {err} > {rtol} x {scale} + {atol}")
+            f"B1 {way} grad {i} B={b} L={l} d={d} h={h} p={p} "
+            f"offset={offset}: {err} > {rtol} x {scale} + {atol}")
         worst = max(worst, err / (rtol * scale + atol))
     return rel_err(y, ref_y)[0], worst
 
 
+# the row names of B1's and B2's routes: the SIMT kernels under the
+# kernel's own name, the tensor cores under a suffix
+ROUTE_SUFFIX = {"simt": "", "mma": "_mma", "tf32x3": "_tf32x3"}
+
+
 def timing_row(rows: dict, kernel_name: str, dtype, way: str) -> tuple:
     """(the row in ``rows`` that a timing of ``kernel_name`` in ``dtype``
-    goes to, the suffix of its keys): B1's and B2's two routes are two rows
-    of unsuffixed keys (the SIMT kernels, fp32, under the kernel's name; the
-    tensor cores, bf16, under ``<name>_mma``); any other kernel is one row,
-    its bf16 keys suffixed ``_bf16``."""
+    goes to, the suffix of its keys): B1's and B2's three routes are three
+    rows of unsuffixed keys (the SIMT kernels, timed in fp32, under the
+    kernel's name; the tensor cores under ``<name>_mma`` for bf16 and
+    ``<name>_tf32x3`` for fp32); any other kernel is one row, its bf16 keys
+    suffixed ``_bf16``."""
     if kernel_name.startswith(("attention_sublayer", "ffn_sublayer")):
-        name, sfx = kernel_name + ("_mma" if way == "mma" else ""), ""
+        name, sfx = kernel_name + ROUTE_SUFFIX[way], ""
     else:
         name, sfx = kernel_name, "" if dtype == torch.float32 else "_bf16"
     return rows.setdefault(name, {"name": name, "route": "cuda"}), sfx
@@ -1509,29 +1641,38 @@ def encoder_library(x, mask, stacks, fs, fb, dy, h):
 
 def encoder_ffn_gates(record):
     """``ffn_gates``' recorder for the encoder with the switch on: replays
-    each recorded B10 call through the chained sublayer forwards (the
-    kernels on the card, their plain versions on the CPU: B10's own
-    intermediates, which it does not expose) and returns per block the
-    [rows, d_ff] gates at the FFN inputs; the replay's launches are taken
-    back off the counters."""
+    each recorded B10 call through the chained sublayer forwards (on the
+    card the SIMT kernels, whose tile bodies B10 runs, on the CPU the plain
+    versions: B10's own intermediates, which it does not expose) and
+    returns per block the [rows, d_ff] gates at the FFN inputs; the
+    replay's launches are taken back off the counters."""
     from allrank_tpu_torch.models.core import std_layer_norm
-    from allrank_tpu_torch.ops.attention_block import attention_sublayer_fwd
+    from allrank_tpu_torch.ops.attention_block import (
+        attention_sublayer_fwd,
+        launch_fwd,
+    )
     from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
+    from allrank_tpu_torch.ops.ffn_block import launch_fwd as ffn_launch_fwd
 
     def call(x, mask, seeds, stacks, fs, fb, *, h, p_drop=0.0):
         counts = (attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches)
         routes = (dict(attention_sublayer_fwd.route_launches),
                   dict(ffn_sublayer_fwd.route_launches))
+        cuda = x.device.type == "cuda"
         with torch.no_grad():
             hid = x
             for n in range(stacks[0].shape[0]):
                 w = [t[n].detach() for t in stacks]
-                hid = attention_sublayer_fwd(hid, mask, *w[:6], h, p_drop,
-                                             p_drop, seeds[4 * n:4 * n + 2])
+                args = (hid, mask, *w[:6], h, p_drop, p_drop,
+                        seeds[4 * n:4 * n + 2])
+                hid = (launch_fwd("simt", *args) if cuda
+                       else attention_sublayer_fwd(*args))
                 pre = std_layer_norm(hid.float(), w[6], w[7]) @ w[8] + w[9]
                 record.append(pre.reshape(-1, pre.shape[-1]) > 0)
-                hid = ffn_sublayer_fwd(hid, *w[6:], p_drop, p_drop,
-                                       seeds[4 * n + 2:4 * n + 4])
+                args = (hid, *w[6:], p_drop, p_drop,
+                        seeds[4 * n + 2:4 * n + 4])
+                hid = (ffn_launch_fwd("simt", *args) if cuda
+                       else ffn_sublayer_fwd(*args))
         attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches = counts
         (attention_sublayer_fwd.route_launches,
          ffn_sublayer_fwd.route_launches) = routes
@@ -1647,7 +1788,15 @@ def main() -> int:
     from allrank_tpu_torch.tools.time_sublayers import b1_library, b2_library
 
     from allrank_tpu_torch.ops.attention_block import ROUTES as B1_ROUTES
+    from allrank_tpu_torch.ops.attention_block import (
+        launch_bwd as b1_launch_bwd,
+    )
+    from allrank_tpu_torch.ops.attention_block import (
+        launch_fwd as b1_launch_fwd,
+    )
     from allrank_tpu_torch.ops.ffn_block import ROUTES as B2_ROUTES
+    from allrank_tpu_torch.ops.ffn_block import launch_bwd as b2_launch_bwd
+    from allrank_tpu_torch.ops.ffn_block import launch_fwd as b2_launch_fwd
     from allrank_tpu_torch.ops.ffn_block import route as b2_route
 
     def reset_routes():
@@ -1676,14 +1825,15 @@ def main() -> int:
     print(f"card: {name_power}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ["attention_block", "attention_block_mma", "ffn_block",
-               "ffn_block_mma", "lambda_pairs", "sinkhorn", "neuralsort",
+    sources = ["attention_block", "attention_block_mma",
+               "attention_block_tf32x3", "ffn_block", "ffn_block_mma",
+               "ffn_block_tf32x3", "lambda_pairs", "sinkhorn", "neuralsort",
                "approx_pos", "lambda_tiled", "attention_fused",
                "attention_tiled", "q8_dense", "encoder_block",
                "boundary_shift", "attention_variants", "neuralsort_layout"]
     _build.build(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the sixteen "
-          f"sources in parallel)")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the "
+          f"{len(sources)} sources in parallel)")
     for src in sources:
         with open(_build.log_path(src)) as f:
             for line in f:
@@ -1726,6 +1876,27 @@ def main() -> int:
         print(f"HMMA: all {len(mma_kernels)} tensor-core {marker} kernels "
               f"of {src} ({what}) hold HMMA; the others "
               f"{sorted(simt.values())}")
+    # B1's and B2's fp32 routes: every product a TF32 one (3xTF32), in every
+    # b1_*_tf32x3_kernel and b2_*_tf32x3_kernel; no other kernel of the two
+    # sources (the split reductions) holds any
+    for src, marker, n_f32, what in (
+            ("attention_block_tf32x3", "b1_", B1_F32_KERNELS,
+             "attention core, dQ, dK/dV at padded d_k 32, 64, 128, aligned "
+             "or not; LN + QKV, out-projection, rows, dn + LN backward, "
+             "A^T B"),
+            ("ffn_block_tf32x3", "b2_", B2_F32_KERNELS,
+             "forward and backward rows at d <= 128 and d > 128, A^T B")):
+        hmma = hmma_counts(_build.library_path(src), "")
+        tf32 = hmma_counts(_build.library_path(src), "", TF32_HMMA)
+        for kname, n in sorted(hmma.items()):
+            print(f"  {src}: {n} HMMA, {tf32[kname]} of them TF32, in "
+                  f"{kname}")
+        f32 = [k for k in hmma if "_tf32x3_kernel" in k and marker in k]
+        assert len(f32) == n_f32 and all(
+            0 < tf32[k] == hmma[k] for k in f32), (hmma, tf32)
+        assert all(hmma[k] == 0 for k in hmma if k not in f32), hmma
+        print(f"HMMA: all {n_f32} fp32 (3xTF32) {marker} kernels of {src} "
+              f"({what}) hold TF32 HMMA only; the other kernels none")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1234)
@@ -1745,27 +1916,32 @@ def main() -> int:
             print(f"B1 vs plain B={b} L={l} d={d} h={h} {dtype} "
                   f"({b1_route(dtype, d, h)}): max_abs_err {err:.3e} (tol "
                   f"{KERNEL_TOL[dtype]})")
-    # the bf16 tensor-core route at each head-width class, rows aligned and
-    # not, L from 1 to B1's longest; every batch holds a fully padded slate.
-    # These cases draw from a generator of their own, as phase 7's do, so
-    # that every other phase's inputs stay as they were before them
+    # the tensor-core routes (bf16 "mma", fp32 "tf32x3") at each head-width
+    # class, rows aligned and not, L from 1 to B1's longest; every batch
+    # holds a fully padded slate. These cases draw from a generator of their
+    # own, as phase 7's do, so that every other phase's inputs stay as they
+    # were before them (the fp32 cases from a third, after the bf16 ones)
     gen_mma = torch.Generator().manual_seed(1111)
-    for d, h in B1_MMA_WIDTHS:
-        assert b1_route(torch.bfloat16, d, h) == "mma", (d, h)
-        worst = 0.0
-        for l in (1, 65, 240, 1024):
-            b = 2 if l == 1024 else 3
-            args = attn_inputs(gen_mma, b, l, d, torch.bfloat16, dev)
-            before = attention_sublayer_fwd.route_launches["mma"]
-            err = check_kernel("attention_sublayer_fwd",
-                               attention_sublayer_fwd,
-                               attention_sublayer_fwd_plain, args + [h], {},
-                               torch.bfloat16)
-            assert attention_sublayer_fwd.route_launches["mma"] == before + 1
-            worst = max(worst, err)
-        print(f"B1 (mma) vs plain d={d} h={h} (d_k {d // h}) bf16 at L in "
-              f"(1, 65, 240, 1024): max_abs_err {worst:.3e} (tol "
-              f"{KERNEL_TOL[torch.bfloat16]})")
+    gen_f32 = torch.Generator().manual_seed(3333)
+    for dtype, way, gen_w in ((torch.bfloat16, "mma", gen_mma),
+                              (torch.float32, "tf32x3", gen_f32)):
+        for d, h in B1_MMA_WIDTHS:
+            assert b1_route(dtype, d, h) == way, (d, h, dtype)
+            worst = 0.0
+            for l in (1, 65, 240, 1024):
+                b = 2 if l == 1024 else 3
+                args = attn_inputs(gen_w, b, l, d, dtype, dev)
+                before = attention_sublayer_fwd.route_launches[way]
+                err = check_kernel("attention_sublayer_fwd",
+                                   attention_sublayer_fwd,
+                                   attention_sublayer_fwd_plain, args + [h],
+                                   {}, dtype)
+                assert (attention_sublayer_fwd.route_launches[way]
+                        == before + 1)
+                worst = max(worst, err)
+            print(f"B1 ({way}) vs plain d={d} h={h} (d_k {d // h}) {dtype} "
+                  f"at L in (1, 65, 240, 1024): max_abs_err {worst:.3e} (tol "
+                  f"{KERNEL_TOL[dtype]})")
     print("phase 2 ok: attention sublayer kernel matches its plain version")
 
     # -- 3: B2 against its plain version --------------------------------------
@@ -1784,21 +1960,23 @@ def main() -> int:
     # of its own (as B1's), so that every other phase's inputs stay as they
     # were before them
     gen_b2 = torch.Generator().manual_seed(2222)
-    for d, d_ff in B2_MMA_WIDTHS:
-        assert b2_route(torch.bfloat16, d, d_ff) == "mma", (d, d_ff)
-        worst = 0.0
-        for l in (1, 65, 240, 1024):
-            b = 2 if l == 1024 else 3
-            args = ffn_inputs(gen_b2, b, l, d, d_ff, torch.bfloat16, dev)
-            before = ffn_sublayer_fwd.route_launches["mma"]
-            err = check_kernel("ffn_sublayer_fwd", ffn_sublayer_fwd,
-                               ffn_sublayer_fwd_plain, args, {},
-                               torch.bfloat16)
-            assert ffn_sublayer_fwd.route_launches["mma"] == before + 1
-            worst = max(worst, err)
-        print(f"B2 (mma) vs plain d={d} d_ff={d_ff} bf16 at L in (1, 65, 240, "
-              f"1024): max_abs_err {worst:.3e} (tol "
-              f"{KERNEL_TOL[torch.bfloat16]})")
+    gen_b2_f32 = torch.Generator().manual_seed(4444)
+    for dtype, way, gen_w in ((torch.bfloat16, "mma", gen_b2),
+                              (torch.float32, "tf32x3", gen_b2_f32)):
+        for d, d_ff in B2_MMA_WIDTHS:
+            assert b2_route(dtype, d, d_ff) == way, (d, d_ff, dtype)
+            worst = 0.0
+            for l in (1, 65, 240, 1024):
+                b = 2 if l == 1024 else 3
+                args = ffn_inputs(gen_w, b, l, d, d_ff, dtype, dev)
+                before = ffn_sublayer_fwd.route_launches[way]
+                err = check_kernel("ffn_sublayer_fwd", ffn_sublayer_fwd,
+                                   ffn_sublayer_fwd_plain, args, {}, dtype)
+                assert ffn_sublayer_fwd.route_launches[way] == before + 1
+                worst = max(worst, err)
+            print(f"B2 ({way}) vs plain d={d} d_ff={d_ff} {dtype} at L in "
+                  f"(1, 65, 240, 1024): max_abs_err {worst:.3e} (tol "
+                  f"{KERNEL_TOL[dtype]})")
     print("phase 3 ok: FFN sublayer kernel matches its plain version")
 
     # -- 4: the flagship scorer and ranker -------------------------------------
@@ -1812,7 +1990,7 @@ def main() -> int:
     pad = np.arange(L)[None, :] >= lengths[:, None]
     scorer32 = make_scorer(gpu_model, "float32")
     scorer16 = make_scorer(gpu_model, "bfloat16")
-    for scorer, label, way in ((scorer32, "fp32", "simt"),
+    for scorer, label, way in ((scorer32, "fp32", "tf32x3"),
                                (scorer16, "bf16", "mma")):
         scorer(x, lengths)  # first call: loads the kernels
         attention_sublayer_fwd.launches = ffn_sublayer_fwd.launches = 0
@@ -1879,12 +2057,12 @@ def main() -> int:
         main_launches = {"attention_sublayer_fwd":
                          attention_sublayer_fwd.launches,
                          "ffn_sublayer_fwd": ffn_sublayer_fwd.launches}
-        # an fp32 service: B1 and B2 on their SIMT routes only
+        # an fp32 service: B1 and B2 on their 3xTF32 routes only
         assert b1_routes()[0] == {**dict.fromkeys(B1_ROUTES, 0),
-                                  "simt": main_launches[
+                                  "tf32x3": main_launches[
                                       "attention_sublayer_fwd"]}, b1_routes()
         assert b2_routes()[0] == {**dict.fromkeys(B2_ROUTES, 0),
-                                  "simt": main_launches[
+                                  "tf32x3": main_launches[
                                       "ffn_sublayer_fwd"]}, b2_routes()
         with urllib.request.urlopen(url + "/statz", timeout=30) as r:
             stats = json.loads(r.read())
@@ -1922,11 +2100,15 @@ def main() -> int:
     print("phase 5 ok: service answers on the GPU and matches the scorer")
 
     # -- 6: times ------------------------------------------------------------
+    # each route of B1 and B2: fp32 on its 3xTF32 kernels (the route) and on
+    # the SIMT kernels (by name, off every main path but B10's yardstick),
+    # bf16 on the tensor cores; the fp32 rows carry both bounds
     d, h, d_ff = 128, 4, 512
     timed = {}
     for kernel_name in ("attention_sublayer_fwd", "ffn_sublayer_fwd"):
         for dtype in (torch.float32, torch.bfloat16):
-            if kernel_name == "attention_sublayer_fwd":
+            attn = kernel_name == "attention_sublayer_fwd"
+            if attn:
                 args = attn_inputs(gen, B, L, d, dtype, dev)
                 xx, mask, g, bb, wqkv, bqkv, wout, bout = args
                 lib_args = [xx, torch.zeros(B, 1, 1, L, dtype=dtype,
@@ -1934,42 +2116,58 @@ def main() -> int:
                     mask[:, None, None, :], -1e9), g.to(dtype), bb.to(dtype),
                     wqkv.to(dtype), bqkv.to(dtype), wout.to(dtype),
                     bout.to(dtype), h]
-                fns = (lambda: attention_sublayer_fwd(*args, h),
-                       lambda: attention_sublayer_fwd_plain(*args, h),
-                       lambda: b1_library(*lib_args))
+                launch = (lambda w: b1_launch_fwd(w, *args, h))
+                plain = (lambda: attention_sublayer_fwd_plain(*args, h))
+                lib_fn = (lambda: b1_library(*lib_args))
                 flops = (2 * B * L * d * 3 * d + 2 * 2 * B * h * L * L
                          * (d // h) + 2 * B * L * d * d)
                 moved = 2 * nbytes(xx) + nbytes(*args[1:])
-                err = errs[("attn", B, L, d, dtype)]
+                err_key = ("attn", B, L, d, dtype)
+                way0 = b1_route(dtype, d, h)
             else:
                 args = ffn_inputs(gen, B, L, d, d_ff, dtype, dev)
                 lib_args = [args[0]] + [p.to(dtype) for p in args[1:]]
-                fns = (lambda: ffn_sublayer_fwd(*args),
-                       lambda: ffn_sublayer_fwd_plain(*args),
-                       lambda: b2_library(*lib_args))
+                launch = (lambda w: b2_launch_fwd(w, *args))
+                plain = (lambda: ffn_sublayer_fwd_plain(*args))
+                lib_fn = (lambda: b2_library(*lib_args))
                 flops = 2 * 2 * B * L * d * d_ff
                 moved = 2 * nbytes(args[0]) + nbytes(*args[1:])
-                err = errs[("ffn", B, L, d, d_ff, dtype)]
-            ms, plain_ms, lib_ms = (median_ms(fn) for fn in fns)
-            dev_ms, lib_dev_ms = graph_ms(fns[0]), graph_ms(fns[2])
-            bound_ms, bound_by = bound(flops, moved, dtype)
-            way = (b1_route(dtype, d, h) if kernel_name.startswith("attention")
-                   else b2_route(dtype, d, d_ff))
-            row, sfx = timing_row(timed, kernel_name, dtype, way)
-            row.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
-                        f"device_ms{sfx}": dev_ms,
-                        f"plain_ms{sfx}": plain_ms,
-                        f"bound_ms{sfx}": bound_ms,
-                        f"bound_by{sfx}": bound_by,
-                        f"library_ms{sfx}": lib_ms,
-                        f"library_device_ms{sfx}": lib_dev_ms,
-                        f"gflop{sfx}": flops / 1e9,
-                        f"mbytes{sfx}": moved / 1e6})
-            print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
-                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
-                  f"ms, library {lib_ms:.4f} ms (device {lib_dev_ms:.4f}), "
-                  f"bound {bound_ms:.4f} ms ({bound_by}: "
-                  f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
+                err_key = ("ffn", B, L, d, d_ff, dtype)
+                way0 = b2_route(dtype, d, d_ff)
+            plain_ms, lib_ms = median_ms(plain), median_ms(lib_fn)
+            lib_dev_ms = graph_ms(lib_fn)
+            for way in ((way0, "simt") if dtype == torch.float32
+                        else (way0,)):
+                if way == way0:
+                    err = errs[err_key]
+                else:
+                    err = rel_err(launch(way), plain())[0]
+                    assert err <= KERNEL_TOL[dtype]["atol"] + KERNEL_TOL[
+                        dtype]["rtol"] * plain().float().abs().max().item()
+                ms = median_ms(lambda: launch(way))
+                dev_ms = graph_ms(lambda: launch(way))
+                rate = "tf32x3" if way == "tf32x3" else dtype
+                bound_ms, bound_by = bound(flops, moved, rate)
+                row, sfx = timing_row(timed, kernel_name, dtype, way)
+                row.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                            f"device_ms{sfx}": dev_ms,
+                            f"plain_ms{sfx}": plain_ms,
+                            f"bound_ms{sfx}": bound_ms,
+                            f"bound_by{sfx}": bound_by,
+                            f"library_ms{sfx}": lib_ms,
+                            f"library_device_ms{sfx}": lib_dev_ms,
+                            f"gflop{sfx}": flops / 1e9,
+                            f"mbytes{sfx}": moved / 1e6})
+                if way == "tf32x3":
+                    row["bound_simt_ms"] = bound(flops, moved, dtype)[0]
+                print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
+                      f"{ms:.4f} ms (device {dev_ms:.4f}), plain "
+                      f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (device "
+                      f"{lib_dev_ms:.4f}), bound {bound_ms:.4f} ms "
+                      f"({bound_by}: {flops / 1e9:.3f} GFLOP, "
+                      f"{moved / 1e6:.2f} MB)"
+                      + (f"; SIMT fp32 bound {row['bound_simt_ms']:.4f} ms"
+                         if way == "tf32x3" else "") + f" {tag}")
     xd = torch.as_tensor(x, device=dev)
     ld = torch.as_tensor(lengths, device=dev)
     for scorer, label in ((scorer32, "float32"), (scorer16, "bfloat16")):
@@ -2037,57 +2235,65 @@ def main() -> int:
                       f"{worst_rel['attention_sublayer_bwd']:.2e} / "
                       f"{worst_rel['ffn_sublayer_bwd']:.2e} (tol "
                       f"{BWD_TOL[dtype][0]:g})")
-    # the bf16 tensor-core route at each head-width class and L, dropout 0
-    # and 0.3; then qkv off a 16-byte boundary at aligned head widths
-    mma_bwd_worst = 0.0
-    for d, h in B1_MMA_WIDTHS:
-        for l in (1, 65, 240, 1024):
+    # the tensor-core routes (bf16 "mma", fp32 "tf32x3") at each head-width
+    # class and L, dropout 0 and 0.3; then qkv one element (2 or 4 bytes)
+    # off a 16-byte boundary at aligned head widths
+    for dtype, way, gen_w in ((torch.bfloat16, "mma", gen_mma),
+                              (torch.float32, "tf32x3", gen_f32)):
+        mma_bwd_worst = 0.0
+        for d, h in B1_MMA_WIDTHS:
+            for l in (1, 65, 240, 1024):
+                for p in (0.0, 0.3):
+                    _, share = b1_mma_case(gen_w, 2 if l == 1024 else 3, l,
+                                           d, h, p, dev, dtype=dtype)
+                    mma_bwd_worst = max(mma_bwd_worst, share)
+            print(f"B1 ({way}) fwd and bwd vs plain d={d} h={h} (d_k "
+                  f"{d // h}) {dtype}, L in (1, 65, 240, 1024), p in (0, "
+                  f"0.3): ok, a second backward bit for bit")
+        for d, h in ((128, 4), (96, 2), (144, 2)):
             for p in (0.0, 0.3):
-                _, share = b1_mma_case(gen_mma, 2 if l == 1024 else 3, l, d,
-                                       h, p, dev)
+                _, share = b1_mma_case(gen_w, 3, 65, d, h, p, dev, offset=1,
+                                       dtype=dtype)
                 mma_bwd_worst = max(mma_bwd_worst, share)
-        print(f"B1 (mma) fwd and bwd vs plain d={d} h={h} (d_k {d // h}) "
-              f"bf16, L in (1, 65, 240, 1024), p in (0, 0.3): ok, a second "
-              f"backward bit for bit")
-    for d, h in ((128, 4), (96, 2), (144, 2)):
-        for p in (0.0, 0.3):
-            _, share = b1_mma_case(gen_mma, 3, 65, d, h, p, dev, offset=1)
-            mma_bwd_worst = max(mma_bwd_worst, share)
-    print(f"B1 (mma) backward with qkv 2 bytes off a 16-byte boundary at "
-          f"d_k 32, 48, 72: ok; worst gradient error of all mma cases "
-          f"{mma_bwd_worst:.2f} of its tolerance")
-    # B2's bf16 tensor-core route at each width class and L, dropout 0 and
-    # 0.3, with the C5 replay; then x and dy off a 16-byte boundary
-    b2_bwd_worst, b2_flips = 0.0, 0
-    for d, d_ff in B2_MMA_WIDTHS:
-        for l in (1, 65, 240, 1024):
+        print(f"B1 ({way}) backward with qkv one element off a 16-byte "
+              f"boundary at d_k 32, 48, 72: ok; worst gradient error of all "
+              f"{way} cases {mma_bwd_worst:.2f} of its tolerance")
+    # B2's tensor-core routes at each width class and L, dropout 0 and 0.3,
+    # with the C5 replay; then x and dy off a 16-byte boundary
+    for dtype, way, gen_w in ((torch.bfloat16, "mma", gen_b2),
+                              (torch.float32, "tf32x3", gen_b2_f32)):
+        b2_bwd_worst, b2_flips = 0.0, 0
+        for d, d_ff in B2_MMA_WIDTHS:
+            for l in (1, 65, 240, 1024):
+                for p in (0.0, 0.3):
+                    _, share, flips = b2_mma_case(
+                        gen_w, 2 if l == 1024 else 3, l, d, d_ff, p, dev,
+                        dtype=dtype)
+                    b2_bwd_worst = max(b2_bwd_worst, share)
+                    b2_flips += flips
+            print(f"B2 ({way}) fwd and bwd vs plain d={d} d_ff={d_ff} "
+                  f"{dtype}, L in (1, 65, 240, 1024), p in (0, 0.3): ok, a "
+                  f"second backward bit for bit")
+        for d, d_ff in ((128, 512), (96, 384), (144, 512)):
             for p in (0.0, 0.3):
-                _, share, flips = b2_mma_case(gen_b2, 2 if l == 1024 else 3,
-                                              l, d, d_ff, p, dev)
+                _, share, flips = b2_mma_case(gen_w, 3, 65, d, d_ff, p, dev,
+                                              offset=1, dtype=dtype)
                 b2_bwd_worst = max(b2_bwd_worst, share)
                 b2_flips += flips
-        print(f"B2 (mma) fwd and bwd vs plain d={d} d_ff={d_ff} bf16, L in "
-              f"(1, 65, 240, 1024), p in (0, 0.3): ok, a second backward bit "
-              f"for bit")
-    for d, d_ff in ((128, 512), (96, 384), (144, 512)):
-        for p in (0.0, 0.3):
-            _, share, flips = b2_mma_case(gen_b2, 3, 65, d, d_ff, p, dev,
-                                          offset=1)
-            b2_bwd_worst = max(b2_bwd_worst, share)
-            b2_flips += flips
-    # the edges: d < 16 and d_ff not a whole 64-unit chunk; d not a whole
-    # 16-column step, d_ff 1000; one row of the widest
-    for b, l, d, d_ff in ((3, 70, 8, 72), (2, 65, 100, 1000),
-                          (1, 1, 256, 1000)):
-        for p in (0.0, 0.3):
-            _, share, flips = b2_mma_case(gen_b2, b, l, d, d_ff, p, dev)
-            b2_bwd_worst = max(b2_bwd_worst, share)
-            b2_flips += flips
-    print(f"B2 (mma) with x and dy 2 bytes off a 16-byte boundary at d 128, "
-          f"96, 144, and at the edges (d, d_ff) = (8, 72), (100, 1000), "
-          f"(256, 1000) at L = 1: ok; worst gradient error of all mma cases "
-          f"{b2_bwd_worst:.2f} of its tolerance, {b2_flips} gate flips "
-          f"replayed in all")
+        # the edges: d < 16 and d_ff not a whole chunk; d not a whole
+        # 16-column step, d_ff 1000; one row of the widest
+        for b, l, d, d_ff in ((3, 70, 8, 72), (2, 65, 100, 1000),
+                              (1, 1, 256, 1000)):
+            for p in (0.0, 0.3):
+                _, share, flips = b2_mma_case(gen_w, b, l, d, d_ff, p, dev,
+                                              dtype=dtype)
+                b2_bwd_worst = max(b2_bwd_worst, share)
+                b2_flips += flips
+        print(f"B2 ({way}) with x and dy one element off a 16-byte boundary "
+              f"at d 128, 96, 144, and at the edges (d, d_ff) = (8, 72), "
+              f"(100, 1000), (256, 1000) at L = 1: ok; worst gradient error "
+              f"of all {way} cases {b2_bwd_worst:.2f} of its tolerance, "
+              f"{b2_flips} gate flips replayed in all")
     # ROADMAP Queue C5: on other inputs B2's backward leaves the tolerance
     # above where a hidden unit's pre-activation lies within rounding of 0
     # and its ReLU gate flips; replaying the flipped gates must explain it
@@ -2176,16 +2382,19 @@ def main() -> int:
 
     cfg0, gpu_model = paper_setup(dev, dropout=0.0)
     reset_routes()
-    gl, cl, step_err = step_one_gpu_vs_cpu(cfg0, gpu_model, (xb, yb, ib))
-    # fp32 training: B1 and B2 on the SIMT kernels only
+    gl, cl, step_err, flips9 = step_one_gpu_vs_cpu(
+        cfg0, gpu_model, (xb, yb, ib), gate_flips=True)
+    # fp32 training: B1 and B2 on their 3xTF32 routes only
     b1_fp32_routes, b2_fp32_routes = b1_routes(), b2_routes()
     for routes in (b1_fp32_routes, b2_fp32_routes):
         assert (routes[0]["mma"] == routes[1]["mma"] == 0
-                and routes[1]["simt"] == 4), routes
+                and routes[0]["simt"] == routes[1]["simt"] == 0
+                and routes[1]["tf32x3"] == 4), routes
     print(f"train step 1 at dropout 0, fp32, GPU vs CPU plain: loss {gl:.6f} "
           f"vs {cl:.6f}; worst gradient error {step_err:.3f} of its "
           f"tolerance ({STEP_GRAD_TOL} x its tensor's max + 1e-5 x the "
-          f"largest gradient)")
+          f"largest gradient), FFN units with a ReLU gate flipped per block "
+          f"(held out, replayed) {flips9}")
     print("phase 9 ok: the paper-config train step runs on the card through "
           "every kernel and learns; it matches the CPU at dropout 0")
 
@@ -2216,57 +2425,80 @@ def main() -> int:
             dy = torch.randn(B, L, d, generator=gen).to(dtype).to(dev)
             if kernel_name == "attention_sublayer_bwd":
                 args = attn_inputs(gen, B, L, d, dtype, dev)
-                _, saved = attention_sublayer_fwd(*args, h, return_saved=True)
-                fns = (lambda: attention_sublayer_bwd(*args, dy, h,
-                                                      saved=saved),
-                       lambda: attention_sublayer_bwd_plain(*args, dy, h),
-                       b1_library_bwd(args, dy, h))
+                way0 = b1_route(dtype, d, h)
+                # each route's backward on its own forward's saved state
+                saved = {w: b1_launch_fwd(w, *args, h, return_saved=True)[1]
+                         for w in ((way0, "simt") if dtype == torch.float32
+                                   else (way0,))}
+                launch = (lambda w: b1_launch_bwd(w, *args, dy, h,
+                                                  saved=saved[w]))
+                plain = (lambda: attention_sublayer_bwd_plain(*args, dy, h))
+                lib_fn = b1_library_bwd(args, dy, h)
                 # each product once: dO, S, dP, ctx, dQ, dK, dV, dn, dWqkv,
                 # dWout
                 flops = 16 * m_rows * d * d + 12 * B * h * L * L * (d // h)
                 params = nbytes(*args[2:])
-                moved = (nbytes(args[0], args[1], dy, *saved) + params
+                moved = (nbytes(args[0], args[1], dy, *saved[way0]) + params
                          + m_rows * d * esz + params)
             else:
                 args = ffn_inputs(gen, B, L, d, d_ff, dtype, dev)
-                fns = (lambda: ffn_sublayer_bwd(*args, dy),
-                       lambda: ffn_sublayer_bwd_plain(*args, dy),
-                       b2_library_bwd(args, dy))
+                way0 = b2_route(dtype, d, d_ff)
+                launch = (lambda w: b2_launch_bwd(w, *args, dy))
+                plain = (lambda: ffn_sublayer_bwd_plain(*args, dy))
+                lib_fn = b2_library_bwd(args, dy)
                 # pre, dh, dn, dW1, dW2
                 flops = 10 * m_rows * d * d_ff
                 params = nbytes(*args[1:])
                 moved = nbytes(args[0], dy) + params + m_rows * d * esz + params
-            ms, plain_ms, lib_ms = (median_ms(fn, iters=20) for fn in fns)
-            dev_ms = graph_ms(fns[0])
+            plain_ms = median_ms(plain, iters=20)
+            lib_ms = median_ms(lib_fn, iters=20)
             # autograd's engine refuses CUDA-graph capture: the library
             # backward's device time is the sum of its kernels in a trace
             # (not measured where every trace lost device events)
             try:
-                lib_dev_ms = sum(kernel_ms(fns[2]).values())
+                lib_dev_ms = sum(kernel_ms(lib_fn).values())
             except IncompleteTrace as err:
                 print(f"library backward: {err} {tag}")
                 lib_dev_ms = None
-            bound_ms, bound_by = bound(flops, moved, dtype)
-            way = (b1_route(dtype, d, h) if kernel_name.startswith("attention")
-                   else b2_route(dtype, d, d_ff))
-            row, sfx = timing_row(timed, kernel_name, dtype, way)
-            row.update({f"max_abs_err{sfx}": bwd_errs[(kernel_name, B, L, d,
-                                                       dtype, 0.0)],
-                        f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
-                        f"plain_ms{sfx}": plain_ms,
-                        f"bound_ms{sfx}": bound_ms, f"bound_by{sfx}": bound_by,
-                        f"library_ms{sfx}": lib_ms,
-                        f"library_device_ms{sfx}": lib_dev_ms,
-                        f"gflop{sfx}": flops / 1e9,
-                        f"mbytes{sfx}": moved / 1e6})
-            lib_txt = ("not measured" if lib_dev_ms is None
-                       else f"{lib_dev_ms:.4f}")
-            print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
-                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
-                  f"ms, library (autograd) {lib_ms:.4f} ms (device, its "
-                  f"kernels' sum: {lib_txt}), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-                  f"{moved / 1e6:.2f} MB) {tag}")
+            for way in ((way0, "simt") if dtype == torch.float32
+                        else (way0,)):
+                if way == way0:
+                    err = bwd_errs[(kernel_name, B, L, d, dtype, 0.0)]
+                elif kernel_name == "ffn_sublayer_bwd":
+                    err = b2_replay(launch(way), args, dy, 0.0, (0, 0))[0]
+                else:
+                    rtol, atol = BWD_TOL[dtype]
+                    err = 0.0
+                    for g, r in zip(launch(way), plain()):
+                        e, sc = rel_err(g, r)
+                        assert e <= rtol * sc + atol, (kernel_name, way, e)
+                        err = max(err, e)
+                ms = median_ms(lambda: launch(way), iters=20)
+                dev_ms = graph_ms(lambda: launch(way))
+                rate = "tf32x3" if way == "tf32x3" else dtype
+                bound_ms, bound_by = bound(flops, moved, rate)
+                row, sfx = timing_row(timed, kernel_name, dtype, way)
+                row.update({f"max_abs_err{sfx}": err,
+                            f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
+                            f"plain_ms{sfx}": plain_ms,
+                            f"bound_ms{sfx}": bound_ms,
+                            f"bound_by{sfx}": bound_by,
+                            f"library_ms{sfx}": lib_ms,
+                            f"library_device_ms{sfx}": lib_dev_ms,
+                            f"gflop{sfx}": flops / 1e9,
+                            f"mbytes{sfx}": moved / 1e6})
+                if way == "tf32x3":
+                    row["bound_simt_ms"] = bound(flops, moved, dtype)[0]
+                lib_txt = ("not measured" if lib_dev_ms is None
+                           else f"{lib_dev_ms:.4f}")
+                print(f"time {row['name']} {dtype} B={B} L={L} d={d}: kernel "
+                      f"{ms:.4f} ms (device {dev_ms:.4f}), plain "
+                      f"{plain_ms:.4f} ms, library (autograd) {lib_ms:.4f} ms "
+                      f"(device, its kernels' sum: {lib_txt}), bound "
+                      f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} "
+                      f"GFLOP, {moved / 1e6:.2f} MB)"
+                      + (f"; SIMT fp32 bound {row['bound_simt_ms']:.4f} ms"
+                         if way == "tf32x3" else "") + f" {tag}")
     rows = list(timed.values())
 
     # B3 at the train step's shape: the top-k block is all L=240 documents
@@ -2509,11 +2741,12 @@ def main() -> int:
     ncfg0.model.transformer.dropout = 0.0
     gpu_model = LTRModel(make_model(ncfg0.model, N_FEATURES),
                          torch.Generator().manual_seed(0), device=dev)
-    gl, cl, step_err = step_one_gpu_vs_cpu(ncfg0, gpu_model,
-                                           [t[:8] for t in (xb, yb, ib)])
+    gl, cl, step_err, flips13 = step_one_gpu_vs_cpu(
+        ncfg0, gpu_model, [t[:8] for t in (xb, yb, ib)], gate_flips=True)
     print(f"NeuralNDCG train step 1 at dropout 0, fp32, B=8 L={L}, GPU vs "
           f"CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
-          f"{step_err:.3f} of its tolerance")
+          f"{step_err:.3f} of its tolerance, gates flipped per block "
+          f"{flips13}")
     print("phase 13 ok: the train CLI runs both recipes on the card through "
           "every kernel; the long-slate step runs the Sinkhorn kernel")
 
@@ -2719,13 +2952,14 @@ def main() -> int:
         got = counts()
         assert got == expect(4, 1, 1), (loss_name, got)
         assert math.isfinite(loss.item()), (loss_name, loss.item())
-        gl, cl, worst = step_one_gpu_vs_cpu(
+        gl, cl, worst, flips18 = step_one_gpu_vs_cpu(
             cfg, flagship_model(dev, 0.0, head), (xb, yb, ib),
-            loss=(loss_name, loss_args))
+            loss=(loss_name, loss_args), gate_flips=True)
         print(f"train step, flagship model, {loss_name} B={B} L={L}: bf16 "
               f"with dropout 0.1 loss {loss.item():.6f}; step 1 at dropout 0, "
               f"fp32, GPU vs CPU plain: loss {gl:.6f} vs {cl:.6f}, worst "
-              f"gradient error {worst:.3f} of its tolerance")
+              f"gradient error {worst:.3f} of its tolerance, gates flipped "
+              f"per block {flips18}")
     print("phase 18 ok: every loss name takes a train step on the card that "
           "matches the CPU")
 
@@ -2754,12 +2988,12 @@ def main() -> int:
           f"padding tail: 10 steps, loss mean of the first 3 {first:.3f}, of "
           f"the last 3 {last:.3f}; launches "
           f"{ {k: v for k, v in long_launches.items() if v} }")
-    gl, cl, worst = step_one_gpu_vs_cpu(
+    gl, cl, worst, flips19 = step_one_gpu_vs_cpu(
         lcfg, paper_setup(dev, dropout=0.0)[1],
-        [t[:4] for t in long_batch])
+        [t[:4] for t in long_batch], gate_flips=True)
     print(f"long-slate train step 1 at dropout 0, fp32, B=4 L={LONG_L}, GPU "
           f"vs CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
-          f"{worst:.3f} of its tolerance")
+          f"{worst:.3f} of its tolerance, gates flipped per block {flips19}")
     print("phase 19 ok: lambdaLoss trains at L=1024 through the row-tiled "
           "kernel and matches the CPU")
 
@@ -3181,8 +3415,8 @@ def main() -> int:
         print(f"long-slate train step 1 at dropout 0, fp32, B={b} L={l}, GPU "
               f"vs CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
               f"{worst:.3f} of its tolerance, FFN units with a ReLU gate "
-              f"flipped between the two held out per block {flips} (at most "
-              f"{GATE_FLIPS_MAX}); B4/B5 by route "
+              f"flipped between the two per block (held out, replayed) "
+              f"{flips} (at most {GATE_FLIPS_MAX}); B4/B5 by route "
               f"{ {k: v for k, v in routes.items() if any(v.values())} } "
               f"({time.perf_counter() - t0:.1f} s)")
     print("phase 23 ok: the paper config trains at L=4096 through B5 and at "
@@ -3824,6 +4058,10 @@ def main() -> int:
         tensor, as a share of the reference tensor's largest value."""
         return max(e / (r + 1e-30) for e, r in map(rel_err, got, ref))
 
+    # B1's and B2's SIMT kernels run here, on B10's reference chain, and on
+    # no main path (fp32 takes the 3xTF32 routes, bf16 the tensor cores):
+    # their launches are this chain's, counted from 0
+    reset_routes()
     for b, l, d, h, d_ff, n in ENCODER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for p in (0.0, 0.3):
@@ -3882,6 +4120,7 @@ def main() -> int:
                       f"chained kernels: y {worst['y_equal']}, gradients "
                       f"{worst['grads_equal']}/15")
                 del x28, dy28, got, again, chained, plain, state
+    simt_chain_routes = (b1_routes(), b2_routes())
     torch.cuda.empty_cache()
     for (b, l, d, n, p), (grad_rel, chain_rel, y_rel) in b10_vs_mma.items():
         print(f"B10 bf16 B={b} L={l} d={d} N={n} p={p} against the chain "
@@ -4023,7 +4262,7 @@ def main() -> int:
         print(f"B10 train step 1 at dropout 0, fp32, GPU vs CPU plain: loss "
               f"{gl:.6f} vs {cl:.6f}; worst gradient error {worst29:.3f} of "
               f"its tolerance, FFN units with a ReLU gate flipped between "
-              f"the two held out per block {flips29} (at most "
+              f"the two per block (held out, replayed) {flips29} (at most "
               f"{GATE_FLIPS_MAX})")
     finally:
         transformer_mod.MEGA_ENCODER_ENABLED = False
@@ -4204,9 +4443,6 @@ def main() -> int:
         MODES,
         attention_variant_fwd,
         attention_variant_fwd_plain,
-    )
-    from allrank_tpu_torch.ops.attention_block import (
-        launch_fwd as b1_launch_fwd,
     )
     from allrank_tpu_torch.tools import exp_attn_decompose as x3_tool
 
@@ -4429,6 +4665,18 @@ def main() -> int:
                                  "allrank_tpu/ops/ffn_block.py:204"),
         "ffn_sublayer_bwd_mma": ("allrank_tpu_torch/csrc/ffn_block_mma.cu",
                                  "allrank_tpu/ops/ffn_block.py:233"),
+        "attention_sublayer_fwd_tf32x3": (
+            "allrank_tpu_torch/csrc/attention_block_tf32x3.cu",
+            "allrank_tpu/ops/attention_block.py:343"),
+        "attention_sublayer_bwd_tf32x3": (
+            "allrank_tpu_torch/csrc/attention_block_tf32x3.cu",
+            "allrank_tpu/ops/attention_block.py:375"),
+        "ffn_sublayer_fwd_tf32x3": (
+            "allrank_tpu_torch/csrc/ffn_block_tf32x3.cu",
+            "allrank_tpu/ops/ffn_block.py:204"),
+        "ffn_sublayer_bwd_tf32x3": (
+            "allrank_tpu_torch/csrc/ffn_block_tf32x3.cu",
+            "allrank_tpu/ops/ffn_block.py:233"),
         "lambda_pairs_fwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
                              "allrank_tpu/ops/lambda_pallas.py:174"),
         "lambda_pairs_bwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
@@ -4492,13 +4740,23 @@ def main() -> int:
                 recipe_launches["approxndcg"]["approx_pos_bwd"],
                 "lambda_tiled_fwd": long_launches["lambda_tiled_fwd"],
                 "lambda_tiled_bwd": long_launches["lambda_tiled_bwd"]}
-    # B1 and B2 by route: the fp32 service (phase 5) runs the SIMT forwards
-    # and the fp32 step 1 against the CPU (phase 9) their backwards; the
-    # bf16 train steps (phase 9) run the tensor-core kernels both ways
-    for sub, fp32_routes, train_routes in (
-            ("attention_sublayer", b1_fp32_routes, b1_train_routes),
-            ("ffn_sublayer", b2_fp32_routes, b2_train_routes)):
-        launches[f"{sub}_bwd"] = fp32_routes[1]["simt"]
+    # B1 and B2 by route: the fp32 service (phase 5) runs the 3xTF32
+    # forwards and the fp32 step 1 against the CPU (phase 9) their
+    # backwards; the bf16 train steps (phase 9) run the tensor-core kernels
+    # both ways; the SIMT kernels run on B10's reference chain alone
+    # (phase 28), a check and no main path: their rows say so
+    launch_source = {}
+    for sub, fp32_routes, train_routes, chain_routes in (
+            ("attention_sublayer", b1_fp32_routes, b1_train_routes,
+             simt_chain_routes[0]),
+            ("ffn_sublayer", b2_fp32_routes, b2_train_routes,
+             simt_chain_routes[1])):
+        launches[f"{sub}_fwd_tf32x3"] = launches.pop(f"{sub}_fwd")
+        launches[f"{sub}_bwd_tf32x3"] = fp32_routes[1]["tf32x3"]
+        launches[f"{sub}_fwd"] = chain_routes[0]["simt"]
+        launches[f"{sub}_bwd"] = chain_routes[1]["simt"]
+        launch_source[f"{sub}_fwd"] = launch_source[f"{sub}_bwd"] = (
+            "b10_reference_chain")
         launches[f"{sub}_fwd_mma"] = train_routes[0]["mma"]
         launches[f"{sub}_bwd_mma"] = train_routes[1]["mma"]
     # X1: the int8_static service (phase 26)
@@ -4540,6 +4798,8 @@ def main() -> int:
         name = row["name"]
         row["source"], row["replaces"] = origin[name]
         row["launches"] = launches[name]
+        if name in launch_source:
+            row["launch_source"] = launch_source[name]
         row["train_launches"] = train_launches.get(name,
                                                    enc_train.get(name, 0))
         row["cli_launches"] = (cli_launches.get(name, 0)
@@ -4549,7 +4809,7 @@ def main() -> int:
         assert row["launches"] > 0
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 35
+    assert len(rows) == 39
     print(f"profiler: {trace_kernels.lost} traces of this run lost device "
           f"events and were taken again {tag}")
     print(f"train step ms {json.dumps(step_ms)} {tag}")

@@ -1,7 +1,8 @@
-"""B2's two routes of kernels (allrank_tpu_torch/ops/ffn_block.py): the
-pure-Python choice between the tensor-core kernels (csrc/ffn_block_mma.cu:
-bf16) and the SIMT kernels (csrc/ffn_block.cu: fp32), made from dtype, d
-and d_ff alone before any launch; the plain bf16 forward and backward,
+"""B2's routes of kernels (allrank_tpu_torch/ops/ffn_block.py): the
+pure-Python choice between the tensor-core kernels in bf16
+(csrc/ffn_block_mma.cu) and in fp32 as 3xTF32 split products
+(csrc/ffn_block_tf32x3.cu), made from dtype, d and d_ff alone before any
+launch; the plain bf16 forward and backward,
 which the card holds both routes to, against the JAX package's TPU kernel
 in Pallas interpret mode at one width of each padding class the tensor-core
 kernels take (d a multiple of 16 or not, d < 16; d_ff a multiple of 64 or
@@ -42,11 +43,12 @@ GRADS = ("dx", "dg", "db", "dw1", "db1", "dw2", "db2")
 
 @pytest.mark.parametrize("d_ff", [384, 512, 1024])
 @pytest.mark.parametrize("d", [32, 96, 128, 144, 256])
-def test_bf16_takes_the_tensor_cores_and_fp32_the_simt_kernels(d, d_ff):
-    """Every width of the envelope: bf16 on the tensor cores, fp32 on the
-    SIMT units (no TF32, so fp32 keeps its parity)."""
+def test_bf16_takes_the_tensor_cores_and_fp32_3xtf32(d, d_ff):
+    """Every width of the envelope: bf16 on the tensor cores, fp32 on them
+    as 3xTF32 split products (fp32's parity; no width falls back to the
+    SIMT units)."""
     assert route(BF16, d, d_ff) == "mma"
-    assert route(torch.float32, d, d_ff) == "simt"
+    assert route(torch.float32, d, d_ff) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype,d,d_ff,match", [
@@ -73,7 +75,7 @@ def test_the_route_reads_no_tensor_and_counts_nothing():
     assert ffn_sublayer_fwd.route_launches == fwd
     assert ffn_sublayer_bwd.route_launches == bwd
     assert (ffn_sublayer_fwd.launches, ffn_sublayer_bwd.launches) == totals
-    assert set(fwd) == set(bwd) == {"mma", "simt"}
+    assert set(fwd) == set(bwd) == {"mma", "tf32x3", "simt"}
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

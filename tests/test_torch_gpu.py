@@ -379,18 +379,21 @@ B2_MMA_WIDTHS = [(d, d_ff) for d in (32, 96, 128, 144, 256)
                  for d_ff in (384, 512, 1024)]
 
 
-def _b2_mma_case(cuda, b, l, d, d_ff, p, seed, offset=0):
-    """B2 in bf16 through its tensor-core route against the plain version:
-    the forward, the backward with the C5 replay, a second backward bit for
-    bit; x and dy moved ``offset`` elements off a 16-byte boundary."""
+def _b2_mma_case(cuda, b, l, d, d_ff, p, seed, offset=0,
+                 dtype=torch.bfloat16):
+    """B2 through its tensor-core route of ``dtype`` (bf16 "mma", fp32
+    "tf32x3") against the plain version: the forward, the backward with the
+    C5 replay, a second backward bit for bit; x and dy moved ``offset``
+    elements off a 16-byte boundary."""
     gen = torch.Generator().manual_seed(seed)
-    bf16 = torch.bfloat16
-    x = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
-    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
+    way = ffn_route(dtype, d, d_ff)
+    assert way == ("mma" if dtype == torch.bfloat16 else "tf32x3")
+    x = torch.randn(b, l, d, generator=gen).to(dtype).to(cuda)
+    dy = torch.randn(b, l, d, generator=gen).to(dtype).to(cuda)
     if offset:
         moved = []
         for t in (x, dy):
-            flat = torch.empty(t.numel() + offset, dtype=bf16, device=cuda)
+            flat = torch.empty(t.numel() + offset, dtype=dtype, device=cuda)
             m = flat[offset:].view(t.shape)
             m.copy_(t)
             assert m.data_ptr() % 16 != 0
@@ -400,19 +403,19 @@ def _b2_mma_case(cuda, b, l, d, d_ff, p, seed, offset=0):
                         ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
                         ((d_ff, d), 0, d_ff ** -0.5), ((d,), 0, 0.1)], cuda)
     seeds = (31, 32)
-    before = (ffn_sublayer_fwd.route_launches["mma"],
-              ffn_sublayer_bwd.route_launches["mma"])
+    before = (ffn_sublayer_fwd.route_launches[way],
+              ffn_sublayer_bwd.route_launches[way])
     y = ffn_sublayer_fwd(x, *ffn, p, p, seeds)
     got = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
     again = ffn_sublayer_bwd(x, *ffn, dy, p, p, seeds)
     torch.cuda.synchronize()
-    assert (ffn_sublayer_fwd.route_launches["mma"],
-            ffn_sublayer_bwd.route_launches["mma"]) == (
+    assert (ffn_sublayer_fwd.route_launches[way],
+            ffn_sublayer_bwd.route_launches[way]) == (
         before[0] + 1, before[1] + 2)
     torch.testing.assert_close(
         y.float(), ffn_sublayer_fwd_plain(x, *ffn, p, p, seeds).float(),
-        **TOL[bf16])
-    _ffn_replayed_close(got, x, ffn, dy, p, seeds, bf16, "ffn (mma)")
+        **TOL[dtype])
+    _ffn_replayed_close(got, x, ffn, dy, p, seeds, dtype, f"ffn ({way})")
     for name, g, g2 in zip(FFN_GRADS, got, again):
         assert torch.equal(g, g2), f"{name} differs between two backwards"
 
@@ -445,16 +448,42 @@ def test_b2_mma_edge_shapes(cuda, b, l, d, d_ff, p):
     _b2_mma_case(cuda, b, l, d, d_ff, p, seed=d + d_ff + l)
 
 
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("l", [1, 65, 240, 1024])
+@pytest.mark.parametrize("d,d_ff", B2_MMA_WIDTHS)
+def test_b2_tf32x3_kernels_match_plain(cuda, d, d_ff, l, p):
+    """Each of B2's fp32 (3xTF32) instantiations (d <= 128 and d > 128,
+    forward and backward) at L from 1 to 1024, dropout 0 and 0.3, under the
+    C5 replay at the unchanged fp32 tolerances."""
+    _b2_mma_case(cuda, 2 if l == 1024 else 3, l, d, d_ff, p,
+                 seed=5 * d + d_ff + l, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("b,l,d,d_ff", [(3, 65, 128, 512), (3, 65, 96, 384),
+                                        (3, 65, 144, 512), (3, 70, 8, 72),
+                                        (2, 65, 100, 1000),
+                                        (1, 1, 256, 1000)])
+def test_b2_tf32x3_edge_shapes(cuda, b, l, d, d_ff, p):
+    """fp32 with x and dy one element off a 16-byte boundary at d 128, 96,
+    144; d < 16 and d_ff short of a whole chunk; d not a whole 16-column
+    step with d_ff 1000; one row at the widest d."""
+    _b2_mma_case(cuda, b, l, d, d_ff, p, seed=d + d_ff + l + 1,
+                 offset=1 if (b, l) == (3, 65) and d_ff in (384, 512) else 0,
+                 dtype=torch.float32)
+
+
 def test_b2_routes_count_their_launches(cuda):
-    """bf16 takes the tensor cores, fp32 the SIMT kernels: each route counts
-    its own launches, the totals count both; the SIMT kernels also take
-    bf16 when asked by name (B10's reference chain)."""
+    """bf16 takes the tensor cores, fp32 them as 3xTF32 split products:
+    each route counts its own launches, the totals count both; the SIMT
+    kernels take either dtype when asked by name (B10's reference
+    chain)."""
     gen = torch.Generator().manual_seed(6)
     d, d_ff = 128, 512
     ffn = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
                         ((d, d_ff), 0, d ** -0.5), ((d_ff,), 0, 0.1),
                         ((d_ff, d), 0, d_ff ** -0.5), ((d,), 0, 0.1)], cuda)
-    for dtype, way in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+    for dtype, way in ((torch.bfloat16, "mma"), (torch.float32, "tf32x3")):
         assert ffn_route(dtype, d, d_ff) == way
         x = torch.randn(2, 33, d, generator=gen).to(dtype).to(cuda)
         fwd_before = dict(ffn_sublayer_fwd.route_launches)
@@ -485,15 +514,16 @@ B1_MMA_WIDTHS = [(32, 4), (80, 4), (128, 4), (144, 4), (96, 2), (144, 2),
                  (100, 1), (256, 2)]
 
 
-def _b1_mma_case(cuda, b, l, d, h, p, seed, offset=0):
-    """B1 in bf16 through its tensor-core route against the plain version:
-    the forward, the backward on the forward's saved state (qkv moved
-    ``offset`` elements off a 16-byte boundary), a second backward bit for
-    bit; slate 0 fully padded."""
+def _b1_mma_case(cuda, b, l, d, h, p, seed, offset=0, dtype=torch.bfloat16):
+    """B1 through its tensor-core route of ``dtype`` (bf16 "mma", fp32
+    "tf32x3") against the plain version: the forward, the backward on the
+    forward's saved state (qkv moved ``offset`` elements off a 16-byte
+    boundary), a second backward bit for bit; slate 0 fully padded."""
     gen = torch.Generator().manual_seed(seed)
-    bf16 = torch.bfloat16
-    x = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
-    dy = torch.randn(b, l, d, generator=gen).to(bf16).to(cuda)
+    way = route(dtype, d, h)
+    assert way == ("mma" if dtype == torch.bfloat16 else "tf32x3")
+    x = torch.randn(b, l, d, generator=gen).to(dtype).to(cuda)
+    dy = torch.randn(b, l, d, generator=gen).to(dtype).to(cuda)
     lengths = torch.randint(1, l + 1, (b,), generator=gen)
     lengths[0] = 0
     mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(cuda)
@@ -501,12 +531,12 @@ def _b1_mma_case(cuda, b, l, d, h, p, seed, offset=0):
                          ((d, 3 * d), 0, d ** -0.5), ((3 * d,), 0, 0.1),
                          ((d, d), 0, d ** -0.5), ((d,), 0, 0.1)], cuda)
     seeds = (21, 22)
-    before = (attention_sublayer_fwd.route_launches["mma"],
-              attention_sublayer_bwd.route_launches["mma"])
+    before = (attention_sublayer_fwd.route_launches[way],
+              attention_sublayer_bwd.route_launches[way])
     y, (qkv, stats) = attention_sublayer_fwd(x, mask, *attn, h, p, p, seeds,
                                              return_saved=True)
     if offset:
-        flat = torch.empty(qkv.numel() + offset, dtype=bf16, device=cuda)
+        flat = torch.empty(qkv.numel() + offset, dtype=dtype, device=cuda)
         moved = flat[offset:].view(qkv.shape)
         moved.copy_(qkv)
         assert moved.data_ptr() % 16 != 0
@@ -516,17 +546,17 @@ def _b1_mma_case(cuda, b, l, d, h, p, seed, offset=0):
     again = attention_sublayer_bwd(x, mask, *attn, dy, h, p, p, seeds,
                                    saved=(qkv, stats))
     torch.cuda.synchronize()
-    assert (attention_sublayer_fwd.route_launches["mma"],
-            attention_sublayer_bwd.route_launches["mma"]) == (
+    assert (attention_sublayer_fwd.route_launches[way],
+            attention_sublayer_bwd.route_launches[way]) == (
         before[0] + 1, before[1] + 2)
     torch.testing.assert_close(
         y.float(), attention_sublayer_fwd_plain(x, mask, *attn, h, p, p,
-                                                seeds).float(), **TOL[bf16])
+                                                seeds).float(), **TOL[dtype])
     ref = attention_sublayer_bwd_plain(x, mask, *attn, dy, h, p, p, seeds)
     for name, g, r, g2 in zip(("dx", "dg", "db", "dwqkv", "dbqkv", "dwout",
                                "dbout"), got, ref, again):
         assert torch.isfinite(g.float()).all(), name
-        _close(g, r, bf16, f"attention (mma) {name}")
+        _close(g, r, dtype, f"attention ({way}) {name}")
         assert torch.equal(g, g2), f"{name} differs between two backwards"
 
 
@@ -548,14 +578,35 @@ def test_b1_mma_rows_off_a_16_byte_boundary(cuda, d, h, p):
     _b1_mma_case(cuda, 3, 65, d, h, p, seed=d + h, offset=1)
 
 
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("l", [1, 65, 240, 1024])
+@pytest.mark.parametrize("d,h", B1_MMA_WIDTHS)
+def test_b1_tf32x3_kernels_match_plain(cuda, d, h, l, p):
+    """Each of B1's fp32 (3xTF32) instantiations (padded d_k 32, 64, 128,
+    rows aligned or not) at L from 1 to B1's longest, dropout 0 and 0.3,
+    at the unchanged fp32 tolerances."""
+    _b1_mma_case(cuda, 2 if l == 1024 else 3, l, d, h, p, seed=11 * d + l,
+                 dtype=torch.float32)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("d,h", [(128, 4), (96, 2), (144, 2)])
+def test_b1_tf32x3_rows_off_a_16_byte_boundary(cuda, d, h, p):
+    """A saved fp32 qkv one element past a 16-byte boundary takes the
+    element-wise staging at head widths 32, 48 and 72."""
+    _b1_mma_case(cuda, 3, 65, d, h, p, seed=d + 3 * h, offset=1,
+                 dtype=torch.float32)
+
+
 def test_b1_routes_count_their_launches(cuda):
-    """bf16 with d_k <= 128 takes the tensor cores, fp32 and bf16 with a
-    wider head the SIMT kernels: each route counts its own launches, the
-    totals count both."""
+    """With d_k <= 128 bf16 takes the tensor cores and fp32 them as 3xTF32
+    split products, a wider head the SIMT kernels in either dtype: each
+    route counts its own launches, the totals count both."""
     gen = torch.Generator().manual_seed(5)
     for d, h, dtype, way in ((128, 4, torch.bfloat16, "mma"),
-                             (128, 4, torch.float32, "simt"),
-                             (256, 1, torch.bfloat16, "simt")):
+                             (128, 4, torch.float32, "tf32x3"),
+                             (256, 1, torch.bfloat16, "simt"),
+                             (256, 1, torch.float32, "simt")):
         assert route(dtype, d, h) == way
         x = torch.randn(2, 33, d, generator=gen).to(dtype).to(cuda)
         mask = torch.zeros(2, 33, dtype=torch.bool, device=cuda)

@@ -1,7 +1,8 @@
-"""B1's two routes of kernels (allrank_tpu_torch/ops/attention_block.py):
-the pure-Python choice between the tensor-core kernels
-(csrc/attention_block_mma.cu: bf16 with d_k <= 128) and the SIMT kernels
-(csrc/attention_block.cu: fp32, and bf16 with wider heads), made from
+"""B1's three routes of kernels (allrank_tpu_torch/ops/attention_block.py):
+the pure-Python choice between the tensor-core kernels in bf16
+(csrc/attention_block_mma.cu) and in fp32 as 3xTF32 split products
+(csrc/attention_block_tf32x3.cu), both for d_k <= 128, and the SIMT kernels
+(csrc/attention_block.cu: wider heads in either dtype), made from
 dtype, d and h alone before any launch; and the plain bf16 forward and
 backward, which the card holds both routes to, against the JAX package's
 TPU kernel in Pallas interpret mode at the shapes the tensor-core
@@ -39,7 +40,7 @@ GRADS = ("dx", "dg", "db", "dwqkv", "dbqkv", "dwout", "dbout")
 @pytest.mark.parametrize("d,h", [(128, 4), (144, 2), (96, 1)])
 def test_paper_widths_take_the_tensor_cores_in_bf16(d, h):
     assert route(BF16, d, h) == "mma"
-    assert route(torch.float32, d, h) == "simt"
+    assert route(torch.float32, d, h) == "tf32x3"
 
 
 # d_k 8, 20, 32 (padded to 32), 36, 48 (to 64), 72, 100, 128 (to 128)
@@ -54,12 +55,14 @@ def test_each_padded_head_class_takes_the_tensor_cores(d, h):
 def test_heads_wider_than_128_stay_on_the_simt_kernels(d, h):
     assert d // h > MMA_MAX_HEAD
     assert route(BF16, d, h) == "simt"
+    assert route(torch.float32, d, h) == "simt"
 
 
 @pytest.mark.parametrize("d,h", [(1, 1), (128, 4), (256, 2)])
-def test_fp32_stays_on_the_simt_kernels(d, h):
-    """fp32 keeps its parity: no TF32, so no tensor cores."""
-    assert route(torch.float32, d, h) == "simt"
+def test_fp32_takes_the_tensor_cores_as_3xtf32(d, h):
+    """fp32 keeps its parity on the tensor cores as 3xTF32 split products
+    (three TF32 products an fp32 one), never as plain TF32."""
+    assert route(torch.float32, d, h) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype,d,h,match", [
@@ -84,7 +87,7 @@ def test_the_route_reads_no_tensor_and_counts_nothing():
     assert answers == {"mma"}
     assert attention_sublayer_fwd.route_launches == fwd
     assert attention_sublayer_bwd.route_launches == bwd
-    assert set(fwd) == set(bwd) == {"mma", "simt"}
+    assert set(fwd) == set(bwd) == {"mma", "tf32x3", "simt"}
 
 
 # ----------------------------------------------------------------------------
