@@ -52,8 +52,8 @@
 //    probabilities, ctx, and in the backward da, dO, dS and dqkv. The
 //    tensor-core routes (attention_block_mma.cu in bf16,
 //    attention_block_tf32x3.cu in fp32) take heads up to 128 wide; these
-//    kernels take wider heads, and B10 (encoder_block.cu) inlines their
-//    tile bodies.
+//    kernels take wider heads, where B10 (encoder_block.cuh) runs their
+//    tile bodies too.
 #include "backward.cuh"
 #include "common.cuh"
 #include "dropout.cuh"
@@ -63,7 +63,7 @@ namespace allrank {
 namespace {
 
 // The kernels are thin wrappers over the tile bodies of sublayer_tiles.cuh,
-// which the whole-encoder kernel (encoder_block.cu) shares.
+// which the whole-encoder kernel (encoder_block.cuh) shares at d_k > 128.
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)

@@ -24,7 +24,6 @@ namespace allrank {
 using bf16 = __nv_bfloat16;
 
 constexpr int kStages = 3;      // tiles of the cp.async ring
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInfFillL2 = kNegInfFill * kLog2e;
 
 // The keys of a 64-key tile as bits, for a block of at least two warps:

@@ -21,6 +21,7 @@ constexpr int kLdB = kTile + 1;   // padded pitch of a B chunk [kChunk][kTile]
 constexpr float kNegInfFill = -1e9f;
 constexpr float kLnEps = 1e-6f;
 constexpr float kVarFloor = 1e-24f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -42,6 +43,38 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <class T>
 __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
+}
+
+// The barrier of a tile body of kThreads threads run in a block of kBlock:
+// __syncthreads() where the body is the whole block; else the body runs on
+// the block's first kThreads threads and waits at the named barrier 1 for
+// those alone, while the rest of the block waits elsewhere.
+template <int kThreads, int kBlock>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (kThreads == kBlock) {
+    __syncthreads();
+  } else {
+    static_assert(kThreads < kBlock && kThreads % 32 == 0, "whole warps");
+    asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+  }
+}
+
+// __syncthreads_and(p) over the body's threads, as tile_sync's barrier.
+template <int kThreads, int kBlock>
+__device__ __forceinline__ int tile_sync_and(int p) {
+  if constexpr (kThreads == kBlock) {
+    return __syncthreads_and(p);
+  } else {
+    static_assert(kThreads < kBlock && kThreads % 32 == 0, "whole warps");
+    int all;
+    asm volatile(
+        "{\n\t.reg .pred p, q;\n\tsetp.ne.s32 p, %1, 0;\n\t"
+        "bar.red.and.pred q, 1, %2, p;\n\tselp.s32 %0, 1, 0, q;\n\t}"
+        : "=r"(all)
+        : "r"(p), "n"(kThreads)
+        : "memory");
+    return all;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

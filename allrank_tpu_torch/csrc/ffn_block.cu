@@ -41,8 +41,7 @@
 namespace allrank {
 namespace {
 
-// The kernels are thin wrappers over the tile bodies of sublayer_tiles.cuh,
-// which the whole-encoder kernel (encoder_block.cu) shares.
+// The kernels are thin wrappers over the tile bodies of sublayer_tiles.cuh.
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)

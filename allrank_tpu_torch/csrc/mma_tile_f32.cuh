@@ -285,43 +285,52 @@ __device__ __forceinline__ void f32_atb_step(float (*acc)[4][4],
       for (int e = 0; e < 4; ++e) acc[r][n][e] += t[r][n][e];
 }
 
-// Split blockIdx.z of C = A^T . B and colsum(B) for A [M, lda] (K columns
-// used) and B [M, ldb] (N used) fp32, output tile (blockIdx.x, blockIdx.y)
-// of 64 x 64, by four warps as 2 x 2 of 32 rows by 32 columns of C:
-// part[split] holds C's partial [K, N] and then colsum's [N] over rows
+// Split `split` of C = A^T . B and colsum(B) for A [M, lda] (K columns
+// used) and B [M, ldb] (N used) fp32, output tile (k_tile, n_tile) of 64 x
+// 16 kWarps, by kWarps warps as 2 x kWarps / 2 of 32 rows by 32 columns of
+// C: part[split] holds C's partial [K, N] and then colsum's [N] over rows
 // [split * rows_per_split, (split + 1) * rows_per_split), 64 rows a step
 // through a two-slot cp.async ring (each step's product summed from zero,
 // f32_atb_step); only the first row of tiles adds the column sums, in fp32.
-// `smem` holds kF32AtbSmem bytes (dynamic: above the 48 KB of a static
-// array).
+// Four warps (the chained kernels' block) take a 64 x 64 tile, eight (a
+// whole-encoder block) 64 x 128. `smem` holds f32_atb_smem(kWarps) bytes
+// (dynamic: above the 48 KB of a static array).
 constexpr int kF32AtbThreads = 128, kF32AtbRows = 64;
 constexpr int kF32AtbPitch = 64 + 8;  // f32_kn_pitch(64)
-constexpr size_t kF32AtbSmem =
-    2 * 2 * kF32AtbRows * kF32AtbPitch * sizeof(float);
+__host__ __device__ constexpr size_t f32_atb_smem(int warps) {
+  return 2 * (kF32AtbRows * kF32AtbPitch + kF32AtbRows * (16 * warps + 8)) *
+         sizeof(float);
+}
+constexpr size_t kF32AtbSmem = f32_atb_smem(4);
 
+template <int kWarps = 4>
 __device__ __forceinline__ void f32_atb_tile(float* smem,
-                                             const float* __restrict__ A,
+                                             const float* A,
                                              int lda,
-                                             const float* __restrict__ Bm,
-                                             int ldb, float* __restrict__ part,
+                                             const float* Bm,
+                                             int ldb, float* part,
                                              int M, int K, int N,
-                                             int rows_per_split, bool vec) {
-  constexpr int kPitch = kF32AtbPitch;
+                                             int rows_per_split, bool vec,
+                                             unsigned k_tile, unsigned n_tile,
+                                             unsigned split_index) {
+  constexpr int kThreads = 32 * kWarps, kCols = 16 * kWarps;
+  constexpr int kPitch = kF32AtbPitch, kPitchB = kCols + 8;
   constexpr int kTileF = kF32AtbRows * kPitch;
-  const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int split = blockIdx.z;
+  constexpr int kSlot = kTileF + kF32AtbRows * kPitchB;
+  const int k0 = k_tile * kTile, n0 = n_tile * kCols;
+  const int split = split_index;
   const int m_begin = split * rows_per_split;
   const int m_end = min(M, m_begin + rows_per_split);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wk = 32 * (warp % 2), wn = 32 * (warp / 2);
-  const bool col_sums = blockIdx.x == 0;
+  const bool col_sums = k_tile == 0;
   const int nt = c_tiles_f32(min(32, N - n0 - wn));
   auto stage = [&](int m, int s) {
-    float* As = smem + 2 * s * kTileF;
-    stage_f32<kF32AtbThreads>(As, kPitch, A, lda, m, kF32AtbRows, m_end, k0,
-                              kTile, K, vec);
-    stage_f32<kF32AtbThreads>(As + kTileF, kPitch, Bm, ldb, m, kF32AtbRows,
-                              m_end, n0, kTile, N, vec);
+    float* As = smem + s * kSlot;
+    stage_f32<kThreads>(As, kPitch, A, lda, m, kF32AtbRows, m_end, k0, kTile,
+                        K, vec);
+    stage_f32<kThreads>(As + kTileF, kPitchB, Bm, ldb, m, kF32AtbRows, m_end,
+                        n0, kCols, N, vec);
   };
   float acc[2][4][4] = {};
   float csum = 0.f;
@@ -332,12 +341,12 @@ __device__ __forceinline__ void f32_atb_tile(float* smem,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* As = smem + 2 * s * kTileF;
+    const float* As = smem + s * kSlot;
     const float* Bs = As + kTileF;
-    f32_atb_step(acc, As + wk, kPitch, Bs + wn, kPitch, nt);
-    if (col_sums && threadIdx.x < kTile)
+    f32_atb_step(acc, As + wk, kPitch, Bs + wn, kPitchB, nt);
+    if (col_sums && threadIdx.x < kCols)
       for (int mm = 0; mm < kF32AtbRows; ++mm)
-        csum += Bs[mm * kPitch + threadIdx.x];
+        csum += Bs[mm * kPitchB + threadIdx.x];
     __syncthreads();  // the slot is read before it is staged again
   }
   float* out = part + (size_t)split * ((size_t)K * N + N);
@@ -352,7 +361,7 @@ __device__ __forceinline__ void f32_atb_tile(float* smem,
         if (n < nt && i < K && col < N)
           out[(size_t)i * N + col] = acc[r][n][e];
       }
-  if (col_sums && threadIdx.x < kTile && n0 + threadIdx.x < N)
+  if (col_sums && threadIdx.x < kCols && n0 + threadIdx.x < N)
     out[(size_t)K * N + n0 + threadIdx.x] = csum;
 }
 

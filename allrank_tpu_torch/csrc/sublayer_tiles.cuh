@@ -2,8 +2,9 @@
 // B2 (ffn_block.cu), as __device__ functions of a tile index: one call
 // computes what one block of the chained kernels' grids computes. The
 // chained __global__ kernels are thin wrappers that pass their blockIdx;
-// the whole-encoder kernel (encoder_block.cu) walks the same tiles from a
-// persistent grid. Both therefore run the same products in the same order.
+// the whole-encoder kernel (encoder_block.cuh) walks B1's tiles from a
+// persistent grid where a head is wider than 128, as B1's route does. Both
+// therefore run the same products in the same order.
 //
 // Each body takes its shared memory as `smem` (the *_smem_floats() below
 // give the sizes) and its tile coordinates as arguments and reads nothing
@@ -129,7 +130,6 @@ enum AttnMode : int {
   kAttnNoPv,
   kAttnFrame
 };
-constexpr float kLog2e = 1.4426950408889634f;
 
 // y[q0:q0+64] of one slate (q0 = q_tile * 64): attention over all heads,
 // then the out-projection, its bias, the output dropout and the residual.

@@ -312,8 +312,8 @@ def launch_fwd(way, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                h: int, p_attn: float = 0.0, p_resid: float = 0.0,
                seeds=(0, 0), return_saved: bool = False):
     """``attention_sublayer_fwd`` on CUDA tensors through the kernels of
-    route ``way``: the wrapper passes ``route``'s answer; B10's checks also
-    take the SIMT kernels, whose tile bodies B10 runs. Counts the launch as
+    route ``way``: the wrapper passes ``route``'s answer; the SIMT kernels
+    also at narrower heads, for comparisons. Counts the launch as
     the wrapper's."""
     p_attn, p_resid = dropout.check_rate(p_attn), dropout.check_rate(p_resid)
     params = (ln_scale, ln_bias, wqkv, bqkv, wout, bout)

@@ -4,9 +4,8 @@ PyTorch versions, of the same signatures, for CPU tensors; ``FFNSublayer``
 ties the two into autograd. Two routes of kernels (``route``), both on the
 tensor cores: bf16 (``csrc/ffn_block_mma.cu``) and fp32 as 3xTF32 split
 products (``csrc/ffn_block_tf32x3.cu``, three TF32 products an fp32 one,
-fp32's parity). The SIMT kernels (``csrc/ffn_block.cu``), whose tile
-bodies the whole-encoder kernel B10 runs, stay as a third route that only
-an explicit ``launch_fwd`` / ``launch_bwd`` takes.
+fp32's parity). The SIMT kernels (``csrc/ffn_block.cu``) stay as a third
+route that only an explicit ``launch_fwd`` / ``launch_bwd`` takes.
 
 Replaces the TPU kernel ``ffn_sublayer`` of the JAX package's
 ``ops/ffn_block.py`` (forward ``pallas_call`` at line 204, backward at line
@@ -285,8 +284,8 @@ def _rounded_weights(d, d_ff, dev):
 def launch_fwd(way, x, ln_scale, ln_bias, w1, b1, w2, b2,
                p_hidden: float = 0.0, p_resid: float = 0.0, seeds=(0, 0)):
     """``ffn_sublayer_fwd`` on CUDA tensors through the kernels of route
-    ``way``: the wrapper passes ``route``'s answer; B10's checks also take
-    the SIMT kernels, whose tile bodies B10 runs. Counts the launch as the
+    ``way``: the wrapper passes ``route``'s answer; the SIMT kernels only
+    when named, for comparisons. Counts the launch as the
     wrapper's."""
     p_hidden = dropout.check_rate(p_hidden)
     p_resid = dropout.check_rate(p_resid)

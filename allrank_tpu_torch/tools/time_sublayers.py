@@ -20,7 +20,15 @@ padding tail), in fp32 (``make_train_step``'s default) and in bf16
 (``bench.py``'s): the step's ms (CUDA events, the host's time in it), the
 device's busy ms a step and its idle share, and its device time by kernel,
 from a torch.profiler trace of 5 steps; then the flagship scorer's ms a
-call in both dtypes.
+call in both dtypes. ``--encoder`` instead times the whole-encoder kernel
+pair B10 (``ops/encoder_block.py``) at the flagship (the same shape, N=4
+blocks), fp32 and bf16, forward and backward, as device time: B10's
+kernels' durations in a checked torch.profiler trace (its backward on the
+forward's parked state, where the checkout's B10 takes one, and replaying
+the forward), beside the chain of B1's and B2's kernels on their routes (a
+CUDA graph) and the library chain (``encoder_library``, its backward the
+sum of its kernels in a trace), and the bound of the function's products
+at the tensor cores' rate (3xTF32 for fp32).
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -67,6 +75,81 @@ def b2_library(x, g, b, w1, b1, w2, b2):
 
     hidden = torch.relu(torch.matmul(std_layer_norm(x, g, b), w1) + b1)
     return x + (torch.matmul(hidden, w2) + b2)
+
+
+def encoder_library(x, mask, stacks, fs, fb, dy, h):
+    """B10's function in library calls, a yardstick only: per block
+    ``b1_library`` and ``b2_library``, then the final std-LN, in x's
+    dtype; returns (forward, backward by autograd) as functions that run it
+    once."""
+    from allrank_tpu_torch.models.core import std_layer_norm
+
+    dtype = x.dtype
+    mask_add = torch.zeros(x.shape[0], 1, 1, x.shape[1], dtype=dtype,
+                           device=x.device).masked_fill(
+        mask[:, None, None, :], -1e9)
+
+    def forward(xx, ws, fs_, fb_):
+        for n in range(ws[0].shape[0]):
+            w = [t[n] for t in ws]
+            xx = b1_library(xx, mask_add, *w[:6], h)
+            xx = b2_library(xx, *w[6:])
+        return std_layer_norm(xx, fs_, fb_)
+
+    leaves = [t.detach().to(dtype).requires_grad_()
+              for t in [x] + list(stacks) + [fs, fb]]
+    out = forward(leaves[0], leaves[1:13], leaves[13], leaves[14])
+    cast = [t.to(dtype) for t in stacks]
+    return (lambda: forward(x, cast, fs.to(dtype), fb.to(dtype)),
+            lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+
+
+def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p):
+    """B10's function through the chained B1/B2 kernels on the routes the
+    encoder takes with the switch off (``attention_block.route``,
+    ``ffn_block.route``: B10's routes, whose tile bodies it runs), the final
+    LayerNorm in torch ops: (y, the state ``encoder_chained_bwd`` reads)."""
+    from allrank_tpu_torch.models.core import std_layer_norm
+    from allrank_tpu_torch.ops import attention_block as b1
+    from allrank_tpu_torch.ops import ffn_block as b2
+
+    ways = (b1.route(x.dtype, x.shape[-1], h),
+            b2.route(x.dtype, x.shape[-1], stacks[8].shape[-1]))
+    inputs, saved = [], []
+    for n in range(stacks[0].shape[0]):
+        w = [t[n] for t in stacks]
+        inputs.append(x)
+        x, sv = b1.launch_fwd(ways[0], x, mask, *w[:6], h, p, p,
+                              seeds[4 * n:4 * n + 2], return_saved=True)
+        saved.append(sv)
+        inputs.append(x)
+        x = b2.launch_fwd(ways[1], x, *w[6:], p, p,
+                          seeds[4 * n + 2:4 * n + 4])
+    return std_layer_norm(x, fs, fb), (inputs, saved, x, ways)
+
+
+def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
+    """The backward of ``encoder_chained_fwd`` through the B1/B2 backward
+    kernels on the forward's routes: (dx, *12 stacked gradients, dfs, dfb),
+    as B10's."""
+    from allrank_tpu_torch.ops import attention_block as b1
+    from allrank_tpu_torch.ops import ffn_block as b2
+
+    inputs, saved, z, ways = state
+    n_blocks = stacks[0].shape[0]
+    dz, dfs, dfb = b1.ln_backward(z.float(), fs, dy.float())
+    g = dz.to(z.dtype)
+    grads = [[None] * n_blocks for _ in range(12)]
+    for n in reversed(range(n_blocks)):
+        w = [t[n] for t in stacks]
+        g, *ffn = b2.launch_bwd(ways[1], inputs[2 * n + 1], *w[6:], g, p, p,
+                                seeds[4 * n + 2:4 * n + 4])
+        g, *attn = b1.launch_bwd(ways[0], inputs[2 * n], mask, *w[:6], g, h,
+                                 p, p, seeds[4 * n:4 * n + 2],
+                                 saved=saved[n])
+        for i, t in enumerate(attn + ffn):
+            grads[i][n] = t
+    return (g, *(torch.stack(t) for t in grads), dfs, dfb)
 
 
 def inputs(gen, dtype, dev):
@@ -192,6 +275,82 @@ def time_step(card: str, package: str, iters: int, dtype: str) -> dict:
             "scorer_ms": scorer_ms, "card": card, "package": package}
 
 
+def encoder_flops(backward: bool, n: int = 4) -> float:
+    """The products of B10's function at the flagship, each counted once
+    (a backward's replay of the forward is a cost of a design, not of the
+    function): forward 2 M d 3d + 4 B h L^2 d_k + 2 M d^2 + 4 M d d_ff,
+    backward 16 M d^2 + 12 B h L^2 d_k + 10 M d d_ff a block, M = B L."""
+    m, dk = B * L, D // H
+    if backward:
+        return n * (16 * m * D * D + 12 * B * H * L * L * dk
+                    + 10 * m * D * D_FF)
+    return n * (2 * m * D * 3 * D + 4 * B * H * L * L * dk + 2 * m * D * D
+                + 4 * m * D * D_FF)
+
+
+def time_encoder(card: str, package: str) -> list:
+    """``--encoder``'s lines: B10 at the flagship in fp32 and bf16, forward
+    and backward, beside the chain on its routes and the library chain, as
+    device time (ms)."""
+    import inspect
+
+    from allrank_tpu_torch.ops import attention_block as b1
+    from allrank_tpu_torch.ops import encoder_block as b10
+    from allrank_tpu_torch.ops import ffn_block as b2
+    from allrank_tpu_torch.tools.timing import graph_ms, kernel_ms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    n = 4
+    parks = "return_saved" in inspect.signature(
+        b10.encoder_block_fwd).parameters
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x, mask, ap, fp, dy = inputs(gen, dtype, dev)
+        stacks = [torch.stack([t * (1 + 0.1 * i) for i in range(n)])
+                  for t in ap + fp]
+        fs, fb = 1 + 0.1 * torch.randn(D, generator=gen).to(dev), torch.zeros(
+            D, device=dev)
+        seeds = tuple(range(300, 300 + 4 * n))
+        args = (x, mask, seeds, stacks, fs, fb)
+        _, state = encoder_chained_fwd(*args, H, 0.0)
+        lib = encoder_library(x, mask, stacks, fs, fb, dy, H)
+
+        def b10_ms(fn):
+            return sum(ms for name, ms in kernel_ms(fn).items()
+                       if "encoder_" in name)
+
+        fwd = {"b10": b10_ms(lambda: b10.encoder_block_fwd(*args, h=H)),
+               "chained": graph_ms(lambda: encoder_chained_fwd(*args, H,
+                                                               0.0)),
+               "library": graph_ms(lib[0])}
+        bwd = {"b10_replay": b10_ms(lambda: b10.encoder_block_bwd(
+                   *args, dy, h=H)),
+               "chained": graph_ms(lambda: encoder_chained_bwd(
+                   state, mask, seeds, stacks, fs, dy, H, 0.0)),
+               "library": sum(kernel_ms(lib[1]).values())}
+        if parks:
+            fwd["b10_parked"] = b10_ms(lambda: b10.encoder_block_fwd(
+                *args, h=H, return_saved=True))
+            _, saved = b10.encoder_block_fwd(*args, h=H, return_saved=True)
+            bwd["b10"] = b10_ms(lambda: b10.encoder_block_bwd(
+                *args, dy, h=H, saved=saved))
+            del saved
+        rate = 495e12 / 3 if dtype == torch.float32 else 989e12
+        routes = "/".join((b1.route(dtype, D, H), b2.route(dtype, D, D_FF)))
+        for direction, times in (("fwd", fwd), ("bwd", bwd)):
+            lines.append({
+                "kernel": f"encoder_block_{direction}",
+                "shape": [B, L, D, H, D_FF, n],
+                "dtype": str(dtype).split(".")[-1], "routes": routes,
+                "device_ms": times,
+                "bound_ms": encoder_flops(direction == "bwd", n) / rate * 1e3,
+                "card": card, "package": package})
+        del state, lib, stacks
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=20)
@@ -200,6 +359,8 @@ def main(argv=None) -> int:
                         help="also each kernel's device time by name")
     parser.add_argument("--step", action="store_true",
                         help="time bench.py's train step instead")
+    parser.add_argument("--encoder", action="store_true",
+                        help="time the whole-encoder kernel pair instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_sublayers: no CUDA device", file=sys.stderr)
@@ -221,7 +382,13 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip()
     package = allrank_tpu_torch.__file__
     sources = [s for s in ("attention_block", "attention_block_mma",
-                           "ffn_block", "ffn_block_mma", *args.ptxas)
+                           "attention_block_tf32x3", "ffn_block",
+                           "ffn_block_mma", "ffn_block_tf32x3",
+                           *(("encoder_block",
+                              *(f"encoder_block_{dt}_dk32"
+                                for dt in ("bf16", "f32")))
+                             if args.encoder else ()),
+                           *args.ptxas)
                if os.path.exists(_build.source_path(s))]
     _build.build(sorted(set(sources)))
     for source in args.ptxas:
@@ -229,6 +396,10 @@ def main(argv=None) -> int:
             print(f"ptxas {source} {name}: {line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.encoder:
+        for line in time_encoder(card, package):
+            print(json.dumps(line), flush=True)
+        return 0
     if args.step:
         for dtype in ("float32", "bfloat16"):
             print(json.dumps(time_step(card, package, args.iters, dtype)),

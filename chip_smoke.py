@@ -310,6 +310,12 @@ B2_MMA_KERNELS = 5
 # the weight gradients; B2's forward and backward row kernel at d <= 128
 # and d > 128, and the weight gradients
 B1_F32_KERNELS, B2_F32_KERNELS = 23, 5
+# B10's sources, one a dtype and head class (padded d_k 32, 64, 128; wider
+# heads on B1's SIMT phases), and the kernels of each: forward and
+# backward, each at d <= 128 and d > 128
+B10_SOURCES = [f"encoder_block_{dt}_{cls}" for dt in ("bf16", "f32")
+               for cls in ("dk32", "dk64", "dk128", "simt")]
+B10_KERNELS = 2 * 2
 # the widths B2's bf16 kernels are held to: d within one warp's 128
 # output columns (32, 96, 128) or split over two warps (144, whose second
 # warp takes 16 columns, and 256), d_ff whole 64-unit chunks; phase 7's
@@ -409,10 +415,10 @@ Q8_MODES = ("static", "static_channels", "dynamic")
 ENCODER_CASES = [(B, L, 128, 4, 512, 4), (8, L, 128, 4, 512, 1),
                  (3, 1, 128, 4, 512, 2), (4, 1024, 128, 4, 512, 2),
                  (8, L, 144, 2, 384, 2), (4, 70, 256, 1, 1024, 2)]
-# ROADMAP Queue C4's case (B, L, d, N): B10 in bf16, the switch-off chain
-# (B1 and B2 on the tensor cores) and the SIMT chain, each against the fp32
-# plain chain on the same bf16 inputs and masks; C4 is no fault if B10 is
-# no farther from that reference than the tensor-core chain (at most 1.5x)
+# ROADMAP Queue C4's case (B, L, d, h): B10 and the switch-off chain (B1
+# and B2 on B10's routes, the tensor cores), each against the fp32 plain
+# chain on the same inputs and masks; C4 is no fault if B10 is no farther
+# from that reference than the chain (at most 1.5x)
 C4_CASE, C4_RATIO = (8, L, 144, 2), 1.5
 # the int8 tower against its float tower, JAX's own serving-quality gate
 # (tests/test_quant.py): score correlation and top-1 agreement
@@ -468,8 +474,50 @@ def hmma_counts(library: str, marker: str,
     return counts
 
 
-# a TF32 tensor-core product in SASS, as HMMA.1688.F32.TF32
+# a TF32 tensor-core product in SASS, as HMMA.1688.F32.TF32; a bf16 one,
+# as HMMA.16816.F32.BF16
 TF32_HMMA = r"\bHMMA\.\S*\.TF32\b"
+BF16_HMMA = r"\bHMMA\.\S*\.BF16\b"
+
+
+def ptxas_properties(log: str) -> dict:
+    """{function: its stack frame and spill line} of a ``-Xptxas=-v``
+    build log, the anonymous namespace's tags left in the names."""
+    with open(log) as f:
+        lines = f.read().splitlines()
+    return {m.group(1): lines[i + 1].strip()
+            for i, line in enumerate(lines[:-1])
+            for m in [re.search(r"Function properties for (\S+)", line)]
+            if m}
+
+
+def call_closure_counts(library: str, marker: str, patterns: dict) -> dict:
+    """For each kernel of a built library whose name holds ``marker``, the
+    instructions matching each of ``patterns`` ({key: regex}) in it and in
+    the functions it may call, from the toolkit's ``cuobjdump -sass``. B10's
+    phases are __noinline__ functions, and the dump names no call's target
+    (``CALL.REL.NOINC 0x...``): a kernel is counted with every function of
+    its source that is no kernel, one head class and dtype."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"no cuobjdump at {tool}: the tensor-core check "
+                           "needs the toolkit's cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    own, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            own[name] = dict.fromkeys(patterns, 0)
+        elif name:
+            for key, pattern in patterns.items():
+                own[name][key] += bool(re.search(pattern, line))
+    helpers = [f for f in own if "_kernel" not in f]
+    return {kernel: {key: own[kernel][key] + sum(own[f][key] for f in helpers)
+                     for key in patterns}
+            for kernel in own if marker in kernel}
 
 
 def median_ms(fn, iters: int = 40, warmup: int = 5) -> float:
@@ -1545,55 +1593,11 @@ def encoder_check(y, got, chained_y, chained, plain_y, plain, dtype) -> dict:
     return out
 
 
-def encoder_chained_fwd(x, mask, seeds, stacks, fs, fb, h, p, way):
-    """B10's function through the chained B1/B2 kernels, B1 and B2 on route
-    ``way`` (the encoder with the switch off takes ``route``'s; B10 runs the
-    SIMT routes' tile bodies), the final LayerNorm in torch ops: (y, the
-    state ``encoder_chained_bwd`` reads)."""
-    from allrank_tpu_torch.models.core import std_layer_norm
-    from allrank_tpu_torch.ops.attention_block import launch_fwd
-    from allrank_tpu_torch.ops.ffn_block import launch_fwd as ffn_launch_fwd
-
-    inputs, saved = [], []
-    for n in range(stacks[0].shape[0]):
-        w = [t[n] for t in stacks]
-        inputs.append(x)
-        x, sv = launch_fwd(way, x, mask, *w[:6], h, p, p,
-                           seeds[4 * n:4 * n + 2], return_saved=True)
-        saved.append(sv)
-        inputs.append(x)
-        x = ffn_launch_fwd(way, x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
-    return std_layer_norm(x, fs, fb), (inputs, saved, x, way)
-
-
-def encoder_chained_bwd(state, mask, seeds, stacks, fs, dy, h, p):
-    """The backward of ``encoder_chained_fwd`` through the B1/B2 backward
-    kernels on the forward's route: (dx, *12 stacked gradients, dfs, dfb),
-    as B10's."""
-    from allrank_tpu_torch.ops.attention_block import launch_bwd, ln_backward
-    from allrank_tpu_torch.ops.ffn_block import launch_bwd as ffn_launch_bwd
-
-    inputs, saved, z, way = state
-    n_blocks = stacks[0].shape[0]
-    dz, dfs, dfb = ln_backward(z.float(), fs, dy.float())
-    g = dz.to(z.dtype)
-    grads = [[None] * n_blocks for _ in range(12)]
-    for n in reversed(range(n_blocks)):
-        w = [t[n] for t in stacks]
-        g, *ffn = ffn_launch_bwd(way, inputs[2 * n + 1], *w[6:], g, p, p,
-                                 seeds[4 * n + 2:4 * n + 4])
-        g, *attn = launch_bwd(way, inputs[2 * n], mask, *w[:6], g, h, p, p,
-                              seeds[4 * n:4 * n + 2], saved=saved[n])
-        for i, t in enumerate(attn + ffn):
-            grads[i][n] = t
-    return (g, *(torch.stack(t) for t in grads), dfs, dfb)
-
-
 def encoder_work(b, l, d, h, d_ff, n, dtype, backward: bool) -> tuple:
     """(operations, bytes) of B10 on these shapes: per block B1's and B2's
     products counted once (forward 2 M d 3d + 4 B h L^2 d_k + 2 M d^2 +
     4 M d d_ff, backward 16 M d^2 + 12 B h L^2 d_k + 10 M d d_ff, M = B L;
-    the backward's replay of the forward is a cost of its design); x, the
+    a backward's replay of the forward is a cost of a design); x, the
     mask and the weights read and y written, or x, dy, the mask and the
     weights read and dx and the fp32 gradients written."""
     m, dk = b * l, d // h
@@ -1610,47 +1614,19 @@ def encoder_work(b, l, d, h, d_ff, n, dtype, backward: bool) -> tuple:
     return flops, moved
 
 
-def encoder_library(x, mask, stacks, fs, fb, dy, h):
-    """B10's function in library calls, a yardstick only: per block
-    ``b1_library`` (std-LN, torch.matmul, scaled_dot_product_attention) and
-    ``b2_library`` (std-LN, torch.matmul, relu), then the final std-LN, in
-    x's dtype; returns (forward, backward by autograd) as functions that
-    run it once."""
-    from allrank_tpu_torch.models.core import std_layer_norm
-    from allrank_tpu_torch.tools.time_sublayers import b1_library, b2_library
-
-    dtype = x.dtype
-    mask_add = torch.zeros(x.shape[0], 1, 1, x.shape[1], dtype=dtype,
-                           device=x.device).masked_fill(
-        mask[:, None, None, :], -1e9)
-
-    def forward(xx, ws, fs_, fb_):
-        for n in range(ws[0].shape[0]):
-            w = [t[n] for t in ws]
-            xx = b1_library(xx, mask_add, *w[:6], h)
-            xx = b2_library(xx, *w[6:])
-        return std_layer_norm(xx, fs_, fb_)
-
-    leaves = [t.detach().to(dtype).requires_grad_()
-              for t in [x] + list(stacks) + [fs, fb]]
-    out = forward(leaves[0], leaves[1:13], leaves[13], leaves[14])
-    cast = [t.to(dtype) for t in stacks]
-    return (lambda: forward(x, cast, fs.to(dtype), fb.to(dtype)),
-            lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
-
-
 def encoder_ffn_gates(record):
     """``ffn_gates``' recorder for the encoder with the switch on: replays
     each recorded B10 call through the chained sublayer forwards (on the
-    card the SIMT kernels, whose tile bodies B10 runs, on the CPU the plain
-    versions: B10's own intermediates, which it does not expose) and
-    returns per block the [rows, d_ff] gates at the FFN inputs; the
+    card the kernels of B10's routes, whose tile bodies B10 runs, on the CPU
+    the plain versions: B10's own intermediates, which it does not expose)
+    and returns per block the [rows, d_ff] gates at the FFN inputs; the
     replay's launches are taken back off the counters."""
     from allrank_tpu_torch.models.core import std_layer_norm
     from allrank_tpu_torch.ops.attention_block import (
         attention_sublayer_fwd,
         launch_fwd,
     )
+    from allrank_tpu_torch.ops.encoder_block import route
     from allrank_tpu_torch.ops.ffn_block import ffn_sublayer_fwd
     from allrank_tpu_torch.ops.ffn_block import launch_fwd as ffn_launch_fwd
 
@@ -1659,19 +1635,20 @@ def encoder_ffn_gates(record):
         routes = (dict(attention_sublayer_fwd.route_launches),
                   dict(ffn_sublayer_fwd.route_launches))
         cuda = x.device.type == "cuda"
+        ways = route(x.dtype, x.shape[-1], h, stacks[8].shape[-1])
         with torch.no_grad():
             hid = x
             for n in range(stacks[0].shape[0]):
                 w = [t[n].detach() for t in stacks]
                 args = (hid, mask, *w[:6], h, p_drop, p_drop,
                         seeds[4 * n:4 * n + 2])
-                hid = (launch_fwd("simt", *args) if cuda
+                hid = (launch_fwd(ways[0], *args) if cuda
                        else attention_sublayer_fwd(*args))
                 pre = std_layer_norm(hid.float(), w[6], w[7]) @ w[8] + w[9]
                 record.append(pre.reshape(-1, pre.shape[-1]) > 0)
                 args = (hid, *w[6:], p_drop, p_drop,
                         seeds[4 * n + 2:4 * n + 4])
-                hid = (ffn_launch_fwd("simt", *args) if cuda
+                hid = (ffn_launch_fwd(ways[1], *args) if cuda
                        else ffn_sublayer_fwd(*args))
         attention_sublayer_fwd.launches, ffn_sublayer_fwd.launches = counts
         (attention_sublayer_fwd.route_launches,
@@ -1785,7 +1762,13 @@ def main() -> int:
     )
     from allrank_tpu_torch.serve_http import SlateScoringService, run_server
     from allrank_tpu_torch.serving import make_ranker, make_scorer
-    from allrank_tpu_torch.tools.time_sublayers import b1_library, b2_library
+    from allrank_tpu_torch.tools.time_sublayers import (
+        b1_library,
+        b2_library,
+        encoder_chained_bwd,
+        encoder_chained_fwd,
+        encoder_library,
+    )
 
     from allrank_tpu_torch.ops.attention_block import ROUTES as B1_ROUTES
     from allrank_tpu_torch.ops.attention_block import (
@@ -1829,7 +1812,7 @@ def main() -> int:
                "attention_block_tf32x3", "ffn_block", "ffn_block_mma",
                "ffn_block_tf32x3", "lambda_pairs", "sinkhorn", "neuralsort",
                "approx_pos", "lambda_tiled", "attention_fused",
-               "attention_tiled", "q8_dense", "encoder_block",
+               "attention_tiled", "q8_dense", *B10_SOURCES,
                "boundary_shift", "attention_variants", "neuralsort_layout"]
     _build.build(sources)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the "
@@ -1897,6 +1880,36 @@ def main() -> int:
         assert all(hmma[k] == 0 for k in hmma if k not in f32), hmma
         print(f"HMMA: all {n_f32} fp32 (3xTF32) {marker} kernels of {src} "
               f"({what}) hold TF32 HMMA only; the other kernels none")
+    # B10: every instantiation (forward and backward, each head class, each
+    # at d <= 128 and d > 128) holds, in the phases it calls, tensor-core
+    # products of its dtype's kind only; the SIMT-attention ones through the
+    # FFN's phases. The functions that spill are printed.
+    for src in B10_SOURCES:
+        kind = BF16_HMMA if "_bf16_" in src else TF32_HMMA
+        found = call_closure_counts(
+            _build.library_path(src), "encoder_",
+            {"hmma": r"\bH(G)?MMA\b", "kind": kind})
+        kernels = {k: v for k, v in found.items()
+                   if "encoder_fwd_kernel" in k or "encoder_bwd_kernel" in k}
+        for kname, v in sorted(kernels.items()):
+            print(f"  {src}: {v['hmma']} HMMA, {v['kind']} of them "
+                  f"{'TF32' if kind == TF32_HMMA else 'bf16'}, in {kname} "
+                  f"and its source's phases")
+        assert len(kernels) == B10_KERNELS and all(
+            0 < v["kind"] == v["hmma"] for v in kernels.values()), kernels
+        props = ptxas_properties(_build.log_path(src))
+        spilled = {f: line for f, line in props.items() if re.search(
+            r"[1-9]\d* bytes spill (stores|loads)", line)}
+        for f, line in sorted(spilled.items()):
+            print(f"  {src} spills: {f[:160]}: {line}")
+        # the main path's head class (the flagship's d_k = 32) spills
+        # nothing; the wider classes' bodies sit at 255 registers in their
+        # chained kernels already (PERF.md, PR 15)
+        assert "_dk32" not in src or not spilled, (src, spilled)
+        print(f"HMMA: all {B10_KERNELS} B10 kernels of {src} hold "
+              f"{'TF32' if kind == TF32_HMMA else 'bf16'} HMMA only, in "
+              f"their phases; ptxas: {len(spilled)} of {len(props)} "
+              f"functions spill")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1234)
@@ -4041,26 +4054,30 @@ def main() -> int:
         encoder_block_fwd,
         encoder_forward_plain,
     )
+    from allrank_tpu_torch.ops.encoder_block import ROUTES as B10_ROUTES
+    from allrank_tpu_torch.ops.encoder_block import route as b10_route
 
     for backward in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
-            grid = cooperative_grid(128, dtype, backward, dev)
+            grid = cooperative_grid(128, dtype, backward, dev, h=4)
             print(f"B10 {'backward' if backward else 'forward'} {dtype} at "
-                  f"d=128: cooperative grid {grid['grid']} blocks "
+                  f"d=128, h=4 ({'/'.join(b10_route(dtype, 128, 4, 512))}): "
+                  f"cooperative grid {grid['grid']} blocks "
                   f"({grid['blocks_per_sm']} per SM x {grid['sms']} SMs), "
                   f"{grid['smem_bytes']} B of shared memory a block")
             assert grid["grid"] == grid["blocks_per_sm"] * grid["sms"]
-    enc_errs = {}
-    b10_vs_mma, c4 = {}, {}
+    enc_errs, c4 = {}, {}
+    for k in (encoder_block_fwd, encoder_block_bwd):
+        k.route_launches = dict.fromkeys(B10_ROUTES, 0)
 
     def worst_share(got, ref):
         """The largest max-abs error of ``got`` against ``ref``, tensor by
         tensor, as a share of the reference tensor's largest value."""
         return max(e / (r + 1e-30) for e, r in map(rel_err, got, ref))
 
-    # B1's and B2's SIMT kernels run here, on B10's reference chain, and on
-    # no main path (fp32 takes the 3xTF32 routes, bf16 the tensor cores):
-    # their launches are this chain's, counted from 0
+    # B10's reference: the chained kernels on its own routes. B1's SIMT
+    # kernels run here at d_k > 128, B2's nowhere: their launches are this
+    # chain's, counted from 0
     reset_routes()
     for b, l, d, h, d_ff, n in ENCODER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4077,68 +4094,63 @@ def main() -> int:
                 assert (encoder_block_fwd.launches,
                         encoder_block_bwd.launches) == (before[0] + 1,
                                                         before[1] + 1)
-                # B10's reference: the chained kernels of the same tile
-                # bodies, B1 on its SIMT route in bf16 too
-                chained_y, state = encoder_chained_fwd(*args28, h, p, "simt")
+                chained_y, state = encoder_chained_fwd(*args28, h, p)
                 chained = encoder_chained_bwd(state, mask28, seeds28, stacks,
                                               fs, dy28, h, p)
                 plain_y = encoder_forward_plain(*args28, **kw)
                 plain = encoder_backward_plain(*args28, dy28, **kw)
                 torch.cuda.synchronize()
-                if b1_route(dtype, d, h) == "mma":
-                    # the chain the encoder runs with the switch off, B1 and
-                    # B2 on the tensor cores: its distances, recorded
-                    mma_y, mstate = encoder_chained_fwd(*args28, h, p, "mma")
-                    mma = encoder_chained_bwd(mstate, mask28, seeds28,
-                                              stacks, fs, dy28, h, p)
-                    b10_vs_mma[(b, l, d, n, p)] = (
-                        worst_share(got, mma), worst_share(mma, plain),
-                        worst_share([y28], [mma_y]))
-                    if (b, l, d, n) == C4_CASE:
-                        ref32 = encoder_backward_plain(
-                            x28.float(), mask28, seeds28, stacks, fs, fb,
-                            dy28.float(), **kw)
-                        c4[p] = tuple(worst_share(t, ref32)
-                                      for t in (got, mma, chained))
-                        del ref32
-                    del mma_y, mstate, mma
-                again = encoder_block_bwd(*args28, dy28, **kw)
+                if (b, l, d, h) == C4_CASE:
+                    ref32 = encoder_backward_plain(
+                        x28.float(), mask28, seeds28, stacks, fs, fb,
+                        dy28.float(), **kw)
+                    c4[(dtype, p)] = tuple(worst_share(t, ref32)
+                                           for t in (got, chained))
+                    del ref32
+                # the backward on the forward's parked state: the replaying
+                # backward's bits; and a second backward's
+                y_parked, saved = encoder_block_fwd(*args28, **kw,
+                                                    return_saved=True)
+                parked = encoder_block_bwd(*args28, dy28, **kw, saved=saved)
+                again = encoder_block_bwd(*args28, dy28, **kw, saved=saved)
+                assert torch.equal(y_parked, y28), "B10: parked y differs"
+                assert all(torch.equal(a, c) for a, c in zip(got, parked)), (
+                    "B10: the parked backward differs from the replaying one")
                 assert all(torch.equal(a, c) for a, c in zip(got, again)), (
                     "two B10 backwards of the same inputs differ")
                 worst = encoder_check(y28, got, chained_y, chained, plain_y,
                                       plain, dtype)
                 enc_errs[(b, l, d, n, dtype, p)] = worst
                 print(f"B10 B={b} L={l} d={d} h={h} d_ff={d_ff} N={n} "
-                      f"{dtype} p={p}: max_abs_err y / worst gradient vs "
-                      f"the chained B1/B2 kernels {worst['fwd_chained']:.3e} "
-                      f"/ {worst['bwd_chained']:.3e} (the worst gradient at "
+                      f"{dtype} p={p} ({'/'.join(state[3])}): max_abs_err y "
+                      f"/ worst gradient vs the chained B1/B2 kernels on "
+                      f"B10's routes {worst['fwd_chained']:.3e} / "
+                      f"{worst['bwd_chained']:.3e} (the worst gradient at "
                       f"{worst['bwd_chained_rel']:.2e} of its tolerance), vs "
                       f"plain {worst['fwd_plain']:.3e} / "
                       f"{worst['bwd_plain']:.3e} (the chained kernels vs "
                       f"plain {worst['fwd_chained_plain']:.3e} / "
                       f"{worst['bwd_chained_plain']:.3e}); bit-equal to the "
                       f"chained kernels: y {worst['y_equal']}, gradients "
-                      f"{worst['grads_equal']}/15")
-                del x28, dy28, got, again, chained, plain, state
-    simt_chain_routes = (b1_routes(), b2_routes())
+                      f"{worst['grads_equal']}/15; parked backward = "
+                      f"replaying backward, bit for bit")
+                del x28, dy28, got, again, parked, saved, chained, plain
+                del state
+    chain_routes = (b1_routes(), b2_routes())
+    b10_case_routes = (dict(encoder_block_fwd.route_launches),
+                       dict(encoder_block_bwd.route_launches))
+    print(f"B10 launches by route (attention/FFN) in phase 28: forward "
+          f"{b10_case_routes[0]}, backward {b10_case_routes[1]} (the "
+          f"parked and the replaying backward)")
     torch.cuda.empty_cache()
-    for (b, l, d, n, p), (grad_rel, chain_rel, y_rel) in b10_vs_mma.items():
-        print(f"B10 bf16 B={b} L={l} d={d} N={n} p={p} against the chain "
-              f"with B1 and B2 on the tensor cores (recorded, not held: the "
-              f"two run other tile bodies): worst gradient error "
-              f"{grad_rel:.2e} of "
-              f"its tensor's max (phase 7's tolerance {BWD_TOL[torch.bfloat16][0]:g}), "
-              f"y {y_rel:.2e}; that chain against plain, worst gradient "
-              f"{chain_rel:.2e}")
-    for p, (b10_share, mma_share, simt_share) in c4.items():
-        print(f"C4: at (B, L, d, N)={C4_CASE} bf16 p={p}, the worst gradient "
-              f"error against the fp32 plain chain on the same bf16 inputs "
-              f"and masks, as a share of the reference tensor's max: B10 "
-              f"{b10_share:.4f}, the tensor-core chain (B1 and B2 mma) "
-              f"{mma_share:.4f}, the SIMT chain {simt_share:.4f}; B10 / "
-              f"tensor-core chain {b10_share / mma_share:.3f} (C4 settled "
-              f"if <= {C4_RATIO}: "
-              f"{'yes' if b10_share <= C4_RATIO * mma_share else 'no'})")
+    for (dtype, p), (b10_share, chain_share) in c4.items():
+        print(f"C4: at (B, L, d, h)={C4_CASE} {dtype} p={p}, the worst "
+              f"gradient error against the fp32 plain chain on the same "
+              f"inputs and masks, as a share of the reference tensor's max: "
+              f"B10 {b10_share:.4f}, the chain on B10's routes "
+              f"{chain_share:.4f}; ratio {b10_share / chain_share:.3f} (C4 "
+              f"settled if <= {C4_RATIO}: "
+              f"{'yes' if b10_share <= C4_RATIO * chain_share else 'no'})")
     print("phase 28 ok: B10 matches the chained B1/B2 kernels, and its plain "
           "version as closely as they do, forward and backward")
 
@@ -4155,6 +4167,8 @@ def main() -> int:
         for k in enc_kernels:
             k.launches = 0
 
+    for k in (encoder_block_fwd, encoder_block_bwd):
+        k.route_launches = dict.fromkeys(B10_ROUTES, 0)
     emodel = flagship_model(dev)
     ecpu = copy.deepcopy(emodel).to("cpu")
     rng29 = np.random.RandomState(29)
@@ -4251,12 +4265,22 @@ def main() -> int:
             assert math.isfinite(losses29[-1]), losses29
         enc_train = dict(zip((k.__name__ for k in enc_kernels),
                              enc_counts()))
+        # the scorers (fp32 and bf16), the fp32 service and the bf16 steps:
+        # each on its dtype's routes, the tensor cores
+        enc_routes = {"fwd": dict(encoder_block_fwd.route_launches),
+                      "bwd": dict(encoder_block_bwd.route_launches)}
+        assert (enc_routes["fwd"]["tf32x3/tf32x3"] > 0
+                and enc_routes["fwd"]["mma/mma"] > 0
+                and enc_routes["bwd"]["mma/mma"] == 20), enc_routes
+        assert not any(n for r in enc_routes.values()
+                       for way, n in r.items() if way.startswith("simt"))
         first = statistics.mean(losses29[:5])
         last = statistics.mean(losses29[-5:])
         assert last < first, f"B10 step loss did not fall: {first} -> {last}"
         print(f"B10 train step, paper config (dropout 0.3, bf16), B={B} "
               f"L={L}: 20 steps, loss mean of the first 5 {first:.3f}, of "
-              f"the last 5 {last:.3f}; launches {enc_train}")
+              f"the last 5 {last:.3f}; launches {enc_train}; B10's launches "
+              f"by route in this phase {enc_routes}")
         gl, cl, worst29, flips29 = step_one_gpu_vs_cpu(
             cfg0, paper_setup(dev, dropout=0.0)[1], batch29, gate_flips=True)
         print(f"B10 train step 1 at dropout 0, fp32, GPU vs CPU plain: loss "
@@ -4279,19 +4303,25 @@ def main() -> int:
             args30 = (x30, mask30, seeds30, stacks, fs, fb)
             kw = dict(h=eh, p_drop=0.0)
             lib = encoder_library(x30, mask30, stacks, fs, fb, dy30, eh)
-            way30 = b1_route(dtype, ed, eh)
-            _, state = encoder_chained_fwd(*args30, eh, 0.0, way30)
+            _, state = encoder_chained_fwd(*args30, eh, 0.0)
+            _, saved30 = encoder_block_fwd(*args30, **kw, return_saved=True)
             if direction == "fwd":
                 fns = (lambda: encoder_block_fwd(*args30, **kw),
                        lambda: encoder_forward_plain(*args30, **kw), lib[0],
-                       lambda: encoder_chained_fwd(*args30, eh, 0.0, way30))
+                       lambda: encoder_chained_fwd(*args30, eh, 0.0),
+                       lambda: encoder_block_fwd(*args30, **kw,
+                                                 return_saved=True))
             else:
-                fns = (lambda: encoder_block_bwd(*args30, dy30, **kw),
+                # the main path's backward reads the parked state; the
+                # replaying one is the JAX signature's
+                fns = (lambda: encoder_block_bwd(*args30, dy30, **kw,
+                                                 saved=saved30),
                        lambda: encoder_backward_plain(*args30, dy30, **kw),
                        lib[1],
                        lambda: encoder_chained_bwd(state, mask30, seeds30,
-                                                   stacks, fs, dy30, eh, 0.0))
-            ms, plain_ms, lib_ms, chained_ms = (
+                                                   stacks, fs, dy30, eh, 0.0),
+                       lambda: encoder_block_bwd(*args30, dy30, **kw))
+            ms, plain_ms, lib_ms, chained_ms, other_ms = (
                 median_ms(fn, iters=10, warmup=2) for fn in fns)
             by_name = profile_calls(
                 fns[0], f"encoder_block_{direction} {dtype} {tag}",
@@ -4300,11 +4330,13 @@ def main() -> int:
                          if "encoder_" in kname) / 1e3 or None
             flops, moved = encoder_work(eb, el, ed, eh, eff, en, dtype,
                                         direction == "bwd")
-            bound_ms, bound_by = bound(flops, moved, dtype)
+            bound_ms, bound_by = bound(
+                flops, moved, "tf32x3" if dtype == torch.float32 else dtype)
             sfx = "" if dtype == torch.float32 else "_bf16"
             errs28 = [v for key, v in enc_errs.items() if key[4] == dtype]
             err = max(v[f"{direction}_plain"] for v in errs28)
             err_chained = max(v[f"{direction}_chained"] for v in errs28)
+            other = "parked_ms" if direction == "fwd" else "replay_ms"
             row.update({f"max_abs_err{sfx}": err,
                         f"max_abs_err_vs_chained{sfx}": err_chained,
                         f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
@@ -4313,18 +4345,29 @@ def main() -> int:
                         f"bound_by{sfx}": bound_by,
                         f"library_ms{sfx}": lib_ms,
                         f"chained_ms{sfx}": chained_ms,
+                        f"{other}{sfx}": other_ms,
+                        f"routes{sfx}": "/".join(
+                            b10_route(dtype, ed, eh, eff)),
                         f"gflop{sfx}": flops / 1e9,
                         f"mbytes{sfx}": moved / 1e6})
             print(f"time encoder_block_{direction} {dtype} B={eb} L={el} "
-                  f"d={ed} h={eh} d_ff={eff} N={en}: kernel {ms:.4f} ms "
-                  f"({dev_ms if dev_ms is None else round(dev_ms, 4)} ms of "
-                  f"device time), the chained B1/B2 kernels {chained_ms:.4f} "
-                  f"ms, plain {plain_ms:.4f} ms, library (std-LN, matmul, "
-                  f"scaled_dot_product_attention, relu"
+                  f"d={ed} h={eh} d_ff={eff} N={en} "
+                  f"({'/'.join(b10_route(dtype, ed, eh, eff))}): kernel "
+                  f"{ms:.4f} ms ({dev_ms if dev_ms is None else round(dev_ms, 4)} "
+                  f"ms of device time), "
+                  + (f"parked forward {other_ms:.4f} ms, "
+                     if direction == "fwd" else
+                     f"on the parked state (the replaying backward "
+                     f"{other_ms:.4f} ms), ")
+                  + f"the chained B1/B2 kernels on its routes "
+                  f"{chained_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"(std-LN, matmul, scaled_dot_product_attention, relu"
                   f"{', autograd' if direction == 'bwd' else ''}) "
                   f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-                  f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
-            del x30, dy30, stacks, lib, state, fns
+                  f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB at the "
+                  f"{'3xTF32' if dtype == torch.float32 else 'bf16'} "
+                  f"tensor-core rate) {tag}")
+            del x30, dy30, stacks, lib, state, fns, saved30
         rows.append(row)
     torch.cuda.empty_cache()
 
@@ -4707,9 +4750,9 @@ def main() -> int:
                                 "allrank_tpu/ops/attention_tiled.py:265"),
         "q8_dense": ("allrank_tpu_torch/csrc/q8_dense.cu",
                      "tools/exp_int8_matmul_kernel.py:50"),
-        "encoder_block_fwd": ("allrank_tpu_torch/csrc/encoder_block.cu",
+        "encoder_block_fwd": ("allrank_tpu_torch/csrc/encoder_block.cuh",
                               "allrank_tpu/ops/encoder_block.py:302"),
-        "encoder_block_bwd": ("allrank_tpu_torch/csrc/encoder_block.cu",
+        "encoder_block_bwd": ("allrank_tpu_torch/csrc/encoder_block.cuh",
                               "allrank_tpu/ops/encoder_block.py:333"),
         "boundary_plain": ("allrank_tpu_torch/csrc/boundary_shift.cu",
                            "tools/exp_boundary_shift.py:95"),
@@ -4743,28 +4786,40 @@ def main() -> int:
     # B1 and B2 by route: the fp32 service (phase 5) runs the 3xTF32
     # forwards and the fp32 step 1 against the CPU (phase 9) their
     # backwards; the bf16 train steps (phase 9) run the tensor-core kernels
-    # both ways; the SIMT kernels run on B10's reference chain alone
-    # (phase 28), a check and no main path: their rows say so
+    # both ways. B1's SIMT kernels run on B10's reference chain at d_k > 128
+    # alone (phase 28), a check and no main path; B2's on no path at all
+    # (B10's FFN phases run on the tensor cores, as B2's route): their rows
+    # say so
     launch_source = {}
-    for sub, fp32_routes, train_routes, chain_routes in (
+    for sub, fp32_routes, train_routes, routes in (
             ("attention_sublayer", b1_fp32_routes, b1_train_routes,
-             simt_chain_routes[0]),
+             chain_routes[0]),
             ("ffn_sublayer", b2_fp32_routes, b2_train_routes,
-             simt_chain_routes[1])):
+             chain_routes[1])):
         launches[f"{sub}_fwd_tf32x3"] = launches.pop(f"{sub}_fwd")
         launches[f"{sub}_bwd_tf32x3"] = fp32_routes[1]["tf32x3"]
-        launches[f"{sub}_fwd"] = chain_routes[0]["simt"]
-        launches[f"{sub}_bwd"] = chain_routes[1]["simt"]
+        launches[f"{sub}_fwd"] = routes[0]["simt"]
+        launches[f"{sub}_bwd"] = routes[1]["simt"]
         launch_source[f"{sub}_fwd"] = launch_source[f"{sub}_bwd"] = (
-            "b10_reference_chain")
+            "b10_reference_chain_d_k_over_128" if sub == "attention_sublayer"
+            else "none: no path runs the SIMT FFN kernels")
         launches[f"{sub}_fwd_mma"] = train_routes[0]["mma"]
         launches[f"{sub}_bwd_mma"] = train_routes[1]["mma"]
+    assert launches["attention_sublayer_fwd"] > 0
+    assert launches["ffn_sublayer_fwd"] == launches["ffn_sublayer_bwd"] == 0
     # X1: the int8_static service (phase 26)
     launches["q8_dense"] = q8_main_launches["q8_dense"]
     # B10: with the switch on, its service (forward) and its 20 train steps
     # (backward) (phase 29)
     launches["encoder_block_fwd"] = enc_service_launches
     launches["encoder_block_bwd"] = enc_train["encoder_block_bwd"]
+    for row in rows:
+        if row["name"].startswith("encoder_block_"):
+            row["routes_source"] = [
+                "allrank_tpu_torch/csrc/encoder_block_f32.cuh",
+                "allrank_tpu_torch/csrc/encoder_block_bf16.cuh"]
+            row["launches_by_route_phase29"] = enc_routes[
+                row["name"][-3:]]
     # X2, X3 and X4: their probes' own runs (phases 31-33)
     launches.update(x2_launches)
     launches.update({f"attention_variant_{m}": n
@@ -4806,7 +4861,10 @@ def main() -> int:
                                + paper_launches.get(name, 0)
                                + sum(r.get(name, 0)
                                      for r in recipe_launches.values()))
-        assert row["launches"] > 0
+        # every kernel of a path launched on it; B2's SIMT kernels run on
+        # none (launch_source)
+        assert row["launches"] > 0 or name in ("ffn_sublayer_fwd",
+                                               "ffn_sublayer_bwd"), name
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
     assert len(rows) == 39

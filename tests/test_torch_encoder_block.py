@@ -332,12 +332,14 @@ def test_switch_on_scores_and_steps_as_switch_off(monkeypatch, dropout):
     (True, dict(l=1025), 0),
     (True, dict(d=288, h=3), 0),
     (True, dict(d_ff=2048), 0),
-], ids=["on", "off", "L1025", "d288", "dff2048"])
+    (True, dict(d=18, h=3), 0),
+], ids=["on", "off", "L1025", "d288", "dff2048", "d_k6"])
 def test_switch_dispatches_b10_inside_its_envelope(monkeypatch, on, shape,
                                                    calls):
     """A spy counts the encoder's calls of B10 per forward: one with the
     switch on inside the envelope, none with it off, none outside (L=1025,
-    d=288, d_ff=2048), where the chained forms run."""
+    d=288, d_ff=2048, a head of 6 fp32 columns, off whole 16-byte rows),
+    where the chained forms run."""
     d, h, l = shape.get("d", D), shape.get("h", H), shape.get("l", 8)
     d_ff = shape.get("d_ff", D_FF)
     model = T.Transformer(T.TransformerDef(N=1, d_model=d, d_ff=d_ff, h=h,
@@ -357,3 +359,227 @@ def test_switch_dispatches_b10_inside_its_envelope(monkeypatch, on, shape,
         y = model(x, mask, torch.zeros(2, l, dtype=torch.long))
     assert len(seen) == calls and y.shape == (2, l, d)
     assert torch.isfinite(y).all()
+
+
+# ----------------------------------------------------------------------------
+# the forward's parked state, the routes and the split counts
+
+
+def _chained_grads(x, mask, seeds, stacks, fs, fb, dy, p, tdt):
+    """The chained plain sublayers' autograd Functions and the final LN in
+    torch ops, at dropout p in dtype tdt: the gradients of (x, the 12
+    stacks, the final LN pair) for the cotangent dy."""
+    key_mask = torch.tensor(mask)
+    leaves = [t.requires_grad_() for t in [torch.tensor(x).to(tdt)]
+              + _t(stacks + [fs, fb])]
+    hid = leaves[0]
+    for n in range(N):
+        w = [s[n] for s in leaves[1:13]]
+        hid = AttentionSublayer.apply(hid, key_mask, *w[:6], H, p, p,
+                                      tuple(seeds[4 * n:4 * n + 2]))
+        hid = FFNSublayer.apply(hid, *w[6:], p, p,
+                                tuple(seeds[4 * n + 2:4 * n + 4]))
+    y = std_layer_norm(hid, leaves[13], leaves[14])
+    return torch.autograd.grad(y, leaves, torch.tensor(dy).to(tdt))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_parked_backward_is_the_replaying_one(dtype, p):
+    """The backward on the forward's parked sublayer inputs against the
+    backward that replays the forward: the same bits. Both against the
+    gradients of the JAX package's encoder (p = 0; at p = 0.3 its masks are
+    the TPU's generator's, so the reference is the port's chained
+    sublayers, whose masks B10 keys alike) under the file's rule, at the
+    file's lengths (full, ragged, one document, fully padded)."""
+    jdt, tdt = DTYPES[dtype]
+    x, dy, mask, stacks, fs, fb = _inputs(seed=8)
+    seeds = list(range(31, 31 + 4 * N)) if p else [0] * (4 * N)
+    args = (torch.tensor(x).to(tdt), torch.tensor(mask), seeds, _t(stacks),
+            *_t((fs, fb)))
+    y, saved = encoder_forward_plain(*args, h=H, p_drop=p, return_saved=True)
+    assert torch.equal(y, encoder_forward_plain(*args, h=H, p_drop=p))
+    assert len(saved) == 2 * N + 1 and saved[0] is args[0]
+    if p:
+        ref = _chained_grads(x, mask, seeds, stacks, fs, fb, dy, p, tdt)
+        cot = torch.tensor(dy).to(tdt)
+    else:
+        def loss(xx, *ws):
+            yy = _jax_encoder(xx, mask, seeds, ws[:12], ws[12], ws[13])
+            return jnp.sum(jnp.sin(yy.astype(jnp.float32))), yy
+
+        with pltpu.force_tpu_interpret_mode():
+            (_, jy), ref = jax.value_and_grad(
+                loss, argnums=tuple(range(15)), has_aux=True)(
+                jnp.asarray(x, jdt), *map(jnp.asarray, stacks + [fs, fb]))
+        cot = torch.tensor(np.cos(np.asarray(jy.astype(jnp.float32)))).to(tdt)
+    parked = encoder_backward_plain(*args, cot, h=H, p_drop=p, saved=saved)
+    replayed = encoder_backward_plain(*args, cot, h=H, p_drop=p)
+    assert len(parked) == len(replayed) == 15
+    for i, (a, b, r) in enumerate(zip(parked, replayed, ref)):
+        assert torch.equal(a, b), f"gradient {i}: parked != replayed"
+        r = r.float().numpy() if torch.is_tensor(r) else np.asarray(
+            r.astype(jnp.float32))
+        _close(a.float().numpy(), r, dtype, f"gradient {i}")
+
+
+# (d, h) pairs of the envelope: d_k below, at and above 128, d off the
+# 16-column steps
+ROUTE_WIDTHS = [(8, 1), (8, 2), (32, 1), (32, 4), (128, 1), (128, 4),
+                (144, 1), (144, 2), (256, 1), (256, 2), (256, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", ROUTE_WIDTHS)
+def test_route_is_the_chained_routes(d, h, dtype):
+    from allrank_tpu_torch.ops import attention_block, ffn_block
+
+    for d_ff in (64, 512, 1024):
+        got = encoder_block.route(dtype, d, h, d_ff)
+        assert got == (attention_block.route(dtype, d, h),
+                       ffn_block.route(dtype, d, d_ff))
+        assert "/".join(got) in encoder_block.ROUTES
+        assert (got[0] == "simt") == (d // h > 128)
+
+
+@pytest.mark.parametrize("dtype,d,h,d_ff", [
+    (torch.float16, 128, 4, 512), (torch.float32, 288, 3, 512),
+    (torch.bfloat16, 130, 4, 512), (torch.float32, 128, 4, 2048)],
+    ids=["float16", "d288", "d_mod_h", "dff2048"])
+def test_route_raises_where_the_envelope_does(dtype, d, h, d_ff):
+    with pytest.raises(NotImplementedError):
+        encoder_block.check_envelope(2, 8, d, d_ff, 1, dtype, h)
+    with pytest.raises(NotImplementedError):
+        encoder_block.route(dtype, d, h, d_ff)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_head_class_has_its_source(dtype):
+    """``library`` names a source of the repo for each head class: padded
+    d_k 32, 64, 128 and wider heads."""
+    import os
+
+    from allrank_tpu_torch.ops import _build
+
+    names = {encoder_block.library(dtype, 256, h) for h in (8, 4, 2, 1)}
+    assert len(names) == 4
+    for name in names:
+        assert os.path.exists(_build.source_path(name)), name
+
+
+def _chained_split_counts(monkeypatch, dtype, b, l, d, h, d_ff):
+    """The split counts B1's and B2's backward wrappers hand their kernels
+    at these shapes on the routes the encoder takes, caught by a stand-in
+    library on the CPU: (s_qkv, s_out, s_1, s_2)."""
+    import contextlib
+
+    from allrank_tpu_torch.ops import _build, attention_block, ffn_block
+
+    calls = {}
+
+    class Library:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls[name] = [a for a in args if type(a) is int]
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, "load", lambda *args: Library())
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    way_a, way_f = encoder_block.route(dtype, d, h, d_ff)
+    x, dy = torch.zeros(b, l, d, dtype=dtype), torch.zeros(b, l, d,
+                                                             dtype=dtype)
+    vec, mat = torch.zeros(d), torch.zeros(d, d)
+    attention_block.launch_bwd(
+        way_a, x, torch.zeros(b, l, dtype=torch.bool), vec, vec,
+        torch.zeros(d, 3 * d), torch.zeros(3 * d), mat, vec, dy, h,
+        saved=(torch.zeros(b, l, 3 * d, dtype=dtype),
+               torch.zeros(b, h, l, 2)))
+    ffn_block.launch_bwd(way_f, x, vec, vec, torch.zeros(d, d_ff),
+                         torch.zeros(d_ff), torch.zeros(d_ff, d), vec, dy)
+    (attn,) = [v for k, v in calls.items() if k.startswith("attention")]
+    (ffn,) = [v for k, v in calls.items() if k.startswith("ffn")]
+    return attn[4], attn[5], ffn[3], ffn[4]
+
+
+@pytest.mark.parametrize("dtype,b,l,d,h,d_ff", [
+    (torch.float32, 64, 240, 128, 4, 512), (torch.bfloat16, 64, 240, 128, 4,
+                                            512),
+    (torch.float32, 4, 70, 256, 1, 1024), (torch.bfloat16, 4, 70, 256, 1,
+                                           1024),
+    (torch.float32, 8, 240, 144, 2, 384)],
+    ids=["flagship-fp32", "flagship-bf16", "simt-fp32", "simt-bf16",
+         "d144-fp32"])
+def test_split_counts_are_the_chained_routes(monkeypatch, dtype, b, l, d, h,
+                                             d_ff):
+    got = encoder_block.split_counts(dtype, b * l, d, h, d_ff)
+    assert got == _chained_split_counts(monkeypatch, dtype, b, l, d, h, d_ff)
+
+
+def test_whole_encoder_backward_reads_the_parked_state(monkeypatch):
+    """WholeEncoder on the CPU: the forward runs the blocks once and hands
+    its sublayer inputs to the backward, which runs no block forward again
+    and gives the replaying backward's bits."""
+    x, dy, mask, stacks, fs, fb = _inputs(seed=9)
+    seeds = list(range(41, 41 + 4 * N))
+    runs = []
+    blocks = encoder_block._blocks_plain
+
+    def counted(*args):
+        runs.append(args[0].shape)
+        return blocks(*args)
+
+    monkeypatch.setattr(encoder_block, "_blocks_plain", counted)
+    leaves = [t.requires_grad_() for t in _t([x] + stacks + [fs, fb])]
+    y = encoder_block.encoder_forward(leaves[0], torch.tensor(mask), seeds,
+                                      leaves[1:13], leaves[13], leaves[14],
+                                      h=H, p_drop=0.3)
+    assert len(runs) == 1
+    got = torch.autograd.grad(y, leaves, torch.tensor(dy))
+    assert len(runs) == 1, "the backward replayed the forward"
+    ref = encoder_backward_plain(torch.tensor(x), torch.tensor(mask), seeds,
+                                 _t(stacks), *_t((fs, fb)), torch.tensor(dy),
+                                 h=H, p_drop=0.3)
+    assert len(runs) == 2
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), f"gradient {i}"
+
+
+# ----------------------------------------------------------------------------
+# the timing tool's yardsticks
+
+
+def test_the_library_yardstick_computes_b10s_function():
+    """The library chain ``time_sublayers --encoder`` times beside B10
+    (per block std-LN, matmul, SDPA, relu; the final std-LN) is B10's
+    function: at dropout 0 in fp32 it agrees with the plain version on
+    slates with a valid document, and its backward with the plain
+    backward."""
+    from allrank_tpu_torch.tools.time_sublayers import encoder_library
+
+    x, dy, mask, stacks, fs, fb = _inputs(seed=10, lengths=(L, 9, 1, 3))
+    args = (torch.tensor(x), torch.tensor(mask))
+    ws = (_t(stacks), *_t((fs, fb)))
+    fwd, bwd = encoder_library(*args, *ws, torch.tensor(dy), H)
+    seeds = [0] * (4 * N)
+    torch.testing.assert_close(
+        fwd(), encoder_forward_plain(args[0], args[1], seeds, *ws, h=H),
+        rtol=1e-4, atol=1e-5)
+    ref = encoder_backward_plain(args[0], args[1], seeds, *ws,
+                                 torch.tensor(dy), h=H)
+    for i, (g, r) in enumerate(zip(bwd(), ref)):
+        _close(g.numpy(), r.numpy(), "float32", f"gradient {i}")
+
+
+def test_time_sublayers_encoder_measures_nothing_without_a_card(monkeypatch,
+                                                                 capsys):
+    from allrank_tpu_torch.tools import time_sublayers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_sublayers.main(["--encoder"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    flops = (time_sublayers.encoder_flops(False),
+             time_sublayers.encoder_flops(True))
+    assert [round(f / 1e9, 2) for f in flops] == [31.71, 79.02]

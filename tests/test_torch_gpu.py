@@ -1479,34 +1479,36 @@ def _encoder_inputs(gen, b, l, d, h, d_ff, n, dtype, dev):
     return x, dy, mask, seeds, stacks, fs, fb
 
 
-def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p, way="simt"):
-    """The same function through the chained B1/B2 kernels of route ``way``:
-    by default B10's own tile bodies (both on their SIMT routes, in bf16
-    too), ``"mma"`` the tensor cores as the encoder runs them with the
-    switch off in bf16; the final LayerNorm in torch ops: (y, (dx, *12
-    stacked gradients, dfs, dfb))."""
+def _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p):
+    """The same function through the chained B1/B2 kernels on B10's routes
+    (``ops/encoder_block.route``: those the encoder takes with the switch
+    off, whose tile bodies B10 runs); the final LayerNorm in torch ops: (y,
+    (dx, *12 stacked gradients, dfs, dfb))."""
     from allrank_tpu_torch.models.core import std_layer_norm
     from allrank_tpu_torch.ops.attention_block import launch_bwd, ln_backward
+    from allrank_tpu_torch.ops.encoder_block import route
 
+    way_a, way_f = route(x.dtype, x.shape[-1], h, stacks[8].shape[-1])
     n_blocks = stacks[0].shape[0]
     inputs, saved = [], []
     for n in range(n_blocks):
         w = [s[n] for s in stacks]
         inputs.append(x)
-        x, sv = launch_fwd(way, x, mask, *w[:6], h, p, p,
+        x, sv = launch_fwd(way_a, x, mask, *w[:6], h, p, p,
                            seeds[4 * n:4 * n + 2], return_saved=True)
         saved.append(sv)
         inputs.append(x)
-        x = ffn_launch_fwd(way, x, *w[6:], p, p, seeds[4 * n + 2:4 * n + 4])
+        x = ffn_launch_fwd(way_f, x, *w[6:], p, p,
+                           seeds[4 * n + 2:4 * n + 4])
     y = std_layer_norm(x, fs, fb)
     dz, dfs, dfb = ln_backward(x.float(), fs, dy.float())
     g = dz.to(x.dtype)
     grads = [[None] * n_blocks for _ in range(12)]
     for n in reversed(range(n_blocks)):
         w = [s[n] for s in stacks]
-        g, *ffn = ffn_launch_bwd(way, inputs[2 * n + 1], *w[6:], g, p, p,
+        g, *ffn = ffn_launch_bwd(way_f, inputs[2 * n + 1], *w[6:], g, p, p,
                                  seeds[4 * n + 2:4 * n + 4])
-        g, *attn = launch_bwd(way, inputs[2 * n], mask, *w[:6], g, h, p,
+        g, *attn = launch_bwd(way_a, inputs[2 * n], mask, *w[:6], g, h, p,
                               p, seeds[4 * n:4 * n + 2], saved=saved[n])
         for i, t in enumerate(attn + ffn):
             grads[i][n] = t
@@ -1554,27 +1556,40 @@ ENCODER_GRADS = ("dx", "dln1_s", "dln1_b", "dwqkv", "dbqkv", "dwout",
                  "dfinal_s", "dfinal_b")
 
 
+# B10's cases (B, L, d, h, d_ff, N), chip_smoke.py's ENCODER_CASES: the
+# flagship, N = 1, L = 1, B1's longest slate, d_k = 72 (C4's case) and the
+# envelope's widest (d_k 256: B1's SIMT phases)
+ENCODER_CASES = [(64, 240, 128, 4, 512, 4), (8, 240, 128, 4, 512, 1),
+                 (3, 1, 128, 4, 512, 2), (4, 1024, 128, 4, 512, 2), C4_CASE,
+                 (4, 70, 256, 1, 1024, 2)]
+
+
 @pytest.mark.parametrize("p", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,l,d,h,d_ff,n", [(3, 70, 64, 2, 128, 2),
-                                            (64, 240, 128, 4, 512, 4),
-                                            C4_CASE])
+@pytest.mark.parametrize("b,l,d,h,d_ff,n", ENCODER_CASES)
 def test_encoder_kernels_match_plain_and_chained(cuda, b, l, d, h, d_ff, n,
                                                  dtype, p):
+    from allrank_tpu_torch.ops.encoder_block import route
+
     gen = torch.Generator().manual_seed(b + l)
     x, dy, mask, seeds, stacks, fs, fb = _encoder_inputs(
         gen, b, l, d, h, d_ff, n, dtype, cuda)
     kw = dict(h=h, p_drop=p)
-    before = (encoder_block_fwd.launches, encoder_block_bwd.launches)
+    ways = "/".join(route(dtype, d, h, d_ff))
+    before = (encoder_block_fwd.launches, encoder_block_bwd.launches,
+              encoder_block_fwd.route_launches[ways],
+              encoder_block_bwd.route_launches[ways])
     y = encoder_block_fwd(x, mask, seeds, stacks, fs, fb, **kw)
     got = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw)
     torch.cuda.synchronize()
-    assert (encoder_block_fwd.launches, encoder_block_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (encoder_block_fwd.launches, encoder_block_bwd.launches,
+            encoder_block_fwd.route_launches[ways],
+            encoder_block_bwd.route_launches[ways]) == tuple(
+        c + 1 for c in before)
     assert y.dtype == dtype and torch.isfinite(y.float()).all()
     assert got[0].dtype == dtype
-    # against the chained kernels whose tile bodies B10 runs (B1's SIMT
-    # route): the sublayer tolerances (only the final LayerNorm is computed
+    # against the chained kernels on B10's routes, whose tile bodies it
+    # runs: the sublayer tolerances (only the final LayerNorm is computed
     # another way)
     chained_y, chained = _encoder_chained(x, mask, seeds, stacks, fs, fb, dy,
                                           h, p)
@@ -1588,28 +1603,35 @@ def test_encoder_kernels_match_plain_and_chained(cuda, b, l, d, h, d_ff, n,
     ref = encoder_backward_plain(x, mask, seeds, stacks, fs, fb, dy, **kw)
     for name, g, c, r in zip(ENCODER_GRADS, got, chained, ref):
         _no_further(g, c, r, dtype, f"B10 {name}")
-    # no atomics: a second backward gives the same bits
-    again = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw)
+    # the backward on the forward's parked state gives the replaying
+    # backward's bits; no atomics: a second backward gives the same bits
+    y_parked, saved = encoder_block_fwd(x, mask, seeds, stacks, fs, fb, **kw,
+                                        return_saved=True)
+    assert torch.equal(y_parked, y)
+    parked = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw,
+                               saved=saved)
+    assert all(torch.equal(a, c) for a, c in zip(got, parked))
+    again = encoder_block_bwd(x, mask, seeds, stacks, fs, fb, dy, **kw,
+                              saved=saved)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     if (b, l, d, h, d_ff, n) == C4_CASE and dtype == torch.bfloat16:
-        # C4: B10, the tensor-core chain and the SIMT chain against the
-        # fp32 plain chain on the same bf16 inputs and masks
-        _, mma = _encoder_chained(x, mask, seeds, stacks, fs, fb, dy, h, p,
-                                  way="mma")
+        # C4: B10 and the tensor-core chain the encoder runs with the
+        # switch off against the fp32 plain chain on the same bf16 inputs
+        # and masks
         ref32 = encoder_backward_plain(x.float(), mask, seeds, stacks, fs,
                                        fb, dy.float(), **kw)
-        shares = [_worst_share(t, ref32) for t in (got, mma, chained)]
+        shares = [_worst_share(t, ref32) for t in (got, chained)]
         assert shares[0] <= C4_RATIO * shares[1], (
             f"C4: B10 {shares[0]:.4f} of the reference's max, the "
-            f"tensor-core chain {shares[1]:.4f}, the SIMT chain "
-            f"{shares[2]:.4f}")
+            f"tensor-core chain {shares[1]:.4f}")
 
 
-def test_encoder_cooperative_grid_fits_the_card(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_cooperative_grid_fits_the_card(cuda, dtype):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for backward in (False, True):
-        for d in (128, 256):
-            g = cooperative_grid(d, torch.float32, backward)
+        for d, h in ((128, 4), (144, 2), (256, 1)):
+            g = cooperative_grid(d, dtype, backward, h=h)
             assert g["sms"] == sms and g["blocks_per_sm"] >= 1
             assert g["grid"] == g["blocks_per_sm"] * sms
             assert g["smem_bytes"] <= 227 * 1024
