@@ -1,0 +1,4 @@
+// X3's frame mode on the tensor cores: attention_variants_mma.cuh.
+#include "attention_variants_mma.cuh"
+
+ALLRANK_VARIANT_ENTRY(allrank::kAttnFrame)

@@ -87,18 +87,74 @@ __device__ __forceinline__ void b1_ln_qkv_mma_tile(
     }
 }
 
+// X3's no_softmax probabilities (b1_attn_out_mma_tile): s (a 64-key
+// tile's q . k^T for the warp's 16 rows) leaves as masked(s . scale) .
+// 0.001, padded keys NEG_INF_FILL . 0.001, keys past L weight 0; P . v
+// rounds it to bf16.
+__device__ __forceinline__ void b1_scaled_scores(float (*s)[4],
+                                                 const uint32_t* kb,
+                                                 float scale) {
+  const int lane = threadIdx.x % 32, col = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int bit = 8 * (j & 3) + (e & 1);
+      const bool pad = (kb[j >> 2] >> (col + bit)) & 1u;
+      const bool past = (kb[2 + (j >> 2)] >> (col + bit)) & 1u;
+      s[j][e] = past ? 0.f : (pad ? kNegInfFill : s[j][e] * scale) * 0.001f;
+    }
+}
+
+// X3's no_pv context (b1_attn_out_mma_tile): for the warp's 16 rows (row0
+// in the slate, wrow in the block) and the keys k0.. of a tile of
+// normalised P, ctx[row, key] = round(v[row, key] + round(round(P) .
+// 0.001)) for key < d_k, written to the head's columns of Cs; rows past L
+// get 0.
+__device__ __forceinline__ void b1_no_pv_rows(bf16* Cs, int cpitch,
+                                              const float (*p)[4],
+                                              const bf16* vh, int ld,
+                                              int row0, int wrow, int L,
+                                              int dk, int k0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = lane / 4 + 8 * (e >> 1);
+      const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+      if (key >= dk) continue;
+      float c = 0.f;
+      if (row0 + r < L)
+        c = to_float(vh[(size_t)(row0 + r) * ld + key]) +
+            to_float(__float2bfloat16_rn(
+                to_float(__float2bfloat16_rn(p[j][e])) * 0.001f));
+      Cs[(wrow + r) * cpitch + key] = __float2bfloat16_rn(c);
+    }
+}
+
 // y for the 16 kOutWarps queries from bx * 16 kOutWarps of slate
 // by: per head B4's two passes over the key tiles on q, k, v read
 // in place from qkv, ctx kept for all heads in shared memory, then ctx .
 // Wout, bout, the output dropout and x. With `stats` non-null also each
-// row's softmax max and sum per head.
-template <int kDk, bool kAligned>
+// row's softmax max and sum per head. kMode (common.cuh's AttnMode) is
+// kAttnFull for B1 and B10; X3 (attention_variants_mma.cuh) changes one
+// stage of the core, at dropout 0 and with `stats` null:
+//   kAttnNoSoftmax    one pass: P = round(masked(s . scale) . 0.001)
+//   kAttnNormAfterPv  pass 2 rounds exp2(x) unnormalised into P . v and
+//                     scales the row by 1 / sum as ctx is stored
+//   kAttnNoPv         pass 2 over the key tiles of keys [0, d_k) alone:
+//                     ctx = round(v + round(round(P) . 0.001)) at key = col
+//   kAttnFrame        no core: ctx = round(round(q + k) + v)
+// (kAttnExp2 takes kAttnFull: its exponent is exp2 already, b4_exponent.)
+template <int kDk, bool kAligned, int kMode = kAttnFull>
 __device__ __forceinline__ void b1_attn_out_mma_tile(
     unsigned char* smem_raw, const bf16* qkv,
     const unsigned char* __restrict__ key_mask, const bf16* x,
     const float* __restrict__ wout, const float* __restrict__ bout, bf16* y,
     float* stats, int L, int d, int h, float scale, DropStream drop_a,
     DropStream drop_r, unsigned bx, unsigned by) {
+  static_assert(kMode != kAttnExp2, "exp2 runs kAttnFull's instantiation");
   constexpr int kThreads = 32 * kOutWarps, kRows = 16 * kOutWarps;
   const int dk = d / h, dkp = mma_head_pad(dk), pitch = mma_pitch(dkp);
   const int nkc = dkp / 16, tile = kKeyTile * pitch;
@@ -113,7 +169,12 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
   const bf16* slate_rows = qkv + (size_t)slate * L * ld;
   const unsigned char* padded = key_mask + (size_t)slate * L;
   const int lane = threadIdx.x % 32, wrow = (threadIdx.x / 32) * 16;
-  const int n_tiles = (L + kKeyTile - 1) / kKeyTile, n_steps = 2 * n_tiles;
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+  // steps [0, n_stats) are pass 1 (row statistics), the rest pass 2
+  const int n_stats = kMode == kAttnNoSoftmax ? 0 : n_tiles;
+  const int n_steps =
+      n_stats +
+      (kMode == kAttnNoPv ? (dk + kKeyTile - 1) / kKeyTile : n_tiles);
   const float sl = scale * kLog2e;
 
   // ctx's columns d..dpad are the out-projection's zero padding
@@ -121,7 +182,20 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
     Cs[(e / (dpad - d)) * cpitch + d + e % (dpad - d)] =
         __float2bfloat16_rn(0.f);
 
-  for (int head = 0; head < h; ++head) {
+  if constexpr (kMode == kAttnFrame) {
+    for (int e = threadIdx.x; e < kRows * d; e += kThreads) {
+      const int r = e / d, c = e % d, q = q0 + r;
+      float v = 0.f;
+      if (q < L) {
+        const bf16* row = slate_rows + (size_t)q * ld;
+        v = to_float(__float2bfloat16_rn(to_float(row[c]) +
+                                         to_float(row[d + c]))) +
+            to_float(row[2 * d + c]);
+      }
+      Cs[r * cpitch + c] = __float2bfloat16_rn(v);
+    }
+  }
+  for (int head = 0; head < (kMode == kAttnFrame ? 0 : h); ++head) {
     const bf16* qh = slate_rows + head * dk;
     const bf16* kh = qh + d;
     const bf16* vh = qh + 2 * d;
@@ -129,10 +203,10 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
     // step i into ring slot b: key tile i mod n, its keys' bits and, in
     // pass 2, its values
     auto stage = [&](int i, int b) {
-      const int k0 = (i < n_tiles ? i : i - n_tiles) * kKeyTile;
+      const int k0 = (i < n_stats ? i : i - n_stats) * kKeyTile;
       stage_tile<kKeyTile, kThreads>(Ks + b * tile, pitch, kh, ld, k0, L,
                                      dkp, dk, kAligned);
-      if (i >= n_tiles)
+      if (kMode != kAttnNoPv && i >= n_stats)
         stage_tile<kKeyTile, kThreads>(Vs + b * tile, pitch, vh, ld, k0, L,
                                        dkp, dk, kAligned);
       stage_key_bits(bits + 4 * b, padded, k0, L);
@@ -141,7 +215,9 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
     stage_tile<kRows, kThreads>(Qs, pitch, qh, ld, q0, L, dkp, dk, kAligned);
     stage(0, 0);
     cp_async_commit();
-    stage(1, 1);
+    // (no_softmax at L <= 64 has one step: nothing is staged that no step
+    // waits for)
+    if (kMode != kAttnNoSoftmax || n_steps > 1) stage(1, 1);
     cp_async_commit();
 
     uint32_t qa[kDk / 16][4];
@@ -165,14 +241,14 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
       float s[8][4] = {};
       rows_by_rows<kDk, 8, true, false>(s, qa, nullptr, Ks + buf * tile,
                                         pitch, nkc);
-      if (it < n_tiles) {
+      if (it < n_stats) {
         if (live)
           b4_row_stats<true>(s, m, l, kb, scale);
         else
           b4_row_stats<false>(s, m, l, kb, scale);
         continue;
       }
-      if (it == n_tiles) {
+      if (kMode != kAttnNoSoftmax && it == n_stats) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           ml[r] = m[r] * kLog2e;
@@ -180,12 +256,26 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
         }
       }
       const size_t rows_at = (g * L + q0 + wrow) * L +
-                             (size_t)(it - n_tiles) * kKeyTile;
-      if (live)
-        b4_probs<true>(s, ml, rinv, kb, sl, drop_a, rows_at, L);
+                             (size_t)(it - n_stats) * kKeyTile;
+      if constexpr (kMode == kAttnNoSoftmax) {
+        b1_scaled_scores(s, kb, scale);
+      } else if constexpr (kMode == kAttnNormAfterPv) {
+        const float one[2] = {1.f, 1.f};  // 1 / sum scales ctx instead
+        if (live)
+          b4_probs<true>(s, ml, one, kb, sl, drop_a, rows_at, L);
+        else
+          b4_probs<false>(s, ml, one, kb, sl, drop_a, rows_at, L);
+      } else {
+        if (live)
+          b4_probs<true>(s, ml, rinv, kb, sl, drop_a, rows_at, L);
+        else
+          b4_probs<false>(s, ml, rinv, kb, sl, drop_a, rows_at, L);
+      }
+      if constexpr (kMode == kAttnNoPv)
+        b1_no_pv_rows(Cs + head * dk, cpitch, s, vh, ld, q0 + wrow, wrow, L,
+                      dk, (it - n_stats) * kKeyTile);
       else
-        b4_probs<false>(s, ml, rinv, kb, sl, drop_a, rows_at, L);
-      weigh_rows<kDk, 4>(o, s, Vs + buf * tile, pitch, nkc);
+        weigh_rows<kDk, 4>(o, s, Vs + buf * tile, pitch, nkc);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -196,8 +286,12 @@ __device__ __forceinline__ void b1_attn_out_mma_tile(
       }
     }
     const float one[2] = {1.f, 1.f};
-    store_acc_rows<kDk / 8>(Cs + head * dk, cpitch, o, one, wrow, kRows, dk,
-                            2 * nkc);
+    if constexpr (kMode == kAttnNormAfterPv)
+      store_acc_rows<kDk / 8>(Cs + head * dk, cpitch, o, rinv, wrow, kRows,
+                              dk, 2 * nkc);
+    else if constexpr (kMode != kAttnNoPv)
+      store_acc_rows<kDk / 8>(Cs + head * dk, cpitch, o, one, wrow, kRows,
+                              dk, 2 * nkc);
   }
 
   // the out-projection, 64 columns of Wout at a time

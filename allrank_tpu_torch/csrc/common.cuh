@@ -23,6 +23,26 @@ constexpr float kLnEps = 1e-6f;
 constexpr float kVarFloor = 1e-24f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The attention core of B1's forward bodies (attn_out_tile of
+// sublayer_tiles.cuh on the SIMT units, b1_attn_out_mma_tile of
+// b1_mma_tiles.cuh on the tensor cores): B1 and B10 take kAttnFull; the
+// probe kernels of X3 (attention_variants.cu, attention_variants_mma.cuh)
+// take the others, each with one stage changed (wrong math, honest timing;
+// no dropout, no stats):
+//   kAttnNoSoftmax    p = masked scores x 0.001 (no max, exp, sum)
+//   kAttnExp2         exp2 of the scaled scores times log2(e)
+//   kAttnNormAfterPv  P unnormalised, ctx scaled by 1 / sum after P.V
+//   kAttnNoPv         ctx = v + 0.001 p[:, :d_k] (no P.V; needs L >= d_k)
+//   kAttnFrame        ctx = q + k + v (no attention core at all)
+enum AttnMode : int {
+  kAttnFull = 0,
+  kAttnNoSoftmax,
+  kAttnExp2,
+  kAttnNormAfterPv,
+  kAttnNoPv,
+  kAttnFrame
+};
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);

@@ -114,23 +114,6 @@ __device__ void ln_qkv_tile(float* smem, const T* x,
   }
 }
 
-// The attention core of attn_out_tile: B1 and B10 take kAttnFull; the
-// probe kernels of attention_variants.cu (X3) take the others, each with
-// one stage changed (wrong math, honest timing; no dropout, no stats):
-//   kAttnNoSoftmax    p = masked scores x 0.001 (no max, exp, sum)
-//   kAttnExp2         exp2 of the scaled scores times log2(e)
-//   kAttnNormAfterPv  P unnormalised, ctx scaled by 1 / sum after P.V
-//   kAttnNoPv         ctx = v + 0.001 p[:, :d_k] (no P.V; needs L >= d_k)
-//   kAttnFrame        ctx = q + k + v (no attention core at all)
-enum AttnMode : int {
-  kAttnFull = 0,
-  kAttnNoSoftmax,
-  kAttnExp2,
-  kAttnNormAfterPv,
-  kAttnNoPv,
-  kAttnFrame
-};
-
 // y[q0:q0+64] of one slate (q0 = q_tile * 64): attention over all heads,
 // then the out-projection, its bias, the output dropout and the residual.
 // With `stats` non-null, also each row's softmax max and sum per head.

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable
 
 import torch
@@ -68,7 +69,8 @@ def log_path(name: str) -> str:
 def build(names: Iterable[str]) -> None:
     """Compile the libraries of ``names`` that are not built yet, one nvcc
     process each, all started together; raises with nvcc's output if one
-    fails."""
+    fails. ``build.seconds`` holds each library's wall seconds from the
+    start of its call to its nvcc's exit."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -83,11 +85,17 @@ def build(names: Iterable[str]) -> None:
                         [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)],
                         stdout=log, stderr=subprocess.STDOUT)))
             failed = []
-            for name, tmp, out, proc in procs:
-                if proc.wait() == 0:
-                    os.replace(tmp, out)
-                else:
-                    failed.append(name)
+            t0, pending = time.perf_counter(), list(procs)
+            while pending:
+                for item in [p for p in pending if p[3].poll() is not None]:
+                    name, tmp, out, proc = item
+                    build.seconds[name] = time.perf_counter() - t0
+                    pending.remove(item)
+                    if proc.returncode == 0:
+                        os.replace(tmp, out)
+                    else:
+                        failed.append(name)
+                time.sleep(0.05)
         finally:
             for _, _, _, proc in procs:
                 if proc.poll() is None:
@@ -99,6 +107,9 @@ def build(names: Iterable[str]) -> None:
                 with open(log_path(name)) as f:
                     logs.append(f"--- nvcc {name} ---\n{f.read()}")
             raise RuntimeError("kernel build failed:\n" + "\n".join(logs))
+
+
+build.seconds = {}
 
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:

@@ -92,14 +92,20 @@ def tiled_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
     """``(dq, dk, dv)`` written out as the TPU kernel's ``_bwd_kernel``
     (the JAX package's ``ops/attention_tiled.py:104-143``): P from the
     forward's ``lse``, D = rowsum(dO * O) in fp32, and its rounding points;
-    in q's dtype."""
+    in q's dtype. In fp32 D is taken as rowsum(P' * dPd) after dP's
+    dropout mask and scale, P' = P / rowsum(P) (P itself in exact
+    arithmetic): the same quantity (the JAX kernel's comment, line 15) in
+    dP's own order, as the fp32 kernels take it. Where a row has one key
+    P' is 1 exactly, whatever computation of the scores ``lse`` came from
+    (the kernel's rounds them otherwise than this version's), so dPd - D,
+    dq and dk are 0 exactly (ROADMAP Queue C6). bf16 keeps the TPU
+    kernel's rowsum over the rounded O, as the bf16 kernels do."""
     p_drop = dropout.check_rate(p_drop)
     b, h, l, dk = q.shape
     dtype = q.dtype
     scale = 1.0 / math.sqrt(dk)
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = do.to(dtype).float()
-    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     p = torch.exp(_scores(qf, kf, key_mask, scale) - lse[..., None])
     dp = dof @ vf.transpose(-1, -2)
     keep = probs_keep(seed, p_drop, b, h, l, q.device)
@@ -108,6 +114,11 @@ def tiled_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
         inv = 1.0 / (1.0 - p_drop)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
+    if dtype == torch.float32:
+        delta = (p / p.sum(dim=-1, keepdim=True) * dp).sum(dim=-1,
+                                                           keepdim=True)
+    else:
+        delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     dv = pd.to(dtype).float().transpose(-1, -2) @ dof
     ds = (p * (dp - delta)).masked_fill(key_mask[:, None, None, :], 0.0)
     ds = ds.to(dtype).float()

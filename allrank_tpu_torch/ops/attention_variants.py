@@ -1,6 +1,11 @@
 """The attention sublayer forward with one stage changed (X3), bf16: the
-CUDA kernels of ``csrc/attention_variants.cu`` for CUDA tensors and their
-plain PyTorch versions for CPU tensors.
+CUDA kernels for CUDA tensors and their plain PyTorch versions for CPU
+tensors. Two routes, B1's (``route``): heads of d_k <= 128 run B1's
+tensor-core forward bodies with the mode as a template parameter
+(``csrc/attention_variants_mma_<mode>.cu`` over
+``csrc/attention_variants_mma.cuh``; ``exp2`` runs ``full``'s kernels,
+whose exponent is exp2 already), wider heads B1's SIMT bodies
+(``csrc/attention_variants.cu``).
 
 Replaces the TPU kernel ``make_variant`` of the JAX package's
 ``tools/exp_attn_decompose.py:114`` (``pallas_call`` at line 126, math in
@@ -30,27 +35,56 @@ import torch
 from allrank_tpu_torch.constants import NEG_INF_FILL
 from allrank_tpu_torch.models.core import std_layer_norm
 from allrank_tpu_torch.ops import _build
+from allrank_tpu_torch.ops import attention_block
 from allrank_tpu_torch.ops.attention_block import _heads, check_envelope
 
 MODES = ("full", "no_softmax", "exp2", "norm_after_pv", "no_pv", "frame")
+ROUTES = ("mma", "simt")
 LOG2E = 1.4426950408889634
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"attention_variant_fwd": [_P] * 10 + [_I] * 4
                + [ctypes.c_float, _I, _P]}
+# the tensor-core route's entry point: the SIMT one less the mode, which
+# picks the library
+_SIGNATURES_MMA = {"attention_variant_fwd_mma": [_P] * 10 + [_I] * 4
+                   + [ctypes.c_float, _P]}
+# each mode's tensor-core library: exp2 runs full's kernels (B1's exponent
+# is exp2 of pre-scaled scores already)
+MMA_LIBRARIES = {mode: "attention_variants_mma_"
+                 + ("full" if mode == "exp2" else mode) for mode in MODES}
+
+
+def route(d: int, h: int) -> str:
+    """The kernels a CUDA call takes, from d and h alone, before any
+    launch: B1's bf16 route (``ops/attention_block.route``), ``"mma"``
+    (the tensor cores) for d_k = d / h <= 128 and ``"simt"`` for wider
+    heads. Raises ``NotImplementedError`` outside B1's envelope."""
+    return attention_block.route(torch.bfloat16, d, h)
+
+
+def qkv_plain(x, ln_scale, ln_bias, wqkv, bqkv):
+    """qkv [B, L, 3d] in x's dtype: LN + QKV with B1's rounding points
+    (after LN, after the projection)."""
+    dtype = x.dtype
+    n = std_layer_norm(x.float(), ln_scale, ln_bias).to(dtype).float()
+    return (n @ wqkv.to(dtype).float() + bqkv).to(dtype)
 
 
 def attention_variant_fwd_plain(x, key_mask, ln_scale, ln_bias, wqkv, bqkv,
-                                wout, bout, h: int, mode: str = "full"):
+                                wout, bout, h: int, mode: str = "full",
+                                qkv=None):
     """The mode's function in plain PyTorch ops, with B1's rounding points
     (after LN, after the QKV projection, the probabilities before P.V, ctx)
-    and each mode's own (``_variant_fwd_vmem``)."""
+    and each mode's own (``_variant_fwd_vmem``). ``qkv``, where given,
+    stands for ``qkv_plain``'s: a check on the card replays the kernel's
+    own qkv with it, as ROADMAP Queue C5 replays flipped ReLU gates."""
     b, l, d = x.shape
     dk = d // h
     dtype = x.dtype
     x32 = x.float()
-    n = std_layer_norm(x32, ln_scale, ln_bias).to(dtype).float()
-    qkv = (n @ wqkv.to(dtype).float() + bqkv).to(dtype)
+    if qkv is None:
+        qkv = qkv_plain(x, ln_scale, ln_bias, wqkv, bqkv)
     if mode == "frame":
         q, k, v = qkv.split(d, dim=-1)
         ctx = q + k + v                       # each sum rounded to dtype
@@ -99,29 +133,59 @@ def _check(x, key_mask, params, h, mode):
     return b, l, d
 
 
+def launch_fwd(way: str, x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
+               bout, h: int, mode: str = "full", return_qkv: bool = False):
+    """y [B, L, d] bf16 from the kernels of route ``way`` ("mma" or
+    "simt"), whatever ``route`` would pick: the SIMT route takes any head
+    width, the tensor-core route d_k <= 128. Counts the launch under
+    ``way``. With ``return_qkv`` returns ``(y, qkv)``, qkv [B, L, 3d] the
+    first kernel's result."""
+    if way not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {way!r}")
+    params = (ln_scale, ln_bias, wqkv, bqkv, wout, bout)
+    b, l, d = _check(x, key_mask, params, h, mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"the variant kernels need a CUDA tensor, got "
+                         f"{x.device}")
+    if way == "mma" and d // h > attention_block.MMA_MAX_HEAD:
+        raise NotImplementedError(
+            f"the tensor-core variants cover d_k <= "
+            f"{attention_block.MMA_MAX_HEAD}, got {d // h}")
+    _build.require(x, "x", (b, l, d), torch.bfloat16, x.device)
+    y = torch.empty_like(x)
+    qkv = torch.empty((b, l, 3 * d), dtype=x.dtype, device=x.device)
+    ptrs = map(_build.ptr, (x, key_mask) + params + (qkv, y))
+    scale = 1.0 / math.sqrt(d // h)
+    with torch.cuda.device(x.device):
+        if way == "mma":
+            lib = _build.load(MMA_LIBRARIES[mode], _SIGNATURES_MMA)
+            rc = lib.attention_variant_fwd_mma(*ptrs, b, l, d, h, scale,
+                                               _build.stream_of(x))
+        else:
+            lib = _build.load("attention_variants", _SIGNATURES)
+            rc = lib.attention_variant_fwd(*ptrs, b, l, d, h, scale,
+                                           MODES.index(mode),
+                                           _build.stream_of(x))
+    _build.check_launch(lib, rc, f"attention_variant_fwd ({way})")
+    attention_variant_fwd.launches[mode] += 1
+    attention_variant_fwd.route_launches[way] += 1
+    return (y, qkv) if return_qkv else y
+
+
 def attention_variant_fwd(x, key_mask, ln_scale, ln_bias, wqkv, bqkv, wout,
                           bout, h: int, mode: str = "full"):
     """y [B, L, d] bf16. A CPU tensor takes the plain version; a CUDA
-    tensor launches the mode's two kernels (LN + QKV, then the changed
-    attention core + out-projection + residual) or raises."""
+    tensor launches the mode's two kernels of ``route``'s answer (LN +
+    QKV, then the changed attention core + out-projection + residual) or
+    raises."""
     params = (ln_scale, ln_bias, wqkv, bqkv, wout, bout)
     b, l, d = _check(x, key_mask, params, h, mode)
     if x.device.type == "cpu":
         return attention_variant_fwd_plain(x, key_mask, *params, h, mode)
     if x.device.type != "cuda":
         raise ValueError(f"no attention variant for device {x.device}")
-    _build.require(x, "x", (b, l, d), torch.bfloat16, x.device)
-    y = torch.empty_like(x)
-    qkv = torch.empty((b, l, 3 * d), dtype=x.dtype, device=x.device)
-    lib = _build.load("attention_variants", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        rc = lib.attention_variant_fwd(
-            *map(_build.ptr, (x, key_mask) + params + (qkv, y)),
-            b, l, d, h, 1.0 / math.sqrt(d // h), MODES.index(mode),
-            _build.stream_of(x))
-    _build.check_launch(lib, rc, "attention_variant_fwd")
-    attention_variant_fwd.launches[mode] += 1
-    return y
+    return launch_fwd(route(d, h), x, key_mask, *params, h, mode)
 
 
 attention_variant_fwd.launches = dict.fromkeys(MODES, 0)
+attention_variant_fwd.route_launches = dict.fromkeys(ROUTES, 0)

@@ -1,6 +1,7 @@
 """The two synthetic kernels of the boundary-shift probe (X2), bf16:
-the CUDA kernels of ``csrc/boundary_shift.cu`` for CUDA tensors and their
-plain PyTorch versions for CPU tensors.
+the CUDA kernels of ``csrc/boundary_shift_mma.cu`` (on B2's tensor-core
+tile bodies) for CUDA tensors and their plain PyTorch versions for CPU
+tensors.
 
 Replaces the TPU kernel ``make_calls`` of the JAX package's
 ``tools/exp_boundary_shift.py:87`` (``pallas_call`` at lines 95 and 102)::
@@ -13,7 +14,11 @@ with LN the unbiased-std LayerNorm without gain or bias
 output rounded to bf16 before each product, every product accumulated in
 fp32, the residual added in fp32; the shifted kernel normalises the fp32
 residual sum. ``x`` is ``[..., d]`` with d <= 256, ``pre`` ``[..., d3]``,
-``W1`` ``[d, d3]``, ``W2`` ``[d3, d]``, all bf16. The probe CLI is
+``W1`` ``[d, d3]``, ``W2`` ``[d3, d]``, all bf16, any d3 and any number of
+rows. The plain kernel is B2's bf16 forward (``ops/ffn_block.py``) at unit
+LN gain and zero biases; both kernels read the weights as B2's rounded
+scratch, zero-padded to whole 16-row and 64-column steps (``W1`` and
+``W2`` themselves where d % 16 == 0 and d3 % 64 == 0). The probe CLI is
 ``allrank_tpu_torch.tools.exp_boundary_shift``.
 """
 
@@ -25,9 +30,9 @@ import torch
 
 from allrank_tpu_torch.ops import _build
 
-MAX_WIDTH = 256  # the kernel keeps a [64, d] output tile in registers
+MAX_WIDTH = 256  # a warp keeps [16, 128] of the output in registers
 _P = ctypes.c_void_p
-_SIGNATURES = {"boundary_fwd": [_P] * 6 + [ctypes.c_int] * 4 + [_P]}
+_SIGNATURES = {"boundary_fwd_mma": [_P] * 8 + [ctypes.c_int] * 3 + [_P]}
 
 
 def _ln(v32):
@@ -79,19 +84,39 @@ def _check(x, pre, w1, w2):
     return m, d, d3
 
 
+def _padded(w, rows: int, cols: int):
+    """``w`` as a contiguous [rows, cols] bf16 matrix on 16-byte aligned
+    storage, zero past its own shape: ``w`` itself where it already is."""
+    if (tuple(w.shape) == (rows, cols) and w.is_contiguous()
+            and w.data_ptr() % 16 == 0):
+        return w
+    out = torch.zeros((rows, cols), dtype=w.dtype, device=w.device)
+    out[:w.shape[0], :w.shape[1]] = w
+    return out
+
+
 def _launch(x, pre, w1, w2, shifted):
     m, d, d3 = _check(x, pre, w1, w2)
+    dpad, ffp = -(-d // 16) * 16, -(-d3 // 64) * 64
+    w1b, w2b = _padded(w1, dpad, ffp), _padded(w2, ffp, dpad)
+    # B2's LN gain and biases, which only the plain kernel reads
+    unit = (None, None)
+    if not shifted:
+        unit = (torch.ones(d, device=x.device),
+                torch.zeros(max(d, d3), device=x.device))
     y = torch.empty_like(x)
     pre_out = (torch.empty(tuple(x.shape[:-1]) + (d3,), dtype=x.dtype,
                            device=x.device) if shifted else None)
-    lib = _build.load("boundary_shift", _SIGNATURES)
+    lib = _build.load("boundary_shift_mma", _SIGNATURES)
     with torch.cuda.device(x.device):
-        rc = lib.boundary_fwd(
+        rc = lib.boundary_fwd_mma(
             _build.ptr(x), _build.ptr(pre) if shifted else None,
-            _build.ptr(w1), _build.ptr(w2), _build.ptr(y),
-            _build.ptr(pre_out) if shifted else None, m, d, d3, int(shifted),
+            _build.ptr(w1b), _build.ptr(w2b),
+            *(None if u is None else _build.ptr(u) for u in unit),
+            _build.ptr(y),
+            _build.ptr(pre_out) if shifted else None, m, d, d3,
             _build.stream_of(x))
-    _build.check_launch(lib, rc, "boundary_fwd")
+    _build.check_launch(lib, rc, "boundary_fwd_mma")
     return y, pre_out
 
 

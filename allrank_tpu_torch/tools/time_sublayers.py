@@ -28,7 +28,14 @@ forward's parked state, where the checkout's B10 takes one, and replaying
 the forward), beside the chain of B1's and B2's kernels on their routes (a
 CUDA graph) and the library chain (``encoder_library``, its backward the
 sum of its kernels in a trace), and the bound of the function's products
-at the tensor cores' rate (3xTF32 for fp32).
+at the tensor cores' rate (3xTF32 for fp32). ``--probes`` instead times
+the probe kernels X2 (``ops/boundary_shift.py``) and X3
+(``ops/attention_variants.py``) in bf16, each in device time (a CUDA
+graph) with one event-timed call beside it: X2's plain and shifted kernels
+at B=64, L=240 (M = 15,360 rows), d=128, d3=384 beside ``x2_library``; X3
+in each mode at B=64, L=240, d=128, h=4 (ragged keys, one empty slate),
+``full`` beside ``b1_library`` and B1's own forward, which it computes;
+``--long`` adds X3 and B1 at B=16, L=1024, where B1 costs most.
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -54,6 +61,8 @@ import torch.nn.functional as F
 
 B, L, D, H, D_FF = 64, 240, 128, 4, 512
 FEATURES = 136
+D3 = 384  # X2's hidden width
+LONG = (16, 1024)  # B1's costliest slate length at the flagship's width
 
 
 def b1_library(x, mask_add, g, b, wqkv, bqkv, wout, bout, h):
@@ -75,6 +84,21 @@ def b2_library(x, g, b, w1, b1, w2, b2):
 
     hidden = torch.relu(torch.matmul(std_layer_norm(x, g, b), w1) + b1)
     return x + (torch.matmul(hidden, w2) + b2)
+
+
+def x2_library(x, pre, w1, w2, shifted):
+    """The boundary kernels in library calls, a yardstick only: the
+    no-gain std-LN in torch ops, bf16 ``torch.matmul`` and ``relu``."""
+    def ln(v):
+        c = v - v.mean(dim=-1, keepdim=True)
+        var = (c * c).sum(dim=-1, keepdim=True) / max(v.shape[-1] - 1, 1)
+        return (c / (torch.sqrt(torch.clamp(var, min=1e-24)) + 1e-6)).to(
+            torch.bfloat16)
+
+    if shifted:
+        out = x + torch.matmul(torch.relu(pre), w2)
+        return out, torch.matmul(ln(out.float()), w1)
+    return x + torch.matmul(torch.relu(torch.matmul(ln(x.float()), w1)), w2)
 
 
 def encoder_library(x, mask, stacks, fs, fb, dy, h):
@@ -192,6 +216,94 @@ def library_fns(kind, x, mask, params, dy):
     out = fwd()
     return (fwd,
             lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+
+
+def x2_inputs(gen, b, l, dev, d=D, d3=D3):
+    """x [B, L, d], pre [B, L, d3], W1 [d, d3], W2 [d3, d] and the next
+    kernel's W1', bf16, at the JAX probe's scales."""
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            torch.bfloat16).to(dev)
+
+    return (r(b, l, d, scale=0.5), r(b, l, d3, scale=0.5),
+            r(d, d3, scale=0.05), r(d3, d, scale=0.05),
+            r(d, d3, scale=0.05))
+
+
+def x3_inputs(gen, b, l, d, dev):
+    """x [B, L, d] bf16, the key mask (slate 0 fully padded, the others
+    ragged) and B1's fp32 parameters, rounded to bf16 values."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    lengths = torch.randint(1, l + 1, (b,), generator=gen)
+    lengths[0] = 0
+    mask = torch.arange(l)[None, :] >= lengths[:, None]
+    params = [1 + r(d, scale=0.1), r(d, scale=0.1),
+              r(d, 3 * d, scale=d ** -0.5), r(3 * d, scale=0.1),
+              r(d, d, scale=d ** -0.5), r(d, scale=0.1)]
+    return ([r(b, l, d).to(torch.bfloat16).to(dev), mask.to(dev)]
+            + [p.to(torch.bfloat16).float().to(dev) for p in params])
+
+
+def library_args(args, h):
+    """``b1_library``'s arguments for B1's: the additive key mask and the
+    parameters in bf16."""
+    x, mask = args[:2]
+    mask_add = torch.zeros(x.shape[0], 1, 1, x.shape[1], dtype=x.dtype,
+                           device=x.device).masked_fill(
+        mask[:, None, None, :], -1e9)
+    return [x, mask_add] + [p.to(torch.bfloat16) for p in args[2:]] + [h]
+
+
+def _route(module, *args) -> str:
+    """The module's route for ``args``; an older checkout's module, which
+    has no route, runs its SIMT kernels alone."""
+    return module.route(*args) if hasattr(module, "route") else "simt"
+
+
+def time_probes(card: str, package: str, iters: int, long: bool) -> list:
+    """X2's and X3's lines (``--probes``)."""
+    from allrank_tpu_torch.ops import attention_block as b1
+    from allrank_tpu_torch.ops import attention_variants as x3
+    from allrank_tpu_torch.ops import boundary_shift as x2
+    from allrank_tpu_torch.tools.timing import _median_event_ms, graph_ms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    lines = []
+
+    def line(kernel, shape, fn, lib_fn, **extra):
+        lines.append({
+            "kernel": kernel, "shape": shape,
+            "ms": _median_event_ms(fn, iters, 3), "graph_ms": graph_ms(fn),
+            "library_ms": (None if lib_fn is None
+                           else _median_event_ms(lib_fn, iters, 3)),
+            "library_device_ms": None if lib_fn is None else graph_ms(lib_fn),
+            **extra, "card": card, "package": package})
+        print(json.dumps(lines[-1]), flush=True)
+
+    x, pre, w1, w2, w1n = x2_inputs(gen, B, L, dev)
+    line("boundary_plain", [B, L, D, D3], lambda: x2.boundary_plain(x, w1, w2),
+         lambda: x2_library(x, pre, w1, w2, False))
+    line("boundary_shift", [B, L, D, D3],
+         lambda: x2.boundary_shift(x, pre, w2, w1n),
+         lambda: x2_library(x, pre, w1n, w2, True))
+    del x, pre, w1, w2, w1n
+    for b, l in [(B, L)] + ([LONG] if long else []):
+        a = x3_inputs(gen, b, l, D, dev)
+        lib = library_args(a, H)
+        for mode in x3.MODES:
+            line(f"attention_variant_{mode}", [b, l, D, H],
+                 lambda m=mode: x3.attention_variant_fwd(*a, H, mode=m),
+                 (lambda: b1_library(*lib)) if mode == "full" else None,
+                 route=_route(x3, D, H))
+        line("attention_sublayer_fwd", [b, l, D, H],
+             lambda: b1.attention_sublayer_fwd(*a, H), None,
+             route=_route(b1, torch.bfloat16, D, H))
+        del a, lib
+        torch.cuda.empty_cache()
+    return lines
 
 
 def flagship_model(dev):
@@ -361,6 +473,11 @@ def main(argv=None) -> int:
                         help="time bench.py's train step instead")
     parser.add_argument("--encoder", action="store_true",
                         help="time the whole-encoder kernel pair instead")
+    parser.add_argument("--probes", action="store_true",
+                        help="time the probe kernels X2 and X3 instead")
+    parser.add_argument("--long", action="store_true",
+                        help="with --probes, also X3 and B1 at B=16, "
+                             "L=1024")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_sublayers: no CUDA device", file=sys.stderr)
@@ -388,6 +505,12 @@ def main(argv=None) -> int:
                               *(f"encoder_block_{dt}_dk32"
                                 for dt in ("bf16", "f32")))
                              if args.encoder else ()),
+                           *(("boundary_shift", "boundary_shift_mma",
+                              "attention_variants",
+                              *(f"attention_variants_mma_{m}" for m in (
+                                  "full", "no_softmax", "norm_after_pv",
+                                  "no_pv", "frame")))
+                             if args.probes else ()),
                            *args.ptxas)
                if os.path.exists(_build.source_path(s))]
     _build.build(sorted(set(sources)))
@@ -400,6 +523,9 @@ def main(argv=None) -> int:
         for line in time_encoder(card, package):
             print(json.dumps(line), flush=True)
         return 0
+    if args.probes:
+        time_probes(card, package, args.iters, args.long)
+        return 0
     if args.step:
         for dtype in ("float32", "bfloat16"):
             print(json.dumps(time_step(card, package, args.iters, dtype)),
@@ -411,11 +537,8 @@ def main(argv=None) -> int:
         x, mask, ap, fp, dy = inputs(gen, dtype, dev)
         _, saved = b1.attention_sublayer_fwd(x, mask, *ap, H,
                                              return_saved=True)
-        # an older checkout, whose modules have no route, runs SIMT alone
-        routes = {"attention": (b1.route(dtype, D, H)
-                                if hasattr(b1, "route") else "simt"),
-                  "ffn": (b2.route(dtype, D, D_FF)
-                          if hasattr(b2, "route") else "simt")}
+        routes = {"attention": _route(b1, dtype, D, H),
+                  "ffn": _route(b2, dtype, D, D_FF)}
         kernels = {
             "attention_sublayer_fwd": lambda: b1.attention_sublayer_fwd(
                 x, mask, *ap, H),

@@ -9,7 +9,7 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds the eighteen kernel sources
+1. the card, torch and CUDA versions; builds every kernel source
    of ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
    counts the ``HMMA`` instructions of B4's and B5's bf16 kernels (18
@@ -18,7 +18,10 @@ and never prints its last line):
    B1's fp32 (23 ``b1_*_tf32x3_kernel``) and B2's fp32 (5
    ``b2_*_tf32x3_kernel``: TF32 ``HMMA`` only, none in the other kernels
    of their sources) with the toolkit's ``cuobjdump -sass`` (each must
-   hold some); turns TF32 off for PyTorch's own products;
+   hold some), and of X2's (4) and X3's tensor-core kernels (7 a mode, 2
+   in ``frame``: bf16 ``HMMA`` only; in the probes' class no spill beyond
+   that of B1's own kernel, whose body X3 runs);
+   turns TF32 off for PyTorch's own products;
 2. the attention sublayer kernel (B1) against its plain PyTorch version at
    B=64, L=240 for (d, h) = (128, 4), (144, 2), (96, 1), with ragged
    lengths and one lengths=0 slate, in fp32 (its 3xTF32 kernels) and bf16
@@ -147,7 +150,9 @@ and never prints its last line):
     1224}; both in fp32 (their 18 3xTF32 kernels each) at the same cases,
     rows one element off a 16-byte boundary at d_k 20, 32, 36 and 100;
     both in fp32 at (3, 2, 1, 128), one key, where dQ and dK are 0
-    in exact arithmetic; and the split attention block
+    in exact arithmetic, the kernels' and the plain versions' exactly
+    (ROADMAP Queue C6), and every gradient within tolerance of the plain
+    version's; and the split attention block
     (PyTorch ops around B4 or B5) against the B1 sublayer at (64, 240) and
     (16, 1024), dropout 0.3, the same seeds;
 22. long-slate serving: the paper config's model (no positional encoding)
@@ -225,18 +230,31 @@ and never prints its last line):
     library formulation); the A/B of the switch (off, on, on, off) on the
     train step at ``bench.py``'s configuration and the paper config and on
     the flagship scorer, with idle share and device time by kernel;
-31. the boundary-shift kernels (X2, plain and shifted) against their plain
-    versions at B=64, L=240, at a ragged B=3, L=37 and at B=1, L=1 (bf16,
-    d=128, d3=384); then the probe ``allrank_tpu_torch.tools.
-    exp_boundary_shift`` at its default shape, in-process (its launches are
-    the kernels' count): the per-boundary tax in one CUDA graph and eager;
-    each kernel's device time, bound, plain version and library formulation;
+31. the boundary-shift kernels (X2, plain and shifted, on B2's tensor-core
+    tiles) against their plain versions at B=64, L=240, at a ragged B=3,
+    L=37 and at B=1, L=1 (bf16, d=128, d3=384), and at (d, d3) = (100,
+    200) and (256, 1000); the plain kernel equal to B2's bf16 forward bit
+    for bit at unit gain and zero biases; then the probe
+    ``allrank_tpu_torch.tools.exp_boundary_shift`` at its default shape,
+    in-process (its launches are the kernels' count): the per-boundary tax
+    in one CUDA graph and eager; each kernel's device time, bound, plain
+    version and library formulation as device time;
 32. the attention variants (X3) in all six modes against their plain
-    versions at B=64, L=240, d=128, h=4, bf16, ragged keys and one empty
-    slate, and ``full`` equal to B1's SIMT forward bit for bit and within
-    phase 2's bf16 tolerance of B1's tensor-core forward; then the probe
-    ``exp_attn_decompose`` (three interleaved rounds of K=8 chains, the
-    stage costs, the production B1 forward and backward K-swept); times;
+    versions on B1's routes (``ops/attention_variants.route``): at B=64,
+    L=240, d=128, h=4 (the probe's inputs; ragged keys and one empty
+    slate), at each tensor-core head class (d_k 20, 32, 36, 48, 100, 128:
+    rows on and off a 16-byte boundary) and at d_k 256 (the SIMT units),
+    ragged and with no key padded; and on the SIMT kernels by name at d_k
+    32; ``no_softmax`` element by element in slates with no padded key and
+    row by row in the others (``no_softmax_close``); ``full`` equal to
+    B1's forward bit for bit on the same route; ``no_pv`` and ``frame``
+    with the plain version replaying the kernel's own qkv, that qkv held to
+    the plain's (``X3_QKV_REPLAY``); launches counted by route;
+    then the probe ``exp_attn_decompose`` (three interleaved rounds of K=8
+    chains, the stage costs, the production B1 forward and backward
+    K-swept) at its default shape, at B=16, L=1024 and at d=256, h=1;
+    X3 full, B1 and B1's library at (16, 1024) as device time; each mode's
+    times on both routes;
 33. the soft-sort with its records on chip (X4, forward and backward)
     against B8's kernels (bit for bit) and the plain version at N=2048,
     L=240 with a 40-document tail (the probe's case), at N=64 ragged in
@@ -247,7 +265,8 @@ and never prints its last line):
 34. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
     3xTF32 rows count the fp32 service's and step's launches, the SIMT
     rows those of B10's reference chain in phase 28 and carry
-    ``"launch_source": "b10_reference_chain"``), the card's
+    ``"launch_source": "b10_reference_chain"``; X3 a row per mode and
+    route, the SIMT rows' launches those of the probe at d_k 256), the card's
     name and power limit as
     nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 
@@ -278,6 +297,11 @@ import numpy as np
 import torch
 
 from allrank_tpu_torch.tools.time_attention import library_fns
+from allrank_tpu_torch.tools.time_sublayers import (
+    library_args,
+    x2_inputs,
+    x2_library,
+)
 from allrank_tpu_torch.tools.timing import (
     IncompleteTrace,
     busy_us,
@@ -316,6 +340,37 @@ B1_F32_KERNELS, B2_F32_KERNELS = 23, 5
 B10_SOURCES = [f"encoder_block_{dt}_{cls}" for dt in ("bf16", "f32")
                for cls in ("dk32", "dk64", "dk128", "simt")]
 B10_KERNELS = 2 * 2
+# X2's cases (B, L, d, d3): the probe's widths at the flagship's rows,
+# ragged and single rows; d and d3 off the tensor cores' 16 / 64 steps; the
+# widest d (two warps a row group)
+X2_CASES = [(B, L, 128, 384), (3, 37, 128, 384), (1, 1, 128, 384),
+            (3, 37, 100, 200), (2, 50, 256, 1000), (1, 1, 256, 1000)]
+# X3's tensor-core head classes (padded d_k 32, 64, 128), each with head
+# rows on a 16-byte boundary (d_k 32, 48, 128) and off it (20, 36, 100)
+X3_MMA_WIDTHS = [(128, 4), (80, 4), (96, 2), (144, 4), (256, 2), (100, 1)]
+# X3's modes whose ctx carries q, k and v as they are, with no P.V to
+# average them: a one-ulp flip of a v element between the kernel's LN + QKV
+# and the plain version's moves y by ulp(v) x |Wout|, which can pass 2^-6 of
+# a small y (one element of 2M in a 64-slate no_pv check on the card).
+# Their checks hold qkv to the plain's and y to the plain version replaying
+# the kernel's own qkv, both at the bf16 tolerance (ROADMAP Queue C5's way)
+X3_QKV_REPLAY = ("no_pv", "frame")
+# X3's tensor-core sources, one a mode (exp2 runs full's)
+X3_MMA_SOURCES = [f"attention_variants_mma_{m}" for m in (
+    "full", "no_softmax", "norm_after_pv", "no_pv", "frame")]
+# the kernels of X2's and X3's tensor-core sources: X2's plain and shifted
+# at d <= 128 and d > 128; each X3 mode's LN + QKV and attention tile at
+# padded d_k 32, 64, 128, aligned or not (frame's one)
+PROBE_MMA_KERNELS = {"boundary_shift_mma": 4,
+                     **{src: 2 if src.endswith("_frame") else 7
+                        for src in X3_MMA_SOURCES}}
+# every kernel source, built in parallel in phase 1
+SOURCES = ["attention_block", "attention_block_mma", "attention_block_tf32x3",
+           "ffn_block", "ffn_block_mma", "ffn_block_tf32x3", "lambda_pairs",
+           "sinkhorn", "neuralsort", "approx_pos", "lambda_tiled",
+           "attention_fused", "attention_tiled", "q8_dense", *B10_SOURCES,
+           "boundary_shift_mma", "attention_variants", *X3_MMA_SOURCES,
+           "neuralsort_layout"]
 # the widths B2's bf16 kernels are held to: d within one warp's 128
 # output columns (32, 96, 128) or split over two warps (144, whose second
 # warp takes 16 columns, and 256), d_ff whole 64-unit chunks; phase 7's
@@ -449,21 +504,39 @@ def exp_floor_ms(exps: float, mhz: float, sms: int) -> float:
     return exps / (sms * 16 * mhz * 1e6) * 1e3
 
 
+_SASS: dict = {}
+
+
+def sass_of(library: str) -> str:
+    """The toolkit's ``cuobjdump -sass`` of a built library, run once a
+    library (``prefetch_sass`` runs several at once)."""
+    if library not in _SASS:
+        tool = shutil.which("cuobjdump") or os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+            "cuobjdump")
+        if not os.path.exists(tool):
+            raise RuntimeError(f"no cuobjdump at {tool}: the tensor-core "
+                               "check needs the toolkit's cuobjdump")
+        _SASS[library] = subprocess.run(
+            [tool, "-sass", library], capture_output=True, text=True,
+            check=True, timeout=300).stdout
+    return _SASS[library]
+
+
+def prefetch_sass(libraries) -> None:
+    """``sass_of`` of each library, the cuobjdump processes in parallel."""
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(sass_of, libraries))
+
+
 def hmma_counts(library: str, marker: str,
                 pattern: str = r"\bH(G)?MMA\b") -> dict:
     """The instructions matching ``pattern`` (by default ``HMMA`` and
     ``HGMMA``; ``TF32_HMMA`` the TF32 ones) in each kernel of a built
     library whose name holds ``marker``, from the toolkit's
     ``cuobjdump -sass``."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        raise RuntimeError(f"no cuobjdump at {tool}: the tensor-core check "
-                           "needs the toolkit's cuobjdump")
-    sass = subprocess.run([tool, "-sass", library], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in sass_of(library).splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1) if marker in found.group(1) else None
@@ -491,6 +564,12 @@ def ptxas_properties(log: str) -> dict:
             if m}
 
 
+def spill_bytes(line: str) -> int:
+    """The spill stores and loads of a ``ptxas_properties`` line, bytes."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|"
+                                          r"loads)", line))
+
+
 def call_closure_counts(library: str, marker: str, patterns: dict) -> dict:
     """For each kernel of a built library whose name holds ``marker``, the
     instructions matching each of ``patterns`` ({key: regex}) in it and in
@@ -498,15 +577,8 @@ def call_closure_counts(library: str, marker: str, patterns: dict) -> dict:
     phases are __noinline__ functions, and the dump names no call's target
     (``CALL.REL.NOINC 0x...``): a kernel is counted with every function of
     its source that is no kernel, one head class and dtype."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        raise RuntimeError(f"no cuobjdump at {tool}: the tensor-core check "
-                           "needs the toolkit's cuobjdump")
-    sass = subprocess.run([tool, "-sass", library], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     own, name = {}, None
-    for line in sass.splitlines():
+    for line in sass_of(library).splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
@@ -866,6 +938,34 @@ def rel_err(got, ref) -> tuple:
             ref.float().abs().max().item())
 
 
+def no_softmax_close(y, ref, key_mask, tol) -> tuple:
+    """X3's ``no_softmax`` output ``y`` [B, L, d] against its plain version.
+    The rows of a slate with no padded key, element by element at ``tol``.
+    In a slate with a padded key every row's ctx takes that key at weight
+    -1e9 x 0.001 and reaches 1e6-1e7, where the out-projection's sums
+    cancel: a one-ulp flip of a bf16 ctx value moves y by up to an ulp of
+    that scale. Each such row's largest error is held to ``tol``'s rtol of
+    that row's own largest reference value. Returns (the largest error of
+    the rows held element by element, (error, row scale) of the padded
+    slates' worst row, or None)."""
+    yf, rf = y.float(), ref.float()
+    padded = key_mask.any(dim=-1)
+    err_full = 0.0
+    if (~padded).any():
+        torch.testing.assert_close(yf[~padded], rf[~padded], **tol)
+        err_full = (yf[~padded] - rf[~padded]).abs().max().item()
+    if not padded.any():
+        return err_full, None
+    err = (yf[padded] - rf[padded]).abs().amax(dim=-1).flatten()
+    scale = rf[padded].abs().amax(dim=-1).flatten()
+    bad = err > tol["rtol"] * scale
+    assert not bad.any(), (
+        f"no_softmax: {int(bad.sum())} padded rows past {tol['rtol']:g} x "
+        f"their max|ref|, worst {err[bad].max().item():.3e}")
+    worst = int(torch.argmax(err / scale))
+    return err_full, (err[worst].item(), scale[worst].item())
+
+
 def b2_replay(got, args, dy, p, seeds) -> tuple:
     """ROADMAP Queue C5: holds a B2 backward ``got`` (dx and six gradients,
     on ``args`` = x and the six parameters, ``dy``, rate ``p`` on both
@@ -1197,26 +1297,47 @@ def chain_work(pair_args, kw, ops_per_pair: int, backward: bool) -> tuple:
     return ops_per_pair * selected + (b * k * k - selected), moved, selected
 
 
+def library_device_ms(fn, backward: bool):
+    """A library formulation's device time on the kernels' clock: a forward
+    as 20 calls in one CUDA graph (``graph_ms``); a backward by autograd,
+    whose engine refuses capture, as the sum of its kernels' durations in a
+    checked torch.profiler trace (``kernel_ms``), None where every trace
+    lost device events."""
+    if not backward:
+        return graph_ms(fn)
+    try:
+        return sum(kernel_ms(fn).values())
+    except IncompleteTrace as err:
+        print(f"library backward not measured: {err}")
+        return None
+
+
 def short_kernel_row(name, kernel, plain, lib_fn, work, err, shape,
                      tag) -> dict:
     """The record of a kernel of 10-300 us, printed too: the device's own
     time for the kernel (``graph_ms``) with its event-timed call beside it,
-    the event-timed calls of its plain version and of the library
-    formulation, and the bound of ``work`` = (operations, bytes, ...)."""
+    the library formulation's device time (``library_device_ms``) with its
+    event-timed call beside it, the event-timed call of the plain version,
+    and the bound of ``work`` = (operations, bytes, ...)."""
     ms = graph_ms(kernel)
     call_ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
                                  for fn in (kernel, plain, lib_fn))
+    lib_dev_ms = library_device_ms(lib_fn, name.endswith("_bwd"))
     flops, moved = work[:2]
     bound_ms, bound_by = bound(flops, moved, torch.float32)
+    lib_txt = ("not measured" if lib_dev_ms is None
+               else f"{lib_dev_ms:.4f} ms")
     print(f"time {name} float32 {shape}: kernel {ms:.4f} ms of device time "
           f"(20 calls in one CUDA graph; one event-timed call {call_ms:.4f} "
           f"ms), plain {plain_ms:.4f} ms a call, library (torch-op chain, "
-          f"autograd) {lib_ms:.4f} ms a call, bound {bound_ms:.5f} ms "
+          f"autograd) {lib_txt} of device time (one event-timed call "
+          f"{lib_ms:.4f} ms), bound {bound_ms:.5f} ms "
           f"({bound_by}: {flops / 1e9:.4f} G operations, "
           f"{moved / 1e6:.3f} MB) {tag}")
     return {"name": name, "route": "cuda", "max_abs_err": err, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms,
             "gflop": flops / 1e9, "mbytes": moved / 1e6}
 
 
@@ -1656,33 +1777,6 @@ def encoder_ffn_gates(record):
     return call
 
 
-def x2_inputs(gen, b, l, dev):
-    """x [B, L, 128], pre [B, L, 384], W1, W2 and the next kernel's W1',
-    bf16, at the JAX probe's scales."""
-    def r(*shape, scale):
-        return (torch.randn(*shape, generator=gen) * scale).to(
-            torch.bfloat16).to(dev)
-
-    return (r(b, l, 128, scale=0.5), r(b, l, 384, scale=0.5),
-            r(128, 384, scale=0.05), r(384, 128, scale=0.05),
-            r(128, 384, scale=0.05))
-
-
-def x2_library(x, pre, w1, w2, shifted):
-    """The boundary kernels in library calls, a yardstick only: the
-    no-gain std-LN in torch ops, bf16 ``torch.matmul`` and ``relu``."""
-    def ln(v):
-        c = v - v.mean(dim=-1, keepdim=True)
-        var = (c * c).sum(dim=-1, keepdim=True) / (v.shape[-1] - 1)
-        return (c / (torch.sqrt(torch.clamp(var, min=1e-24)) + 1e-6)).to(
-            torch.bfloat16)
-
-    if shifted:
-        out = x + torch.matmul(torch.relu(pre), w2)
-        return out, torch.matmul(ln(out.float()), w1)
-    return x + torch.matmul(torch.relu(torch.matmul(ln(x.float()), w1)), w2)
-
-
 def x3_work(b, l, d, h, mode) -> tuple:
     """(operations, bytes) of one X3 call: the QKV and out-projection
     products, and q . k^T and P . v unless the mode drops them; x, the key
@@ -1799,6 +1893,12 @@ def main() -> int:
         return (dict(ffn_sublayer_fwd.route_launches),
                 dict(ffn_sublayer_bwd.route_launches))
 
+    t_main = time.perf_counter()
+
+    def phase_ok(line: str) -> None:
+        """A phase's closing line, led by the seconds since the start."""
+        print(f"[{time.perf_counter() - t_main:.0f} s] {line}", flush=True)
+
     dev = torch.device("cuda", 0)
     name_power = card()
     tag = f"[{name_power}]"
@@ -1808,20 +1908,21 @@ def main() -> int:
     print(f"card: {name_power}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ["attention_block", "attention_block_mma",
-               "attention_block_tf32x3", "ffn_block", "ffn_block_mma",
-               "ffn_block_tf32x3", "lambda_pairs", "sinkhorn", "neuralsort",
-               "approx_pos", "lambda_tiled", "attention_fused",
-               "attention_tiled", "q8_dense", *B10_SOURCES,
-               "boundary_shift", "attention_variants", "neuralsort_layout"]
+    sources = SOURCES
     _build.build(sources)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, the "
-          f"{len(sources)} sources in parallel)")
+          f"{len(sources)} sources in parallel); the slowest: " + ", ".join(
+              f"{n} {sec:.1f} s" for n, sec in sorted(
+                  _build.build.seconds.items(), key=lambda kv: -kv[1])[:8]))
     for src in sources:
         with open(_build.log_path(src)) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
+    prefetch_sass([_build.library_path(src) for src in (
+        "attention_tiled", "attention_fused", "attention_block_mma",
+        "ffn_block_mma", "attention_block_tf32x3", "ffn_block_tf32x3",
+        *PROBE_MMA_KERNELS, *B10_SOURCES)])
     # B4's and B5's kernels, bf16 and (3xTF32) fp32, and all of B1's and
     # B2's tensor-core routes run on the tensor cores: each holds HMMA, and
     # the two attention sources hold no other kernel (no SIMT one is left)
@@ -1859,6 +1960,45 @@ def main() -> int:
         print(f"HMMA: all {len(mma_kernels)} tensor-core {marker} kernels "
               f"of {src} ({what}) hold HMMA; the others "
               f"{sorted(simt.values())}")
+    # X2's and X3's tensor-core sources: every x2_* and variant_* kernel
+    # holds bf16 HMMA and no other (the headers' split reduction holds
+    # none). In the probes' classes X2 and X3's LN + QKV spill nothing, and
+    # each X3 attention kernel at d_k 32 no more than B1's own kernel of
+    # that class and alignment, whose body it runs (4 bytes where head rows
+    # are aligned, at the 128 registers ptxas gives both)
+    b1_props = ptxas_properties(_build.log_path("attention_block_mma"))
+
+    def b1_spill(aligned: bool) -> int:
+        tag32 = f"b1_attn_out_mma_kernelILi32ELb{int(aligned)}E"
+        return spill_bytes(next(line for f, line in b1_props.items()
+                                if tag32 in f))
+
+    for src, n_kernels in PROBE_MMA_KERNELS.items():
+        marker = "x2_" if src.startswith("boundary") else "variant_"
+        hmma = hmma_counts(_build.library_path(src), marker)
+        bf16 = hmma_counts(_build.library_path(src), marker, BF16_HMMA)
+        for kname, n in sorted(hmma.items()):
+            print(f"  {src}: {n} HMMA, {bf16[kname]} of them bf16, in "
+                  f"{kname}")
+        assert len(hmma) == n_kernels and all(
+            0 < bf16[k] == hmma[k] for k in hmma), (src, hmma, bf16)
+        props = ptxas_properties(_build.log_path(src))
+        over = {}
+        for f, line in props.items():
+            if spill_bytes(line):
+                print(f"  {src} spills: {f[:160]}: {line}")
+            if "x2_" in f or "ln_qkv" in f:
+                allowed = 0
+            elif "ILi32ELb" in f:
+                allowed = b1_spill("ILi32ELb1" in f)
+            else:
+                continue
+            if spill_bytes(line) > allowed:
+                over[f] = line
+        assert not over, (src, over)
+        print(f"HMMA: all {n_kernels} {marker}* kernels of {src} hold bf16 "
+              f"HMMA only; ptxas: in the probes' class no spill beyond B1's "
+              f"own body's")
     # B1's and B2's fp32 routes: every product a TF32 one (3xTF32), in every
     # b1_*_tf32x3_kernel and b2_*_tf32x3_kernel; no other kernel of the two
     # sources (the split reductions) holds any
@@ -1912,6 +2052,9 @@ def main() -> int:
               f"functions spill")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _SASS.clear()
+    phase_ok("phase 1 ok: every source built; every tensor-core kernel holds "
+             "HMMA of its kind")
     gen = torch.Generator().manual_seed(1234)
     errs = {}
 
@@ -1955,7 +2098,7 @@ def main() -> int:
             print(f"B1 ({way}) vs plain d={d} h={h} (d_k {d // h}) {dtype} "
                   f"at L in (1, 65, 240, 1024): max_abs_err {worst:.3e} (tol "
                   f"{KERNEL_TOL[dtype]})")
-    print("phase 2 ok: attention sublayer kernel matches its plain version")
+    phase_ok("phase 2 ok: attention sublayer kernel matches its plain version")
 
     # -- 3: B2 against its plain version --------------------------------------
     cases = [(B, L, 128, 512), (B, L, 144, 512), (B, L, 96, 384),
@@ -1990,7 +2133,7 @@ def main() -> int:
             print(f"B2 ({way}) vs plain d={d} d_ff={d_ff} {dtype} at L in "
                   f"(1, 65, 240, 1024): max_abs_err {worst:.3e} (tol "
                   f"{KERNEL_TOL[dtype]})")
-    print("phase 3 ok: FFN sublayer kernel matches its plain version")
+    phase_ok("phase 3 ok: FFN sublayer kernel matches its plain version")
 
     # -- 4: the flagship scorer and ranker -------------------------------------
     gpu_model = flagship_model(dev)
@@ -2046,7 +2189,7 @@ def main() -> int:
           f"(tol {SCORE_TOL}); bf16 vs fp32: {err16:.3e} (tol "
           f"{BF16_SCORE_TOL} x max|score| {scale:.3f}); ranker order equal "
           f"to the CPU's but for {n_tie_swaps} positions inside ties")
-    print("phase 4 ok: flagship scorer and ranker on the GPU match the CPU")
+    phase_ok("phase 4 ok: flagship scorer and ranker on the GPU match the CPU")
 
     # -- 5: the service, the main path ------------------------------------------
     service = SlateScoringService(gpu_model, L, N_FEATURES, batch_size=64,
@@ -2110,7 +2253,7 @@ def main() -> int:
         server.server_close()
         service.close()
     server_thread.join(timeout=10)
-    print("phase 5 ok: service answers on the GPU and matches the scorer")
+    phase_ok("phase 5 ok: service answers on the GPU and matches the scorer")
 
     # -- 6: times ------------------------------------------------------------
     # each route of B1 and B2: fp32 on its 3xTF32 kernels (the route) and on
@@ -2320,8 +2463,8 @@ def main() -> int:
               f"tolerance {[round(c[0], 3) for c in c5]}, gate flips "
               f"{[c[1] for c in c5]}, replayed {max(c[2] for c in c5):.3f} "
               f"(ok)")
-    print("phase 7 ok: B1 and B2 backward kernels (and the forwards at "
-          "p=0.3 and 0.4) match their plain versions, masks bit-identical")
+    phase_ok("phase 7 ok: B1 and B2 backward kernels (and the forwards at "
+             "p=0.3 and 0.4) match their plain versions, masks bit-identical")
 
     # -- 8: B3 against its plain version -----------------------------------------
     b3_errs = {"lambda_pairs_fwd": 0.0, "lambda_pairs_bwd": 0.0}
@@ -2354,8 +2497,8 @@ def main() -> int:
           f"ok; at L={L} ndcgLoss2PP max_abs_err loss "
           f"{b3_errs['lambda_pairs_fwd']:.3e}, grad "
           f"{b3_errs['lambda_pairs_bwd']:.3e}")
-    print("phase 8 ok: lambdaLoss pair-chain kernels match their plain "
-          "versions")
+    phase_ok("phase 8 ok: lambdaLoss pair-chain kernels match their plain "
+             "versions")
 
     # -- 9: the train step, the second main path ---------------------------------
     train_kernels = (attention_sublayer_fwd, attention_sublayer_bwd,
@@ -2408,8 +2551,9 @@ def main() -> int:
           f"tolerance ({STEP_GRAD_TOL} x its tensor's max + 1e-5 x the "
           f"largest gradient), FFN units with a ReLU gate flipped per block "
           f"(held out, replayed) {flips9}")
-    print("phase 9 ok: the paper-config train step runs on the card through "
-          "every kernel and learns; it matches the CPU at dropout 0")
+    phase_ok("phase 9 ok: "
+             "the paper-config train step runs on the card through "
+             "every kernel and learns; it matches the CPU at dropout 0")
 
     # -- 10: times of the train step and the new kernels ---------------------
     step_ms = {}
@@ -2574,7 +2718,7 @@ def main() -> int:
                   f"{g_err:.3e} of max|ref| {rel_err(ds, ref_ds)[1]:.3e} "
                   f"(tol {SOFT_GRAD_TOL[0]:g} x)")
             del ref, ref_a, ref_b, ref_ds
-    print("phase 11 ok: fused soft-sort kernels match their plain versions")
+    phase_ok("phase 11 ok: fused soft-sort kernels match their plain versions")
 
     # -- 12: B7 against its plain version -------------------------------------
     n7, l7 = 8, 640
@@ -2599,7 +2743,7 @@ def main() -> int:
           f"{sink_errs['sinkhorn_fwd']:.3e} (tol {SOFT_TOL}), dM0 "
           f"{sink_errs['sinkhorn_bwd']:.3e} (tol {SOFT_GRAD_TOL[0]:g} x "
           f"max|ref|)")
-    print("phase 12 ok: Sinkhorn kernels match their plain versions")
+    phase_ok("phase 12 ok: Sinkhorn kernels match their plain versions")
 
     # -- 13: the train CLI, the third main path -------------------------------
     all_kernels = train_kernels + (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd,
@@ -2760,8 +2904,9 @@ def main() -> int:
           f"CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
           f"{step_err:.3f} of its tolerance, gates flipped per block "
           f"{flips13}")
-    print("phase 13 ok: the train CLI runs both recipes on the card through "
-          "every kernel; the long-slate step runs the Sinkhorn kernel")
+    phase_ok("phase 13 ok: "
+             "the train CLI runs both recipes on the card through "
+             "every kernel; the long-slate step runs the Sinkhorn kernel")
 
     # -- 14: times of the new kernels and the NeuralNDCG step -----------------
     ms = median_ms(lambda: nstep(xb, yb, ib), iters=20, warmup=3)
@@ -2807,16 +2952,24 @@ def main() -> int:
              n7 * (3 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}")):
         ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
                                 for fn in fns + (lib_fn,))
+        # the kernel and the library on one clock, the device's
+        dev_ms = graph_ms(fns[0])
+        lib_dev_ms = library_device_ms(lib_fn, kernel_name.endswith("_bwd"))
         bound_ms, bound_by = bound(flops, moved, torch.float32)
         rows.append({"name": kernel_name, "route": "cuda",
                      "max_abs_err": {**soft_errs, **sink_errs}[kernel_name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "gflop": flops / 1e9, "mbytes": moved / 1e6})
-        print(f"time {kernel_name} float32 {shape}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (torch-op chain, autograd) "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-              f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB) {tag}")
+        lib_txt = ("not measured" if lib_dev_ms is None
+                   else f"{lib_dev_ms:.4f} ms")
+        print(f"time {kernel_name} float32 {shape}: kernel {ms:.4f} ms "
+              f"({dev_ms:.4f} ms of device time, 20 calls in one CUDA "
+              f"graph), plain {plain_ms:.4f} ms, library (torch-op chain, "
+              f"autograd) {lib_ms:.4f} ms ({lib_txt} of device time), bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{moved / 1e6:.3f} MB) {tag}")
 
     # -- 15: B9 against its plain version ---------------------------------------
     eps = 1e-10
@@ -2859,8 +3012,8 @@ def main() -> int:
                   f"{g_err:.3e} of max|ref| {g_scale:.3e} (tol "
                   f"{B9_GRAD_TOL[0]:g} x)")
         del ref, ref_ds
-    print("phase 15 ok: approxNDCG rank-sum kernels match their plain "
-          "versions")
+    phase_ok("phase 15 ok: approxNDCG rank-sum kernels match their plain "
+             "versions")
 
     # -- 16: B6 against its plain version and against B3 -----------------------
     def pair_inputs(b, k):
@@ -2924,8 +3077,8 @@ def main() -> int:
              lambda_pairs_bwd(*pair_args, gout, **kw)), ("B6 vs B3", scheme))
     print(f"B6 vs B3 at B={B} k=384, 8 schemes: loss sums, counts and "
           f"gradients agree (tol {B3_VALUE_TOL}, grad rtol {B3_GRAD_RTOL})")
-    print("phase 16 ok: row-tiled lambdaLoss kernels match their plain "
-          "versions and the one-block kernels")
+    phase_ok("phase 16 ok: row-tiled lambdaLoss kernels match their plain "
+             "versions and the one-block kernels")
 
     # -- 17: the train CLI on the five other recipes ------------------------------
     recipe_launches = {}
@@ -2952,8 +3105,9 @@ def main() -> int:
               f"{result['val_metrics']['ndcg_5']:.4f}; launches "
               f"{ {k: v for k, v in recipe_launches[run_id].items() if v} } "
               f"{tag}")
-    print("phase 17 ok: all seven paper recipes train through the CLI on the "
-          "card with exact launch counts")
+    phase_ok("phase 17 ok: "
+             "all seven paper recipes train through the CLI on the "
+             "card with exact launch counts")
 
     # -- 18: one train step of each other loss name ------------------------------
     for loss_name, loss_args in OTHER_LOSSES:
@@ -2973,8 +3127,9 @@ def main() -> int:
               f"fp32, GPU vs CPU plain: loss {gl:.6f} vs {cl:.6f}, worst "
               f"gradient error {worst:.3f} of its tolerance, gates flipped "
               f"per block {flips18}")
-    print("phase 18 ok: every loss name takes a train step on the card that "
-          "matches the CPU")
+    phase_ok("phase 18 ok: "
+             "every loss name takes a train step on the card that "
+             "matches the CPU")
 
     # -- 19: the long-slate lambdaLoss step ---------------------------------------
     lcfg, lmodel = paper_setup(dev)
@@ -3007,8 +3162,8 @@ def main() -> int:
     print(f"long-slate train step 1 at dropout 0, fp32, B=4 L={LONG_L}, GPU "
           f"vs CPU plain: loss {gl:.6f} vs {cl:.6f}; worst gradient error "
           f"{worst:.3f} of its tolerance, gates flipped per block {flips19}")
-    print("phase 19 ok: lambdaLoss trains at L=1024 through the row-tiled "
-          "kernel and matches the CPU")
+    phase_ok("phase 19 ok: lambdaLoss trains at L=1024 through the row-tiled "
+             "kernel and matches the CPU")
 
     # -- 20: times of the new kernels and steps -------------------------------
     acfg, amodel = paper_setup(dev, config=CONFIG_DIR + OTHER_RECIPES[0][0])
@@ -3085,7 +3240,7 @@ def main() -> int:
                 b6_rows[row["name"]].update({
                     f"{key}_b64_k512": row[key]
                     for key in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                "library_ms")})
+                                "library_ms", "library_device_ms")})
         del lib
     rows.extend(b6_rows.values())
 
@@ -3120,9 +3275,10 @@ def main() -> int:
     def attention_pair(kind, args, p, seed, one_key=False):
         """One kernel forward and backward against the plain versions on
         the same inputs; returns (max abs err of out, of the gradients).
-        ``one_key`` (fp32 at L = 1): dq and dk are 0 in exact arithmetic
-        and held to exactly 0, not to the plain version, whose own fp32
-        noise there reaches the absolute tolerance (ROADMAP Queue C6)."""
+        ``one_key`` (fp32 at L = 1): dq and dk are 0 in exact arithmetic;
+        the kernel's and the plain version's (which takes D in dP's order
+        in fp32, ROADMAP Queue C6) are held to exactly 0, and to each other
+        under BWD_TOL as every gradient is."""
         q, k, v, mask, do = args
         dtype = q.dtype
         if kind == "fused":
@@ -3153,8 +3309,8 @@ def main() -> int:
         for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
             assert torch.isfinite(g.float()).all(), (kind, name)
             if one_key and name != "dv":
-                assert not g.any(), (kind, name, tuple(q.shape), p)
-                continue
+                assert not g.any() and not r.any(), (kind, name,
+                                                     tuple(q.shape), p)
             err, scale = rel_err(g, r)
             assert err <= rtol * scale + atol, (
                 f"{kind} {name} {tuple(q.shape)} {dtype} p={p}: {err} > "
@@ -3301,8 +3457,8 @@ def main() -> int:
                   f"d=128 h=4 p=0.3, same seeds: max_abs_err y "
                   f"{rel_err(y, y1)[0]:.3e}, worst gradient {worst:.2e} of "
                   f"its tensor's max|ref|")
-    print("phase 21 ok: B4 and B5 match their plain versions forward and "
-          "backward, and the split block matches the B1 sublayer")
+    phase_ok("phase 21 ok: B4 and B5 match their plain versions forward and "
+             "backward, and the split block matches the B1 sublayer")
 
     # -- 22: long-slate serving ------------------------------------------------
     serve_b, serve_l = 4, 8192
@@ -3379,7 +3535,7 @@ def main() -> int:
         service.close()
     print(f"service with slate_length={serve_l}: one 7000-document request "
           f"answered, equal to the direct scorer")
-    print("phase 22 ok: the scorer serves B=4 slates of L=8192 through B5")
+    phase_ok("phase 22 ok: the scorer serves B=4 slates of L=8192 through B5")
 
     # -- 23: long-slate training -------------------------------------------------
     long_runs = {}
@@ -3432,8 +3588,9 @@ def main() -> int:
               f"{flips} (at most {GATE_FLIPS_MAX}); B4/B5 by route "
               f"{ {k: v for k, v in routes.items() if any(v.values())} } "
               f"({time.perf_counter() - t0:.1f} s)")
-    print("phase 23 ok: the paper config trains at L=4096 through B5 and at "
-          "L=1200 through B4, and matches the CPU")
+    phase_ok("phase 23 ok: "
+             "the paper config trains at L=4096 through B5 and at "
+             "L=1200 through B4, and matches the CPU")
 
     # -- 24: times of B4 and B5, and the long steps -----------------------------
     # B5 in fp32 and bf16 at p = 0 beside its plain version and the library
@@ -3763,7 +3920,7 @@ def main() -> int:
           f"and bf16 x, static (one multiplier and [K]) and dynamic, .5 ties "
           f"and a zero row: {len(q8_errs)} launches, max_abs_err "
           f"{max(q8_errs)}")
-    print("phase 25 ok: X1 is its plain version bit for bit")
+    phase_ok("phase 25 ok: X1 is its plain version bit for bit")
 
     # -- 26: int8 serving, the fourth main path ----------------------------------
     from allrank_tpu_torch.evaluate import run as evaluate_run
@@ -3960,8 +4117,8 @@ def main() -> int:
     print(f"evaluate's act_scales.json ({len(neural_scales)} sites) serves: "
           f"val ndcg_5 {ndcg_q8:.4f} int8_static vs {ndcg_float:.4f} float")
     work.cleanup()
-    print("phase 26 ok: int8 serving through make_scorer, the service and "
-          "evaluate --quantize on the card")
+    phase_ok("phase 26 ok: int8 serving through make_scorer, the service and "
+             "evaluate --quantize on the card")
 
     # -- 27: times of X1, the int8 scorers and the service -----------------------
     q8_sites = {}
@@ -4151,8 +4308,9 @@ def main() -> int:
               f"{chain_share:.4f}; ratio {b10_share / chain_share:.3f} (C4 "
               f"settled if <= {C4_RATIO}: "
               f"{'yes' if b10_share <= C4_RATIO * chain_share else 'no'})")
-    print("phase 28 ok: B10 matches the chained B1/B2 kernels, and its plain "
-          "version as closely as they do, forward and backward")
+    phase_ok("phase 28 ok: "
+             "B10 matches the chained B1/B2 kernels, and its plain "
+             "version as closely as they do, forward and backward")
 
     # -- 29: the encoder with the switch on: scorer, service, train step ----
     enc_kernels = (encoder_block_fwd, encoder_block_bwd,
@@ -4290,8 +4448,9 @@ def main() -> int:
               f"{GATE_FLIPS_MAX})")
     finally:
         transformer_mod.MEGA_ENCODER_ENABLED = False
-    print("phase 29 ok: with the switch on, the scorer, the service and the "
-          "paper-config train step run through B10 alone and match")
+    phase_ok("phase 29 ok: "
+             "with the switch on, the scorer, the service and the "
+             "paper-config train step run through B10 alone and match")
 
     # -- 30: times of B10, its yardsticks, and the switch's A/B -------------
     eb, el, ed, eh, eff, en = ENCODER_CASES[0]
@@ -4417,8 +4576,9 @@ def main() -> int:
     t31 = time.perf_counter()
     tol16 = KERNEL_TOL[torch.bfloat16]
     x2_errs = {"boundary_plain": 0.0, "boundary_shift": 0.0}
-    for b, l in ((B, L), (3, 37), (1, 1)):
-        x, pre, w1, w2, w1n = x2_inputs(gen, b, l, dev)
+    f32 = dict(device=dev, dtype=torch.float32)
+    for b, l, d2, d3 in X2_CASES:
+        x, pre, w1, w2, w1n = x2_inputs(gen, b, l, dev, d=d2, d3=d3)
         before = (boundary_plain.launches, boundary_shift.launches)
         y = boundary_plain(x, w1, w2)
         out, pre_out = boundary_shift(x, pre, w2, w1n)
@@ -4437,9 +4597,18 @@ def main() -> int:
                 case_errs[name] = max(case_errs.get(name, 0.0), rel_err(
                     got.float(), ref.float())[0])
                 x2_errs[name] = max(x2_errs[name], case_errs[name])
-        print(f"X2 vs plain B={b} L={l} d=128 d3=384 bf16: max_abs_err plain "
-              f"{case_errs['boundary_plain']:.3e}, shifted (out and pre_out) "
-              f"{case_errs['boundary_shift']:.3e} (tol {tol16})")
+        # the plain kernel is B2's bf16 forward tile at unit gain and zero
+        # biases: ffn_sublayer_fwd's bits on the same values
+        b2_y = ffn_sublayer_fwd(x, torch.ones(d2, **f32),
+                                torch.zeros(d2, **f32), w1.float(),
+                                torch.zeros(d3, **f32), w2.float(),
+                                torch.zeros(d2, **f32))
+        assert torch.equal(y, b2_y), ("X2 plain is not B2's forward", b, l,
+                                      d2, d3)
+        print(f"X2 vs plain B={b} L={l} d={d2} d3={d3} bf16: max_abs_err "
+              f"plain {case_errs['boundary_plain']:.3e}, shifted (out and "
+              f"pre_out) {case_errs['boundary_shift']:.3e} (tol {tol16}); "
+              f"plain equal to B2's bf16 forward bit for bit")
     # the probe's own run at its default shape: the launches of its path
     boundary_plain.launches = boundary_shift.launches = 0
     x2_res = x2_tool.main([])
@@ -4447,7 +4616,8 @@ def main() -> int:
                    "boundary_shift": boundary_shift.launches}
     print(f"X2 probe launches {x2_launches}; per-boundary tax (us): "
           + ", ".join(f"{m} plain {r['tax_plain_us']:.2f} shifted "
-                      f"{r['tax_shift_us']:.2f}" for m, r in x2_res.items())
+                      f"{r['tax_shift_us']:.2f} ({r['verdict']})"
+                      for m, r in x2_res.items())
           + f" {tag}")
     x, pre, w1, w2, w1n = x2_inputs(gen, B, L, dev)
     m2 = B * L
@@ -4463,119 +4633,208 @@ def main() -> int:
               lambda: x2_library(x, pre, w1n, w2, True)),
              2 * nbytes(x, pre) + nbytes(w1n, w2))):
         flops = 2 * 2 * m2 * 128 * 384
-        ms = graph_ms(fns[0])
-        plain_ms, lib_ms = (median_ms(fn, iters=20) for fn in fns[1:])
+        ms, lib_dev_ms = graph_ms(fns[0]), graph_ms(fns[2])
+        call_ms, plain_ms, lib_ms = (median_ms(fn, iters=20) for fn in fns)
         bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
         rows.append({"name": name, "route": "cuda",
                      "max_abs_err": x2_errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "call_ms": call_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "gflop": flops / 1e9, "mbytes": moved / 1e6,
                      "probe": x2_res})
         print(f"time {name} bf16 B={B} L={L} d=128 d3=384: kernel {ms:.4f} "
-              f"ms of device time (20 calls in one CUDA graph), plain "
-              f"{plain_ms:.4f} ms, library (std-LN ops, bf16 torch.matmul, "
-              f"relu) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"ms of device time (20 calls in one CUDA graph; one "
+              f"event-timed call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"library (std-LN ops, bf16 torch.matmul, relu) "
+              f"{lib_dev_ms:.4f} ms of device time (one event-timed call "
+              f"{lib_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}: "
               f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB) {tag}")
     del x, pre, w1, w2, w1n
-    print(f"phase 31 ok: X2 matches its plain versions; the boundary probe "
-          f"ran ({time.perf_counter() - t31:.1f} s)")
+    phase_ok(f"phase 31 ok: X2 matches its plain versions; the boundary probe "
+             f"ran ({time.perf_counter() - t31:.1f} s)")
 
     # -- 32: X3, the attention variants ---------------------------------------
+    from allrank_tpu_torch.ops.attention_variants import MMA_LIBRARIES
     from allrank_tpu_torch.ops.attention_variants import (
         MODES,
         attention_variant_fwd,
         attention_variant_fwd_plain,
     )
+    from allrank_tpu_torch.ops.attention_variants import ROUTES as X3_ROUTES
+    from allrank_tpu_torch.ops.attention_variants import (
+        launch_fwd as x3_launch_fwd,
+    )
+    from allrank_tpu_torch.ops.attention_variants import qkv_plain
+    from allrank_tpu_torch.ops.attention_variants import route as x3_route
     from allrank_tpu_torch.tools import exp_attn_decompose as x3_tool
 
     t32 = time.perf_counter()
-    d3h = (128, 4)
-    args32 = attn_inputs(gen, B, L, d3h[0], torch.bfloat16, dev)
-    x0_32, mask0_32, plist32 = x3_tool.inputs(B, L, dev)
-    x3_errs = dict.fromkeys(MODES, 0.0)
-    x3_scaled_err = None  # no_softmax on ragged keys, held to its scale
-    for mode in MODES:
-        # the probe's own inputs (no padded key), then ragged keys with one
-        # empty slate
-        for label, args in (("the probe's inputs", [x0_32, mask0_32]
-                             + list(plist32[0])),
-                            ("ragged keys, one empty slate", args32)):
-            before = attention_variant_fwd.launches[mode]
-            y = attention_variant_fwd(*args, d3h[1], mode=mode)
-            torch.cuda.synchronize()
-            assert attention_variant_fwd.launches[mode] == before + 1, mode
-            ref = attention_variant_fwd_plain(*args, d3h[1], mode=mode)
-            assert y.dtype == ref.dtype and y.shape == ref.shape
-            assert torch.isfinite(y.float()).all(), mode
-            err, scale = rel_err(y, ref)
-            if mode == "no_softmax" and args is args32:
-                # padded keys enter P.V with weight -1e9 x 0.001: ctx
-                # reaches 1e6-1e7 and the out-projection's sums cancel, so
-                # a one-ulp flip of a bf16 ctx value moves y by up to an ulp
-                # of that scale; held relative to the output's largest value
-                assert err <= tol16["rtol"] * scale, (mode, err, scale)
-                msg = f" (tol {tol16['rtol']:g} x max|ref| {scale:.3e})"
-                x3_scaled_err = (err, scale)
-            else:
-                torch.testing.assert_close(y.float(), ref.float(), **tol16)
-                msg = f" (tol {tol16})"
-                x3_errs[mode] = max(x3_errs[mode], err)
-            if mode == "full":
-                # B1's SIMT body, bit for bit; B1's bf16 route within tol16
-                assert torch.equal(y, b1_launch_fwd("simt", *args, d3h[1])), (
-                    "X3 full is not B1's SIMT forward")
-                b1_y = attention_sublayer_fwd(*args, d3h[1])
-                torch.testing.assert_close(y.float(), b1_y.float(), **tol16)
-                msg += (f"; equal to B1's SIMT forward bit for bit, within "
-                        f"{tol16} of B1's tensor-core forward (max_abs_err "
-                        f"{rel_err(y, b1_y)[0]:.3e})")
-            print(f"X3 [{mode}] vs plain B={B} L={L} d=128 h=4 bf16 "
-                  f"({label}): max_abs_err {err:.3e}{msg}")
-    attention_variant_fwd.launches = dict.fromkeys(MODES, 0)
-    attention_sublayer_fwd.launches = attention_sublayer_bwd.launches = 0
-    x3_res = x3_tool.main([])
-    x3_launches = dict(attention_variant_fwd.launches)
-    assert attention_sublayer_fwd.launches and attention_sublayer_bwd.launches
-    print(f"X3 probe launches {x3_launches}; stages (us) "
-          f"{json.dumps(x3_res['stages_us'])} {tag}")
-    xx, mask32 = args32[:2]
-    lib_args32 = [xx, torch.zeros(B, 1, 1, L, dtype=xx.dtype,
-                                  device=dev).masked_fill(
-        mask32[:, None, None, :], -1e9)] + [
-        p.to(torch.bfloat16) for p in args32[2:]] + [d3h[1]]
-    for mode in MODES:
-        ms = graph_ms(lambda m=mode: attention_variant_fwd(*args32, d3h[1],
-                                                           mode=m))
-        plain_ms = median_ms(lambda m=mode: attention_variant_fwd_plain(
-            *args32, d3h[1], mode=m), iters=20)
-        lib_ms = (median_ms(lambda: b1_library(*lib_args32), iters=20)
-                  if mode == "full" else None)
-        flops, moved = x3_work(B, L, d3h[0], d3h[1], mode)
-        bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
-        row = {"name": f"attention_variant_{mode}", "route": "cuda",
-               "max_abs_err": x3_errs[mode], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms, "gflop": flops / 1e9,
-               "mbytes": moved / 1e6,
-               "probe_us": x3_res["modes_us"][mode]}
-        if lib_ms is None:
-            row["library_note"] = ("none: the mode changes a stage on "
-                                   "purpose, no library call computes it")
+    x3_errs = {(way, mode): 0.0 for way in X3_ROUTES for mode in MODES}
+    # no_softmax's padded rows by route: the worst (err, the row's max|ref|)
+    x3_scaled_err = {}
+
+    def x3_check(args, h, mode, way, label):
+        """One call of ``mode`` on route ``way`` against the plain version;
+        ``full`` against B1's forward: bit for bit on B1's own route."""
+        d = args[0].shape[-1]
+        by_route = way == x3_route(d, h)
+        before = (attention_variant_fwd.launches[mode],
+                  dict(attention_variant_fwd.route_launches))
+        y = (attention_variant_fwd(*args, h, mode=mode) if by_route
+             else x3_launch_fwd(way, *args, h, mode=mode))
+        torch.cuda.synchronize()
+        assert attention_variant_fwd.launches[mode] == before[0] + 1, mode
+        assert attention_variant_fwd.route_launches[way] == (
+            before[1][way] + 1), (mode, way)
+        if mode in X3_QKV_REPLAY:
+            # LN + QKV held to the plain's; the rest to the plain version
+            # replaying the kernel's own qkv
+            y2, kqkv = x3_launch_fwd(way, *args, h, mode=mode,
+                                     return_qkv=True)
+            assert torch.equal(y2, y), (mode, way)
+            torch.testing.assert_close(
+                kqkv.float(), qkv_plain(args[0], *args[2:6]).float(), **tol16)
+            ref = attention_variant_fwd_plain(*args, h, mode=mode, qkv=kqkv)
+        else:
+            ref = attention_variant_fwd_plain(*args, h, mode=mode)
+        assert y.dtype == ref.dtype and y.shape == ref.shape
+        assert torch.isfinite(y.float()).all(), mode
+        err = rel_err(y, ref)[0]
         if mode == "no_softmax":
-            row["max_abs_err_ragged_keys"], row["max_abs_ref_ragged_keys"] = (
-                x3_scaled_err)
-        rows.append(row)
-        print(f"time attention_variant_{mode} bf16 B={B} L={L} d=128 h=4: "
-              f"kernel {ms:.4f} ms of device time (20 calls in one CUDA "
-              f"graph), plain {plain_ms:.4f} ms, library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-              f"{moved / 1e6:.2f} MB) {tag}")
-    del args32, lib_args32, xx, mask32
-    print(f"phase 32 ok: X3 matches its plain versions in all six modes and "
-          f"B1 in full; the decomposition probe ran "
-          f"({time.perf_counter() - t32:.1f} s)")
+            err_full, worst = no_softmax_close(y, ref, args[1], tol16)
+            msg = f" (unpadded slates' rows: {err_full:.3e}, tol {tol16}"
+            if worst is not None:
+                msg += (f"; padded slates' worst row {worst[0]:.3e}, tol "
+                        f"{tol16['rtol']:g} x its max|ref| {worst[1]:.3e}")
+                prev = x3_scaled_err.get(way)
+                if prev is None or worst[0] / worst[1] > prev[0] / prev[1]:
+                    x3_scaled_err[way] = worst
+            msg += ")"
+            x3_errs[(way, mode)] = max(x3_errs[(way, mode)], err_full)
+        else:
+            torch.testing.assert_close(y.float(), ref.float(), **tol16)
+            msg = f" (tol {tol16})"
+            x3_errs[(way, mode)] = max(x3_errs[(way, mode)], err)
+        if mode == "full":
+            b1_way = b1_route(torch.bfloat16, d, h)
+            b1_y = b1_launch_fwd(way, *args, h)
+            assert torch.equal(y, b1_y), (f"X3 full is not B1's {way} "
+                                          f"forward", label)
+            msg += f"; equal to B1's {way} forward bit for bit"
+            if way == b1_way:
+                assert torch.equal(y, attention_sublayer_fwd(*args, h))
+                msg += " (B1's route)"
+        print(f"X3 [{mode}] ({way}) vs plain B={args[0].shape[0]} "
+              f"L={args[0].shape[1]} d={d} h={h} bf16 ({label}): "
+              f"max_abs_err {err:.3e}{msg}")
+
+    x0_32, mask0_32, plist32 = x3_tool.inputs(B, L, dev)
+    cases32 = [("the probe's inputs", [x0_32, mask0_32] + list(plist32[0]),
+                4),
+               ("ragged keys, one empty slate",
+                attn_inputs(gen, B, L, 128, torch.bfloat16, dev), 4)]
+    # every tensor-core instantiation: the three head classes, head rows on
+    # and off a 16-byte boundary; then B1's SIMT route (d_k 256); each
+    # ragged and with no key padded
+    for d, h in X3_MMA_WIDTHS + [(256, 1)]:
+        args = attn_inputs(gen, 8, max(L, d // h), d, torch.bfloat16, dev)
+        cases32 += [(f"d_k {d // h}, ragged keys, one empty slate", args, h),
+                    (f"d_k {d // h}, no padded key",
+                     [args[0], torch.zeros_like(args[1])] + args[2:], h)]
+    for label, args, h in cases32:
+        for mode in MODES:
+            x3_check(args, h, mode, x3_route(args[0].shape[-1], h), label)
+    # the SIMT kernels by name at the probe's width
+    for label, args, h in cases32[:2]:
+        for mode in MODES:
+            x3_check(args, h, mode, "simt", f"by name, {label}")
+    del cases32
+    # the probe's own runs: at its default shape (the tensor cores), at
+    # B1's costliest slate length, and at d_k 256 (the SIMT units; no_pv
+    # needs L >= d_k); each one's launches by route
+    x3_res, x3_launches = {}, {}
+    for key, argv in (("mma", []), ("long", ["16", "1024"]),
+                      ("simt", ["8", "256", "--d", "256", "--h", "1"])):
+        attention_variant_fwd.launches = dict.fromkeys(MODES, 0)
+        attention_variant_fwd.route_launches = dict.fromkeys(X3_ROUTES, 0)
+        attention_sublayer_fwd.launches = attention_sublayer_bwd.launches = 0
+        x3_res[key] = x3_tool.main(argv)
+        routes32 = dict(attention_variant_fwd.route_launches)
+        way = "simt" if key == "simt" else "mma"
+        assert routes32[way] == sum(routes32.values()) > 0, (key, routes32)
+        assert attention_sublayer_fwd.launches and (
+            attention_sublayer_bwd.launches)
+        x3_launches[key] = dict(attention_variant_fwd.launches)
+        print(f"X3 probe {argv}: launches {x3_launches[key]} by route "
+              f"{routes32}; stages (us) "
+              f"{json.dumps(x3_res[key]['stages_us'])} {tag}")
+    # B1 where it costs most, (16, 1024): X3 full, B1's forward and its
+    # library on one clock
+    args_long = attn_inputs(gen, LONG_B, LONG_L, 128, torch.bfloat16, dev)
+    lib_long = library_args(args_long, 4)
+    x3_long = {"x3_full_ms": graph_ms(
+        lambda: attention_variant_fwd(*args_long, 4, mode="full")),
+        "b1_ms": graph_ms(lambda: attention_sublayer_fwd(*args_long, 4)),
+        "library_device_ms": graph_ms(lambda: b1_library(*lib_long)),
+        "library_ms": median_ms(lambda: b1_library(*lib_long), iters=20)}
+    print(f"time X3 full and B1 bf16 B={LONG_B} L={LONG_L} d=128 h=4, "
+          f"device ms: X3 full {x3_long['x3_full_ms']:.4f}, B1 "
+          f"{x3_long['b1_ms']:.4f}, library {x3_long['library_device_ms']:.4f}"
+          f" (one event-timed call {x3_long['library_ms']:.4f}) {tag}")
+    del args_long, lib_long
+    args32 = attn_inputs(gen, B, L, 128, torch.bfloat16, dev)
+    lib_args32 = library_args(args32, 4)
+    lib32 = {"library_device_ms": graph_ms(lambda: b1_library(*lib_args32)),
+             "library_ms": median_ms(lambda: b1_library(*lib_args32),
+                                     iters=20)}
+    for mode in MODES:
+        plain_ms = median_ms(lambda m=mode: attention_variant_fwd_plain(
+            *args32, 4, mode=m), iters=20)
+        flops, moved = x3_work(B, L, 128, 4, mode)
+        bound_ms, bound_by = bound(flops, moved, torch.bfloat16)
+        for way in X3_ROUTES:
+            def call(m=mode, w=way):
+                return x3_launch_fwd(w, *args32, 4, mode=m)
+
+            ms, call_ms = graph_ms(call), median_ms(call, iters=20)
+            name = f"attention_variant_{mode}" + (
+                "_mma" if way == "mma" else "")
+            row = {"name": name, "route": "cuda",
+                   "max_abs_err": x3_errs[(way, mode)], "ms": ms,
+                   "call_ms": call_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "library_device_ms": None,
+                   "gflop": flops / 1e9, "mbytes": moved / 1e6,
+                   "probe_us": x3_res["mma" if way == "mma" else "simt"][
+                       "modes_us"][mode]}
+            if mode == "full":
+                row.update(lib32)
+            else:
+                row["library_note"] = ("none: the mode changes a stage on "
+                                       "purpose, no library call computes "
+                                       "it")
+            if mode == "full" and way == "mma":
+                row["long_b16_l1024"] = x3_long
+                row["probe_long_us"] = x3_res["long"]["modes_us"]
+            if mode == "no_softmax" and way in x3_scaled_err:
+                # the padded slates' worst row, held to its own max|ref|
+                (row["max_abs_err_padded_row"],
+                 row["max_abs_ref_padded_row"]) = x3_scaled_err[way]
+            rows.append(row)
+            lib_txt = ("none" if row["library_device_ms"] is None else
+                       f"{row['library_device_ms']:.4f} ms of device time "
+                       f"(one event-timed call {row['library_ms']:.4f} ms)")
+            print(f"time {name} ({way}) bf16 B={B} L={L} d=128 h=4: kernel "
+                  f"{ms:.4f} ms of device time (20 calls in one CUDA graph; "
+                  f"one event-timed call {call_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, library {lib_txt}, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+                  f"{moved / 1e6:.2f} MB) {tag}")
+    del args32, lib_args32
+    phase_ok(f"phase 32 ok: X3 matches its plain versions in all six modes on "
+             f"both routes and is B1's forward in full; the decomposition "
+             f"probe ran at three shapes ({time.perf_counter() - t32:.1f} s)")
 
     # -- 33: X4, the soft-sort with its records on chip -----------------------
     from allrank_tpu_torch.ops.neuralsort_layout import (
@@ -4670,23 +4929,29 @@ def main() -> int:
         ms, b8_ms = graph_ms(fns[0]), graph_ms(b8_fn)
         plain_ms, lib_ms = (median_ms(fn, iters=10, warmup=2)
                             for fn in (fns[1], lib_fn))
+        lib_dev_ms = library_device_ms(lib_fn, name.endswith("_bwd"))
         bound_ms, bound_by = bound(flops, moved, torch.float32)
         rows.append({"name": name, "route": "cuda",
                      "max_abs_err": x4_errs[name], "ms": ms,
                      "b8_ms": b8_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms, "gflop": flops / 1e9,
-                     "mbytes": moved / 1e6, "probe": x4_res})
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                     "gflop": flops / 1e9, "mbytes": moved / 1e6,
+                     "probe": x4_res})
+        lib_txt = ("not measured" if lib_dev_ms is None
+                   else f"{lib_dev_ms:.4f} ms")
         print(f"time {name} float32 N={B} L={L}: kernel {ms:.4f} ms of "
               f"device time (20 calls in one CUDA graph), B8 {b8_ms:.4f} ms "
               f"likewise, plain {plain_ms:.4f} ms, library (torch-op chain"
               f"{', autograd' if name.endswith('bwd') else ''}) "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{lib_txt} of device time (one event-timed call "
+              f"{lib_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}: "
               f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB) {tag}")
     del sc, pad, vec, dout, a_hist, b_hist, lib, s0, pad0, vec0, cases33
     torch.cuda.empty_cache()
-    print(f"phase 33 ok: X4 is B8 bit for bit and matches the plain version; "
-          f"the layout probe ran ({time.perf_counter() - t33:.1f} s)")
+    phase_ok(f"phase 33 ok: "
+             f"X4 is B8 bit for bit and matches the plain version; "
+             f"the layout probe ran ({time.perf_counter() - t33:.1f} s)")
 
     # -- 34: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
@@ -4754,9 +5019,9 @@ def main() -> int:
                               "allrank_tpu/ops/encoder_block.py:302"),
         "encoder_block_bwd": ("allrank_tpu_torch/csrc/encoder_block.cuh",
                               "allrank_tpu/ops/encoder_block.py:333"),
-        "boundary_plain": ("allrank_tpu_torch/csrc/boundary_shift.cu",
+        "boundary_plain": ("allrank_tpu_torch/csrc/boundary_shift_mma.cu",
                            "tools/exp_boundary_shift.py:95"),
-        "boundary_shift": ("allrank_tpu_torch/csrc/boundary_shift.cu",
+        "boundary_shift": ("allrank_tpu_torch/csrc/boundary_shift_mma.cu",
                            "tools/exp_boundary_shift.py:102"),
         "layout_soft_sort_fwd": ("allrank_tpu_torch/csrc/neuralsort_layout.cu",
                                  "tools/exp_sinkhorn_layout.py:205"),
@@ -4765,6 +5030,9 @@ def main() -> int:
     for mode in MODES:
         origin[f"attention_variant_{mode}"] = (
             "allrank_tpu_torch/csrc/attention_variants.cu",
+            "tools/exp_attn_decompose.py:126")
+        origin[f"attention_variant_{mode}_mma"] = (
+            f"allrank_tpu_torch/csrc/{MMA_LIBRARIES[mode]}.cu",
             "tools/exp_attn_decompose.py:126")
     # each kernel's own main path: serving (phase 5) for the sublayer
     # forwards, the train step (phase 9) for their backwards and the pair
@@ -4820,10 +5088,15 @@ def main() -> int:
                 "allrank_tpu_torch/csrc/encoder_block_bf16.cuh"]
             row["launches_by_route_phase29"] = enc_routes[
                 row["name"][-3:]]
-    # X2, X3 and X4: their probes' own runs (phases 31-33)
+    # X2, X3 and X4: their probes' own runs (phases 31-33); X3's by route,
+    # the tensor cores at the default d_k 32, the SIMT units at d_k 256
     launches.update(x2_launches)
-    launches.update({f"attention_variant_{m}": n
-                     for m, n in x3_launches.items()})
+    for m in MODES:
+        launches[f"attention_variant_{m}_mma"] = x3_launches["mma"][m]
+        launches[f"attention_variant_{m}"] = x3_launches["simt"][m]
+        launch_source[f"attention_variant_{m}"] = (
+            "the X3 probe at B=8, L=256, d=256, h=1 (d_k > 128: B1's SIMT "
+            "route)")
     launches.update(x4_launches)
     # B4 and B5: their own long-slate steps (phase 23)
     for (b, l), (got, _, _) in long_runs.items():
@@ -4867,7 +5140,7 @@ def main() -> int:
                                                "ffn_sublayer_bwd"), name
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 39
+    assert len(rows) == 45
     print(f"profiler: {trace_kernels.lost} traces of this run lost device "
           f"events and were taken again {tag}")
     print(f"train step ms {json.dumps(step_ms)} {tag}")

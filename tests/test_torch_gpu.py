@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from allrank_tpu_torch.ops.approx_pos import (
     approx_pos_bwd,
     approx_pos_bwd_plain,
@@ -82,6 +83,13 @@ from allrank_tpu_torch.ops.attention_variants import (
     attention_variant_fwd,
     attention_variant_fwd_plain,
 )
+from allrank_tpu_torch.ops.attention_variants import (
+    launch_fwd as variant_launch_fwd,
+)
+from allrank_tpu_torch.ops.attention_variants import (
+    qkv_plain as variant_qkv_plain,
+)
+from allrank_tpu_torch.ops.attention_variants import route as variant_route
 from allrank_tpu_torch.ops.boundary_shift import (
     boundary_plain,
     boundary_plain_plain,
@@ -1187,14 +1195,17 @@ def test_f32_one_key_gradients_are_exactly_zero(cuda, kind, p):
     """Where a row has a single key (L = 1) dQ and dK are 0 in exact
     arithmetic; the fp32 kernels cancel dP - D exactly there (ROADMAP Queue
     C3), with and without dropout, so theirs are 0, at every head width
-    class; dV is the plain version's."""
+    class, and so are the plain versions' (Queue C6); every gradient is
+    also held to the plain version's."""
     for dk in (8, 36, 128):
         q, k, v, mask, do = _qkv_inputs(3, 2, 1, dk, torch.float32, cuda,
                                         dk + 7)
-        out, (dq, dk_, dv), ref, (_, _, ref_dv) = _attention_pair(
-            kind, q, k, v, mask, do, p, 21)
-        assert not dq.any() and not dk_.any(), (kind, dk, p)
-        _close(dv, ref_dv, torch.float32, f"{kind} dv")
+        out, grads, ref, ref_grads = _attention_pair(kind, q, k, v, mask, do,
+                                                     p, 21)
+        assert not grads[0].any() and not grads[1].any(), (kind, dk, p)
+        assert not ref_grads[0].any() and not ref_grads[1].any(), (kind, dk)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+            _close(g, r, torch.float32, f"{kind} {name}")
 
 
 @pytest.mark.parametrize("kind", ["fused", "tiled"])
@@ -1709,17 +1720,27 @@ def test_encoder_kernel_refuses_outside_its_envelope(cuda):
 
 # -- the probe kernels X2, X3, X4 ------------------------------------------------
 
-@pytest.mark.parametrize("b,l", [(64, 240), (3, 37), (1, 1)])
-def test_boundary_kernels_match_plain(cuda, b, l):
-    gen = torch.Generator().manual_seed(b + l)
+# X2's cases: the probe's widths at the flagship's rows, ragged and single
+# rows; then d and d3 off the tensor cores' 16 / 64 steps and the widest d
+# (two warps a row group)
+X2_CASES = [(64, 240, 128, 384), (3, 37, 128, 384), (1, 1, 128, 384),
+            (3, 37, 100, 200), (2, 50, 256, 1000), (1, 1, 256, 1000)]
+
+
+@pytest.mark.parametrize("b,l,d,d3", X2_CASES)
+def test_boundary_kernels_match_plain(cuda, b, l, d, d3):
+    """Both tensor-core kernels against their plain versions; the plain
+    kernel is B2's bf16 forward at unit gain and zero biases, bit for bit
+    ``ffn_sublayer_fwd`` on the same values."""
+    gen = torch.Generator().manual_seed(b + l + d)
 
     def r(*shape, scale):
         return (torch.randn(*shape, generator=gen) * scale).to(
             torch.bfloat16).to(cuda)
 
-    x, pre = r(b, l, 128, scale=0.5), r(b, l, 384, scale=0.5)
-    w1, w2, w1n = r(128, 384, scale=0.05), r(384, 128, scale=0.05), r(
-        128, 384, scale=0.05)
+    x, pre = r(b, l, d, scale=0.5), r(b, l, d3, scale=0.5)
+    w1, w2, w1n = r(d, d3, scale=0.05), r(d3, d, scale=0.05), r(
+        d, d3, scale=0.05)
     before = (boundary_plain.launches, boundary_shift.launches)
     y = boundary_plain(x, w1, w2)
     out, pre_out = boundary_shift(x, pre, w2, w1n)
@@ -1732,33 +1753,99 @@ def test_boundary_kernels_match_plain(cuda, b, l):
     ref_out, ref_pre = boundary_shift_plain(x, pre, w2, w1n)
     torch.testing.assert_close(out.float(), ref_out.float(), **tol)
     torch.testing.assert_close(pre_out.float(), ref_pre.float(), **tol)
+    f32 = dict(device=cuda, dtype=torch.float32)
+    b2 = ffn_sublayer_fwd(x, torch.ones(d, **f32), torch.zeros(d, **f32),
+                          w1.float(), torch.zeros(d3, **f32), w2.float(),
+                          torch.zeros(d, **f32))
+    assert torch.equal(y, b2), "X2 plain is not B2's bf16 forward"
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_attention_variants_match_plain(cuda, mode):
-    gen = torch.Generator().manual_seed(MODES.index(mode))
-    b, l, d, h = 8, 240, 128, 4
-    x = torch.randn(b, l, d, generator=gen).to(torch.bfloat16).to(cuda)
+# X3's tensor-core head classes (padded d_k 32, 64, 128), each with head
+# rows on a 16-byte boundary (d_k 32, 48, 128) and off it (20, 36, 100)
+X3_MMA_WIDTHS = [(128, 4), (80, 4), (96, 2), (144, 4), (256, 2), (100, 1)]
+
+
+def _variant_inputs(gen, b, l, d, dev, padded=True):
+    """x, the key mask (ragged with slate 0 full and the last one empty, or
+    with no key padded) and B1's parameters rounded to bf16 values."""
+    x = torch.randn(b, l, d, generator=gen).to(torch.bfloat16).to(dev)
     lengths = torch.randint(1, l + 1, (b,), generator=gen)
     lengths[0], lengths[-1] = l, 0
-    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(cuda)
+    if not padded:
+        lengths[:] = l
+    mask = (torch.arange(l)[None, :] >= lengths[:, None]).to(dev)
     params = _params(gen, [((d,), 1, 0.1), ((d,), 0, 0.1),
                            ((d, 3 * d), 0, d ** -0.5), ((3 * d,), 0, 0.1),
-                           ((d, d), 0, d ** -0.5), ((d,), 0, 0.1)], cuda)
-    params = [p.to(torch.bfloat16).float() for p in params]
-    before = attention_variant_fwd.launches[mode]
+                           ((d, d), 0, d ** -0.5), ((d,), 0, 0.1)], dev)
+    return x, mask, [p.to(torch.bfloat16).float() for p in params]
+
+
+def _variant_close(y, x, mask, params, h, mode, way):
+    """y against the plain version at bf16 2^-6; no_softmax element by
+    element in slates with no padded key and each row of the others within
+    2^-6 of its own largest value (``chip_smoke.no_softmax_close``: padded
+    keys weigh -1e9 x 0.001, ctx reaches 1e6-1e7 and the out-projection's
+    sums cancel, so a one-ulp flip of a bf16 ctx value moves y by up to an
+    ulp of that scale). no_pv
+    and frame carry q, k and v into ctx with no P.V to average them: their
+    qkv is held to the plain's, and y to the plain version replaying the
+    kernel's qkv (chip_smoke.X3_QKV_REPLAY)."""
+    tol = TOL[torch.bfloat16]
+    qkv = None
+    if mode in ("no_pv", "frame"):
+        y2, qkv = variant_launch_fwd(way, x, mask, *params, h, mode=mode,
+                                     return_qkv=True)
+        assert torch.equal(y2, y)
+        torch.testing.assert_close(
+            qkv.float(), variant_qkv_plain(x, *params[:4]).float(), **tol)
+    ref = attention_variant_fwd_plain(x, mask, *params, h, mode=mode,
+                                      qkv=qkv)
+    if mode == "no_softmax":
+        chip_smoke.no_softmax_close(y, ref, mask, tol)
+    else:
+        torch.testing.assert_close(y.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("padded", [True, False])
+@pytest.mark.parametrize("d,h", X3_MMA_WIDTHS + [(256, 1)])
+@pytest.mark.parametrize("mode", MODES)
+def test_attention_variants_match_plain(cuda, mode, d, h, padded):
+    """Every mode on B1's route at each head class, on ragged keys with one
+    full and one empty slate and with no key padded, against the plain
+    version; ``full`` is B1's forward bit for bit on B1's route (the tensor
+    cores at d_k <= 128, the SIMT units at (256, 1)); the launch is counted
+    under its route."""
+    gen = torch.Generator().manual_seed(MODES.index(mode) + d + h)
+    # no_pv needs L >= d_k
+    x, mask, params = _variant_inputs(gen, 8, max(240, d // h), d, cuda,
+                                      padded)
+    way = variant_route(d, h)
+    assert way == route(torch.bfloat16, d, h)
+    before = (attention_variant_fwd.launches[mode],
+              dict(attention_variant_fwd.route_launches))
     y = attention_variant_fwd(x, mask, *params, h, mode=mode)
     torch.cuda.synchronize()
-    assert attention_variant_fwd.launches[mode] == before + 1
-    torch.testing.assert_close(
-        y.float(), attention_variant_fwd_plain(x, mask, *params, h,
-                                               mode=mode).float(),
-        **TOL[torch.bfloat16])
-    if mode == "full":  # B1's SIMT body; B1's tensor-core forward
-        assert torch.equal(y, launch_fwd("simt", x, mask, *params, h))
-        torch.testing.assert_close(
-            y.float(), attention_sublayer_fwd(x, mask, *params, h).float(),
-            **TOL[torch.bfloat16])
+    assert attention_variant_fwd.launches[mode] == before[0] + 1
+    assert attention_variant_fwd.route_launches[way] == before[1][way] + 1
+    _variant_close(y, x, mask, params, h, mode, way)
+    if mode == "full":
+        assert torch.equal(y, attention_sublayer_fwd(x, mask, *params, h))
+        assert torch.equal(y, launch_fwd(way, x, mask, *params, h))
+
+
+@pytest.mark.parametrize("padded", [True, False])
+def test_attention_variants_simt_route_by_name(cuda, padded):
+    """The SIMT kernels by name at the flagship's head class: every mode
+    against its plain version, ``full`` B1's SIMT forward bit for bit."""
+    gen = torch.Generator().manual_seed(7)
+    x, mask, params = _variant_inputs(gen, 8, 240, 128, cuda, padded)
+    for mode in MODES:
+        before = attention_variant_fwd.route_launches["simt"]
+        y = variant_launch_fwd("simt", x, mask, *params, 4, mode=mode)
+        assert attention_variant_fwd.route_launches["simt"] == before + 1
+        _variant_close(y, x, mask, params, 4, mode, "simt")
+        if mode == "full":
+            assert torch.equal(y, launch_fwd("simt", x, mask, *params, 4))
 
 
 @pytest.mark.parametrize("transpose", [False, True])
