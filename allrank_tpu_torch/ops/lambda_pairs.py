@@ -1,7 +1,9 @@
 """The lambdaLoss pair chain over the prediction-sorted top-k block: the
 CUDA kernels of ``csrc/lambda_pairs.cu`` (forward and backward) for CUDA
 tensors and their plain PyTorch versions for CPU tensors, tied into
-autograd by ``LambdaPairs``.
+autograd by ``LambdaPairs``. On the card a slate runs on a thread-block
+cluster of ``cluster_size(k)`` blocks, each taking the rows
+``rows_of(rank, warp, cluster, k)`` by warp.
 
 Replaces the TPU kernel ``fused_lambda_pairs`` of the JAX package's
 ``ops/lambda_pallas.py:222`` (forward ``pallas_call`` at line 174, backward
@@ -39,8 +41,12 @@ _LN2 = float(np.log(2.0))
 # the chain's scalar arguments and the stream, after the pointers
 CHAIN_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_float] * 4
                   + [ctypes.c_void_p])
-_SIGNATURES = {"lambda_pairs_fwd": [ctypes.c_void_p] * 8 + CHAIN_ARGTYPES,
-               "lambda_pairs_bwd": [ctypes.c_void_p] * 8 + CHAIN_ARGTYPES}
+# the one-block-a-row-tile kernels also take their cluster size
+_CLUSTER_ARGTYPES = CHAIN_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES = {"lambda_pairs_fwd": [ctypes.c_void_p] * 8 + _CLUSTER_ARGTYPES,
+               "lambda_pairs_bwd": [ctypes.c_void_p] * 8 + _CLUSTER_ARGTYPES}
+# the kernels' warps a block (csrc/lambda_pairs.cu's kPairWarps)
+CLUSTER_WARPS = 8
 
 
 def check_scheme(scheme: Optional[str]) -> int:
@@ -173,12 +179,30 @@ def position_tables(n: int, dev) -> tuple:
     return _TABLES[key]
 
 
+def cluster_size(k: int) -> int:
+    """The blocks of a slate's thread-block cluster at top-k length ``k``
+    (1 <= k <= ``MAX_FUSED_LENGTH``): one warp's sweep of 32 columns a row
+    tile, so 1 to k = 32, 2 to 64, else 4 (256 blocks at B = 64)."""
+    if not 1 <= k <= MAX_FUSED_LENGTH:
+        raise ValueError(f"no cluster for a top-k block of {k}")
+    return 1 if k <= 32 else 2 if k <= 64 else 4
+
+
+def rows_of(rank: int, warp: int, cluster: int, k: int) -> range:
+    """The rows that warp ``warp`` of block ``rank`` of a ``cluster``-block
+    cluster sweeps, as the kernels walk them: rows interleaved across the
+    blocks, then across the ``CLUSTER_WARPS`` warps, so that a short k_eff
+    or a padding tail still spreads over every block."""
+    return range(rank + cluster * warp, k, cluster * CLUSTER_WARPS)
+
+
 def launch_chain(lib_name, signatures, name, yp, ts, g, valid, extra, outs,
-                 kw):
+                 kw, ints=()):
     """Launches function ``name`` of ``csrc/<lib_name>.cu`` on the chain's
-    [B, k] inputs, the position tables, ``extra`` inputs and ``outs``, in
-    the order of its C signature, after checking every [B, k] argument; the
-    call both pair-chain kernels make."""
+    [B, k] inputs, the position tables, ``extra`` inputs and ``outs``, the
+    chain's scalars and ``ints``, in the order of its C signature, after
+    checking every [B, k] argument; the call both pair-chain kernels
+    make."""
     b, n = yp.shape
     dev = yp.device
     for t_name, t in (("y_pred_sorted", yp), ("true_sorted", ts),
@@ -192,7 +216,8 @@ def launch_chain(lib_name, signatures, name, yp, ts, g, valid, extra, outs,
             *map(_build.ptr, (yp, ts, g, valid, *tables, *extra, *outs)),
             b, n, int(kw["k_eff"]), check_scheme(kw["scheme"]),
             int(kw["log_base"] == "binary"), float(kw["sigma"]),
-            float(kw["mu"]), eps, float(np.log(eps)), _build.stream_of(yp))
+            float(kw["mu"]), eps, float(np.log(eps)), *ints,
+            _build.stream_of(yp))
     _build.check_launch(lib, rc, name)
 
 
@@ -204,7 +229,7 @@ def _launch(name, yp, ts, g, valid, extra, outs, kw):
             f"{n}; longer top-k blocks take the tiled kernel "
             f"(ops/lambda_tiled.tiled_lambda_pairs)")
     launch_chain("lambda_pairs", _SIGNATURES, name, yp, ts, g, valid, extra,
-                 outs, kw)
+                 outs, kw, (cluster_size(n),))
 
 
 def lambda_pairs_fwd(yp, ts, g, valid, **kw):

@@ -8,9 +8,10 @@ backward at line 231), the probe that asks whether B8's scaling records
 belong in fast memory in iteration-major order. X4 computes B8's function
 (``ops/neuralsort.py``), so its plain versions are B8's:
 ``soft_sort_fwd_plain`` and ``soft_sort_bwd_plain``, which a CPU tensor
-takes here as well. On the card the kernels run B8's own slate bodies with
-the records (and, in the backward, the U and V stacks) in shared memory, so
-out, a_hist, b_hist and ds equal B8's bit for bit.
+takes here as well. On the card the kernels run the slate bodies of B8's
+route "l2" (``csrc/neuralsort.cu``, ``launch_fwd("l2", ...)``) with the
+records (and, in the backward, the U and V stacks) in shared memory, so
+out, a_hist, b_hist and ds equal that route's bit for bit.
 
 Shared memory bounds the slate length: the backward holds
 ``(4 T + 24) L`` floats, so at T = 50 iterations L <= 259

@@ -1,9 +1,9 @@
 """B8's Sinkhorn records on chip (X4): the counterpart of the JAX package's
 ``tools/exp_sinkhorn_layout.py``.
 
-B8 (``ops/neuralsort.py``) writes each iteration's scaling records to
-device memory as its loop makes them, and its backward re-reads them and
-its U and V stacks from there. X4 (``ops/neuralsort_layout.py``) runs the
+B8's route "l2" (``ops/neuralsort.py``, ``csrc/neuralsort.cu``) writes
+each iteration's scaling records to device memory as its loop makes them,
+and its backward re-reads them and its U and V stacks from there. X4 (``ops/neuralsort_layout.py``) runs the
 same code with the records, and the backward's U and V, in shared memory
 for the whole loop, written out and read back in one coalesced pass per
 slate. The probe checks that both give the same outputs and gradients and
@@ -18,14 +18,15 @@ flagship shape)
 from __future__ import annotations
 
 import argparse
+from functools import partial
 
 import numpy as np
 import torch
 
 from allrank_tpu_torch.ops.neuralsort import (
     fused_soft_sort_contract,
-    soft_sort_bwd,
-    soft_sort_fwd,
+    launch_bwd,
+    launch_fwd,
 )
 from allrank_tpu_torch.ops.neuralsort_layout import (
     layout_soft_sort_bwd,
@@ -60,6 +61,12 @@ def inputs(n, l, device):
     return s0, pad, vec
 
 
+def b8_contract(scores, pad_mask, vec, *, tau, max_iter):
+    """B8's contraction through route "l2", the layout X4 twins."""
+    return fused_soft_sort_contract(scores, pad_mask, vec, tau=tau,
+                                    max_iter=max_iter, way="l2")
+
+
 def _grad(fn, s0, pad, vec):
     leaf = s0.detach().requires_grad_()
     return torch.autograd.grad(
@@ -90,11 +97,10 @@ def main(argv=None) -> dict:
     s0, pad, vec = inputs(n, l, dev)
     print(clock_note(dev))
 
-    out_b8 = fused_soft_sort_contract(s0, pad, vec, tau=TAU,
-                                      max_iter=MAX_ITER)
+    out_b8 = b8_contract(s0, pad, vec, tau=TAU, max_iter=MAX_ITER)
     out_x4 = layout_soft_sort_contract(s0, pad, vec, tau=TAU,
                                        max_iter=MAX_ITER)
-    g_b8 = _grad(fused_soft_sort_contract, s0, pad, vec)
+    g_b8 = _grad(b8_contract, s0, pad, vec)
     g_x4 = _grad(layout_soft_sort_contract, s0, pad, vec)
     res = {"max_abs_out": float((out_b8 - out_x4).abs().max()),
            "max_abs_grad": float((g_b8 - g_x4).abs().max())}
@@ -102,7 +108,7 @@ def main(argv=None) -> dict:
     print("max |g_B8-g_X4|     =", res["max_abs_grad"])
 
     arms = (("b8", f"B8 records in device memory N={n} L={l}",
-             soft_sort_fwd, soft_sort_bwd),
+             partial(launch_fwd, "l2"), partial(launch_bwd, "l2")),
             ("x4", f"X4 records on chip       N={n} L={l}",
              layout_soft_sort_fwd, layout_soft_sort_bwd))
     for key, label, fwd, bwd in arms:

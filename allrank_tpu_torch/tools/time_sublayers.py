@@ -36,6 +36,16 @@ at B=64, L=240 (M = 15,360 rows), d=128, d3=384 beside ``x2_library``; X3
 in each mode at B=64, L=240, d=128, h=4 (ragged keys, one empty slate),
 ``full`` beside ``b1_library`` and B1's own forward, which it computes;
 ``--long`` adds X3 and B1 at B=16, L=1024, where B1 costs most.
+``--losses`` instead times the loss kernels in fp32 as device time (a CUDA
+graph; a library backward its kernels' sum in a trace) with one event-timed
+call beside each: B3 (``ops/lambda_pairs.py``) and B6
+(``ops/lambda_tiled.py``) at B=64, k=240 (a 40-document padding tail,
+ndcgLoss2PP) beside ``chain_library``; B8 (``ops/neuralsort.py``) by route
+("cluster" and "l2"; a checkout without routes times its one kernel) at
+N=64, L=240 and N=4, L=512 beside ``soft_sort_library``; then the NeuralNDCG
+recipe's train step (``neuralndcg_atmax.json``, B=64, L=240, bf16): its ms,
+the device's busy ms a step from a torch.profiler trace of 5 steps, and B8's
+share of that busy time.
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -51,6 +61,7 @@ exits 2: it measures nothing on the CPU.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -63,6 +74,8 @@ B, L, D, H, D_FF = 64, 240, 128, 4, 512
 FEATURES = 136
 D3 = 384  # X2's hidden width
 LONG = (16, 1024)  # B1's costliest slate length at the flagship's width
+NEURAL_CONFIG = ("reproducibility/configs/neuralndcg_web30k/"
+                 "neuralndcg_atmax.json")
 
 
 def b1_library(x, mask_add, g, b, wqkv, bqkv, wout, bout, h):
@@ -76,6 +89,53 @@ def b1_library(x, mask_add, g, b, wqkv, bqkv, wout, bout, h):
     ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask_add)
     ctx = ctx.transpose(1, 2).reshape(bsz, l, d)
     return x + (torch.matmul(ctx, wout) + bout)
+
+
+def chain_library(pair_args, kw):
+    """The lambdaLoss pair chain in the JAX package's XLA-path formulation
+    (``losses/lambdaloss._plain_chain``), a yardstick only: returns
+    (forward, backward by autograd) as functions that run it once."""
+    import allrank_tpu_torch.losses.lambdaloss as ll
+
+    yp, ts, g, valid = pair_args
+    ok = valid > 0.5
+    raw = torch.where(ok, ts, float("-inf"))
+    d_row = ll.position_tables(yp.shape[1], yp.device)[0]
+
+    def forward(leaf):
+        return ll._plain_chain(leaf, raw, ts, ok, g, d_row, None,
+                               kw["scheme"], kw["k_eff"], kw["sigma"],
+                               kw["mu"], kw["log_base"], kw["eps"])[0]
+
+    leaf = yp.detach().requires_grad_()
+    total = forward(leaf)
+    return (lambda: forward(yp),
+            lambda: torch.autograd.grad(total, leaf, retain_graph=True))
+
+
+def soft_sort_library(s, pad, vec, transpose):
+    """The soft-sort chain in the JAX package's XLA-path formulation
+    (``deterministic_neural_sort`` -> the freezing ``sinkhorn_scaling`` ->
+    ``einsum``), a yardstick only: returns (forward, backward by autograd)
+    as functions that run it once."""
+    from allrank_tpu_torch.ops.soft_sort import (
+        deterministic_neural_sort,
+        sinkhorn_scaling,
+    )
+
+    mask = pad > 0.5
+
+    def forward(leaf):
+        p = sinkhorn_scaling(deterministic_neural_sort(leaf, 1.0, mask), mask,
+                             backend="plain")
+        return torch.einsum("bij,bi->bj" if transpose else "bij,bj->bi", p,
+                            vec)
+
+    leaf = s.detach().requires_grad_()
+    out = forward(leaf)
+    dout = torch.ones_like(out)
+    return (lambda: forward(s),
+            lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True))
 
 
 def b2_library(x, g, b, w1, b1, w2, b2):
@@ -306,6 +366,135 @@ def time_probes(card: str, package: str, iters: int, long: bool) -> list:
     return lines
 
 
+def pair_inputs(gen, b, k, dev):
+    """B3's and B6's inputs at ``bench.py``'s batch: labels 0-4, the last
+    40 documents padding, gains (2^label - 1) / 30."""
+    ts = torch.randint(0, 5, (b, k), generator=gen).float()
+    valid = torch.ones(b, k)
+    valid[:, -40:] = 0.0
+    yp = torch.randn(b, k, generator=gen) * valid
+    return [t.to(dev) for t in (yp, ts, (2.0 ** ts - 1.0) / 30.0, valid)]
+
+
+def soft_sort_inputs(gen, n, l, dev):
+    """B8's inputs: scores, 0/1 pad floats (ragged lengths, slate 0 full),
+    power-of-two gains, an output cotangent."""
+    s = torch.randn(n, l, generator=gen)
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    pad = (torch.arange(l)[None, :] >= lengths[:, None]).float()
+    labels = torch.randint(0, 5, (n, l), generator=gen).float()
+    vec = (2.0 ** labels - 1.0) * (1.0 - pad)
+    return [t.to(dev) for t in (s, pad, vec, torch.randn(n, l,
+                                                          generator=gen))]
+
+
+def neural_recipe_step(dev):
+    """The NeuralNDCG recipe's train step (``neuralndcg_atmax.json`` as
+    written: 2 blocks of d=96, h=1, dropout 0.1, bf16, Adam) on seeded
+    weights, and ``flagship_step``'s batch of B=64, L=240."""
+    from allrank_tpu_torch.config import Config
+    from allrank_tpu_torch.losses import get_loss
+    from allrank_tpu_torch.models.factory import LTRModel, make_model
+    from allrank_tpu_torch.training import make_optimizer, make_train_step
+
+    cfg = Config.from_json(NEURAL_CONFIG)
+    model = LTRModel(make_model(cfg.model, FEATURES),
+                     torch.Generator().manual_seed(0), device=dev)
+    loss_fn, needs_rng = get_loss(cfg.loss.name)
+    step = make_train_step(
+        model, loss_fn, cfg.loss.args, needs_rng,
+        make_optimizer(cfg.optimizer.name, dict(cfg.optimizer.args),
+                       model.parameters()),
+        cfg.training.gradient_clipping_norm, cfg.training.compute_dtype,
+        generator=torch.Generator().manual_seed(1))
+    return step, flagship_step(dev)[1]
+
+
+def time_losses(card: str, package: str, iters: int) -> list:
+    """``--losses``' lines: B3, B6 and B8 by route as device time beside
+    their libraries, and the NeuralNDCG recipe step's busy time and B8's
+    share of it."""
+    from allrank_tpu_torch.ops import lambda_pairs as b3
+    from allrank_tpu_torch.ops import lambda_tiled as b6
+    from allrank_tpu_torch.ops import neuralsort as b8
+    from allrank_tpu_torch.tools.timing import (
+        _median_event_ms,
+        busy_us,
+        graph_ms,
+        kernel_ms,
+        trace_kernels,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    lines = []
+
+    def line(kernel, shape, fn, lib_fn, backward, **extra):
+        lines.append({
+            "kernel": kernel, "shape": shape, "graph_ms": graph_ms(fn),
+            "ms": _median_event_ms(fn, iters, 3),
+            "library_device_ms": (sum(kernel_ms(lib_fn).values()) if backward
+                                  else graph_ms(lib_fn)),
+            "library_ms": _median_event_ms(lib_fn, iters, 3),
+            **extra, "card": card, "package": package})
+        print(json.dumps(lines[-1]), flush=True)
+
+    args = pair_inputs(gen, B, L, dev)
+    kw = dict(scheme="ndcgLoss2PP_scheme", k_eff=L, sigma=1.0, mu=10.0,
+              log_base="binary", eps=1e-10)
+    gout = torch.ones(B, device=dev)
+    lib = chain_library(args, kw)
+    blocks = (b3.cluster_size(L) if hasattr(b3, "cluster_size") else 1)
+    line("lambda_pairs_fwd", [B, L], lambda: b3.lambda_pairs_fwd(*args, **kw),
+         lib[0], False, cluster=blocks)
+    line("lambda_pairs_bwd", [B, L],
+         lambda: b3.lambda_pairs_bwd(*args, gout, **kw), lib[1], True,
+         cluster=blocks)
+    line("lambda_tiled_fwd", [B, L], lambda: b6.lambda_tiled_fwd(*args, **kw),
+         lib[0], False)
+    line("lambda_tiled_bwd", [B, L],
+         lambda: b6.lambda_tiled_bwd(*args, gout, **kw), lib[1], True)
+    del args, lib
+    routes = b8.ROUTES if hasattr(b8, "launch_fwd") else ("l2",)
+    for n, l in ((B, L), (4, 512)):
+        s, pad, vec, dout = soft_sort_inputs(gen, n, l, dev)
+        lib = soft_sort_library(s, pad, vec, False)
+        for way in routes:
+            if hasattr(b8, "launch_fwd"):
+                fwd = functools.partial(b8.launch_fwd, way)
+                bwd = functools.partial(b8.launch_bwd, way)
+            else:
+                fwd, bwd = b8.soft_sort_fwd, b8.soft_sort_bwd
+            _, a_hist, b_hist = fwd(s, pad, vec, 1.0, 50, False)
+            extra = ({"cluster": [b8.cluster_plan(l, bw)[0]
+                                  for bw in (False, True)]}
+                     if way == "cluster" else {})
+            line("soft_sort_fwd", [n, l],
+                 lambda: fwd(s, pad, vec, 1.0, 50, False), lib[0], False,
+                 route=way, **extra)
+            line("soft_sort_bwd", [n, l],
+                 lambda: bwd(s, pad, vec, a_hist, b_hist, dout, 1.0, 50,
+                             False), lib[1], True, route=way, **extra)
+        del s, pad, vec, dout, lib
+        torch.cuda.empty_cache()
+    step, batch = neural_recipe_step(dev)
+    calls = 5
+    ms = _median_event_ms(lambda: step(*batch), iters, 3)
+    spans, window_us = trace_kernels(lambda: step(*batch), calls)
+    busy = busy_us(spans)
+    b8_us = sum(end - start for name, start, end in spans
+                if "soft_sort" in name)
+    lines.append({"step": "NeuralNDCG recipe (neuralndcg_atmax.json), bf16",
+                  "shape": [B, L], "ms": ms,
+                  "device_busy_ms": busy / calls / 1e3,
+                  "idle_share": 1 - busy / window_us,
+                  "b8_ms": b8_us / calls / 1e3, "b8_share": b8_us / busy,
+                  "card": card, "package": package})
+    print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
 def flagship_model(dev):
     """``bench.py``'s model (the flagship) of seeded random weights on
     ``dev``."""
@@ -478,6 +667,8 @@ def main(argv=None) -> int:
     parser.add_argument("--long", action="store_true",
                         help="with --probes, also X3 and B1 at B=16, "
                              "L=1024")
+    parser.add_argument("--losses", action="store_true",
+                        help="time the loss kernels B3, B6 and B8 instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_sublayers: no CUDA device", file=sys.stderr)
@@ -511,6 +702,8 @@ def main(argv=None) -> int:
                                   "full", "no_softmax", "norm_after_pv",
                                   "no_pv", "frame")))
                              if args.probes else ()),
+                           *(("lambda_pairs", "lambda_tiled", "neuralsort",
+                              "neuralsort_cluster") if args.losses else ()),
                            *args.ptxas)
                if os.path.exists(_build.source_path(s))]
     _build.build(sorted(set(sources)))
@@ -525,6 +718,9 @@ def main(argv=None) -> int:
         return 0
     if args.probes:
         time_probes(card, package, args.iters, args.long)
+        return 0
+    if args.losses:
+        time_losses(card, package, args.iters)
         return 0
     if args.step:
         for dtype in ("float32", "bfloat16"):

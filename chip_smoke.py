@@ -296,9 +296,11 @@ from argparse import Namespace
 import numpy as np
 import torch
 
-from allrank_tpu_torch.tools.time_attention import library_fns
+from allrank_tpu_torch.tools.time_attention import library_fns, ptxas_lines
 from allrank_tpu_torch.tools.time_sublayers import (
+    chain_library,
     library_args,
+    soft_sort_library,
     x2_inputs,
     x2_library,
 )
@@ -367,7 +369,8 @@ PROBE_MMA_KERNELS = {"boundary_shift_mma": 4,
 # every kernel source, built in parallel in phase 1
 SOURCES = ["attention_block", "attention_block_mma", "attention_block_tf32x3",
            "ffn_block", "ffn_block_mma", "ffn_block_tf32x3", "lambda_pairs",
-           "sinkhorn", "neuralsort", "approx_pos", "lambda_tiled",
+           "sinkhorn", "neuralsort", "neuralsort_cluster", "approx_pos",
+           "lambda_tiled",
            "attention_fused", "attention_tiled", "q8_dense", *B10_SOURCES,
            "boundary_shift_mma", "attention_variants", *X3_MMA_SOURCES,
            "neuralsort_layout"]
@@ -1094,28 +1097,6 @@ def b2_library_bwd(args, dy):
     return lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
 
 
-def chain_library(pair_args, kw):
-    """The lambdaLoss pair chain in the JAX package's XLA-path formulation
-    (``losses/lambdaloss._plain_chain``), a yardstick only: returns
-    (forward, backward by autograd) as functions that run it once."""
-    import allrank_tpu_torch.losses.lambdaloss as ll
-
-    yp, ts, g, valid = pair_args
-    ok = valid > 0.5
-    raw = torch.where(ok, ts, float("-inf"))
-    d_row = ll.position_tables(yp.shape[1], yp.device)[0]
-
-    def forward(leaf):
-        return ll._plain_chain(leaf, raw, ts, ok, g, d_row, None,
-                               kw["scheme"], kw["k_eff"], kw["sigma"],
-                               kw["mu"], kw["log_base"], kw["eps"])[0]
-
-    leaf = yp.detach().requires_grad_()
-    total = forward(leaf)
-    return (lambda: forward(yp),
-            lambda: torch.autograd.grad(total, leaf, retain_graph=True))
-
-
 def approx_library(s, valid_f, alpha, eps):
     """The approxNDCG rank sum as the JAX package's XLA-path chain of torch
     ops (``losses/approxndcg._plain_pos``), a yardstick only: returns
@@ -1401,31 +1382,6 @@ def assert_grad_close(got, ref, what) -> float:
     rtol, atol = SOFT_GRAD_TOL
     assert err <= rtol * scale + atol, f"{what}: {err} > {rtol} x {scale}"
     return err
-
-
-def soft_sort_library(s, pad, vec, transpose):
-    """The soft-sort chain in the JAX package's XLA-path formulation
-    (``deterministic_neural_sort`` -> the freezing ``sinkhorn_scaling`` ->
-    ``einsum``), a yardstick only: returns (forward, backward by autograd)
-    as functions that run it once."""
-    from allrank_tpu_torch.ops.soft_sort import (
-        deterministic_neural_sort,
-        sinkhorn_scaling,
-    )
-
-    mask = pad > 0.5
-
-    def forward(leaf):
-        p = sinkhorn_scaling(deterministic_neural_sort(leaf, 1.0, mask), mask,
-                             backend="plain")
-        return torch.einsum("bij,bi->bj" if transpose else "bij,bj->bi", p,
-                            vec)
-
-    leaf = s.detach().requires_grad_()
-    out = forward(leaf)
-    dout = torch.ones_like(out)
-    return (lambda: forward(s),
-            lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True))
 
 
 def sinkhorn_library(m0):
@@ -1831,6 +1787,7 @@ def main() -> int:
     )
     from allrank_tpu_torch.ops.lambda_pairs import (
         SCHEMES,
+        cluster_size,
         lambda_pairs_bwd,
         lambda_pairs_bwd_plain,
         lambda_pairs_fwd,
@@ -1842,12 +1799,18 @@ def main() -> int:
         lambda_tiled_fwd,
         lambda_tiled_fwd_plain,
     )
+    from allrank_tpu_torch.ops.neuralsort import ROUTES as B8_ROUTES
     from allrank_tpu_torch.ops.neuralsort import (
+        cluster_plan,
+        kernel_cluster_blocks,
+        kernel_smem_floats,
         soft_sort_bwd,
         soft_sort_bwd_plain,
         soft_sort_fwd,
         soft_sort_fwd_plain,
     )
+    from allrank_tpu_torch.ops.neuralsort import launch_bwd as b8_launch_bwd
+    from allrank_tpu_torch.ops.neuralsort import launch_fwd as b8_launch_fwd
     from allrank_tpu_torch.ops.sinkhorn import (
         sinkhorn_bwd,
         sinkhorn_bwd_plain,
@@ -1877,11 +1840,13 @@ def main() -> int:
     from allrank_tpu_torch.ops.ffn_block import route as b2_route
 
     def reset_routes():
-        """B1's and B2's launches by route back to 0."""
+        """B1's, B2's and B8's launches by route back to 0."""
         for k in (attention_sublayer_fwd, attention_sublayer_bwd):
             k.route_launches = dict.fromkeys(B1_ROUTES, 0)
         for k in (ffn_sublayer_fwd, ffn_sublayer_bwd):
             k.route_launches = dict.fromkeys(B2_ROUTES, 0)
+        for k in (soft_sort_fwd, soft_sort_bwd):
+            k.route_launches = dict.fromkeys(B8_ROUTES, 0)
 
     def b1_routes():
         """B1's launches by route, forward then backward."""
@@ -2050,6 +2015,23 @@ def main() -> int:
               f"{'TF32' if kind == TF32_HMMA else 'bf16'} HMMA only, in "
               f"their phases; ptxas: {len(spilled)} of {len(props)} "
               f"functions spill")
+    # B3's cluster kernels and B8's "cluster" route (one kernel a register
+    # shape and direction): registers and spills of each; B3's spill
+    # nothing, B8's hold a block's rows of M0 in 128 registers a thread and
+    # spill a few hundred bytes, printed
+    regs = dict(ptxas_lines("lambda_pairs") + ptxas_lines(
+        "neuralsort_cluster"))
+    for src, marker in (("lambda_pairs", "lambda_cluster_"),
+                        ("neuralsort_cluster", "soft_sort_cluster_")):
+        found = {f: line for f, line in ptxas_properties(
+            _build.log_path(src)).items() if marker in f}
+        assert len(found) == (2 if src == "lambda_pairs" else 6), (
+            src, found)
+        for f, line in sorted(found.items()):
+            kname = re.search(marker + r"\w+?_kernel\w*", f).group(0)
+            print(f"ptxas {src}: {kname}: {regs.get(f, '?')}; {line}")
+        assert src != "lambda_pairs" or not any(
+            spill_bytes(line) for line in found.values()), found
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _SASS.clear()
@@ -2467,36 +2449,55 @@ def main() -> int:
              "p=0.3 and 0.4) match their plain versions, masks bit-identical")
 
     # -- 8: B3 against its plain version -----------------------------------------
+    # each cluster size at its edges (1 block a slate to k = 32, 2 to 64, 4
+    # beyond) and one to six slates; the counts exact, the dummy slate and
+    # padded documents without gradient, a second run the same bits
     b3_errs = {"lambda_pairs_fwd": 0.0, "lambda_pairs_bwd": 0.0}
-    for l in (1, 240, 384):
-        ts = torch.randint(0, 5, (B, l), generator=gen).float()
-        valid = (torch.rand(B, l, generator=gen) > 0.15).float()
-        valid[-1] = 0.0  # a dummy slate
-        yp = torch.randn(B, l, generator=gen) * valid
+    b3_cases = [(B, l) for l in (1, 31, 32, 33, 64, 65, 240, 384)] + [
+        (1, 240), (6, 33), (6, 384)]
+    for b, l in b3_cases:
+        ts = torch.randint(0, 5, (b, l), generator=gen).float()
+        valid = (torch.rand(b, l, generator=gen) > 0.15).float()
+        if b > 1:
+            valid[-1] = 0.0  # a dummy slate
+        yp = torch.randn(b, l, generator=gen) * valid
         g = (2.0 ** ts - 1.0) / 30.0
         pair_args = [t.to(dev) for t in (yp, ts, g, valid)]
-        gout = torch.linspace(0.5, 1.5, B, device=dev)
+        gout = torch.linspace(0.5, 1.5, b, device=dev)
         for scheme in SCHEMES:
             for k in (None, 10):
                 kw = dict(scheme=scheme, k_eff=l if k is None else min(k, l),
                           sigma=1.0, mu=10.0, log_base="binary", eps=1e-10)
+                before = (lambda_pairs_fwd.launches,
+                          lambda_pairs_bwd.launches)
                 loss, cnt = lambda_pairs_fwd(*pair_args, **kw)
-                ref_loss, ref_cnt = lambda_pairs_fwd_plain(*pair_args, **kw)
-                assert torch.equal(cnt, ref_cnt), (scheme, k, l)
-                torch.testing.assert_close(loss, ref_loss, **B3_VALUE_TOL)
                 dyp = lambda_pairs_bwd(*pair_args, gout, **kw)
+                assert (lambda_pairs_fwd.launches,
+                        lambda_pairs_bwd.launches) == (
+                    before[0] + 1, before[1] + 1), "B3 did not launch"
+                ref_loss, ref_cnt = lambda_pairs_fwd_plain(*pair_args, **kw)
+                assert torch.equal(cnt, ref_cnt), (scheme, k, b, l)
+                torch.testing.assert_close(loss, ref_loss, **B3_VALUE_TOL)
                 ref_dyp = lambda_pairs_bwd_plain(*pair_args, gout, **kw)
                 torch.testing.assert_close(
                     dyp, ref_dyp, rtol=B3_GRAD_RTOL,
                     atol=B3_GRAD_ATOL * ref_dyp.abs().max().item() + 1e-6)
-                assert not dyp[-1].any(), "the dummy slate took a gradient"
-                if l == L and k is None and scheme == "ndcgLoss2PP_scheme":
+                assert not dyp[pair_args[3] < 0.5].any(), (
+                    "a padded document or the dummy slate took a gradient")
+                again = lambda_pairs_fwd(*pair_args, **kw)
+                assert torch.equal(loss, again[0]) and torch.equal(
+                    cnt, again[1]), "B3's forward moved on a second run"
+                assert torch.equal(dyp, lambda_pairs_bwd(
+                    *pair_args, gout, **kw)), "B3's backward moved"
+                if (b, l) == (B, L) and k is None and (
+                        scheme == "ndcgLoss2PP_scheme"):
                     b3_errs["lambda_pairs_fwd"] = rel_err(loss, ref_loss)[0]
                     b3_errs["lambda_pairs_bwd"] = rel_err(dyp, ref_dyp)[0]
-    print(f"B3 vs plain, 8 schemes x k in (all, 10) x L in (1, 240, 384): "
-          f"ok; at L={L} ndcgLoss2PP max_abs_err loss "
-          f"{b3_errs['lambda_pairs_fwd']:.3e}, grad "
-          f"{b3_errs['lambda_pairs_bwd']:.3e}")
+    print(f"B3 vs plain, 8 schemes x k in (all, 10) x (B, k) in {b3_cases} "
+          f"(clusters of {sorted({cluster_size(l) for _, l in b3_cases})} "
+          f"blocks): ok, counts exact, reruns bit for bit; at B={B} k={L} "
+          f"ndcgLoss2PP max_abs_err loss {b3_errs['lambda_pairs_fwd']:.3e}, "
+          f"grad {b3_errs['lambda_pairs_bwd']:.3e}")
     phase_ok("phase 8 ok: lambdaLoss pair-chain kernels match their plain "
              "versions")
 
@@ -2669,8 +2670,8 @@ def main() -> int:
     gout = torch.ones(B, device=dev)
     lib = chain_library(pair_args, kw)
     # per selected pair 28 operations forward, 36 backward: the function
-    # needs each c_ij once; the kernel's second evaluation (c_ji, so that no
-    # atomics are needed) is a cost of its design and not part of the bound
+    # needs each c_ij once, as the kernel evaluates it (adding it to row
+    # i's sum and to column j's)
     rows.append(short_kernel_row(
         "lambda_pairs_fwd", lambda: lambda_pairs_fwd(*pair_args, **kw),
         lambda: lambda_pairs_fwd_plain(*pair_args, **kw), lib[0],
@@ -2683,19 +2684,32 @@ def main() -> int:
         f"B={B} k={L} (200 valid)", tag))
 
     # -- 11: B8 against its plain version -------------------------------------
+    # the "cluster" route at each cluster size of the recipes' lengths (2
+    # blocks at L=240 and 241, 8 at 512) and past the clusters the card
+    # holds (N=2048); ds against the plain version run in float64 end to end
+    # (records and all): the plain version in fp32 is itself 1.2e-4 of
+    # max|ds| off it at L=300 and 361 transposed
     T = SINKHORN_ITERS
     soft_errs = {}
-    for n in (B, 2048):
+    for backward in (False, True):
+        for l in range(1, 513):
+            plan = cluster_plan(l, backward)
+            assert kernel_cluster_blocks(l) == plan[0]
+            assert kernel_smem_floats(l, plan[0], backward) * 4 == plan[1]
+    for n, l in ((B, L), (2048, L), (B, 241), (2048, 241), (B, 512)):
         for transpose in (False, True):
-            sc, pad, vec, dout = soft_sort_inputs(gen, n, L, dev)
-            before = (soft_sort_fwd.launches, soft_sort_bwd.launches)
+            sc, pad, vec, dout = soft_sort_inputs(gen, n, l, dev)
+            before = (dict(soft_sort_fwd.route_launches),
+                      dict(soft_sort_bwd.route_launches))
             out, a_hist, b_hist = soft_sort_fwd(sc, pad, vec, 1.0, T,
                                                 transpose)
             ds = soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout, 1.0, T,
                                transpose)
             torch.cuda.synchronize()
-            assert (soft_sort_fwd.launches, soft_sort_bwd.launches) == (
-                before[0] + 1, before[1] + 1), "B8 did not launch"
+            for k, was in zip((soft_sort_fwd, soft_sort_bwd), before):
+                assert k.route_launches == {
+                    **was, "cluster": was["cluster"] + 1}, (
+                        "B8 did not launch its cluster route")
             ref, ref_a, ref_b = soft_sort_fwd_plain(sc, pad, vec, 1.0, T,
                                                     transpose)
             assert torch.isfinite(out).all() and torch.isfinite(a_hist).all()
@@ -2706,18 +2720,60 @@ def main() -> int:
             # drifts along it; the output above is free of it
             torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
             torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
-            ref_ds = soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
-                                         1.0, T, transpose)
-            g_err = assert_grad_close(ds, ref_ds, f"B8 ds N={n}")
-            assert not ds[pad > 0.5].any(), "a padded document's gradient"
             f_err = rel_err(out, ref)[0]
-            if n == B and not transpose:
+            del ref, ref_a, ref_b
+            g32 = rel_err(ds, soft_sort_bwd_plain(
+                sc, pad, vec, a_hist, b_hist, dout, 1.0, T, transpose))[0]
+            args64 = [t.double() for t in (sc, pad, vec)]
+            ref_ds = soft_sort_bwd_plain(
+                *args64, *soft_sort_fwd_plain(*args64, 1.0, T,
+                                              transpose)[1:],
+                dout.double(), 1.0, T, transpose)
+            g_err = assert_grad_close(ds, ref_ds, f"B8 ds N={n} L={l}")
+            assert not ds[pad > 0.5].any(), "a padded document's gradient"
+            again = soft_sort_fwd(sc, pad, vec, 1.0, T, transpose)
+            assert all(torch.equal(x, y) for x, y in zip(
+                (out, a_hist, b_hist), again)), "B8 moved on a second run"
+            assert torch.equal(ds, soft_sort_bwd(
+                sc, pad, vec, a_hist, b_hist, dout, 1.0, T, transpose))
+            if (n, l) == (B, L) and not transpose:
                 soft_errs = {"soft_sort_fwd": f_err, "soft_sort_bwd": g_err}
-            print(f"B8 vs plain N={n} L={L} transpose={transpose}: "
-                  f"max_abs_err out {f_err:.3e} (tol {SOFT_TOL}), ds "
-                  f"{g_err:.3e} of max|ref| {rel_err(ds, ref_ds)[1]:.3e} "
-                  f"(tol {SOFT_GRAD_TOL[0]:g} x)")
-            del ref, ref_a, ref_b, ref_ds
+            print(f"B8 (cluster, {cluster_plan(l, False)[0]} / "
+                  f"{cluster_plan(l, True)[0]} blocks) vs plain N={n} L={l} "
+                  f"transpose={transpose}: max_abs_err out {f_err:.3e} (tol "
+                  f"{SOFT_TOL}), ds {g_err:.3e} of max|ref| "
+                  f"{rel_err(ds, ref_ds)[1]:.3e} against float64 (tol "
+                  f"{SOFT_GRAD_TOL[0]:g} x; the fp32 plain version's ds "
+                  f"{g32:.3e} away); reruns bit for bit")
+            del ref_ds, args64, again
+    # route "l2" by name (csrc/neuralsort.cu, one block a slate, M0 in L2;
+    # on no main path): its plain version's, counted under its name alone
+    for transpose in (False, True):
+        sc, pad, vec, dout = soft_sort_inputs(gen, B, L, dev)
+        before = (dict(soft_sort_fwd.route_launches),
+                  dict(soft_sort_bwd.route_launches))
+        out, a_hist, b_hist = b8_launch_fwd("l2", sc, pad, vec, 1.0, T,
+                                            transpose)
+        ds = b8_launch_bwd("l2", sc, pad, vec, a_hist, b_hist, dout, 1.0, T,
+                           transpose)
+        torch.cuda.synchronize()
+        for k, was in zip((soft_sort_fwd, soft_sort_bwd), before):
+            assert k.route_launches == {**was, "l2": was["l2"] + 1}
+        ref, ref_a, ref_b = soft_sort_fwd_plain(sc, pad, vec, 1.0, T,
+                                                transpose)
+        torch.testing.assert_close(out, ref, **SOFT_TOL)
+        torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
+        torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
+        ref_ds = soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout, 1.0,
+                                     T, transpose)
+        g_err = assert_grad_close(ds, ref_ds, "B8 l2 ds")
+        if not transpose:
+            soft_errs.update({"soft_sort_fwd_l2": rel_err(out, ref)[0],
+                              "soft_sort_bwd_l2": g_err})
+        print(f"B8 (l2, by name) vs plain N={B} L={L} transpose={transpose}"
+              f": max_abs_err out {rel_err(out, ref)[0]:.3e}, ds "
+              f"{g_err:.3e} of max|ref| {rel_err(ds, ref_ds)[1]:.3e}")
+        del ref, ref_a, ref_b, ref_ds
     phase_ok("phase 11 ok: fused soft-sort kernels match their plain versions")
 
     # -- 12: B7 against its plain version -------------------------------------
@@ -2760,8 +2816,11 @@ def main() -> int:
         got = {k.__name__: k.launches for k in all_kernels}
         for k, by_route in zip(("attention_sublayer_fwd",
                                 "attention_sublayer_bwd", "ffn_sublayer_fwd",
-                                "ffn_sublayer_bwd"),
-                               b1_routes() + b2_routes()):
+                                "ffn_sublayer_bwd", "soft_sort_fwd",
+                                "soft_sort_bwd"),
+                               b1_routes() + b2_routes() + (
+                                   dict(soft_sort_fwd.route_launches),
+                                   dict(soft_sort_bwd.route_launches))):
             got.update({f"{k}[{way}]": n for way, n in by_route.items()})
         return got
 
@@ -2776,6 +2835,9 @@ def main() -> int:
         if loss_kernel:
             want[loss_kernel + "_fwd"] = fwd
             want[loss_kernel + "_bwd"] = bwd
+        if loss_kernel == "soft_sort":  # B8 on its main route alone
+            want["soft_sort_fwd[cluster]"] = fwd
+            want["soft_sort_bwd[cluster]"] = bwd
         return want
 
     # removed after phase 26, or when the script ends, also by an
@@ -2941,6 +3003,19 @@ def main() -> int:
                                           1.0, T, False)),
              lib[1], B * (8 * T + 31) * L * L,
              B * L * (4 * 4 + 4 + hist_bytes), f"N={B} L={L}"),
+            # route "l2" by name: the same function and work
+            ("soft_sort_fwd_l2",
+             (lambda: b8_launch_fwd("l2", sc, pad, vec, 1.0, T, False),
+              lambda: soft_sort_fwd_plain(sc, pad, vec, 1.0, T, False)),
+             lib[0], B * (4 * T + 14) * L * L,
+             B * L * (3 * 4 + 4 + hist_bytes), f"N={B} L={L}"),
+            ("soft_sort_bwd_l2",
+             (lambda: b8_launch_bwd("l2", sc, pad, vec, a_hist, b_hist, dout,
+                                    1.0, T, False),
+              lambda: soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
+                                          1.0, T, False)),
+             lib[1], B * (8 * T + 31) * L * L,
+             B * L * (4 * 4 + 4 + hist_bytes), f"N={B} L={L}"),
             ("sinkhorn_fwd",
              (lambda: sinkhorn_fwd(m0, T), lambda: sinkhorn_fwd_plain(m0, T)),
              lib7[0], n7 * (4 * T + 2) * l7 * l7,
@@ -2954,7 +3029,7 @@ def main() -> int:
                                 for fn in fns + (lib_fn,))
         # the kernel and the library on one clock, the device's
         dev_ms = graph_ms(fns[0])
-        lib_dev_ms = library_device_ms(lib_fn, kernel_name.endswith("_bwd"))
+        lib_dev_ms = library_device_ms(lib_fn, "_bwd" in kernel_name)
         bound_ms, bound_by = bound(flops, moved, torch.float32)
         rows.append({"name": kernel_name, "route": "cuda",
                      "max_abs_err": {**soft_errs, **sink_errs}[kernel_name],
@@ -4867,8 +4942,10 @@ def main() -> int:
         assert (layout_soft_sort_fwd.launches,
                 layout_soft_sort_bwd.launches) == (
             before[0] + 1, before[1] + 1), "X4 did not launch"
-        b8 = soft_sort_fwd(sc, pad, vec, 1.0, T, transpose)
-        b8_ds = soft_sort_bwd(sc, pad, vec, *b8[1:], dout, 1.0, T, transpose)
+        # X4 twins B8's route "l2", by name (records in device memory)
+        b8 = b8_launch_fwd("l2", sc, pad, vec, 1.0, T, transpose)
+        b8_ds = b8_launch_bwd("l2", sc, pad, vec, *b8[1:], dout, 1.0, T,
+                              transpose)
         vs_b8 = max((g - w).abs().max().item()
                     for g, w in zip((out, a_hist, b_hist, ds), b8 + (b8_ds,)))
         ref, ref_a, ref_b = soft_sort_fwd_plain(sc, pad, vec, 1.0, T,
@@ -4901,9 +4978,15 @@ def main() -> int:
         assert layout_soft_sort_fwd.launches == before
         print(f"X4 refuses L={too_long.shape[1]}: {e}")
     layout_soft_sort_fwd.launches = layout_soft_sort_bwd.launches = 0
+    reset_routes()
     x4_res = x4_tool.main([])
     x4_launches = {"layout_soft_sort_fwd": layout_soft_sort_fwd.launches,
                    "layout_soft_sort_bwd": layout_soft_sort_bwd.launches}
+    # the probe's B8 arm runs route "l2" by name: its rows' launches
+    l2_launches = {"soft_sort_fwd_l2": soft_sort_fwd.route_launches["l2"],
+                   "soft_sort_bwd_l2": soft_sort_bwd.route_launches["l2"]}
+    assert soft_sort_fwd.route_launches["cluster"] == 0 and all(
+        l2_launches.values()), l2_launches
     assert x4_res["max_abs_out"] == 0.0 and x4_res["max_abs_grad"] == 0.0
     print(f"X4 probe launches {x4_launches}; X4 / B8 time "
           f"{x4_res['ratio_fwd']:.4f} forward, {x4_res['ratio_fwd_bwd']:.4f} "
@@ -4916,15 +4999,16 @@ def main() -> int:
             ("layout_soft_sort_fwd",
              (lambda: layout_soft_sort_fwd(sc, pad, vec, 1.0, T, False),
               lambda: soft_sort_fwd_plain(sc, pad, vec, 1.0, T, False)),
-             lambda: soft_sort_fwd(sc, pad, vec, 1.0, T, False), lib[0],
-             B * (4 * T + 14) * L * L, B * L * (3 * 4 + 4 + hist_bytes)),
+             lambda: b8_launch_fwd("l2", sc, pad, vec, 1.0, T, False),
+             lib[0], B * (4 * T + 14) * L * L,
+             B * L * (3 * 4 + 4 + hist_bytes)),
             ("layout_soft_sort_bwd",
              (lambda: layout_soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout,
                                            1.0, T, False),
               lambda: soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
                                           1.0, T, False)),
-             lambda: soft_sort_bwd(sc, pad, vec, a_hist, b_hist, dout, 1.0,
-                                   T, False), lib[1],
+             lambda: b8_launch_bwd("l2", sc, pad, vec, a_hist, b_hist, dout,
+                                   1.0, T, False), lib[1],
              B * (8 * T + 31) * L * L, B * L * (4 * 4 + 4 + hist_bytes))):
         ms, b8_ms = graph_ms(fns[0]), graph_ms(b8_fn)
         plain_ms, lib_ms = (median_ms(fn, iters=10, warmup=2)
@@ -4941,8 +5025,8 @@ def main() -> int:
         lib_txt = ("not measured" if lib_dev_ms is None
                    else f"{lib_dev_ms:.4f} ms")
         print(f"time {name} float32 N={B} L={L}: kernel {ms:.4f} ms of "
-              f"device time (20 calls in one CUDA graph), B8 {b8_ms:.4f} ms "
-              f"likewise, plain {plain_ms:.4f} ms, library (torch-op chain"
+              f"device time (20 calls in one CUDA graph), B8 by route \"l2\" "
+              f"{b8_ms:.4f} ms likewise, plain {plain_ms:.4f} ms, library (torch-op chain"
               f"{', autograd' if name.endswith('bwd') else ''}) "
               f"{lib_txt} of device time (one event-timed call "
               f"{lib_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}: "
@@ -4950,7 +5034,8 @@ def main() -> int:
     del sc, pad, vec, dout, a_hist, b_hist, lib, s0, pad0, vec0, cases33
     torch.cuda.empty_cache()
     phase_ok(f"phase 33 ok: "
-             f"X4 is B8 bit for bit and matches the plain version; "
+             f"X4 is B8's route \"l2\" bit for bit and matches the plain "
+             f"version; "
              f"the layout probe ran ({time.perf_counter() - t33:.1f} s)")
 
     # -- 34: the record -------------------------------------------------------
@@ -4989,10 +5074,14 @@ def main() -> int:
                              "allrank_tpu/ops/lambda_pallas.py:174"),
         "lambda_pairs_bwd": ("allrank_tpu_torch/csrc/lambda_pairs.cu",
                              "allrank_tpu/ops/lambda_pallas.py:197"),
-        "soft_sort_fwd": ("allrank_tpu_torch/csrc/neuralsort.cu",
+        "soft_sort_fwd": ("allrank_tpu_torch/csrc/neuralsort_cluster.cu",
                           "allrank_tpu/ops/neuralsort_pallas.py:186"),
-        "soft_sort_bwd": ("allrank_tpu_torch/csrc/neuralsort.cu",
+        "soft_sort_bwd": ("allrank_tpu_torch/csrc/neuralsort_cluster.cu",
                           "allrank_tpu/ops/neuralsort_pallas.py:214"),
+        "soft_sort_fwd_l2": ("allrank_tpu_torch/csrc/neuralsort.cu",
+                             "allrank_tpu/ops/neuralsort_pallas.py:186"),
+        "soft_sort_bwd_l2": ("allrank_tpu_torch/csrc/neuralsort.cu",
+                             "allrank_tpu/ops/neuralsort_pallas.py:214"),
         "sinkhorn_fwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
                          "allrank_tpu/ops/sinkhorn_pallas.py:286"),
         "sinkhorn_bwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
@@ -5098,6 +5187,16 @@ def main() -> int:
             "the X3 probe at B=8, L=256, d=256, h=1 (d_k > 128: B1's SIMT "
             "route)")
     launches.update(x4_launches)
+    # B8: the main route's launches are the CLI's NeuralNDCG run's (phase
+    # 13), all on "cluster"; route "l2" runs on no main path, its rows'
+    # launches are the X4 probe's B8 arm (phase 33)
+    assert (cli_launches["soft_sort_fwd[cluster]"],
+            cli_launches["soft_sort_bwd[cluster]"]) == (
+        launches["soft_sort_fwd"], launches["soft_sort_bwd"])
+    launches.update(l2_launches)
+    for name in l2_launches:
+        launch_source[name] = ("the X4 probe's B8 arm, route \"l2\" by name "
+                               "(phase 33)")
     # B4 and B5: their own long-slate steps (phase 23)
     for (b, l), (got, _, _) in long_runs.items():
         for name, n in got.items():
@@ -5140,7 +5239,7 @@ def main() -> int:
                                                "ffn_sublayer_bwd"), name
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 45
+    assert len(rows) == 47
     print(f"profiler: {trace_kernels.lost} traces of this run lost device "
           f"events and were taken again {tag}")
     print(f"train step ms {json.dumps(step_ms)} {tag}")

@@ -66,6 +66,7 @@ from allrank_tpu_torch.ops.ffn_block import launch_fwd as ffn_launch_fwd
 from allrank_tpu_torch.ops.ffn_block import route as ffn_route
 from allrank_tpu_torch.ops.lambda_pairs import (
     SCHEMES,
+    cluster_size,
     lambda_pairs_bwd,
     lambda_pairs_bwd_plain,
     lambda_pairs_fwd,
@@ -104,11 +105,17 @@ from allrank_tpu_torch.ops.neuralsort_layout import (
     smem_floats,
 )
 from allrank_tpu_torch.ops.neuralsort import (
+    cluster_plan,
+    cluster_smem_floats,
+    kernel_cluster_blocks,
+    kernel_smem_floats,
     soft_sort_bwd,
     soft_sort_bwd_plain,
     soft_sort_fwd,
     soft_sort_fwd_plain,
 )
+from allrank_tpu_torch.ops.neuralsort import launch_bwd as soft_sort_launch_bwd
+from allrank_tpu_torch.ops.neuralsort import launch_fwd as soft_sort_launch_fwd
 from allrank_tpu_torch.ops.sinkhorn import (
     sinkhorn_bwd,
     sinkhorn_bwd_plain,
@@ -663,6 +670,48 @@ def test_lambda_pair_kernels_match_plain(cuda, scheme, k):
                                atol=1e-5 * ref.abs().max().item() + 1e-6)
 
 
+@pytest.mark.parametrize("k_eff", [None, 10])
+@pytest.mark.parametrize("b", [1, 6, 64])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 240, 384])
+def test_lambda_pair_cluster_edges_match_plain(cuda, k, b, k_eff):
+    """B3 on 1, 2 or 4 blocks a slate (``cluster_size``) at the edges of
+    each size, every scheme: loss sums rtol 2e-5, counts exact, gradient
+    rtol 1e-4 with an absolute part that scales with the largest gradient;
+    the dummy slate takes no gradient, a second run gives the same bits, one
+    launch a direction."""
+    gen = torch.Generator().manual_seed(1000 * k + b)
+    ts = torch.randint(0, 5, (b, k), generator=gen).float()
+    valid = (torch.rand(b, k, generator=gen) > 0.2).float()
+    valid[:, 0] = 1.0
+    if b > 1:
+        valid[-1] = 0.0  # a dummy slate
+    yp = torch.randn(b, k, generator=gen) * valid
+    g = (2.0 ** ts - 1.0) / 20.0
+    args = [t.to(cuda) for t in (yp, ts, g, valid)]
+    gout = torch.linspace(0.5, 1.5, b, device=cuda)
+    assert cluster_size(k) == (1 if k <= 32 else 2 if k <= 64 else 4)
+    for scheme in SCHEMES:
+        kw = dict(scheme=scheme, k_eff=k if k_eff is None else min(k_eff, k),
+                  sigma=1.0, mu=10.0, log_base="binary", eps=1e-10)
+        before = (lambda_pairs_fwd.launches, lambda_pairs_bwd.launches)
+        loss, cnt = lambda_pairs_fwd(*args, **kw)
+        dyp = lambda_pairs_bwd(*args, gout, **kw)
+        assert (lambda_pairs_fwd.launches, lambda_pairs_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref_loss, ref_cnt = lambda_pairs_fwd_plain(*args, **kw)
+        assert torch.equal(cnt, ref_cnt), scheme
+        torch.testing.assert_close(loss, ref_loss, rtol=2e-5, atol=1e-5)
+        ref = lambda_pairs_bwd_plain(*args, gout, **kw)
+        torch.testing.assert_close(dyp, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item() + 1e-6)
+        if b > 1:
+            assert not dyp[-1].any(), "the dummy slate took a gradient"
+        assert not dyp[valid.to(cuda) < 0.5].any(), "a padded document"
+        again = lambda_pairs_fwd(*args, **kw)
+        assert torch.equal(loss, again[0]) and torch.equal(cnt, again[1])
+        assert torch.equal(dyp, lambda_pairs_bwd(*args, gout, **kw))
+
+
 def test_train_step_launches_every_kernel_and_learns(cuda):
     from allrank_tpu_torch.config import (
         FCConfig,
@@ -775,6 +824,87 @@ def test_soft_sort_kernel_walks_more_slates_than_blocks(cuda):
                                         0.7, 50, False), "soft-sort ds")
 
 
+# every cluster size and register shape of B8's "cluster" route
+# (cluster_plan: 1 block to L = 128, 2 to 256, 8 to 512) and N from one
+# slate to more than the card holds clusters (the stochastic variant's
+# 2,048)
+SOFT_SORT_CLUSTER_CASES = [(1, 1), (300, 1), (64, 70), (1, 70), (64, 240),
+                           (2048, 240), (300, 241), (64, 300), (1, 361),
+                           (64, 361), (64, 512), (1, 512)]
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n,l", SOFT_SORT_CLUSTER_CASES)
+def test_soft_sort_cluster_route_matches_plain(cuda, n, l, transpose):
+    """The main route at each cluster size: out 1e-4, the records 1e-3
+    (their gauge), ds within 1e-4 of its largest value against the plain
+    version run in float64 end to end (records and all: in fp32 the plain
+    version is itself 1.2e-4 of max|ds| off it at L = 300 and 361
+    transposed); no gradient at padding, the same bits on a second run,
+    launches counted by route."""
+    s, pad, vec, dout = _soft_sort_inputs(n, l, 7 * l + n, cuda)
+    fwd_before = dict(soft_sort_fwd.route_launches)
+    bwd_before = dict(soft_sort_bwd.route_launches)
+    out, a_hist, b_hist = soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    ds = soft_sort_bwd(s, pad, vec, a_hist, b_hist, dout, 1.0, 50, transpose)
+    torch.cuda.synchronize()
+    assert soft_sort_fwd.route_launches == {
+        **fwd_before, "cluster": fwd_before["cluster"] + 1}
+    assert soft_sort_bwd.route_launches == {
+        **bwd_before, "cluster": bwd_before["cluster"] + 1}
+    ref, ref_a, ref_b = soft_sort_fwd_plain(s, pad, vec, 1.0, 50, transpose)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    _records_close(a_hist, b_hist, ref_a, ref_b)
+    del ref, ref_a, ref_b
+    args64 = [t.double() for t in (s, pad, vec)]
+    ref_ds = soft_sort_bwd_plain(
+        *args64, *soft_sort_fwd_plain(*args64, 1.0, 50, transpose)[1:],
+        dout.double(), 1.0, 50, transpose)
+    _grad_close(ds, ref_ds, "soft-sort ds")
+    del args64, ref_ds
+    assert not ds[pad > 0.5].any(), "a padded document took a gradient"
+    if n > 1:
+        assert not out[-1].any(), "the fully padded slate's output"
+    again = soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    assert all(torch.equal(x, y) for x, y in zip((out, a_hist, b_hist),
+                                                 again))
+    assert torch.equal(ds, soft_sort_bwd(s, pad, vec, a_hist, b_hist, dout,
+                                         1.0, 50, transpose))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_soft_sort_l2_route_by_name_matches_plain(cuda, transpose):
+    """Route "l2" (csrc/neuralsort.cu), on no main path, by name: still its
+    plain version's, and counted under its name alone."""
+    s, pad, vec, dout = _soft_sort_inputs(64, 240, 11, cuda)
+    before = (dict(soft_sort_fwd.route_launches),
+              dict(soft_sort_bwd.route_launches))
+    out, a_hist, b_hist = soft_sort_launch_fwd("l2", s, pad, vec, 1.0, 50,
+                                               transpose)
+    ds = soft_sort_launch_bwd("l2", s, pad, vec, a_hist, b_hist, dout, 1.0,
+                              50, transpose)
+    for k, was in zip((soft_sort_fwd, soft_sort_bwd), before):
+        assert k.route_launches == {**was, "l2": was["l2"] + 1}
+    ref, ref_a, ref_b = soft_sort_fwd_plain(s, pad, vec, 1.0, 50, transpose)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    _records_close(a_hist, b_hist, ref_a, ref_b)
+    _grad_close(ds, soft_sort_bwd_plain(s, pad, vec, a_hist, b_hist, dout,
+                                        1.0, 50, transpose), "l2 ds")
+
+
+def test_soft_sort_cluster_plan_is_the_kernels(cuda):
+    """The wrapper's cluster size and shared-memory count are the kernel's
+    own, at every L, in both directions."""
+    for backward in (False, True):
+        for l in range(1, 513):
+            cluster, nbytes = cluster_plan(l, backward)
+            assert kernel_cluster_blocks(l) == cluster
+            assert kernel_smem_floats(l, cluster, backward) * 4 == nbytes
+            assert (kernel_smem_floats(l, 8, backward)
+                    == cluster_smem_floats(l, 8, backward))
+
+
 @pytest.mark.parametrize("n,l", [(3, 1), (5, 70), (8, 240), (4, 640),
                                  (2, 768)])
 def test_sinkhorn_kernels_match_plain(cuda, n, l):
@@ -847,8 +977,12 @@ def test_neural_ndcg_step_gives_the_same_bits_twice(cuda):
         model, step = _neural_step(cuda, 240)
         for k in kernels:
             k.launches = 0
+        routes = (dict(soft_sort_fwd.route_launches),
+                  dict(soft_sort_bwd.route_launches))
         losses = [step()[0].item() for _ in range(3)]
         assert [k.launches for k in kernels] == [3, 3, 0, 0]
+        for k, was in zip((soft_sort_fwd, soft_sort_bwd), routes):
+            assert k.route_launches == {**was, "cluster": was["cluster"] + 3}
         runs.append((losses, [p.detach().clone()
                               for p in model.parameters()]))
     (l1, w1), (l2, w2) = runs
@@ -1865,10 +1999,11 @@ def test_layout_soft_sort_is_b8_bit_for_bit(cuda, n, l, transpose):
     torch.cuda.synchronize()
     assert (layout_soft_sort_fwd.launches, layout_soft_sort_bwd.launches) == (
         before[0] + 1, before[1] + 1)
-    want = soft_sort_fwd(s, pad, vec, 1.0, 50, transpose)
+    # X4 twins B8's route "l2" (records in device memory), bit for bit
+    want = soft_sort_launch_fwd("l2", s, pad, vec, 1.0, 50, transpose)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
-    assert torch.equal(ds, soft_sort_bwd(s, pad, vec, *want[1:], dout, 1.0,
-                                         50, transpose))
+    assert torch.equal(ds, soft_sort_launch_bwd("l2", s, pad, vec, *want[1:],
+                                                dout, 1.0, 50, transpose))
     torch.testing.assert_close(
         got[0], soft_sort_fwd_plain(s, pad, vec, 1.0, 50, transpose)[0],
         rtol=1e-4, atol=1e-4)
