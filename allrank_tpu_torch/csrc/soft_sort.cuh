@@ -1,11 +1,9 @@
-// The fused NeuralNDCG soft-sort kernels, forward and backward, as templates
-// on where the Sinkhorn records live: in device memory (kOnChip = false,
-// B8, instantiated by neuralsort.cu, whose header describes the math and
-// the design) or in shared memory for the whole loop (kOnChip = true, X4,
-// instantiated by neuralsort_layout.cu). The two run the same sums in the
-// same order and differ only in where those rows are read and written, so
-// X4's outputs equal B8's bit for bit; B8's instantiation is the code B8
-// had before X4 existed.
+// The fused NeuralNDCG soft-sort kernels of B8's route "l2", forward and
+// backward, instantiated by neuralsort.cu, whose header describes the math
+// and the design. The records live in device memory. The template parameter
+// kOnChip is a leftover of a records-on-chip variant (now neuralsort_layout.cu
+// on B8's route "cluster"); only kOnChip = false is instantiated, and the
+// parameter stays because it is part of the kernels' names.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -88,20 +86,8 @@ __device__ inline Chain neural_sort_chain(const float* s, const float* pad,
   return c;
 }
 
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          int count) {
-  for (int e = threadIdx.x; e < count; e += kSinkThreads) dst[e] = src[e];
-}
-
-// kOnChip = false is B8: the loop writes each record row straight to the
-// outputs. kOnChip = true is X4: the records live in shared memory after the
-// chain's vectors, and go to the outputs in one coalesced pass per slate.
-// Each part of X4 sits where B8's code stays as it was: declaring the
-// record pointers before the chain, for one, changed how ptxas allocates
-// B8's registers and made its forward 18 % slower. X4 also tells ptxas that
-// one block fills an SM (its records take 122 KB of shared memory); without
-// that, ptxas gave its forward 32 registers and spills. B8's launch bounds
-// stay as they were (minBlocks 0: none given).
+// The loop writes each record row straight to the outputs. The launch
+// bounds give no minBlocks (0).
 template <bool kOnChip>
 __global__ void __launch_bounds__(kSinkThreads, kOnChip ? 1 : 0)
     soft_sort_fwd_kernel(const float* __restrict__ s,
@@ -119,10 +105,6 @@ __global__ void __launch_bounds__(kSinkThreads, kOnChip ? 1 : 0)
                                       M);
     float* a_rec = a_hist + o * (T + 1);
     float* b_rec = b_hist + o * (T + 1);
-    if constexpr (kOnChip) {
-      a_rec = take(smem, (T + 1) * L);
-      b_rec = take(smem, (T + 1) * L);
-    }
     float *a, *b;
     sinkhorn_forward(M, L, T, smem, a, b, a_rec, b_rec);
     // p = a (.) M0 (.) b masked to the valid pairs, contracted with vec
@@ -139,11 +121,6 @@ __global__ void __launch_bounds__(kSinkThreads, kOnChip ? 1 : 0)
       }, out + o);
     }
     __syncthreads();
-    if constexpr (kOnChip) {
-      copy_rows(a_hist + o * (T + 1), a_rec, (T + 1) * L);
-      copy_rows(b_hist + o * (T + 1), b_rec, (T + 1) * L);
-      __syncthreads();
-    }
   }
 }
 constexpr int kSoftSortFwdVectors =
@@ -153,10 +130,8 @@ __device__ __forceinline__ float sign_of(float d) {
   return (float)((d > 0.f) - (d < 0.f));
 }
 
-// kOnChip = false is B8: the reverse pass reads the records from the
-// inputs and keeps its U and V stacks in `uv`. kOnChip = true is X4: both
-// records (read in one coalesced pass per slate) and U and V live in shared
-// memory after the chain's vectors; `uv` is unused (null).
+// The reverse pass reads the records from the inputs and keeps its U and V
+// stacks in `uv`.
 template <bool kOnChip>
 __global__ void __launch_bounds__(kSinkThreads, kOnChip ? 1 : 0)
     soft_sort_bwd_kernel(const float* __restrict__ s,
@@ -170,7 +145,7 @@ __global__ void __launch_bounds__(kSinkThreads, kOnChip ? 1 : 0)
   extern __shared__ float smem_base[];
   float* M = m_scratch + (size_t)blockIdx.x * 2 * L * L;
   float* dM = M + (size_t)L * L;
-  float* U = uv + (size_t)blockIdx.x * 2 * T * L;  // X4 takes its own
+  float* U = uv + (size_t)blockIdx.x * 2 * T * L;
   float* V = U + (size_t)T * L;
   for (int slate = blockIdx.x; slate < n; slate += gridDim.x) {
     const size_t o = (size_t)slate * L;
@@ -187,17 +162,6 @@ __global__ void __launch_bounds__(kSinkThreads, kOnChip ? 1 : 0)
     };
     const float* a_rec = a_hist + o * (T + 1);
     const float* b_rec = b_hist + o * (T + 1);
-    if constexpr (kOnChip) {
-      float* a_s = take(smem, (T + 1) * L);
-      float* b_s = take(smem, (T + 1) * L);
-      U = take(smem, T * L);
-      V = take(smem, T * L);
-      copy_rows(a_s, a_rec, (T + 1) * L);
-      copy_rows(b_s, b_rec, (T + 1) * L);
-      __syncthreads();
-      a_rec = a_s;
-      b_rec = b_s;
-    }
     sinkhorn_backward(M, L, T, dp, a_rec, b_rec, U, V, dM, smem);
     // the reverse pass's vectors are free again
     float* inner = take(smem, L);

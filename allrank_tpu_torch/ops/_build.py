@@ -137,6 +137,27 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
+_occupancy: Dict[tuple, int] = {}
+
+
+def cluster_occupancy(lib: ctypes.CDLL, fn: str, dev, *args: int) -> int:
+    """The clusters that the card holds at once, by ``lib``'s ``fn`` (a
+    ``cudaOccupancyMaxActiveClusters`` query whose last two ``args`` are the
+    blocks a cluster and the shared-memory bytes a block, returning the count
+    or minus the CUDA error), once a device and arguments; raises if the
+    query fails or the card holds none."""
+    key = (fn, dev, args)
+    if key not in _occupancy:
+        with torch.cuda.device(dev):
+            got = getattr(lib, fn)(*args)
+        check_launch(lib, max(-got, 0), fn)
+        if got == 0:
+            raise RuntimeError(f"the card holds no cluster of {args[-2]} "
+                               f"blocks of {args[-1]} bytes ({fn})")
+        _occupancy[key] = got
+    return _occupancy[key]
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

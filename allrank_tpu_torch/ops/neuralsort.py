@@ -241,22 +241,11 @@ def kernel_cluster_blocks(l: int) -> int:
     return lib.soft_sort_cluster_blocks(l)
 
 
-_OCCUPANCY: dict = {}
-
-
 def _clusters(lib, n: int, l: int, plan: tuple, backward: bool, dev) -> int:
     """The clusters to launch: ``n``, or as many as the card holds at once
     (``cudaOccupancyMaxActiveClusters``), which then walk the slates."""
-    key = (dev, backward, l, plan)
-    if key not in _OCCUPANCY:
-        with torch.cuda.device(dev):
-            got = lib.soft_sort_cluster_occupancy(int(backward), l, *plan)
-        _build.check_launch(lib, max(-got, 0), "soft_sort_cluster_occupancy")
-        if got == 0:
-            raise RuntimeError(f"the card holds no cluster of {plan[0]} "
-                               f"blocks of {plan[1]} bytes")
-        _OCCUPANCY[key] = got
-    return min(n, _OCCUPANCY[key])
+    return min(n, _build.cluster_occupancy(
+        lib, "soft_sort_cluster_occupancy", dev, int(backward), l, *plan))
 
 
 def _check_way(way: str, l: int) -> None:

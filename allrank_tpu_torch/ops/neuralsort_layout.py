@@ -8,54 +8,84 @@ backward at line 231), the probe that asks whether B8's scaling records
 belong in fast memory in iteration-major order. X4 computes B8's function
 (``ops/neuralsort.py``), so its plain versions are B8's:
 ``soft_sort_fwd_plain`` and ``soft_sort_bwd_plain``, which a CPU tensor
-takes here as well. On the card the kernels run the slate bodies of B8's
-route "l2" (``csrc/neuralsort.cu``, ``launch_fwd("l2", ...)``) with the
-records (and, in the backward, the U and V stacks) in shared memory, so
-out, a_hist, b_hist and ds equal that route's bit for bit.
+takes here as well. On the card the kernels are B8's main route "cluster"
+kernels (``csrc/soft_sort_cluster_kernels.cuh``, built with
+``kRecordsOnChip`` set) at B8's cluster sizes and register shapes, with the
+records (and, in the backward, the U and V stacks) in shared memory for the
+whole loop, so out, a_hist, b_hist and ds equal that route's bit for bit.
 
-Shared memory bounds the slate length: the backward holds
-``(4 T + 24) L`` floats, so at T = 50 iterations L <= 259
-(``max_length``). A longer slate raises ``ValueError``; nothing falls back
-to B8.
+Shared memory bounds the slate length: the backward keeps its stacks in
+the room of the block's rows of M0, ``(2 T + 1) (round8(R) +
+round128(L))`` floats, so at T = 50 iterations L <= 384 (``max_length``).
+A longer slate raises ``ValueError``; nothing falls back to B8.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from allrank_tpu_torch.ops import _build
+from allrank_tpu_torch.ops import neuralsort as b8
 from allrank_tpu_torch.ops.neuralsort import (
     _check,
-    _grid,
     soft_sort_bwd_plain,
     soft_sort_fwd_plain,
 )
 
-# a block's shared memory on the H100 (232,448 bytes, the opt-in maximum)
-SMEM_BYTES = 232_448
-# the O(L) vectors of B8's slate bodies (csrc/soft_sort.cuh's
-# kSoftSortFwdVectors and kSoftSortBwdVectors; csrc/neuralsort_layout.cu's
-# soft_sort_layout_vectors returns the totals)
-FWD_VECTORS, BWD_VECTORS = 25, 22
-_TAIL = [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
+SMEM_BYTES = b8.SMEM_BYTES
+_TAIL = [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
-_SIGNATURES = {"soft_sort_layout_fwd": [ctypes.c_void_p] * 7 + _TAIL,
-               "soft_sort_layout_bwd": [ctypes.c_void_p] * 8 + _TAIL,
-               "soft_sort_layout_vectors": [ctypes.c_int] * 2}
+_LIBRARY = ("neuralsort_layout",
+            {"soft_sort_layout_fwd": [ctypes.c_void_p] * 6 + _TAIL,
+             "soft_sort_layout_bwd": [ctypes.c_void_p] * 7 + _TAIL,
+             "soft_sort_layout_occupancy": [ctypes.c_int] * 4,
+             "soft_sort_layout_floats": [ctypes.c_int] * 4})
 
 
-def smem_floats(l: int, max_iter: int, backward: bool) -> int:
-    """Floats of shared memory a block of the forward or backward takes."""
-    if backward:
-        return (4 * max_iter + 2 + BWD_VECTORS) * l
-    return (2 * max_iter + 2 + FWD_VECTORS) * l
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
+def smem_floats(l: int, cluster: int, max_iter: int, backward: bool) -> int:
+    """Floats of shared memory a block takes (``csrc/neuralsort_layout.cu``'s
+    ``layout_smem_floats``). Forward: B8's, and the block's records [T + 1,
+    round4(R)] of a (its rows) and b (its share of the columns). Backward:
+    B8's without its staging room, the rows' softmax max and sum, and the
+    stacks in the room of M0's rows: a and U for the block's rows [T + 1 |
+    T, round8(R)], b and V for every column [T + 1 | T, round128(L)]."""
+    pitch, rows = _up(l, 4), -(-l // cluster)
+    if not backward:
+        return (b8.cluster_smem_floats(l, cluster, False)
+                + 2 * (max_iter + 1) * _up(rows, 4))
+    tiles = -(-l // b8._TILE_COLS)
+    loop = (2 * max(cluster * pitch, b8._XCH_FLOATS)
+            + 2 * b8._WARPS * _up(rows, 4))
+    room = max(loop, 2 * (b8._WARPS // tiles) * pitch)
+    m0_room = max(rows * pitch, (2 * max_iter + 1)
+                  * (_up(rows, 8) + tiles * b8._TILE_COLS))
+    return m0_room + b8._BWD_VECTORS * pitch + 6 * _up(rows, 4) + room
+
+
+def layout_plan(l: int, max_iter: int, backward: bool) -> tuple:
+    """(blocks a cluster, shared-memory bytes a block): B8's cluster size
+    at ``l`` (``neuralsort.register_shape``) and this kernel's bytes, which
+    may pass ``SMEM_BYTES`` (``max_length`` says where)."""
+    cluster = b8.register_shape(l)[0]
+    return cluster, 4 * smem_floats(l, cluster, max_iter, backward)
+
+
+@functools.lru_cache(maxsize=None)
 def max_length(max_iter: int = 50) -> int:
-    """The longest slate both kernels take at ``max_iter`` iterations."""
-    return SMEM_BYTES // (4 * smem_floats(1, max_iter, backward=True))
+    """The longest slate L such that both kernels take every length up to
+    L at ``max_iter`` iterations (384 at 50)."""
+    for l in range(1, b8.MAX_FUSED_LENGTH + 1):
+        if any(layout_plan(l, max_iter, bwd)[1] > SMEM_BYTES
+               for bwd in (False, True)):
+            return l - 1
+    return b8.MAX_FUSED_LENGTH
 
 
 def check_length(l: int, max_iter: int) -> None:
@@ -77,11 +107,19 @@ def _check_cuda(s, pad_f, vec, tau, max_iter):
     return n, l
 
 
-def layout_vectors(max_iter: int, backward: bool) -> int:
-    """The kernel's own count of ``smem_floats(1, ...)`` (builds and loads
-    the library; for the checks on the card)."""
-    lib = _build.load("neuralsort_layout", _SIGNATURES)
-    return lib.soft_sort_layout_vectors(max_iter, int(backward))
+def kernel_smem_floats(l: int, cluster: int, max_iter: int,
+                       backward: bool) -> int:
+    """The kernels' own count of ``smem_floats`` (builds and loads the
+    library; for the checks on the card)."""
+    lib = _build.load(*_LIBRARY)
+    return lib.soft_sort_layout_floats(l, cluster, max_iter, int(backward))
+
+
+def _clusters(lib, n: int, l: int, plan: tuple, backward: bool, dev) -> int:
+    """The clusters to launch: ``n``, or as many as the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), which then walk the slates."""
+    return min(n, _build.cluster_occupancy(
+        lib, "soft_sort_layout_occupancy", dev, int(backward), l, *plan))
 
 
 def layout_soft_sort_fwd(s, pad_f, vec, tau, max_iter=50, transpose=False):
@@ -93,16 +131,16 @@ def layout_soft_sort_fwd(s, pad_f, vec, tau, max_iter=50, transpose=False):
         return soft_sort_fwd_plain(s, pad_f, vec, tau, max_iter, transpose)
     n, l = _check_cuda(s, pad_f, vec, tau, max_iter)
     dev = s.device
-    grid = _grid(n, dev)
     out = torch.empty_like(s)
     a_hist = torch.empty(n, max_iter + 1, l, dtype=torch.float32, device=dev)
     b_hist = torch.empty_like(a_hist)
-    scratch = torch.empty(grid, l, l, dtype=torch.float32, device=dev)
-    lib = _build.load("neuralsort_layout", _SIGNATURES)
+    lib = _build.load(*_LIBRARY)
+    plan = layout_plan(l, max_iter, backward=False)
+    clusters = _clusters(lib, n, l, plan, False, dev)
     with torch.cuda.device(dev):
         rc = lib.soft_sort_layout_fwd(
-            *map(_build.ptr, (s, pad_f, vec, scratch, out, a_hist, b_hist)),
-            n, l, max_iter, float(tau), int(transpose), grid,
+            *map(_build.ptr, (s, pad_f, vec, out, a_hist, b_hist)), n, l,
+            max_iter, float(tau), int(transpose), *plan, clusters,
             _build.stream_of(s))
     _build.check_launch(lib, rc, "soft_sort_layout_fwd")
     layout_soft_sort_fwd.launches += 1
@@ -125,15 +163,14 @@ def layout_soft_sort_bwd(s, pad_f, vec, a_hist, b_hist, dout, tau,
     _build.require(dout, "dout", (n, l), torch.float32, dev)
     for name, t in (("a_hist", a_hist), ("b_hist", b_hist)):
         _build.require(t, name, (n, max_iter + 1, l), torch.float32, dev)
-    grid = _grid(n, dev)
     ds = torch.empty_like(s)
-    scratch = torch.empty(grid, 2, l, l, dtype=torch.float32, device=dev)
-    lib = _build.load("neuralsort_layout", _SIGNATURES)
+    lib = _build.load(*_LIBRARY)
+    plan = layout_plan(l, max_iter, backward=True)
+    clusters = _clusters(lib, n, l, plan, True, dev)
     with torch.cuda.device(dev):
         rc = lib.soft_sort_layout_bwd(
-            *map(_build.ptr, (s, pad_f, vec, a_hist, b_hist, dout, scratch,
-                              ds)),
-            n, l, max_iter, float(tau), int(transpose), grid,
+            *map(_build.ptr, (s, pad_f, vec, a_hist, b_hist, dout, ds)), n,
+            l, max_iter, float(tau), int(transpose), *plan, clusters,
             _build.stream_of(s))
     _build.check_launch(lib, rc, "soft_sort_layout_bwd")
     layout_soft_sort_bwd.launches += 1

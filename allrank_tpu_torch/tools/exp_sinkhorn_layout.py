@@ -1,11 +1,13 @@
 """B8's Sinkhorn records on chip (X4): the counterpart of the JAX package's
 ``tools/exp_sinkhorn_layout.py``.
 
-B8's route "l2" (``ops/neuralsort.py``, ``csrc/neuralsort.cu``) writes
-each iteration's scaling records to device memory as its loop makes them,
-and its backward re-reads them and its U and V stacks from there. X4 (``ops/neuralsort_layout.py``) runs the
-same code with the records, and the backward's U and V, in shared memory
-for the whole loop, written out and read back in one coalesced pass per
+B8's main route "cluster" (``ops/neuralsort.py``,
+``csrc/neuralsort_cluster.cu``) writes each iteration's scaling records to
+device memory as its loop makes them, and its backward re-reads them and
+keeps its U and V stacks in device memory. X4
+(``ops/neuralsort_layout.py``) runs the same slate bodies at the same
+cluster sizes with the records, and the backward's U and V, in shared
+memory for the whole loop, written out and read back in one pass per
 slate. The probe checks that both give the same outputs and gradients and
 times both, forward and forward + backward, each step 8 times in one CUDA
 graph (the TPU's scan of 8).
@@ -62,9 +64,9 @@ def inputs(n, l, device):
 
 
 def b8_contract(scores, pad_mask, vec, *, tau, max_iter):
-    """B8's contraction through route "l2", the layout X4 twins."""
+    """B8's contraction through route "cluster", the code X4 twins."""
     return fused_soft_sort_contract(scores, pad_mask, vec, tau=tau,
-                                    max_iter=max_iter, way="l2")
+                                    max_iter=max_iter, way="cluster")
 
 
 def _grad(fn, s0, pad, vec):
@@ -108,7 +110,8 @@ def main(argv=None) -> dict:
     print("max |g_B8-g_X4|     =", res["max_abs_grad"])
 
     arms = (("b8", f"B8 records in device memory N={n} L={l}",
-             partial(launch_fwd, "l2"), partial(launch_bwd, "l2")),
+             partial(launch_fwd, "cluster"),
+             partial(launch_bwd, "cluster")),
             ("x4", f"X4 records on chip       N={n} L={l}",
              layout_soft_sort_fwd, layout_soft_sort_bwd))
     for key, label, fwd, bwd in arms:

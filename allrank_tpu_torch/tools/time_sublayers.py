@@ -42,10 +42,14 @@ call beside each: B3 (``ops/lambda_pairs.py``) and B6
 (``ops/lambda_tiled.py``) at B=64, k=240 (a 40-document padding tail,
 ndcgLoss2PP) beside ``chain_library``; B8 (``ops/neuralsort.py``) by route
 ("cluster" and "l2"; a checkout without routes times its one kernel) at
-N=64, L=240 and N=4, L=512 beside ``soft_sort_library``; then the NeuralNDCG
-recipe's train step (``neuralndcg_atmax.json``, B=64, L=240, bf16): its ms,
-the device's busy ms a step from a torch.profiler trace of 5 steps, and B8's
-share of that busy time.
+N=64, L=240 and N=4, L=512 beside ``soft_sort_library``; B7
+(``ops/sinkhorn.py``) by route ("cluster" and "l2"; likewise) at N=8, L=640
+and N=2, L=768 beside ``sinkhorn_library``; X4
+(``ops/neuralsort_layout.py``) at N=64, L=240 beside ``soft_sort_library``; then the NeuralNDCG recipe's
+train step (``neuralndcg_atmax.json``, bf16) at B=64, L=240 and at B=8,
+L=640, where the Sinkhorn kernel B7 runs: its ms, the device's busy ms a
+step from a torch.profiler trace of 5 steps, and B8's and B7's shares of
+that busy time.
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -136,6 +140,32 @@ def soft_sort_library(s, pad, vec, transpose):
     dout = torch.ones_like(out)
     return (lambda: forward(s),
             lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True))
+
+
+def sinkhorn_library(m0):
+    """Sinkhorn scaling as the freezing chain of torch ops
+    (``sinkhorn_scaling(backend="plain")``), a yardstick only: returns
+    (forward, backward by autograd) as functions that run it once."""
+    from allrank_tpu_torch.ops.soft_sort import sinkhorn_scaling
+
+    leaf = m0.detach().requires_grad_()
+    out = sinkhorn_scaling(leaf, backend="plain")
+    dp = torch.ones_like(out)
+    return (lambda: sinkhorn_scaling(m0, backend="plain"),
+            lambda: torch.autograd.grad(out, leaf, dp, retain_graph=True))
+
+
+def premasked_matrices(gen, n, l, dev):
+    """B7's inputs: row-stochastic [n, l, l] matrices with the Sinkhorn
+    pre-fill of ragged padding (slate 0 full, the last one fully
+    padded)."""
+    lengths = torch.randint(1, l + 1, (n,), generator=gen)
+    lengths[0] = l
+    lengths[-1] = 0
+    pad = torch.arange(l)[None, :] >= lengths[:, None]
+    m0 = torch.softmax(torch.randn(n, l, l, generator=gen) * 3.0, dim=-1)
+    m0 = torch.where(pad[:, :, None] | pad[:, None, :], 0.0, m0)
+    return torch.where(pad[:, :, None] & pad[:, None, :], 1.0, m0).to(dev)
 
 
 def b2_library(x, g, b, w1, b1, w2, b2):
@@ -411,13 +441,30 @@ def neural_recipe_step(dev):
     return step, flagship_step(dev)[1]
 
 
+def long_neural_batch(dev, b: int = 8, l: int = 640):
+    """A batch past B8's 512 documents for the NeuralNDCG step, where the
+    loss runs the Sinkhorn kernel B7: seeded features and labels 0-4, the
+    last 100 documents padding."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    x = rng.randn(b, l, FEATURES).astype(np.float32)
+    y = rng.randint(0, 5, (b, l)).astype(np.float32)
+    indices = np.tile(np.arange(l), (b, 1))
+    y[:, -100:] = -1.0
+    indices[:, -100:] = -1
+    return tuple(torch.as_tensor(t, device=dev) for t in (x, y, indices))
+
+
 def time_losses(card: str, package: str, iters: int) -> list:
-    """``--losses``' lines: B3, B6 and B8 by route as device time beside
-    their libraries, and the NeuralNDCG recipe step's busy time and B8's
-    share of it."""
+    """``--losses``' lines: B3, B6, B8 and B7 by route and X4 as device
+    time beside their libraries, and the NeuralNDCG recipe step's busy time
+    and B8's and B7's shares of it at L=240 and L=640."""
     from allrank_tpu_torch.ops import lambda_pairs as b3
     from allrank_tpu_torch.ops import lambda_tiled as b6
     from allrank_tpu_torch.ops import neuralsort as b8
+    from allrank_tpu_torch.ops import neuralsort_layout as x4
+    from allrank_tpu_torch.ops import sinkhorn as b7
     from allrank_tpu_torch.tools.timing import (
         _median_event_ms,
         busy_us,
@@ -478,20 +525,56 @@ def time_losses(card: str, package: str, iters: int) -> list:
                              False), lib[1], True, route=way, **extra)
         del s, pad, vec, dout, lib
         torch.cuda.empty_cache()
+    s, pad, vec, dout = soft_sort_inputs(gen, B, L, dev)
+    lib = soft_sort_library(s, pad, vec, False)
+    _, a_hist, b_hist = x4.layout_soft_sort_fwd(s, pad, vec, 1.0, 50, False)
+    line("layout_soft_sort_fwd", [B, L],
+         lambda: x4.layout_soft_sort_fwd(s, pad, vec, 1.0, 50, False),
+         lib[0], False)
+    line("layout_soft_sort_bwd", [B, L],
+         lambda: x4.layout_soft_sort_bwd(s, pad, vec, a_hist, b_hist, dout,
+                                         1.0, 50, False), lib[1], True)
+    del s, pad, vec, dout, lib
+    b7_routes = b7.ROUTES if hasattr(b7, "launch_fwd") else ("l2",)
+    for n, l in ((8, 640), (2, 768)):
+        m0 = premasked_matrices(gen, n, l, dev)
+        dp = torch.randn(n, l, l, generator=gen).to(dev)
+        lib = sinkhorn_library(m0)
+        for way in b7_routes:
+            if hasattr(b7, "launch_fwd"):
+                fwd = functools.partial(b7.launch_fwd, way)
+                bwd = functools.partial(b7.launch_bwd, way)
+            else:
+                fwd, bwd = b7.sinkhorn_fwd, b7.sinkhorn_bwd
+            _, a_hist, b_hist = fwd(m0, 50)
+            extra = ({"cluster": b7.cluster_plan(l, False)[0]}
+                     if way == "cluster" else {})
+            line("sinkhorn_fwd", [n, l], lambda: fwd(m0, 50), lib[0], False,
+                 route=way, **extra)
+            line("sinkhorn_bwd", [n, l],
+                 lambda: bwd(m0, a_hist, b_hist, dp, 50), lib[1], True,
+                 route=way, **extra)
+        del m0, dp, lib
+        torch.cuda.empty_cache()
     step, batch = neural_recipe_step(dev)
     calls = 5
-    ms = _median_event_ms(lambda: step(*batch), iters, 3)
-    spans, window_us = trace_kernels(lambda: step(*batch), calls)
-    busy = busy_us(spans)
-    b8_us = sum(end - start for name, start, end in spans
-                if "soft_sort" in name)
-    lines.append({"step": "NeuralNDCG recipe (neuralndcg_atmax.json), bf16",
-                  "shape": [B, L], "ms": ms,
-                  "device_busy_ms": busy / calls / 1e3,
-                  "idle_share": 1 - busy / window_us,
-                  "b8_ms": b8_us / calls / 1e3, "b8_share": b8_us / busy,
-                  "card": card, "package": package})
-    print(json.dumps(lines[-1]), flush=True)
+    for batch in (batch, long_neural_batch(dev)):
+        ms = _median_event_ms(lambda: step(*batch), iters, 3)
+        spans, window_us = trace_kernels(lambda: step(*batch), calls)
+        busy = busy_us(spans)
+        share = {}
+        for key, part in (("b8", "soft_sort"), ("b7", "sinkhorn")):
+            us = sum(end - start for name, start, end in spans
+                     if part in name)
+            share.update({f"{key}_ms": us / calls / 1e3,
+                          f"{key}_share": us / busy})
+        lines.append({
+            "step": "NeuralNDCG recipe (neuralndcg_atmax.json), bf16",
+            "shape": list(batch[1].shape), "ms": ms,
+            "device_busy_ms": busy / calls / 1e3,
+            "idle_share": 1 - busy / window_us, **share, "card": card,
+            "package": package})
+        print(json.dumps(lines[-1]), flush=True)
     return lines
 
 
@@ -668,7 +751,8 @@ def main(argv=None) -> int:
                         help="with --probes, also X3 and B1 at B=16, "
                              "L=1024")
     parser.add_argument("--losses", action="store_true",
-                        help="time the loss kernels B3, B6 and B8 instead")
+                        help="time the loss kernels B3, B6, B8, B7 and X4 "
+                             "instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_sublayers: no CUDA device", file=sys.stderr)
@@ -703,7 +787,9 @@ def main(argv=None) -> int:
                                   "no_pv", "frame")))
                              if args.probes else ()),
                            *(("lambda_pairs", "lambda_tiled", "neuralsort",
-                              "neuralsort_cluster") if args.losses else ()),
+                              "neuralsort_cluster", "neuralsort_layout",
+                              "sinkhorn", "sinkhorn_cluster")
+                             if args.losses else ()),
                            *args.ptxas)
                if os.path.exists(_build.source_path(s))]
     _build.build(sorted(set(sources)))

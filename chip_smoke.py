@@ -91,7 +91,10 @@ and never prints its last line):
     plain versions at N=64, L=240 and at N=2048 (the stochastic fold), both
     ``transpose`` values, ragged lengths, one fully padded slate;
 12. the Sinkhorn kernels (B7, forward and backward) against their plain
-    versions at N=8, L=640;
+    versions on both routes ("cluster", the main one: a slate's M0 on a
+    thread-block cluster; "l2" by name) at N=8, L=640 and N=2, L=768 with a
+    fully padded slate, a second run bit for bit; the planner against the
+    kernel's own counts at every L;
 13. the train CLI, the third main path: a dummy libsvm dataset of WEB30K's
     shape from a seed (136 features, 5 grades, 1,024 train and 256
     validation slates of 40-240 documents), then
@@ -104,11 +107,13 @@ and never prints its last line):
     once per train step, B8 forward once per evaluation batch, B1/B2 twice
     per step and per evaluation batch (two blocks). Then one epoch of
     ``ndcgloss2pp.json`` the same way (B3 launched), a NeuralNDCG train step
-    at B=8, L=640 that launches B7, and step 1 of the NeuralNDCG model at
-    dropout 0 in fp32 on the GPU against the CPU's plain run;
-14. times: B7 and B8, their plain versions and a PyTorch formulation of the
-    same chain (forward, and backward by autograd); the NeuralNDCG train
-    step with its idle share; an epoch's train, evaluation and feed seconds;
+    at B=8, L=640 that launches B7 on its "cluster" route once each way, and
+    step 1 of the NeuralNDCG model at dropout 0 in fp32 on the GPU against
+    the CPU's plain run;
+14. times: B7 by route and B8, their plain versions and a PyTorch
+    formulation of the same chain (forward, and backward by autograd); the
+    NeuralNDCG train step with its idle share; an epoch's train, evaluation
+    and feed seconds;
 15. the approxNDCG rank-sum kernels (B9, forward and backward) against
     their plain versions: B=64, L=240 ragged with one empty slate, L in
     {1, 37, 1308, 4096}, alpha in {0.1, 1, 10}, scores of +-1e4 (where
@@ -255,20 +260,23 @@ and never prints its last line):
     K-swept) at its default shape, at B=16, L=1024 and at d=256, h=1;
     X3 full, B1 and B1's library at (16, 1024) as device time; each mode's
     times on both routes;
-33. the soft-sort with its records on chip (X4, forward and backward)
-    against B8's kernels (bit for bit) and the plain version at N=2048,
-    L=240 with a 40-document tail (the probe's case), at N=64 ragged in
-    both ``transpose`` values and at one fully padded slate; its refusal
-    past its shared-memory cap; then the probe ``exp_sinkhorn_layout``
-    (B8 against X4, forward and forward + backward, 8 steps in one CUDA
-    graph); times at N=64 beside B8's;
+33. the soft-sort with its records on chip (X4, forward and backward: B8's
+    route "cluster" with the records and the backward's U and V stacks in
+    shared memory) against B8's route "cluster" (bit for bit) and the plain
+    version at N=2048, L=240 with a 40-document tail (the probe's case), at
+    N=64 ragged in both ``transpose`` values, at its cap and at one fully
+    padded slate; the planner against the kernels' own counts; its refusal
+    past its shared-memory cap; then the probe ``exp_sinkhorn_layout`` (B8's
+    route "cluster" against X4, forward and forward + backward, 8 steps in
+    one CUDA graph); times at N=64 beside B8's;
 34. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
     3xTF32 rows count the fp32 service's and step's launches, the SIMT
     rows those of B10's reference chain in phase 28 and carry
     ``"launch_source": "b10_reference_chain"``; X3 a row per mode and
-    route, the SIMT rows' launches those of the probe at d_k 256), the card's
-    name and power limit as
-    nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
+    route, the SIMT rows' launches those of the probe at d_k 256; B7 and B8
+    a row per route, the "l2" rows' launches 0: no path runs them), the
+    card's name and power limit as nvidia-smi reports them, and last
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -300,6 +308,8 @@ from allrank_tpu_torch.tools.time_attention import library_fns, ptxas_lines
 from allrank_tpu_torch.tools.time_sublayers import (
     chain_library,
     library_args,
+    premasked_matrices,
+    sinkhorn_library,
     soft_sort_library,
     x2_inputs,
     x2_library,
@@ -369,7 +379,8 @@ PROBE_MMA_KERNELS = {"boundary_shift_mma": 4,
 # every kernel source, built in parallel in phase 1
 SOURCES = ["attention_block", "attention_block_mma", "attention_block_tf32x3",
            "ffn_block", "ffn_block_mma", "ffn_block_tf32x3", "lambda_pairs",
-           "sinkhorn", "neuralsort", "neuralsort_cluster", "approx_pos",
+           "sinkhorn", "sinkhorn_cluster", "neuralsort", "neuralsort_cluster",
+           "approx_pos",
            "lambda_tiled",
            "attention_fused", "attention_tiled", "q8_dense", *B10_SOURCES,
            "boundary_shift_mma", "attention_variants", *X3_MMA_SOURCES,
@@ -1364,36 +1375,12 @@ def soft_sort_inputs(gen, n, l, dev):
     return [t.to(dev) for t in (s, pad, vec, dout)]
 
 
-def premasked_matrices(gen, n, l, dev):
-    """Row-stochastic [n, l, l] matrices with the Sinkhorn pre-fill of ragged
-    padding (slate 0 full, the last one fully padded)."""
-    lengths = torch.randint(1, l + 1, (n,), generator=gen)
-    lengths[0] = l
-    lengths[-1] = 0
-    pad = torch.arange(l)[None, :] >= lengths[:, None]
-    m0 = torch.softmax(torch.randn(n, l, l, generator=gen) * 3.0, dim=-1)
-    m0 = torch.where(pad[:, :, None] | pad[:, None, :], 0.0, m0)
-    return torch.where(pad[:, :, None] & pad[:, None, :], 1.0, m0).to(dev)
-
-
 def assert_grad_close(got, ref, what) -> float:
     assert torch.isfinite(got).all(), f"{what}: non-finite gradient"
     err, scale = rel_err(got, ref)
     rtol, atol = SOFT_GRAD_TOL
     assert err <= rtol * scale + atol, f"{what}: {err} > {rtol} x {scale}"
     return err
-
-
-def sinkhorn_library(m0):
-    """Sinkhorn scaling as the freezing chain of torch ops (forward, and
-    backward by autograd), a yardstick only."""
-    from allrank_tpu_torch.ops.soft_sort import sinkhorn_scaling
-
-    leaf = m0.detach().requires_grad_()
-    out = sinkhorn_scaling(leaf, backend="plain")
-    dp = torch.ones_like(out)
-    return (lambda: sinkhorn_scaling(m0, backend="plain"),
-            lambda: torch.autograd.grad(out, leaf, dp, retain_graph=True))
 
 
 def write_cli_dataset(data_dir: str, seed: int = 0) -> dict:
@@ -1811,6 +1798,19 @@ def main() -> int:
     )
     from allrank_tpu_torch.ops.neuralsort import launch_bwd as b8_launch_bwd
     from allrank_tpu_torch.ops.neuralsort import launch_fwd as b8_launch_fwd
+    from allrank_tpu_torch.ops.sinkhorn import ROUTES as B7_ROUTES
+    from allrank_tpu_torch.ops.sinkhorn import (
+        cluster_occupancy as b7_occupancy,
+    )
+    from allrank_tpu_torch.ops.sinkhorn import cluster_plan as b7_plan
+    from allrank_tpu_torch.ops.sinkhorn import (
+        kernel_cluster_blocks as b7_kernel_blocks,
+    )
+    from allrank_tpu_torch.ops.sinkhorn import (
+        kernel_smem_floats as b7_kernel_floats,
+    )
+    from allrank_tpu_torch.ops.sinkhorn import launch_bwd as b7_launch_bwd
+    from allrank_tpu_torch.ops.sinkhorn import launch_fwd as b7_launch_fwd
     from allrank_tpu_torch.ops.sinkhorn import (
         sinkhorn_bwd,
         sinkhorn_bwd_plain,
@@ -1840,13 +1840,15 @@ def main() -> int:
     from allrank_tpu_torch.ops.ffn_block import route as b2_route
 
     def reset_routes():
-        """B1's, B2's and B8's launches by route back to 0."""
+        """B1's, B2's, B8's and B7's launches by route back to 0."""
         for k in (attention_sublayer_fwd, attention_sublayer_bwd):
             k.route_launches = dict.fromkeys(B1_ROUTES, 0)
         for k in (ffn_sublayer_fwd, ffn_sublayer_bwd):
             k.route_launches = dict.fromkeys(B2_ROUTES, 0)
         for k in (soft_sort_fwd, soft_sort_bwd):
             k.route_launches = dict.fromkeys(B8_ROUTES, 0)
+        for k in (sinkhorn_fwd, sinkhorn_bwd):
+            k.route_launches = dict.fromkeys(B7_ROUTES, 0)
 
     def b1_routes():
         """B1's launches by route, forward then backward."""
@@ -2015,20 +2017,24 @@ def main() -> int:
               f"{'TF32' if kind == TF32_HMMA else 'bf16'} HMMA only, in "
               f"their phases; ptxas: {len(spilled)} of {len(props)} "
               f"functions spill")
-    # B3's cluster kernels and B8's "cluster" route (one kernel a register
-    # shape and direction): registers and spills of each; B3's spill
-    # nothing, B8's hold a block's rows of M0 in 128 registers a thread and
-    # spill a few hundred bytes, printed
-    regs = dict(ptxas_lines("lambda_pairs") + ptxas_lines(
-        "neuralsort_cluster"))
-    for src, marker in (("lambda_pairs", "lambda_cluster_"),
-                        ("neuralsort_cluster", "soft_sort_cluster_")):
+    # B3's cluster kernels, B8's "cluster" route and X4 (one kernel a
+    # register shape and direction each) and B7's "cluster" route:
+    # registers and spills of each; B3's spill nothing, B8's and X4's hold
+    # a block's rows of M0 in 128 registers a thread and spill a few
+    # hundred bytes, printed
+    cluster_sources = (
+        ("lambda_pairs", r"lambda_cluster_[fb]wd_kernel", 2),
+        ("neuralsort_cluster", r"soft_sort_cluster_[fb]wd_kernel", 6),
+        ("neuralsort_layout", r"soft_sort_cluster_[fb]wd_kernel", 6),
+        ("sinkhorn_cluster", r"sinkhorn_cluster_[fb]wd_kernel", 2))
+    regs = dict(sum((ptxas_lines(src) for src, _, _ in cluster_sources),
+                    []))
+    for src, marker, count in cluster_sources:
         found = {f: line for f, line in ptxas_properties(
-            _build.log_path(src)).items() if marker in f}
-        assert len(found) == (2 if src == "lambda_pairs" else 6), (
-            src, found)
+            _build.log_path(src)).items() if re.search(marker, f)}
+        assert len(found) == count, (src, found)
         for f, line in sorted(found.items()):
-            kname = re.search(marker + r"\w+?_kernel\w*", f).group(0)
+            kname = re.search(marker + r"\w*", f).group(0)
             print(f"ptxas {src}: {kname}: {regs.get(f, '?')}; {line}")
         assert src != "lambda_pairs" or not any(
             spill_bytes(line) for line in found.values()), found
@@ -2777,29 +2783,62 @@ def main() -> int:
     phase_ok("phase 11 ok: fused soft-sort kernels match their plain versions")
 
     # -- 12: B7 against its plain version -------------------------------------
+    # both routes: "cluster" (the main one, a slate's M0 on a cluster of
+    # b7_plan(L)[0] blocks: 8 at L=640, 16 at 768) and "l2" by name, at the
+    # NeuralNDCG step's length and the envelope's edge, each with a fully
+    # padded slate; the planner against the kernel's own counts at every L
+    for backward in (False, True):
+        for l in range(1, 769):
+            plan = b7_plan(l, backward)
+            assert b7_kernel_blocks(l) == plan[0], (l, plan)
+            assert b7_kernel_floats(l, plan[0], backward) * 4 == plan[1]
     n7, l7 = 8, 640
-    m0 = premasked_matrices(gen, n7, l7, dev)
-    dp = torch.randn(n7, l7, l7, generator=gen).to(dev)
-    before = (sinkhorn_fwd.launches, sinkhorn_bwd.launches)
-    p_out, a_hist, b_hist = sinkhorn_fwd(m0, T)
-    dm0 = sinkhorn_bwd(m0, a_hist, b_hist, dp, T)
-    torch.cuda.synchronize()
-    assert (sinkhorn_fwd.launches, sinkhorn_bwd.launches) == (
-        before[0] + 1, before[1] + 1), "B7 did not launch"
-    ref_p, ref_a, ref_b = sinkhorn_fwd_plain(m0, T)
-    assert torch.isfinite(p_out).all()
-    torch.testing.assert_close(p_out, ref_p, **SOFT_TOL)
-    torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
-    torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
-    sink_errs = {
-        "sinkhorn_fwd": rel_err(p_out, ref_p)[0],
-        "sinkhorn_bwd": assert_grad_close(
-            dm0, sinkhorn_bwd_plain(m0, a_hist, b_hist, dp, T), "B7 dM0")}
-    print(f"B7 vs plain N={n7} L={l7}: max_abs_err P "
-          f"{sink_errs['sinkhorn_fwd']:.3e} (tol {SOFT_TOL}), dM0 "
-          f"{sink_errs['sinkhorn_bwd']:.3e} (tol {SOFT_GRAD_TOL[0]:g} x "
-          f"max|ref|)")
-    phase_ok("phase 12 ok: Sinkhorn kernels match their plain versions")
+    sink_errs = {}
+    for n, l in ((n7, l7), (2, 768)):
+        m0 = premasked_matrices(gen, n, l, dev)
+        dp = torch.randn(n, l, l, generator=gen).to(dev)
+        if (n, l) == (n7, l7):
+            dp7 = dp
+        ref_p, ref_a, ref_b = sinkhorn_fwd_plain(m0, T)
+        for way in B7_ROUTES:
+            before = (dict(sinkhorn_fwd.route_launches),
+                      dict(sinkhorn_bwd.route_launches))
+            p_out, a_hist, b_hist = b7_launch_fwd(way, m0, T)
+            dm0 = b7_launch_bwd(way, m0, a_hist, b_hist, dp, T)
+            torch.cuda.synchronize()
+            for k, was in zip((sinkhorn_fwd, sinkhorn_bwd), before):
+                assert k.route_launches == {**was, way: was[way] + 1}, (
+                    f"B7 did not launch its {way} route")
+            assert torch.isfinite(p_out).all()
+            torch.testing.assert_close(p_out, ref_p, **SOFT_TOL)
+            torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
+            torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
+            p_err = rel_err(p_out, ref_p)[0]
+            ref_dm0 = sinkhorn_bwd_plain(m0, a_hist, b_hist, dp, T)
+            g_err = assert_grad_close(dm0, ref_dm0,
+                                      f"B7 ({way}) dM0 N={n} L={l}")
+            again = b7_launch_fwd(way, m0, T)
+            assert all(torch.equal(x, y) for x, y in zip(
+                (p_out, a_hist, b_hist), again)), "B7 moved on a second run"
+            assert torch.equal(dm0, b7_launch_bwd(way, m0, a_hist, b_hist,
+                                                  dp, T))
+            if (n, l) == (n7, l7):
+                sfx = "" if way == "cluster" else "_l2"
+                sink_errs.update({f"sinkhorn_fwd{sfx}": p_err,
+                                  f"sinkhorn_bwd{sfx}": g_err})
+            blocks = (f"{b7_plan(l, False)[0]} blocks, the card holding "
+                      f"{b7_occupancy(b7_plan(l, False), False, dev)} such "
+                      f"clusters at once" if way == "cluster" else
+                      "one block a slate")
+            print(f"B7 ({way}, {blocks}) vs plain N={n} L={l}: max_abs_err "
+                  f"P {p_err:.3e} (tol {SOFT_TOL}), dM0 {g_err:.3e} of "
+                  f"max|ref| {ref_dm0.abs().max().item():.3e} (tol "
+                  f"{SOFT_GRAD_TOL[0]:g} x); reruns bit for bit")
+            del again, p_out, a_hist, b_hist, dm0, ref_dm0
+        del m0, dp, ref_p, ref_a, ref_b
+        torch.cuda.empty_cache()
+    phase_ok("phase 12 ok: Sinkhorn kernels match their plain versions on "
+             "both routes")
 
     # -- 13: the train CLI, the third main path -------------------------------
     all_kernels = train_kernels + (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd,
@@ -2817,10 +2856,12 @@ def main() -> int:
         for k, by_route in zip(("attention_sublayer_fwd",
                                 "attention_sublayer_bwd", "ffn_sublayer_fwd",
                                 "ffn_sublayer_bwd", "soft_sort_fwd",
-                                "soft_sort_bwd"),
-                               b1_routes() + b2_routes() + (
-                                   dict(soft_sort_fwd.route_launches),
-                                   dict(soft_sort_bwd.route_launches))):
+                                "soft_sort_bwd", "sinkhorn_fwd",
+                                "sinkhorn_bwd"),
+                               b1_routes() + b2_routes() + tuple(
+                                   dict(k.route_launches) for k in (
+                                       soft_sort_fwd, soft_sort_bwd,
+                                       sinkhorn_fwd, sinkhorn_bwd))):
             got.update({f"{k}[{way}]": n for way, n in by_route.items()})
         return got
 
@@ -2950,8 +2991,13 @@ def main() -> int:
     loss7, _ = nstep(x7, y7, i7)
     b7_launches = counts()
     assert math.isfinite(loss7.item()), loss7
+    # B7 on its main route once each way, route "l2" and B8 not at all
     assert (b7_launches["sinkhorn_fwd"], b7_launches["sinkhorn_bwd"],
-            b7_launches["soft_sort_fwd"]) == (1, 1, 0), b7_launches
+            b7_launches["sinkhorn_fwd[cluster]"],
+            b7_launches["sinkhorn_bwd[cluster]"],
+            b7_launches["sinkhorn_fwd[l2]"], b7_launches["sinkhorn_bwd[l2]"],
+            b7_launches["soft_sort_fwd"]) == (1, 1, 1, 1, 0, 0, 0), (
+                b7_launches)
     print(f"NeuralNDCG train step at B={n7} L={l7}: loss {loss7.item():.6f}, "
           f"launches {b7_launches}")
 
@@ -3016,13 +3062,26 @@ def main() -> int:
                                           1.0, T, False)),
              lib[1], B * (8 * T + 31) * L * L,
              B * L * (4 * 4 + 4 + hist_bytes), f"N={B} L={L}"),
+            # B7 on its main route "cluster", then "l2" by name: M0 in and P
+            # out, 2 T matvecs; the backward M0 and dP in and dM0 out, 2 T
+            # matvecs and the two [L, T] . [T, L] products
             ("sinkhorn_fwd",
              (lambda: sinkhorn_fwd(m0, T), lambda: sinkhorn_fwd_plain(m0, T)),
              lib7[0], n7 * (4 * T + 2) * l7 * l7,
              n7 * (2 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}"),
             ("sinkhorn_bwd",
-             (lambda: sinkhorn_bwd(m0, a7, b7, dp, T),
-              lambda: sinkhorn_bwd_plain(m0, a7, b7, dp, T)),
+             (lambda: sinkhorn_bwd(m0, a7, b7, dp7, T),
+              lambda: sinkhorn_bwd_plain(m0, a7, b7, dp7, T)),
+             lib7[1], n7 * (8 * T + 8) * l7 * l7,
+             n7 * (3 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}"),
+            ("sinkhorn_fwd_l2",
+             (lambda: b7_launch_fwd("l2", m0, T),
+              lambda: sinkhorn_fwd_plain(m0, T)),
+             lib7[0], n7 * (4 * T + 2) * l7 * l7,
+             n7 * (2 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}"),
+            ("sinkhorn_bwd_l2",
+             (lambda: b7_launch_bwd("l2", m0, a7, b7, dp7, T),
+              lambda: sinkhorn_bwd_plain(m0, a7, b7, dp7, T)),
              lib7[1], n7 * (8 * T + 8) * l7 * l7,
              n7 * (3 * 4 * l7 * l7 + l7 * hist_bytes), f"N={n7} L={l7}")):
         ms, plain_ms, lib_ms = (median_ms(fn, iters=20)
@@ -4912,27 +4971,41 @@ def main() -> int:
              f"probe ran at three shapes ({time.perf_counter() - t32:.1f} s)")
 
     # -- 33: X4, the soft-sort with its records on chip -----------------------
+    # X4 is B8's route "cluster" with the records and the backward's U and
+    # V stacks in shared memory, at B8's cluster sizes: bit for bit that
+    # route (out, records, ds), and the plain version's at phase 11's
+    # tolerances (ds against it run in float64)
     from allrank_tpu_torch.ops.neuralsort_layout import (
+        kernel_smem_floats as x4_kernel_floats,
+    )
+    from allrank_tpu_torch.ops.neuralsort_layout import (
+        layout_plan,
         layout_soft_sort_bwd,
         layout_soft_sort_fwd,
-        layout_vectors,
         max_length,
-        smem_floats,
     )
     from allrank_tpu_torch.tools import exp_sinkhorn_layout as x4_tool
 
     t33 = time.perf_counter()
     T = SINKHORN_ITERS
+    x4_cap = max_length(T)
     for backward in (False, True):
-        assert layout_vectors(T, backward) == smem_floats(1, T, backward)
+        for l in range(1, x4_cap + 1):
+            plan = layout_plan(l, T, backward)
+            assert plan[0] == cluster_plan(l, backward)[0], (l, plan)
+            assert x4_kernel_floats(l, plan[0], T, backward) * 4 == plan[1]
     x4_errs = {"layout_soft_sort_fwd": 0.0, "layout_soft_sort_bwd": 0.0}
     s0, pad0, vec0 = x4_tool.inputs(2048, L, dev)
     cases33 = [("the probe's case", 2048, False,
                 (s0, pad0, vec0, torch.randn(2048, L, generator=gen).to(dev)))]
-    for n, transpose in ((B, False), (B, True), (1, False)):
-        cases33.append((f"ragged{', fully padded' if n == 1 else ''}", n,
-                        transpose, soft_sort_inputs(gen, n, L, dev)))
+    for n, l, transpose, label in ((B, L, False, "ragged"),
+                                   (B, L, True, "ragged"),
+                                   (5, x4_cap, True, "ragged, at its cap"),
+                                   (1, L, False, "fully padded")):
+        cases33.append((label, n, transpose,
+                        soft_sort_inputs(gen, n, l, dev)))
     for label, n, transpose, (sc, pad, vec, dout) in cases33:
+        l = sc.shape[1]
         before = (layout_soft_sort_fwd.launches, layout_soft_sort_bwd.launches)
         out, a_hist, b_hist = layout_soft_sort_fwd(sc, pad, vec, 1.0, T,
                                                    transpose)
@@ -4942,34 +5015,39 @@ def main() -> int:
         assert (layout_soft_sort_fwd.launches,
                 layout_soft_sort_bwd.launches) == (
             before[0] + 1, before[1] + 1), "X4 did not launch"
-        # X4 twins B8's route "l2", by name (records in device memory)
-        b8 = b8_launch_fwd("l2", sc, pad, vec, 1.0, T, transpose)
-        b8_ds = b8_launch_bwd("l2", sc, pad, vec, *b8[1:], dout, 1.0, T,
+        b8 = b8_launch_fwd("cluster", sc, pad, vec, 1.0, T, transpose)
+        b8_ds = b8_launch_bwd("cluster", sc, pad, vec, *b8[1:], dout, 1.0, T,
                               transpose)
-        vs_b8 = max((g - w).abs().max().item()
-                    for g, w in zip((out, a_hist, b_hist, ds), b8 + (b8_ds,)))
+        assert all(torch.equal(g, w) for g, w in zip(
+            (out, a_hist, b_hist, ds), b8 + (b8_ds,))), (
+                f"X4 is not B8's route \"cluster\" bit for bit ({label})")
         ref, ref_a, ref_b = soft_sort_fwd_plain(sc, pad, vec, 1.0, T,
                                                 transpose)
         assert torch.isfinite(out).all() and torch.isfinite(ds).all()
         torch.testing.assert_close(out, ref, **SOFT_TOL)
         torch.testing.assert_close(a_hist, ref_a, rtol=1e-3, atol=1e-6)
         torch.testing.assert_close(b_hist, ref_b, rtol=1e-3, atol=1e-6)
-        ref_ds = soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout, 1.0,
-                                     T, transpose)
-        g_err = assert_grad_close(ds, ref_ds, f"X4 ds N={n}")
-        assert not ds[pad > 0.5].any(), "a padded document's gradient"
         f_err = rel_err(out, ref)[0]
+        del ref, ref_a, ref_b
+        args64 = [t.double() for t in (sc, pad, vec)]
+        ref_ds = soft_sort_bwd_plain(
+            *args64, *soft_sort_fwd_plain(*args64, 1.0, T, transpose)[1:],
+            dout.double(), 1.0, T, transpose)
+        g_err = assert_grad_close(ds, ref_ds, f"X4 ds N={n} L={l}")
+        assert not ds[pad > 0.5].any(), "a padded document's gradient"
         x4_errs["layout_soft_sort_fwd"] = max(
             x4_errs["layout_soft_sort_fwd"], f_err)
         x4_errs["layout_soft_sort_bwd"] = max(
             x4_errs["layout_soft_sort_bwd"], g_err)
-        print(f"X4 vs plain N={n} L={L} ({label}) transpose={transpose}: "
-              f"max_abs_err out {f_err:.3e} (tol {SOFT_TOL}), ds {g_err:.3e} "
-              f"of max|ref| {rel_err(ds, ref_ds)[1]:.3e} (tol "
-              f"{SOFT_GRAD_TOL[0]:g} x); max |X4 - B8| over out, a_hist, "
-              f"b_hist and ds {vs_b8:.3e}")
-        del ref, ref_a, ref_b, ref_ds, b8, b8_ds
-    too_long = torch.zeros(2, max_length(T) + 1, device=dev)
+        print(f"X4 ({layout_plan(l, T, False)[0]} / "
+              f"{layout_plan(l, T, True)[0]} blocks) vs plain N={n} L={l} "
+              f"({label}) transpose={transpose}: max_abs_err out {f_err:.3e} "
+              f"(tol {SOFT_TOL}), ds {g_err:.3e} of max|ref| "
+              f"{rel_err(ds, ref_ds)[1]:.3e} against float64 (tol "
+              f"{SOFT_GRAD_TOL[0]:g} x); B8's route \"cluster\" bit for bit "
+              f"(out, a_hist, b_hist, ds)")
+        del ref_ds, args64, b8, b8_ds
+    too_long = torch.zeros(2, x4_cap + 1, device=dev)
     before = layout_soft_sort_fwd.launches
     try:
         layout_soft_sort_fwd(too_long, too_long, too_long, 1.0, T)
@@ -4982,15 +5060,16 @@ def main() -> int:
     x4_res = x4_tool.main([])
     x4_launches = {"layout_soft_sort_fwd": layout_soft_sort_fwd.launches,
                    "layout_soft_sort_bwd": layout_soft_sort_bwd.launches}
-    # the probe's B8 arm runs route "l2" by name: its rows' launches
-    l2_launches = {"soft_sort_fwd_l2": soft_sort_fwd.route_launches["l2"],
-                   "soft_sort_bwd_l2": soft_sort_bwd.route_launches["l2"]}
-    assert soft_sort_fwd.route_launches["cluster"] == 0 and all(
-        l2_launches.values()), l2_launches
+    # the probe's B8 arm runs route "cluster" by name, never "l2"
+    probe_b8 = (dict(soft_sort_fwd.route_launches),
+                dict(soft_sort_bwd.route_launches))
+    assert all(r["l2"] == 0 and r["cluster"] > 0 for r in probe_b8), probe_b8
+    assert all(x4_launches.values()), x4_launches
     assert x4_res["max_abs_out"] == 0.0 and x4_res["max_abs_grad"] == 0.0
-    print(f"X4 probe launches {x4_launches}; X4 / B8 time "
-          f"{x4_res['ratio_fwd']:.4f} forward, {x4_res['ratio_fwd_bwd']:.4f} "
-          f"forward + backward at N=2048 L={L} {tag}")
+    print(f"X4 probe launches {x4_launches}, its B8 arm's by route "
+          f"{probe_b8}; X4 / B8 time {x4_res['ratio_fwd']:.4f} forward, "
+          f"{x4_res['ratio_fwd_bwd']:.4f} forward + backward at N=2048 "
+          f"L={L} {tag}")
     sc, pad, vec, dout = soft_sort_inputs(gen, B, L, dev)
     _, a_hist, b_hist = layout_soft_sort_fwd(sc, pad, vec, 1.0, T, False)
     lib = soft_sort_library(sc, pad, vec, False)
@@ -4999,7 +5078,7 @@ def main() -> int:
             ("layout_soft_sort_fwd",
              (lambda: layout_soft_sort_fwd(sc, pad, vec, 1.0, T, False),
               lambda: soft_sort_fwd_plain(sc, pad, vec, 1.0, T, False)),
-             lambda: b8_launch_fwd("l2", sc, pad, vec, 1.0, T, False),
+             lambda: b8_launch_fwd("cluster", sc, pad, vec, 1.0, T, False),
              lib[0], B * (4 * T + 14) * L * L,
              B * L * (3 * 4 + 4 + hist_bytes)),
             ("layout_soft_sort_bwd",
@@ -5007,8 +5086,8 @@ def main() -> int:
                                            1.0, T, False),
               lambda: soft_sort_bwd_plain(sc, pad, vec, a_hist, b_hist, dout,
                                           1.0, T, False)),
-             lambda: b8_launch_bwd("l2", sc, pad, vec, a_hist, b_hist, dout,
-                                   1.0, T, False), lib[1],
+             lambda: b8_launch_bwd("cluster", sc, pad, vec, a_hist, b_hist,
+                                   dout, 1.0, T, False), lib[1],
              B * (8 * T + 31) * L * L, B * L * (4 * 4 + 4 + hist_bytes))):
         ms, b8_ms = graph_ms(fns[0]), graph_ms(b8_fn)
         plain_ms, lib_ms = (median_ms(fn, iters=10, warmup=2)
@@ -5025,8 +5104,9 @@ def main() -> int:
         lib_txt = ("not measured" if lib_dev_ms is None
                    else f"{lib_dev_ms:.4f} ms")
         print(f"time {name} float32 N={B} L={L}: kernel {ms:.4f} ms of "
-              f"device time (20 calls in one CUDA graph), B8 by route \"l2\" "
-              f"{b8_ms:.4f} ms likewise, plain {plain_ms:.4f} ms, library (torch-op chain"
+              f"device time (20 calls in one CUDA graph), B8 by route "
+              f"\"cluster\" {b8_ms:.4f} ms likewise ({ms / b8_ms:.3f}x), "
+              f"plain {plain_ms:.4f} ms, library (torch-op chain"
               f"{', autograd' if name.endswith('bwd') else ''}) "
               f"{lib_txt} of device time (one event-timed call "
               f"{lib_ms:.4f} ms), bound {bound_ms:.5f} ms ({bound_by}: "
@@ -5034,9 +5114,9 @@ def main() -> int:
     del sc, pad, vec, dout, a_hist, b_hist, lib, s0, pad0, vec0, cases33
     torch.cuda.empty_cache()
     phase_ok(f"phase 33 ok: "
-             f"X4 is B8's route \"l2\" bit for bit and matches the plain "
-             f"version; "
-             f"the layout probe ran ({time.perf_counter() - t33:.1f} s)")
+             f"X4 is B8's route \"cluster\" bit for bit and matches the "
+             f"plain version; the layout probe ran "
+             f"({time.perf_counter() - t33:.1f} s)")
 
     # -- 34: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
@@ -5082,10 +5162,14 @@ def main() -> int:
                              "allrank_tpu/ops/neuralsort_pallas.py:186"),
         "soft_sort_bwd_l2": ("allrank_tpu_torch/csrc/neuralsort.cu",
                              "allrank_tpu/ops/neuralsort_pallas.py:214"),
-        "sinkhorn_fwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
+        "sinkhorn_fwd": ("allrank_tpu_torch/csrc/sinkhorn_cluster.cu",
                          "allrank_tpu/ops/sinkhorn_pallas.py:286"),
-        "sinkhorn_bwd": ("allrank_tpu_torch/csrc/sinkhorn.cu",
+        "sinkhorn_bwd": ("allrank_tpu_torch/csrc/sinkhorn_cluster.cu",
                          "allrank_tpu/ops/sinkhorn_pallas.py:325"),
+        "sinkhorn_fwd_l2": ("allrank_tpu_torch/csrc/sinkhorn.cu",
+                            "allrank_tpu/ops/sinkhorn_pallas.py:286"),
+        "sinkhorn_bwd_l2": ("allrank_tpu_torch/csrc/sinkhorn.cu",
+                            "allrank_tpu/ops/sinkhorn_pallas.py:325"),
         "approx_pos_fwd": ("allrank_tpu_torch/csrc/approx_pos.cu",
                            "allrank_tpu/ops/approx_pallas.py:79"),
         "approx_pos_bwd": ("allrank_tpu_torch/csrc/approx_pos.cu",
@@ -5187,16 +5271,25 @@ def main() -> int:
             "the X3 probe at B=8, L=256, d=256, h=1 (d_k > 128: B1's SIMT "
             "route)")
     launches.update(x4_launches)
-    # B8: the main route's launches are the CLI's NeuralNDCG run's (phase
-    # 13), all on "cluster"; route "l2" runs on no main path, its rows'
-    # launches are the X4 probe's B8 arm (phase 33)
+    # B8 and B7: the main routes' launches are the CLI's NeuralNDCG run's
+    # and the L=640 step's (phase 13), all on "cluster"; route "l2" of
+    # either runs on no path (phases 11-12 hold it against its plain
+    # version by name; the X4 probe's B8 arm runs "cluster")
     assert (cli_launches["soft_sort_fwd[cluster]"],
             cli_launches["soft_sort_bwd[cluster]"]) == (
         launches["soft_sort_fwd"], launches["soft_sort_bwd"])
-    launches.update(l2_launches)
-    for name in l2_launches:
-        launch_source[name] = ("the X4 probe's B8 arm, route \"l2\" by name "
-                               "(phase 33)")
+    assert (b7_launches["sinkhorn_fwd[cluster]"],
+            b7_launches["sinkhorn_bwd[cluster]"]) == (
+        launches["sinkhorn_fwd"], launches["sinkhorn_bwd"])
+    l2_rows = ("soft_sort_fwd_l2", "soft_sort_bwd_l2", "sinkhorn_fwd_l2",
+               "sinkhorn_bwd_l2")
+    for name in l2_rows:
+        launches[name] = (cli_launches[name.replace("_l2", "[l2]")]
+                          + b7_launches[name.replace("_l2", "[l2]")])
+        launch_source[name] = ("none: route \"l2\" runs on no path (the "
+                               "CLI's NeuralNDCG run and the L=640 step "
+                               "launch it 0 times); phases 11-12 check it by "
+                               "name")
     # B4 and B5: their own long-slate steps (phase 23)
     for (b, l), (got, _, _) in long_runs.items():
         for name, n in got.items():
@@ -5233,13 +5326,14 @@ def main() -> int:
                                + paper_launches.get(name, 0)
                                + sum(r.get(name, 0)
                                      for r in recipe_launches.values()))
-        # every kernel of a path launched on it; B2's SIMT kernels run on
-        # none (launch_source)
+        # every kernel of a path launched on it; B2's SIMT kernels and B7's
+        # and B8's "l2" routes run on none (launch_source)
         assert row["launches"] > 0 or name in ("ffn_sublayer_fwd",
-                                               "ffn_sublayer_bwd"), name
+                                               "ffn_sublayer_bwd",
+                                               *l2_rows), name
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
-    assert len(rows) == 47
+    assert len(rows) == 49
     print(f"profiler: {trace_kernels.lost} traces of this run lost device "
           f"events and were taken again {tag}")
     print(f"train step ms {json.dumps(step_ms)} {tag}")

@@ -98,11 +98,13 @@ from allrank_tpu_torch.ops.boundary_shift import (
     boundary_shift_plain,
 )
 from allrank_tpu_torch.ops.neuralsort_layout import (
+    kernel_smem_floats as layout_kernel_floats,
+)
+from allrank_tpu_torch.ops.neuralsort_layout import (
+    layout_plan,
     layout_soft_sort_bwd,
     layout_soft_sort_fwd,
-    layout_vectors,
     max_length,
-    smem_floats,
 )
 from allrank_tpu_torch.ops.neuralsort import (
     cluster_plan,
@@ -116,6 +118,17 @@ from allrank_tpu_torch.ops.neuralsort import (
 )
 from allrank_tpu_torch.ops.neuralsort import launch_bwd as soft_sort_launch_bwd
 from allrank_tpu_torch.ops.neuralsort import launch_fwd as soft_sort_launch_fwd
+from allrank_tpu_torch.ops.sinkhorn import ROUTES as SINKHORN_ROUTES
+from allrank_tpu_torch.ops.sinkhorn import cluster_occupancy as sink_occupancy
+from allrank_tpu_torch.ops.sinkhorn import cluster_plan as sink_plan
+from allrank_tpu_torch.ops.sinkhorn import (
+    kernel_cluster_blocks as sink_kernel_blocks,
+)
+from allrank_tpu_torch.ops.sinkhorn import (
+    kernel_smem_floats as sink_kernel_floats,
+)
+from allrank_tpu_torch.ops.sinkhorn import launch_bwd as sink_launch_bwd
+from allrank_tpu_torch.ops.sinkhorn import launch_fwd as sink_launch_fwd
 from allrank_tpu_torch.ops.sinkhorn import (
     sinkhorn_bwd,
     sinkhorn_bwd_plain,
@@ -905,9 +918,19 @@ def test_soft_sort_cluster_plan_is_the_kernels(cuda):
                     == cluster_smem_floats(l, 8, backward))
 
 
-@pytest.mark.parametrize("n,l", [(3, 1), (5, 70), (8, 240), (4, 640),
-                                 (2, 768)])
-def test_sinkhorn_kernels_match_plain(cuda, n, l):
+# B7 at its envelope's ends, at each cluster size of the "cluster" route
+# (1 block to L = 228, 2 to 322, 4 to 456, 8 to 640, 16 to 768: 513 and
+# 640 on 8, 768 on 16) and at N = 64, where the clusters walk the slates
+SINKHORN_CASES = [(3, 1), (5, 70), (8, 240), (8, 513), (4, 640), (2, 768),
+                  (64, 640)]
+
+
+@pytest.mark.parametrize("way", SINKHORN_ROUTES)
+@pytest.mark.parametrize("n,l", SINKHORN_CASES)
+def test_sinkhorn_kernels_match_plain(cuda, n, l, way):
+    """Both routes against the plain version: P 1e-4, the records 1e-3
+    (their gauge), dM0 within 1e-4 of its largest value; a fully padded
+    slate, the same bits on a second run, launches counted by route."""
     gen = torch.Generator().manual_seed(l)
     lengths = torch.randint(1, l + 1, (n,), generator=gen)
     lengths[0] = l
@@ -917,19 +940,55 @@ def test_sinkhorn_kernels_match_plain(cuda, n, l):
     m0 = torch.where(pad[:, :, None] | pad[:, None, :], 0.0, m0)
     m0 = torch.where(pad[:, :, None] & pad[:, None, :], 1.0, m0).to(cuda)
     dp = torch.randn(n, l, l, generator=gen).to(cuda)
-    before = (sinkhorn_fwd.launches, sinkhorn_bwd.launches)
-    p, a_hist, b_hist = sinkhorn_fwd(m0, 50)
+    before = (dict(sinkhorn_fwd.route_launches),
+              dict(sinkhorn_bwd.route_launches))
+    p, a_hist, b_hist = sink_launch_fwd(way, m0, 50)
+    dm0 = sink_launch_bwd(way, m0, a_hist, b_hist, dp, 50)
+    torch.cuda.synchronize()
+    for k, was in zip((sinkhorn_fwd, sinkhorn_bwd), before):
+        assert k.route_launches == {**was, way: was[way] + 1}
     ref_p, ref_a, ref_b = sinkhorn_fwd_plain(m0, 50)
     assert torch.isfinite(p).all()
     torch.testing.assert_close(p, ref_p, rtol=1e-4, atol=1e-4)
     _records_close(a_hist, b_hist, ref_a, ref_b)
-    dm0 = sinkhorn_bwd(m0, a_hist, b_hist, dp, 50)
+    del ref_p, ref_a, ref_b
     _grad_close(dm0, sinkhorn_bwd_plain(m0, a_hist, b_hist, dp, 50),
                 "sinkhorn dM0")
-    assert (sinkhorn_fwd.launches, sinkhorn_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
-    assert torch.equal(p, sinkhorn_fwd(m0, 50)[0])
-    assert torch.equal(dm0, sinkhorn_bwd(m0, a_hist, b_hist, dp, 50))
+    again = sink_launch_fwd(way, m0, 50)
+    assert all(torch.equal(x, y) for x, y in zip((p, a_hist, b_hist), again))
+    assert torch.equal(dm0, sink_launch_bwd(way, m0, a_hist, b_hist, dp, 50))
+
+
+def test_sinkhorn_main_route_is_the_cluster_one(cuda):
+    """``sinkhorn_fwd`` and ``sinkhorn_bwd`` take route "cluster" on the
+    card, and the records of either route's forward feed the other's
+    backward."""
+    gen = torch.Generator().manual_seed(2)
+    m0 = torch.softmax(torch.randn(4, 300, 300, generator=gen),
+                       dim=-1).to(cuda)
+    dp = torch.randn(4, 300, 300, generator=gen).to(cuda)
+    before = dict(sinkhorn_fwd.route_launches)
+    p, a_hist, b_hist = sinkhorn_fwd(m0, 50)
+    assert sinkhorn_fwd.route_launches == {
+        **before, "cluster": before["cluster"] + 1}
+    _grad_close(sinkhorn_bwd(m0, *sink_launch_fwd("l2", m0, 50)[1:], dp, 50),
+                sink_launch_bwd("l2", m0, a_hist, b_hist, dp, 50),
+                "dM0 across routes")
+    torch.testing.assert_close(p, sink_launch_fwd("l2", m0, 50)[0],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_sinkhorn_cluster_plan_is_the_kernels(cuda):
+    """The wrapper's cluster size and shared-memory count are the kernel's
+    own at every L, in both directions, and the card holds clusters of
+    every plan."""
+    for backward in (False, True):
+        for l in range(1, 769):
+            cluster, nbytes = sink_plan(l, backward)
+            assert sink_kernel_blocks(l) == cluster
+            assert sink_kernel_floats(l, cluster, backward) * 4 == nbytes
+        for l in (1, 229, 323, 457, 641):
+            assert sink_occupancy(sink_plan(l, backward), backward, cuda) > 0
 
 
 def _neural_step(cuda, l, b=8):
@@ -996,9 +1055,13 @@ def test_neural_ndcg_long_slates_run_the_sinkhorn_kernel(cuda):
     kernels = (soft_sort_fwd, soft_sort_bwd, sinkhorn_fwd, sinkhorn_bwd)
     for k in kernels:
         k.launches = 0
+    routes = (dict(sinkhorn_fwd.route_launches),
+              dict(sinkhorn_bwd.route_launches))
     loss, _ = step()
     assert np.isfinite(loss.item())
     assert [k.launches for k in kernels] == [0, 0, 1, 1]
+    for k, was in zip((sinkhorn_fwd, sinkhorn_bwd), routes):
+        assert k.route_launches == {**was, "cluster": was["cluster"] + 1}
     assert all(torch.isfinite(p).all() for p in model.parameters())
 
 
@@ -1983,8 +2046,11 @@ def test_attention_variants_simt_route_by_name(cuda, padded):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("n,l", [(64, 240), (5, 259), (3, 1)])
+@pytest.mark.parametrize("n,l", [(64, 240), (5, 384), (3, 1)])
 def test_layout_soft_sort_is_b8_bit_for_bit(cuda, n, l, transpose):
+    """X4 is B8's route "cluster" (the main one) with its records and
+    stacks on chip, at B8's cluster sizes: out, the records and ds bit for
+    bit, and the plain version's out to 1e-4."""
     gen = torch.Generator().manual_seed(n + l)
     s = torch.randn(n, l, generator=gen).to(cuda)
     lengths = torch.randint(1, l + 1, (n,), generator=gen)
@@ -1999,11 +2065,11 @@ def test_layout_soft_sort_is_b8_bit_for_bit(cuda, n, l, transpose):
     torch.cuda.synchronize()
     assert (layout_soft_sort_fwd.launches, layout_soft_sort_bwd.launches) == (
         before[0] + 1, before[1] + 1)
-    # X4 twins B8's route "l2" (records in device memory), bit for bit
-    want = soft_sort_launch_fwd("l2", s, pad, vec, 1.0, 50, transpose)
+    want = soft_sort_launch_fwd("cluster", s, pad, vec, 1.0, 50, transpose)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
-    assert torch.equal(ds, soft_sort_launch_bwd("l2", s, pad, vec, *want[1:],
-                                                dout, 1.0, 50, transpose))
+    assert torch.equal(ds, soft_sort_launch_bwd("cluster", s, pad, vec,
+                                                *want[1:], dout, 1.0, 50,
+                                                transpose))
     torch.testing.assert_close(
         got[0], soft_sort_fwd_plain(s, pad, vec, 1.0, 50, transpose)[0],
         rtol=1e-4, atol=1e-4)
@@ -2011,10 +2077,12 @@ def test_layout_soft_sort_is_b8_bit_for_bit(cuda, n, l, transpose):
 
 def test_layout_soft_sort_states_its_cap_on_the_card(cuda):
     for backward in (False, True):
-        assert layout_vectors(50, backward) == smem_floats(1, 50, backward)
+        for l in range(1, max_length(50) + 1):
+            cluster, nbytes = layout_plan(l, 50, backward)
+            assert layout_kernel_floats(l, cluster, 50, backward) * 4 == nbytes
     l = max_length(50) + 1
     s = torch.zeros(2, l, device=cuda)
     before = layout_soft_sort_fwd.launches
-    with pytest.raises(ValueError, match="L <= 259"):
+    with pytest.raises(ValueError, match="L <= 384"):
         layout_soft_sort_fwd(s, s, s, 1.0, 50)
     assert layout_soft_sort_fwd.launches == before

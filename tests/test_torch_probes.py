@@ -234,14 +234,17 @@ def test_layout_soft_sort_matches_the_pallas_kernel(interpret, transpose):
 
 
 def test_layout_soft_sort_states_its_cap():
-    """At T = 50 the backward's (4 T + 24) L floats fit 232,448 bytes up to
-    L = 259; one more is refused, before anything launches."""
-    assert neuralsort_layout.max_length(50) == 259
-    assert neuralsort_layout.smem_floats(240, 50, True) * 4 == 215_040
-    neuralsort_layout.check_length(259, 50)
-    with pytest.raises(ValueError, match="L <= 259"):
-        neuralsort_layout.check_length(260, 50)
-    s = torch.zeros(2, 300)
+    """At T = 50 the backward's stacks, (2 T + 1) (round8(R) +
+    round128(L)) floats in the room of its rows of M0 beside B8's vectors,
+    fit 232,448 bytes up to L = 384 (B8's cluster of 8 blocks); one more is
+    refused, before anything launches."""
+    assert neuralsort_layout.max_length(50) == 384
+    assert neuralsort_layout.layout_plan(240, 50, True) == (2, 186_720)
+    assert neuralsort_layout.smem_floats(240, 2, 50, True) * 4 == 186_720
+    neuralsort_layout.check_length(384, 50)
+    with pytest.raises(ValueError, match="L <= 384"):
+        neuralsort_layout.check_length(385, 50)
+    s = torch.zeros(2, 400)
     out, _, _ = neuralsort_layout.layout_soft_sort_fwd(s, s, s, 1.0, 50)
     assert torch.equal(out, soft_sort_fwd_plain(s, s, s, 1.0, 50)[0])
 

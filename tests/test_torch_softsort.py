@@ -151,6 +151,30 @@ def test_sinkhorn_core_plain_matches_pallas_gradient(n, l, masked):
                                rtol=5e-5 if masked else 0)
 
 
+def test_sinkhorn_core_plain_matches_pallas_past_b8s_length():
+    """B7's own range, 512 < L <= 768, where no fused soft-sort runs: N=2,
+    L=520 with a padding tail of 60 documents on the second slate, P from
+    the kernel's forward on pre-masked M0 and the gradient through
+    ``sinkhorn_scaling``'s kernel path, at the tolerances above."""
+    n, l = 2, 520
+    m = _mats(n, l, 5)
+    mask = np.arange(l)[None, :] >= np.array([l, l - 60])[:, None]
+    pair = mask[:, :, None] | mask[:, None, :]
+    m0 = np.where(mask[:, :, None] & mask[:, None, :], 1.0,
+                  np.where(pair, 0.0, m)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_core(jnp.asarray(m0), 50)
+        g_ref = jax.grad(lambda x: jnp.sum(jnp.sin(jss.sinkhorn_scaling(
+            x, jnp.asarray(mask), backend="pallas"))))(jnp.asarray(m))
+    got = sinkhorn.sinkhorn_core_fused(_t(m0), 50)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+    x = _t(m, grad=True)
+    torch.sin(soft_sort.sinkhorn_scaling(x, _t(mask), backend="kernel")
+              ).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_ref), atol=1e-7,
+                               rtol=5e-5)
+
+
 def test_sinkhorn_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match=r"\[N, L, L\]"):
         sinkhorn.sinkhorn_fwd(torch.zeros(2, 3, 4))
