@@ -1,5 +1,5 @@
-// The lambdaLoss pair chain as a device function, shared by the one-block
-// kernel (lambda_pairs.cu, k <= 384) and the row-tiled kernel
+// The lambdaLoss pair chain as device code, shared by the cluster kernel
+// (lambda_pairs.cu, k <= 384) and the row-tile x column-stripe kernel
 // (lambda_tiled.cu, k <= 4096) so that the two cannot drift: for a pair
 // (i, j) of one slate's prediction-sorted top-k block
 //   sel  = valid_i & valid_j & (ts_i > ts_j, except for ndcgLoss1)
@@ -9,8 +9,10 @@
 //   c    = sel * [w log a > log eps] * (w / a) [/ ln 2]
 //          * [s > eps] * sigma s (1 - s)
 // (the JAX package's ops/lambda_pallas.py, _chain at lines 71-102 and the
-// backward's w / a collapse at lines 127-135). Exact fp32: expf, logf and
-// true division, no fast-math flag.
+// backward's w / a collapse at lines 127-135). Each kernel tests sel itself
+// and calls selected_term for a selected pair only, so an unselected pair
+// pays for the test and nothing else. Exact fp32: expf, logf and true
+// division, no fast-math flag.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,23 +39,27 @@ struct ChainArgs {
   float sigma, mu, eps, log_eps;
 };
 
-struct Row {  // the slate's rows in shared memory
+struct Row {  // a slate's documents (or a range of them) in shared memory
   const float *yp, *ts, *g, *valid, *d_row, *delta;
 };
 
-struct PairOut {
-  bool sel;
-  float logs, c;
+struct Slate {  // the rows, and the per-row quotients the chain divides out
+  Row row;
+  const float *inv_d, *g_over_d;
 };
 
-__device__ __forceinline__ PairOut pair(const Row& row, const ChainArgs& a,
-                                        int i, int j, bool want_grad) {
-  PairOut out;
-  const bool pv = row.valid[i] > 0.5f && row.valid[j] > 0.5f;
-  bool sel = pv;
-  if (a.scheme != kNdcgLoss1) sel = sel && (row.ts[i] - row.ts[j]) > 0.f;
-  if (a.k_eff < a.L) sel = sel && i < a.k_eff && j < a.k_eff;
-  float d = pv ? row.yp[i] - row.yp[j] : 0.f;
+// The log term (want_grad false) or the gradient factor c (true) of a
+// selected pair whose row document is rs's entry ri and whose column
+// document is cs's entry cj, |i - j| = dist apart: yp, ts, g and 1 / d_row
+// of both sides, g / d_row of the row and the ndcgLoss2 delta of the
+// distance (rs.row.delta[dist]). 1 / d_row and g / d_row are the fp32
+// divisions of the chain, taken once a document, so each pair keeps its
+// bits. Both documents are valid, so the difference is taken unmasked.
+__device__ __forceinline__ float selected_term(const ChainArgs& a,
+                                               const Slate& rs, int ri,
+                                               const Slate& cs, int cj,
+                                               int dist, bool want_grad) {
+  float d = rs.row.yp[ri] - cs.row.yp[cj];
   d = fminf(fmaxf(d, -1e8f), 1e8f);
   const float s = 1.f / (1.f + expf(-(a.sigma * d)));
   const float am = fmaxf(s, a.eps);
@@ -61,21 +67,20 @@ __device__ __forceinline__ PairOut pair(const Row& row, const ChainArgs& a,
   float w = 1.f;
   switch (a.scheme) {
     case kNdcgLoss1:
-      w = row.g[i] / row.d_row[i];
+      w = rs.g_over_d[ri];
       break;
     case kGTDiff:
-      w = fabsf(row.ts[i] - row.ts[j]);
+      w = fabsf(rs.row.ts[ri] - cs.row.ts[cj]);
       break;
     case kGTDiffPowed:
-      w = fabsf(row.ts[i] * row.ts[i] - row.ts[j] * row.ts[j]);
+      w = fabsf(rs.row.ts[ri] * rs.row.ts[ri] - cs.row.ts[cj] * cs.row.ts[cj]);
       break;
     case kNdcgLoss2:
     case kLambdaRank:
     case kNdcgLoss2PP: {
-      const float gdiff = fabsf(row.g[i] - row.g[j]);
-      const float nd2 = row.delta[abs(i - j)] * gdiff;
-      const float lrank =
-          fabsf(1.f / row.d_row[i] - 1.f / row.d_row[j]) * gdiff;
+      const float gdiff = fabsf(rs.row.g[ri] - cs.row.g[cj]);
+      const float nd2 = rs.row.delta[dist] * gdiff;
+      const float lrank = fabsf(rs.inv_d[ri] - cs.inv_d[cj]) * gdiff;
       w = a.scheme == kNdcgLoss2 ? nd2
           : a.scheme == kLambdaRank ? lrank
                                     : a.mu * nd2 + lrank;
@@ -86,38 +91,21 @@ __device__ __forceinline__ PairOut pair(const Row& row, const ChainArgs& a,
   }
   const float log_a = logf(am);
   const float wlog = weighted ? w * log_a : log_a;
-  float logs = fmaxf(wlog, a.log_eps);
-  if (a.binary) logs = logs / kLn2;
-  out.sel = sel;
-  out.logs = logs;
-  out.c = 0.f;
-  if (want_grad && sel) {
-    const float w_over_a = weighted ? w / am : 1.f / am;
-    float c = wlog > a.log_eps ? w_over_a / (a.binary ? kLn2 : 1.f) : 0.f;
-    out.c = c * (s > a.eps ? a.sigma * s * (1.f - s) : 0.f);
+  if (!want_grad) {
+    const float logs = fmaxf(wlog, a.log_eps);
+    return a.binary ? logs / kLn2 : logs;
   }
-  return out;
+  const float w_over_a = weighted ? w / am : 1.f / am;
+  const float c = wlog > a.log_eps ? w_over_a / (a.binary ? kLn2 : 1.f)
+                                   : 0.f;
+  return c * (s > a.eps ? a.sigma * s * (1.f - s) : 0.f);
 }
 
-// The rows of slate `slate` and the two position tables into shared memory,
-// six arrays of `pitch` floats each (pitch >= L), by the whole block.
-__device__ __forceinline__ Row load_row(float* sm, int pitch, int slate,
-                                        const float* yp, const float* ts,
-                                        const float* g, const float* valid,
-                                        const float* d_row,
-                                        const float* delta, int L) {
-  const size_t o = (size_t)slate * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    sm[i] = yp[o + i];
-    sm[pitch + i] = ts[o + i];
-    sm[2 * pitch + i] = g[o + i];
-    sm[3 * pitch + i] = valid[o + i];
-    sm[4 * pitch + i] = d_row[i];
-    sm[5 * pitch + i] = delta[i];
-  }
-  __syncthreads();
-  return Row{sm, sm + pitch, sm + 2 * pitch, sm + 3 * pitch, sm + 4 * pitch,
-             sm + 5 * pitch};
+// selected_term of the pair (i, j) of one slate held whole in sl.
+__device__ __forceinline__ float selected_pair(const Slate& sl,
+                                               const ChainArgs& a, int i,
+                                               int j, bool want_grad) {
+  return selected_term(a, sl, i, sl, j, abs(i - j), want_grad);
 }
 
 }  // namespace allrank

@@ -13,8 +13,8 @@
 //   c = sel * [w log a > log eps] * (w / a) [/ ln 2] * [s > eps] * sigma s (1-s)
 // The weight w_ij comes from one of seven schemes (or is 1); it depends on
 // the labels and the positions only, so no other gradient path exists. The
-// per-pair arithmetic is that of lambda_chain.cuh's pair(), which the
-// row-tiled kernel for longer blocks (lambda_tiled.cu) runs.
+// per-pair arithmetic is lambda_chain.cuh's selected_term, which the kernel
+// for longer blocks (lambda_tiled.cu) runs too.
 //
 // What bounds it: neither bytes nor products. The inputs are five [B, k]
 // rows (some 300 KB at B=64, k=240); the work is O(B k^2) pair evaluations
@@ -25,16 +25,16 @@
 // Design. A slate runs on a thread-block cluster of 1, 2 or 4 blocks of 8
 // warps (ops/lambda_pairs.py's cluster_size; at B=64, k=240 that is 256
 // blocks on the 132 SMs). Each block holds the slate's six rows and two
-// per-row quotients (1/d_row, g/d_row: the same fp32 divisions pair()
-// takes, so each pair's value keeps its bits) in shared memory, 12 KB at
-// k = 384. Block `rank` of a cluster of C takes the rows i = rank (mod C),
-// its warp w those with (i - rank) / C = w (mod 8): rows interleaved, so a
-// k_eff of 10 or a padding tail still spreads over every block. A warp
-// sweeps its row i with lane l on j = l, l + 32, ... A pair that is not
-// selected adds nothing to the loss, the count or the gradient, and pays
-// only for the test: the exp, the log and the divisions run for selected
-// pairs alone (selected_pair, beside pair()). A row that selects nothing
-// (padded, or at or beyond k_eff) is skipped whole.
+// per-row quotients (1/d_row, g/d_row: the chain's fp32 divisions, taken
+// once a document, so each pair's value keeps its bits) in shared memory,
+// 12 KB at k = 384. Block `rank` of a cluster of C takes the rows i = rank
+// (mod C), its warp w those with (i - rank) / C = w (mod 8): rows
+// interleaved, so a k_eff of 10 or a padding tail still spreads over every
+// block. A warp sweeps its row i with lane l on j = l, l + 32, ... A pair
+// that is not selected adds nothing to the loss, the count or the
+// gradient, and pays only for the test: the exp, the log and the divisions
+// run for selected pairs alone (lambda_chain.cuh's selected_pair). A row
+// that selects nothing (padded, or at or beyond k_eff) is skipped whole.
 //   forward:  each lane sums its pairs' loss and count; then a butterfly
 //             across the warp, the warps in order, the cluster's blocks in
 //             rank order (block 0 reads the others' sums from their shared
@@ -64,11 +64,6 @@ constexpr int kMaxK = 384;
 constexpr int kPairThreads = 256;  // 8 warps a block
 constexpr int kPairWarps = kPairThreads / 32;
 constexpr int kColsPerLane = kMaxK / 32;
-
-struct Slate {  // the rows, and the per-row quotients pair() divides out
-  Row row;
-  const float *inv_d, *g_over_d;
-};
 
 // The slate's rows, 1 / d_row and g / d_row into shared memory, eight
 // arrays of kMaxK floats, by the whole block.
@@ -102,62 +97,13 @@ __device__ __forceinline__ bool row_live(const Row& row, const ChainArgs& a,
   return row.valid[i] > 0.5f && !(a.k_eff < a.L && i >= a.k_eff);
 }
 
-// pair()'s selection for a live row i: no transcendental.
+// The chain's selection for a live row i: no transcendental.
 __device__ __forceinline__ bool selects(const Row& row, const ChainArgs& a,
                                         int i, int j) {
   bool sel = row.valid[j] > 0.5f;
   if (a.scheme != kNdcgLoss1) sel = sel && (row.ts[i] - row.ts[j]) > 0.f;
   if (a.k_eff < a.L) sel = sel && j < a.k_eff;
   return sel;
-}
-
-// pair()'s log term (want_grad false) or gradient factor c (true) of a
-// selected pair, in pair()'s own fp32 operations; both documents are valid,
-// so the difference is taken unmasked.
-__device__ __forceinline__ float selected_pair(const Slate& sl,
-                                               const ChainArgs& a, int i,
-                                               int j, bool want_grad) {
-  const Row& row = sl.row;
-  float d = row.yp[i] - row.yp[j];
-  d = fminf(fmaxf(d, -1e8f), 1e8f);
-  const float s = 1.f / (1.f + expf(-(a.sigma * d)));
-  const float am = fmaxf(s, a.eps);
-  bool weighted = true;
-  float w = 1.f;
-  switch (a.scheme) {
-    case kNdcgLoss1:
-      w = sl.g_over_d[i];
-      break;
-    case kGTDiff:
-      w = fabsf(row.ts[i] - row.ts[j]);
-      break;
-    case kGTDiffPowed:
-      w = fabsf(row.ts[i] * row.ts[i] - row.ts[j] * row.ts[j]);
-      break;
-    case kNdcgLoss2:
-    case kLambdaRank:
-    case kNdcgLoss2PP: {
-      const float gdiff = fabsf(row.g[i] - row.g[j]);
-      const float nd2 = row.delta[abs(i - j)] * gdiff;
-      const float lrank = fabsf(sl.inv_d[i] - sl.inv_d[j]) * gdiff;
-      w = a.scheme == kNdcgLoss2 ? nd2
-          : a.scheme == kLambdaRank ? lrank
-                                    : a.mu * nd2 + lrank;
-      break;
-    }
-    default:  // none and rankNet: weight 1, the power is the identity
-      weighted = false;
-  }
-  const float log_a = logf(am);
-  const float wlog = weighted ? w * log_a : log_a;
-  if (!want_grad) {
-    const float logs = fmaxf(wlog, a.log_eps);
-    return a.binary ? logs / kLn2 : logs;
-  }
-  const float w_over_a = weighted ? w / am : 1.f / am;
-  const float c = wlog > a.log_eps ? w_over_a / (a.binary ? kLn2 : 1.f)
-                                   : 0.f;
-  return c * (s > a.eps ? a.sigma * s * (1.f - s) : 0.f);
 }
 
 // loss[b] = sum over selected pairs, cnt[b] = their count

@@ -6,14 +6,16 @@ plain PyTorch versions for CPU tensors, tied into autograd by
 Replaces the TPU kernel ``tiled_lambda_pairs`` of the JAX package's
 ``ops/lambda_tiled.py:280`` (forward ``pallas_call`` at line 237, backward
 at line 261): the chain of ``ops/lambda_pairs.py`` on a pair block too
-large for one thread block's one-row-per-thread layout. The arithmetic,
-the argument checks, the position tables and the scheme indices are those
-of ``ops/lambda_pairs.py``; the contract is ``fused_lambda_pairs``'s.
+large for one thread-block cluster. The arithmetic, the argument checks,
+the position tables and the scheme indices are those of
+``ops/lambda_pairs.py``; the contract is ``fused_lambda_pairs``'s.
 
-The TPU kernel pads k to a multiple of 128 and sums the backward's column
-term through a [k / Ti, B, k] auxiliary; neither carries over: the CUDA
-kernel checks bounds at the tile edge and writes ``dyp`` directly. It
-covers k <= ``MAX_TILED_LENGTH``, the JAX kernel's own envelope.
+On the card a block takes a tile of rows of one slate against a stripe of
+its columns (``tile_plan``); the forward's partials go
+to a [2, blocks + 1, B] buffer and the backward's row and column sums to a
+[B, stripes + tiles, k] scratch, both allocated here and added in a fixed
+order by a second kernel. It covers k <= ``MAX_TILED_LENGTH``, the JAX
+kernel's own envelope.
 """
 
 from __future__ import annotations
@@ -32,15 +34,37 @@ from allrank_tpu_torch.ops.lambda_pairs import (
 )
 
 MAX_TILED_LENGTH = 4096
-# the rows of one thread block: kRowsPerBlock of csrc/lambda_tiled.cu
-ROWS_PER_TILE = 32
-_SIGNATURES = {"lambda_tiled_fwd": [ctypes.c_void_p] * 7 + CHAIN_ARGTYPES,
-               "lambda_tiled_bwd": [ctypes.c_void_p] * 8 + CHAIN_ARGTYPES}
+# a block's rows (SHORT_TILE_ROWS up to SHORT_LENGTH) and its widest column
+# stripe: kTileRows, kShortTileRows, kShortK and kMaxStripe of
+# csrc/lambda_tiled.cu
+TILE_ROWS = 32
+SHORT_TILE_ROWS = 16
+SHORT_LENGTH = 1024
+MAX_STRIPE = 512
+# the chain's scalars, then the plan's tiles and stripes, then the stream
+_PLAN_ARGTYPES = CHAIN_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+_SIGNATURES = {"lambda_tiled_fwd": [ctypes.c_void_p] * 7 + _PLAN_ARGTYPES,
+               "lambda_tiled_bwd": [ctypes.c_void_p] * 9 + _PLAN_ARGTYPES}
 
 
 # the plain PyTorch versions: the one-block kernel's, the same function
 lambda_tiled_fwd_plain = lambda_pairs_fwd_plain
 lambda_tiled_bwd_plain = lambda_pairs_bwd_plain
+
+
+def tile_plan(k: int) -> tuple:
+    """(row tiles, column stripes, stripe width, rows a tile) of the
+    kernels at top-k length ``k`` (1 <= k <= ``MAX_TILED_LENGTH``): tiles
+    of ``SHORT_TILE_ROWS`` rows up to ``SHORT_LENGTH``, of ``TILE_ROWS``
+    beyond; ceil(k / ``MAX_STRIPE``) stripes of equal width, rounded up to
+    32 columns. A block takes one (slate, tile, stripe)."""
+    if not 1 <= k <= MAX_TILED_LENGTH:
+        raise ValueError(f"no tile plan for a top-k block of {k}")
+    rows = SHORT_TILE_ROWS if k <= SHORT_LENGTH else TILE_ROWS
+    stripes = -(-k // MAX_STRIPE)
+    width = -(-k // stripes)
+    return -(-k // rows), stripes, -(-width // 32) * 32, rows
 
 
 def _check_length(yp):
@@ -60,13 +84,14 @@ def lambda_tiled_fwd(yp, ts, g, valid, **kw):
     check_args(yp, kw)
     _check_length(yp)
     b, n = yp.shape
-    tiles = -(-n // ROWS_PER_TILE)
-    # (loss, count) by row tile and slate; the kernel's last row is the sum
-    buf = torch.empty(2, tiles + 1, b, dtype=torch.float32, device=yp.device)
+    tiles, stripes, _, _ = tile_plan(n)
+    blocks = tiles * stripes
+    # (loss, count) by block and slate; the kernel's last row is the sum
+    buf = torch.empty(2, blocks + 1, b, dtype=torch.float32, device=yp.device)
     launch_chain("lambda_tiled", _SIGNATURES, "lambda_tiled_fwd", yp, ts, g,
-                 valid, (), (buf,), kw)
+                 valid, (), (buf,), kw, (tiles, stripes))
     lambda_tiled_fwd.launches += 1
-    return buf[0, tiles], buf[1, tiles]
+    return buf[0, blocks], buf[1, blocks]
 
 
 lambda_tiled_fwd.launches = 0
@@ -82,9 +107,14 @@ def lambda_tiled_bwd(yp, ts, g, valid, gout, **kw):
     check_args(yp, kw)
     _check_length(yp)
     _build.require(gout, "gout", (yp.shape[0],), torch.float32, yp.device)
+    b, n = yp.shape
+    tiles, stripes, _, _ = tile_plan(n)
     dyp = torch.empty_like(yp)
+    # row i's sum by stripe, then column j's partial by row tile
+    part = torch.empty(b, stripes + tiles, n, dtype=torch.float32,
+                       device=yp.device)
     launch_chain("lambda_tiled", _SIGNATURES, "lambda_tiled_bwd", yp, ts, g,
-                 valid, (gout,), (dyp,), kw)
+                 valid, (gout,), (dyp, part), kw, (tiles, stripes))
     lambda_tiled_bwd.launches += 1
     return dyp
 

@@ -24,6 +24,11 @@ Rounding is half to even; every product and sum of the epilogue is rounded
 on its own, as quant.py's chain, so kernel, plain version and the JAX
 package agree bit for bit. The int32 sums are exact while ``127^2 K <
 2^31``: K <= ``MAX_K``.
+
+On the card a block owns ``ROWS`` rows of x across all of N and holds their
+quantized values for up to ``SLAB`` of K (``tile_plan``); a wider K splits
+into slabs whose int32 sums meet in an [M, N] scratch of zeros that this
+wrapper allocates.
 """
 
 from __future__ import annotations
@@ -39,10 +44,31 @@ QMAX = 127.0
 TINY = 1e-30  # absmax floor: an all-zero row quantizes to zeros, not NaN
 MAX_K = 133_144  # 127^2 * K < 2^31
 DTYPES = (torch.float32, torch.bfloat16)
+# csrc/q8_dense.cu's block: kQRows rows of x, the weight staged in groups
+# of kQCols columns, at most kQSlab of K held, kQShared bytes of shared
+# memory aimed at
+ROWS, COLS, SLAB, SHARED = 64, 64, 1024, 112 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"q8_dense": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 5
+_SIGNATURES = {"q8_dense": [_P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 5
                + [_P]}
+
+
+def tile_plan(m: int, k: int, n: int) -> dict:
+    """The kernel's grid for x [m, k] and w_t [n, k]: row tiles of
+    ``ROWS`` rows across all of N, K slabs of at most ``SLAB`` (more than
+    one needs the int32 scratch), the weight columns staged at once (the
+    most ``COLS``-column groups that fit beside the x tile in ``SHARED``
+    bytes, at least one) and the block's shared-memory bytes."""
+    if m < 1 or not 1 <= k <= MAX_K or n < 1:
+        raise ValueError(f"no tile plan for ({m}, {k}, {n})")
+    pitch = -(-min(k, SLAB) // 32) * 32 + 16
+    fit = (SHARED - ROWS * pitch) // pitch // COLS
+    cols = min(max(fit, 1), -(-n // COLS)) * COLS
+    slabs = -(-k // SLAB)
+    return {"row_tiles": -(-m // ROWS), "slabs": slabs,
+            "weight_columns": cols, "shared_bytes": (ROWS + cols) * pitch,
+            "scratch": slabs > 1}
 
 
 def _check(x, w_t, scale, b, x_inv_scale):
@@ -122,6 +148,8 @@ def q8_dense(x, w_t, scale, b, x_inv_scale=None):
     if m == 0:
         return y.reshape(*x.shape[:-1], n)
     xs = None if static else row_scales(x2d)
+    acc = (torch.zeros((m, n), dtype=torch.int32, device=x.device)
+           if tile_plan(m, k, n)["scratch"] else None)
     lib = _build.load("q8_dense", _SIGNATURES)
     with torch.cuda.device(x.device):
         rc = lib.q8_dense(
@@ -129,7 +157,8 @@ def q8_dense(x, w_t, scale, b, x_inv_scale=None):
             _build.ptr(x_inv_scale) if static else None,
             int(static and x_inv_scale.dim() == 1),
             None if static else _build.ptr(xs), _build.ptr(scale),
-            _build.ptr(b), _build.ptr(y), m, k, n,
+            _build.ptr(b), _build.ptr(y),
+            None if acc is None else _build.ptr(acc), m, k, n,
             int(x.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), _build.stream_of(x))
     _build.check_launch(lib, rc, "q8_dense")

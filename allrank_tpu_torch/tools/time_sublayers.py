@@ -40,8 +40,10 @@ in each mode at B=64, L=240, d=128, h=4 (ragged keys, one empty slate),
 graph; a library backward its kernels' sum in a trace) with one event-timed
 call beside each: B3 (``ops/lambda_pairs.py``) and B6
 (``ops/lambda_tiled.py``) at B=64, k=240 (a 40-document padding tail,
-ndcgLoss2PP) beside ``chain_library``; B8 (``ops/neuralsort.py``) by route
-("cluster" and "l2"; a checkout without routes times its one kernel) at
+ndcgLoss2PP), and B6 at its main paths' (16, 1024) and (8, 4096) (a
+100-document tail), beside ``chain_library`` and their bounds; B8
+(``ops/neuralsort.py``) by route ("cluster" and "l2"; a checkout without
+routes times its one kernel) at
 N=64, L=240 and N=4, L=512 beside ``soft_sort_library``; B7
 (``ops/sinkhorn.py``) by route ("cluster" and "l2"; likewise) at N=8, L=640
 and N=2, L=768 beside ``sinkhorn_library``; X4
@@ -49,7 +51,10 @@ and N=2, L=768 beside ``sinkhorn_library``; X4
 train step (``neuralndcg_atmax.json``, bf16) at B=64, L=240 and at B=8,
 L=640, where the Sinkhorn kernel B7 runs: its ms, the device's busy ms a
 step from a torch.profiler trace of 5 steps, and B8's and B7's shares of
-that busy time.
+that busy time. ``--int8`` instead times the int8 dense kernel X1
+(``ops/q8_dense.py``) at the flagship int8 tower's six sites (M = 15,360)
+beside its library and the float layer's bf16 matmul, and the sums over a
+scorer call's 18 launches (``time_int8``).
 
 To compare two checkouts inside one call (two calls may land on two
 cards), run this file by its path with each checkout's root first on
@@ -396,12 +401,13 @@ def time_probes(card: str, package: str, iters: int, long: bool) -> list:
     return lines
 
 
-def pair_inputs(gen, b, k, dev):
-    """B3's and B6's inputs at ``bench.py``'s batch: labels 0-4, the last
-    40 documents padding, gains (2^label - 1) / 30."""
+def pair_inputs(gen, b, k, dev, tail: int = 40):
+    """B3's and B6's inputs: labels 0-4, the last ``tail`` documents
+    padding (``bench.py``'s 40; the long-slate steps' 100), gains (2^label
+    - 1) / 30."""
     ts = torch.randint(0, 5, (b, k), generator=gen).float()
     valid = torch.ones(b, k)
-    valid[:, -40:] = 0.0
+    valid[:, -tail:] = 0.0
     yp = torch.randn(b, k, generator=gen) * valid
     return [t.to(dev) for t in (yp, ts, (2.0 ** ts - 1.0) / 30.0, valid)]
 
@@ -460,6 +466,7 @@ def time_losses(card: str, package: str, iters: int) -> list:
     """``--losses``' lines: B3, B6, B8 and B7 by route and X4 as device
     time beside their libraries, and the NeuralNDCG recipe step's busy time
     and B8's and B7's shares of it at L=240 and L=640."""
+    import chip_smoke
     from allrank_tpu_torch.ops import lambda_pairs as b3
     from allrank_tpu_torch.ops import lambda_tiled as b6
     from allrank_tpu_torch.ops import neuralsort as b8
@@ -487,6 +494,14 @@ def time_losses(card: str, package: str, iters: int) -> list:
             **extra, "card": card, "package": package})
         print(json.dumps(lines[-1]), flush=True)
 
+    def chain_bound(args, kw, backward):
+        # chip_smoke.chain_work's operations and bytes: 28 (forward) or 36
+        # operations a selected pair, a compare for each other
+        flops, moved, selected = chip_smoke.chain_work(
+            args, kw, 36 if backward else 28, backward)
+        return {"selected_pairs": selected,
+                "bound_ms": chip_smoke.bound(flops, moved, torch.float32)[0]}
+
     args = pair_inputs(gen, B, L, dev)
     kw = dict(scheme="ndcgLoss2PP_scheme", k_eff=L, sigma=1.0, mu=10.0,
               log_base="binary", eps=1e-10)
@@ -494,15 +509,31 @@ def time_losses(card: str, package: str, iters: int) -> list:
     lib = chain_library(args, kw)
     blocks = (b3.cluster_size(L) if hasattr(b3, "cluster_size") else 1)
     line("lambda_pairs_fwd", [B, L], lambda: b3.lambda_pairs_fwd(*args, **kw),
-         lib[0], False, cluster=blocks)
+         lib[0], False, cluster=blocks, **chain_bound(args, kw, False))
     line("lambda_pairs_bwd", [B, L],
          lambda: b3.lambda_pairs_bwd(*args, gout, **kw), lib[1], True,
-         cluster=blocks)
+         cluster=blocks, **chain_bound(args, kw, True))
     line("lambda_tiled_fwd", [B, L], lambda: b6.lambda_tiled_fwd(*args, **kw),
-         lib[0], False)
+         lib[0], False, **chain_bound(args, kw, False))
     line("lambda_tiled_bwd", [B, L],
-         lambda: b6.lambda_tiled_bwd(*args, gout, **kw), lib[1], True)
+         lambda: b6.lambda_tiled_bwd(*args, gout, **kw), lib[1], True,
+         **chain_bound(args, kw, True))
     del args, lib
+    # B6 at its main paths' shapes: the long-slate lambdaLoss step's (16,
+    # 1024) and the paper config's (8, 4096), a 100-document padding tail
+    for b, k in (LONG, (8, 4096)):
+        args = pair_inputs(gen, b, k, dev, tail=100)
+        kw = dict(kw, k_eff=k)
+        gout = torch.ones(b, device=dev)
+        lib = chain_library(args, kw)
+        line("lambda_tiled_fwd", [b, k],
+             lambda: b6.lambda_tiled_fwd(*args, **kw), lib[0], False,
+             **chain_bound(args, kw, False))
+        line("lambda_tiled_bwd", [b, k],
+             lambda: b6.lambda_tiled_bwd(*args, gout, **kw), lib[1], True,
+             **chain_bound(args, kw, True))
+        del args, lib
+        torch.cuda.empty_cache()
     routes = b8.ROUTES if hasattr(b8, "launch_fwd") else ("l2",)
     for n, l in ((B, L), (4, 512)):
         s, pad, vec, dout = soft_sort_inputs(gen, n, l, dev)
@@ -575,6 +606,57 @@ def time_losses(card: str, package: str, iters: int) -> list:
             "idle_share": 1 - busy / window_us, **share, "card": card,
             "package": package})
         print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+def time_int8(card: str, package: str, iters: int) -> list:
+    """``--int8``' lines: X1 (``ops/q8_dense.py``) at the six sites of the
+    flagship int8 tower (``chip_smoke.Q8_SITES``: M = 15,360 rows, static
+    mode, bf16 x, the head's fp32) as device time, with one event-timed
+    call, beside its library (``chip_smoke.q8_library``: quantize ops,
+    ``torch._int_mm``, epilogue; none where ``_int_mm`` refuses the shape)
+    and the float layer's bf16 ``torch.matmul`` + bias, and its bound
+    (``chip_smoke.q8_work``); then the sums over a scorer call's 18
+    launches."""
+    import chip_smoke
+    from allrank_tpu_torch.ops.q8_dense import q8_dense
+    from allrank_tpu_torch.tools.timing import _median_event_ms, graph_ms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    lines = []
+    for site, k, n, per_call in chip_smoke.Q8_SITES:
+        dtype = torch.float32 if site == "output" else torch.bfloat16
+        args = chip_smoke.q8_inputs(gen, B * L, k, n, dtype, "static", dev)
+        x, w_t, _, _, inv = args
+        wf = torch.randn(k, n, generator=gen).to(torch.bfloat16).to(dev)
+        bf = torch.randn(n, generator=gen).to(torch.bfloat16).to(dev)
+        x16 = x.to(torch.bfloat16)
+        lib = chip_smoke.q8_library(*args)
+        flops, moved = chip_smoke.q8_work(x, w_t, inv, dtype)
+
+        def matmul():
+            return torch.matmul(x16, wf) + bf
+
+        lines.append({
+            "kernel": "q8_dense", "site": site, "shape": [B * L, k, n],
+            "dtype": str(dtype).split(".")[-1], "per_call": per_call,
+            "graph_ms": graph_ms(lambda: q8_dense(*args)),
+            "ms": _median_event_ms(lambda: q8_dense(*args), iters, 3),
+            "library_device_ms": graph_ms(lib) if lib else None,
+            "library_ms": _median_event_ms(lib, iters, 3) if lib else None,
+            "bf16_matmul_device_ms": graph_ms(matmul),
+            "bound_ms": chip_smoke.bound(flops, moved, torch.int8)[0],
+            "card": card, "package": package})
+        print(json.dumps(lines[-1]), flush=True)
+    call = {"kernel": "q8_dense", "site": "per scorer call (18 launches)"}
+    for key in ("graph_ms", "bound_ms", "bf16_matmul_device_ms"):
+        call[key] = sum(v[key] * v["per_call"] for v in lines)
+    call["library_device_ms_where_one"] = sum(
+        v["library_device_ms"] * v["per_call"] for v in lines
+        if v["library_device_ms"] is not None)
+    lines.append({**call, "card": card, "package": package})
+    print(json.dumps(lines[-1]), flush=True)
     return lines
 
 
@@ -753,6 +835,9 @@ def main(argv=None) -> int:
     parser.add_argument("--losses", action="store_true",
                         help="time the loss kernels B3, B6, B8, B7 and X4 "
                              "instead")
+    parser.add_argument("--int8", action="store_true",
+                        help="time the int8 dense kernel X1 at the flagship "
+                             "int8 tower's six sites instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_sublayers: no CUDA device", file=sys.stderr)
@@ -790,6 +875,7 @@ def main(argv=None) -> int:
                               "neuralsort_cluster", "neuralsort_layout",
                               "sinkhorn", "sinkhorn_cluster")
                              if args.losses else ()),
+                           *(("q8_dense",) if args.int8 else ()),
                            *args.ptxas)
                if os.path.exists(_build.source_path(s))]
     _build.build(sorted(set(sources)))
@@ -807,6 +893,9 @@ def main(argv=None) -> int:
         return 0
     if args.losses:
         time_losses(card, package, args.iters)
+        return 0
+    if args.int8:
+        time_int8(card, package, args.iters)
         return 0
     if args.step:
         for dtype in ("float32", "bfloat16"):

@@ -3153,6 +3153,7 @@ def main() -> int:
     def pair_inputs(b, k):
         ts = torch.randint(0, 5, (b, k), generator=gen).float()
         valid = (torch.rand(b, k, generator=gen) > 0.15).float()
+        valid[0, 5 * k // 8 + 3:] = 0.0  # valid documents end mid-tile
         valid[-1] = 0.0  # a slate with no valid document
         yp = torch.randn(b, k, generator=gen) * valid
         return [t.to(dev) for t in (yp, ts, (2.0 ** ts - 1.0) / 30.0, valid)]
@@ -3166,11 +3167,12 @@ def main() -> int:
             atol=B3_GRAD_ATOL * ref_dyp.abs().max().item() + 1e-6)
 
     b6_errs = {}
-    for b, k in ((B, 512), (LONG_B, LONG_L), (8, 1308), (2, 4096)):
+    for b, k in ((B, 512), (LONG_B, LONG_L), (8, 1308), (2, 4096), (4, 385)):
         pair_args = pair_inputs(b, k)
         gout = torch.linspace(0.5, 1.5, b, device=dev)
         for scheme in SCHEMES:
-            for log_base, k_eff in (("binary", k), ("natural", 3 * k // 4)):
+            for log_base, k_eff in (("binary", k), ("natural", 3 * k // 4),
+                                    ("binary", 10)):
                 kw = dict(scheme=scheme, k_eff=k_eff, sigma=1.0, mu=10.0,
                           log_base=log_base, eps=eps)
                 before = (lambda_tiled_fwd.launches,
@@ -3186,8 +3188,13 @@ def main() -> int:
                 assert_chain_close((loss, cnt, dyp), ref,
                                    (b, k, scheme, log_base, k_eff))
                 assert not dyp[-1].any(), "the empty slate took a gradient"
+                assert not dyp[0, 5 * k // 8 + 3:].any()
                 if k_eff < k:
                     assert not dyp[:, k_eff:].any()
+                again = (*lambda_tiled_fwd(*pair_args, **kw),
+                         lambda_tiled_bwd(*pair_args, gout, **kw))
+                assert all(torch.equal(x, y) for x, y in zip(
+                    again, (loss, cnt, dyp))), "B6 rerun differs"
                 if scheme == "ndcgLoss2PP_scheme" and k_eff == k:
                     b6_errs[(b, k)] = (rel_err(loss, ref[0])[0],
                                        rel_err(dyp, ref[2])[0],
@@ -3195,8 +3202,10 @@ def main() -> int:
                                        ref[2].abs().max().item())
                 del ref
         e = b6_errs[(b, k)]
-        print(f"B6 vs plain B={b} k={k}, 8 schemes x (binary, k_eff=k; "
-              f"natural, k_eff=3k/4): ok, counts exact; ndcgLoss2PP "
+        print(f"B6 vs plain B={b} k={k} (slate 0's documents ending "
+              f"mid-tile, the last slate padded), 8 schemes x (binary, "
+              f"k_eff=k; natural, k_eff=3k/4; binary, k_eff=10): ok, counts "
+              f"exact, a rerun bit for bit; ndcgLoss2PP "
               f"max_abs_err loss {e[0]:.3e} of {e[2]:.3e}, grad {e[1]:.3e} "
               f"of {e[3]:.3e}")
     pair_args = pair_inputs(B, 384)
@@ -4031,8 +4040,9 @@ def main() -> int:
     q8_errs = []
     q8_dense.launches = 0
     cases = [(B * L, k, n) for _, k, n, _ in Q8_SITES]
-    cases += [(m, k, n) for m in (1, 17, B * L + 1) for k in (1, 33)
-              for n in (1, 7)]
+    cases += [(m, k, n) for m in (1, 17, B * L + 1) for k in (1, 33, 136, 512)
+              for n in (1, 7, 384, 513)]
+    cases += [(65, 1025, 70)]  # K past a block's 1024: two slabs
     for m, k, n in cases:
         for dtype in (torch.float32, torch.bfloat16):
             for mode in Q8_MODES:
@@ -4050,7 +4060,8 @@ def main() -> int:
                     f"{(y.float() - ref.float()).abs().max().item()}")
                 q8_errs.append((y.float() - ref.float()).abs().max().item())
     print(f"X1 vs plain, bit for bit: the six flagship sites at M={B * L} "
-          f"and M in (1, 17, {B * L + 1}) x K in (1, 33) x N in (1, 7), fp32 "
+          f"and M in (1, 17, {B * L + 1}) x K in (1, 33, 136, 512) x N in "
+          f"(1, 7, 384, 513), and (65, 1025, 70) in two K slabs, fp32 "
           f"and bf16 x, static (one multiplier and [K]) and dynamic, .5 ties "
           f"and a zero row: {len(q8_errs)} launches, max_abs_err "
           f"{max(q8_errs)}")

@@ -1169,6 +1169,40 @@ def test_tiled_lambda_kernels_match_plain(cuda, scheme, b, k, k_eff):
     assert torch.equal(dyp, lambda_tiled_bwd(*args, gout, **kw))
 
 
+@pytest.mark.parametrize("k_eff_of", ["k", "10", "3k/4"])
+@pytest.mark.parametrize("k", [385, 1024, 1308, 4096])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_tiled_lambda_edges_match_plain(cuda, scheme, k, k_eff_of):
+    """B6's tiles and stripes at their edges: one stripe (385, 1024) and
+    two or four (1308, 4096), k_eff of 10 (one live row tile) and of 3k/4
+    (mid-stripe), a fully padded slate, a slate whose valid documents end
+    mid-tile, ndcgLoss1 (both directions of a pair selectable) and every
+    other scheme: the one-block kernel's tolerances, counts exact, no
+    gradient past k_eff or in the padded slate, a second run bit for bit."""
+    b = 3
+    args = _pair_inputs(b, k, k + len(k_eff_of), cuda)
+    args[3][0, 5 * k // 8 + 3:] = 0.0  # valid documents end mid-tile
+    args[0][0] *= args[3][0]
+    k_eff = {"k": k, "10": 10, "3k/4": 3 * k // 4}[k_eff_of]
+    kw = dict(scheme=scheme, k_eff=k_eff, sigma=1.0, mu=10.0,
+              log_base="binary" if k % 2 else "natural", eps=1e-10)
+    gout = torch.linspace(0.5, 1.5, b, device=cuda)
+    loss, cnt = lambda_tiled_fwd(*args, **kw)
+    dyp = lambda_tiled_bwd(*args, gout, **kw)
+    ref_loss, ref_cnt = lambda_tiled_fwd_plain(*args, **kw)
+    assert torch.equal(cnt, ref_cnt)
+    torch.testing.assert_close(loss, ref_loss, rtol=2e-5, atol=1e-5)
+    ref = lambda_tiled_bwd_plain(*args, gout, **kw)
+    torch.testing.assert_close(dyp, ref, rtol=1e-4,
+                               atol=1e-5 * ref.abs().max().item() + 1e-6)
+    assert not dyp[-1].any(), "the padded slate took a gradient"
+    assert not dyp[:, k_eff:].any(), "a document past k_eff took a gradient"
+    assert not dyp[0, 5 * k // 8 + 3:].any()
+    again = lambda_tiled_fwd(*args, **kw)
+    assert torch.equal(loss, again[0]) and torch.equal(cnt, again[1])
+    assert torch.equal(dyp, lambda_tiled_bwd(*args, gout, **kw))
+
+
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_tiled_lambda_kernel_agrees_with_the_one_block_kernel(cuda, scheme):
     """At k = 384, which both cover: the same per-pair device function,
@@ -1613,6 +1647,40 @@ def test_q8_dense_kernel_is_its_plain_version(cuda, m, k, n, dtype, mode):
     assert y.dtype == ref.dtype == (torch.float32 if mode == "dynamic"
                                     else dtype)
     assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("mode", ["static", "static_channels", "dynamic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 384, 513])
+@pytest.mark.parametrize("k", [1, 33, 136, 512])
+@pytest.mark.parametrize("m", [1, 17, 15361])
+def test_q8_dense_edges_are_its_plain_version(cuda, m, k, n, dtype, mode):
+    """X1's row tiles, chunks and copies at their edges: one row, a ragged
+    last row tile, K that takes byte, 8-byte and 16-byte copies and x rows
+    off 16 bytes, N off the 16-byte stores and past a 64-column chunk; .5
+    ties and a zero row (chip_smoke.q8_inputs); bit for bit."""
+    args = chip_smoke.q8_inputs(torch.Generator().manual_seed(m + k + n),
+                                m, k, n, dtype, mode, cuda)
+    before = q8_dense.launches
+    y = q8_dense(*args)
+    torch.cuda.synchronize()
+    assert q8_dense.launches == before + 1
+    ref = q8_dense_plain(*args)
+    assert y.dtype == ref.dtype
+    assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("mode", ["static_channels", "dynamic"])
+@pytest.mark.parametrize("m,k,n", [(65, 1025, 70), (130, 4500, 9),
+                                   (64, 2048, 200)])
+def test_q8_dense_k_slabs_are_its_plain_version(cuda, m, k, n, mode):
+    """K past one block's 1024: slabs whose int32 sums meet in the
+    scratch; bit for bit, and a second run the same."""
+    args = chip_smoke.q8_inputs(torch.Generator().manual_seed(k), m, k, n,
+                                torch.bfloat16, mode, cuda)
+    y = q8_dense(*args)
+    assert torch.equal(y, q8_dense_plain(*args))
+    assert torch.equal(y, q8_dense(*args))
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8_static"])

@@ -187,13 +187,41 @@ def test_long_slate_lambda_loss_matches_jax(kw, route, monkeypatch):
 
 
 def test_scratch_tiles_are_the_kernels_rows_per_block():
-    """The wrapper sizes the forward's [2, tiles + 1, B] buffer from its own
-    constant; the kernel's grid comes from the source's."""
+    """The wrapper sizes the forward's [2, blocks + 1, B] buffer and the
+    backward's [B, stripes + tiles, k] scratch from its own constants; the
+    kernel's grid comes from the source's."""
     import os
     import re
 
     src = os.path.join(os.path.dirname(port_tiled.__file__), os.pardir, "csrc",
                        "lambda_tiled.cu")
     with open(src) as f:
-        rows = re.search(r"constexpr int kRowsPerBlock = (\d+);", f.read())
-    assert int(rows.group(1)) == port_tiled.ROWS_PER_TILE
+        text = f.read()
+    for name, value in (("kTileRows", port_tiled.TILE_ROWS),
+                        ("kShortTileRows", port_tiled.SHORT_TILE_ROWS),
+                        ("kShortK", port_tiled.SHORT_LENGTH),
+                        ("kMaxStripe", port_tiled.MAX_STRIPE)):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert int(found.group(1)) == value, name
+
+
+@pytest.mark.parametrize("k,plan", [
+    (1, (1, 1, 32, 16)), (33, (3, 1, 64, 16)), (240, (15, 1, 256, 16)),
+    (385, (25, 1, 416, 16)), (1024, (64, 2, 512, 16)),
+    (1025, (33, 3, 352, 32)), (1200, (38, 3, 416, 32)),
+    (1308, (41, 3, 448, 32)), (4096, (128, 8, 512, 32))])
+def test_tile_plan_covers_every_row_and_column_once(k, plan):
+    """The kernels' grid at top-k length k: tiles of 16 rows to 1024, 32
+    beyond; stripes of equal width (whole warps) no wider than 512 that
+    cover the k columns, none of them empty."""
+    tiles, stripes, width, rows = port_tiled.tile_plan(k)
+    assert (tiles, stripes, width, rows) == plan
+    assert (tiles - 1) * rows < k <= tiles * rows
+    assert width % 32 == 0 and width <= port_tiled.MAX_STRIPE
+    assert (stripes - 1) * width < k <= stripes * width
+
+
+@pytest.mark.parametrize("k", [0, MAX_TILED_LENGTH + 1])
+def test_tile_plan_refuses_lengths_past_the_envelope(k):
+    with pytest.raises(ValueError, match="no tile plan"):
+        port_tiled.tile_plan(k)

@@ -22,6 +22,7 @@ from allrank_tpu_torch.interop import (
     load_jax_params,
 )
 from allrank_tpu_torch.models.factory import LTRModel, make_model
+from allrank_tpu_torch.ops import q8_dense as port_q8
 from allrank_tpu_torch.ops.q8_dense import (
     int8_product,
     q8_dense,
@@ -222,6 +223,61 @@ def test_q8_dense_checks_its_arguments():
     with pytest.raises(ValueError, match="x_inv_scale"):
         q8_dense(x, w_t, s, b, torch.ones(5))
     assert q8_dense(x, w_t, s, b, torch.ones(8)).shape == (4, 3)
+
+
+def test_q8_tile_constants_are_the_kernels():
+    """The wrapper plans the grid and the slab scratch from its own
+    constants; the kernel's come from the source's."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(port_q8.__file__), os.pardir, "csrc",
+                       "q8_dense.cu")
+    with open(src) as f:
+        text = f.read()
+    for name, value in (("kQRows", port_q8.ROWS), ("kQCols", port_q8.COLS),
+                        ("kQSlab", port_q8.SLAB)):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert int(found.group(1)) == value, name
+    shared = re.search(r"constexpr int kQShared = (\d+) \* 1024;", text)
+    assert int(shared.group(1)) * 1024 == port_q8.SHARED
+
+
+@pytest.mark.parametrize("m,k,n,plan", [
+    (15360, 136, 128, (240, 1, 128, 33792)),
+    (15360, 128, 384, (240, 1, 384, 64512)),
+    (15360, 128, 512, (240, 1, 512, 82944)),
+    (15360, 512, 128, (240, 1, 128, 101376)),
+    (15360, 128, 1, (240, 1, 64, 18432)), (1, 1, 1, (1, 1, 64, 6144)),
+    (17, 33, 7, (1, 1, 64, 10240)), (15361, 512, 513, (241, 1, 128, 101376)),
+    (65, 1024, 70, (2, 1, 64, 133120)), (65, 1025, 70, (2, 2, 64, 133120)),
+    (3, port_q8.MAX_K, 5, (1, 131, 64, 133120))])
+def test_q8_tile_plan(m, k, n, plan):
+    """Each block owns 64 rows across all of N and holds up to 1024 of K:
+    one slab (no scratch) and the whole weight staged at once at every
+    flagship site, M = 15,360 (B=64, L=240), two blocks an SM; a wider K
+    takes slabs and the int32 scratch, one block an SM."""
+    got = port_q8.tile_plan(m, k, n)
+    assert (got["row_tiles"], got["slabs"], got["weight_columns"],
+            got["shared_bytes"]) == plan
+    assert got["scratch"] == (plan[1] > 1)
+    assert got["shared_bytes"] <= 227 * 1024
+
+
+def test_time_sublayers_int8_measures_nothing_without_a_card(monkeypatch):
+    """``time_sublayers --int8`` times X1 on the card only: without one it
+    exits 2 before building anything."""
+    from allrank_tpu_torch.tools import time_sublayers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_sublayers.main(["--int8"]) == 2
+
+
+@pytest.mark.parametrize("m,k,n", [(0, 8, 8), (8, 0, 8), (8, 8, 0),
+                                   (8, port_q8.MAX_K + 1, 8)])
+def test_q8_tile_plan_refuses_empty_or_inexact_shapes(m, k, n):
+    with pytest.raises(ValueError, match="no tile plan"):
+        port_q8.tile_plan(m, k, n)
 
 
 # -- quantize_model and calibration -------------------------------------------
