@@ -4,8 +4,9 @@ allrank/models/losses/approxNDCG.py:7-53).
 The only O(L^2) work is the approximate-position sum over valid
 off-diagonal pairs. On CUDA it is the rank-sum kernel B9
 (``ops/approx_pos.py``), whose wrapper raises ``NotImplementedError``
-beyond the kernel's length; on the CPU the loss runs the JAX package's
-XLA-path chain of torch ops under autograd, the plain version.
+beyond the kernel's length (L <= 8192, the encoder's cap); on the CPU the
+loss runs the JAX package's XLA-path chain of torch ops under autograd,
+the plain version.
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ def approxNDCGLoss(y_pred: torch.Tensor, y_true: torch.Tensor,
 
 
 def _fused_pos(y_pred_sorted, valid, alpha, eps):
-    """The rank sums through the kernel B9; the scores of padded documents
-    (-inf) are zeroed first, the kernel reads none of them."""
+    """The rank sums through the kernel B9, which reads the valid
+    documents' scores only; the padded ones (-inf) are zeroed first, so that
+    the plain version on a CPU tensor sees finite scores."""
     return fused_approx_pos(torch.where(valid, y_pred_sorted, 0.0),
                             valid.float(), alpha=alpha, eps=eps)
 

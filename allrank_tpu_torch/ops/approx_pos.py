@@ -17,7 +17,13 @@ the sigmoid branch iff ``t > eps``. Gradients flow to the scores only. fp32
 only, as the JAX loss upcasts.
 
 The TPU kernel's cap of 384 is a VMEM fact (it holds a [bb, L, L] block);
-the CUDA kernel holds nothing [L, L] and covers L <= ``MAX_LENGTH``.
+the CUDA kernel holds nothing [L, L] and covers L <= ``MAX_LENGTH``. It
+runs over each slate's valid documents only (any mask, compacted in the
+block), takes the sigmoid sign-folded (``e = exp(-|x|)``, ``r = 1 / (1 +
+e)``: ``t_ij`` and ``t_ji`` are ``r`` and ``e r``) and the backward's pair
+term as ``g = -alpha (e r) r``, so that ``ds_k = sum_j g_kj (u_k [t_kj >
+eps] - u_j [t_jk > eps])`` is a row-local sum: one exponential an ordered
+pair.
 """
 
 from __future__ import annotations
@@ -28,14 +34,15 @@ import torch
 
 from allrank_tpu_torch.ops import _build
 
-# the kernel's envelope: the slate's three [L] vectors in 48 KB of shared
-# memory, the envelope of the tiled lambdaLoss kernel too
-MAX_LENGTH = 4096
+# the kernel's envelope, the encoder's cap (models/transformer.py): a
+# slate's compacted scores and cotangents, 64 KB of shared memory at 8192
+MAX_LENGTH = 8192
 _SIGNATURES = {
     "approx_pos_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     "approx_pos_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-    + [ctypes.c_float] * 2 + [ctypes.c_void_p]}
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    "approx_rcp_check": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}
 
 
 def _pair_chain(s, valid, alpha):
@@ -123,6 +130,21 @@ def approx_pos_bwd(s, valid, u, alpha, eps):
 
 
 approx_pos_bwd.launches = 0
+
+
+def reciprocal_mismatches(device) -> int:
+    """How many floats y of [1, 2] the kernels' reciprocal of 1 + e (the
+    instructions of ``__frcp_rn`` without its slow path) gives other bits
+    than ``__frcp_rn`` for, checked on the CUDA ``device``: 0 shows it
+    correctly rounded."""
+    blocks = -(-((1 << 23) + 1) // 256)
+    counts = torch.empty(blocks, dtype=torch.int32, device=device)
+    lib = _build.load("approx_pos", _SIGNATURES)
+    with torch.cuda.device(counts.device):
+        rc = lib.approx_rcp_check(_build.ptr(counts), blocks,
+                                  _build.stream_of(counts))
+    _build.check_launch(lib, rc, "approx_rcp_check")
+    return int(counts.sum().item())
 
 
 class ApproxPos(torch.autograd.Function):

@@ -38,9 +38,13 @@ in each mode at B=64, L=240, d=128, h=4 (ragged keys, one empty slate),
 ``--long`` adds X3 and B1 at B=16, L=1024, where B1 costs most.
 ``--losses`` instead times the loss kernels in fp32 as device time (a CUDA
 graph; a library backward its kernels' sum in a trace) with one event-timed
-call beside each: B3 (``ops/lambda_pairs.py``) and B6
-(``ops/lambda_tiled.py``) at B=64, k=240 (a 40-document padding tail,
-ndcgLoss2PP), and B6 at its main paths' (16, 1024) and (8, 4096) (a
+call beside each: B9 (``ops/approx_pos.py``), forward and backward, at
+B=64, L=240 with 200 valid documents and, every document valid, at (16,
+1024), (2, 4096) and (2, 8192) (where the checkout's kernel covers it),
+beside ``chip_smoke.approx_library`` and the bound of
+``chip_smoke.approx_work`` (``time_approx``); B3
+(``ops/lambda_pairs.py``) and B6 (``ops/lambda_tiled.py``) at B=64, k=240
+(a 40-document padding tail, ndcgLoss2PP), and B6 at its main paths' (16, 1024) and (8, 4096) (a
 100-document tail), beside ``chain_library`` and their bounds; B8
 (``ops/neuralsort.py``) by route ("cluster" and "l2"; a checkout without
 routes times its one kernel) at
@@ -49,9 +53,13 @@ N=64, L=240 and N=4, L=512 beside ``soft_sort_library``; B7
 and N=2, L=768 beside ``sinkhorn_library``; X4
 (``ops/neuralsort_layout.py``) at N=64, L=240 beside ``soft_sort_library``; then the NeuralNDCG recipe's
 train step (``neuralndcg_atmax.json``, bf16) at B=64, L=240 and at B=8,
-L=640, where the Sinkhorn kernel B7 runs: its ms, the device's busy ms a
-step from a torch.profiler trace of 5 steps, and B8's and B7's shares of
-that busy time. ``--int8`` instead times the int8 dense kernel X1
+L=640, where the Sinkhorn kernel B7 runs, and the approxNDCG recipe's
+(``approxndcg.json``, bf16) at B=64, L=240: each step's ms, the device's
+busy ms a step from a torch.profiler trace of 5 steps, B8's, B7's and
+B9's shares of that busy time and the device time by kernel
+(``time_recipe_steps``; kernels, copies and fills only:
+``timing.device_spans`` leaves out the ranges the profiler annotates on the
+device's timeline, such as Adam's step, which span host time). ``--int8`` instead times the int8 dense kernel X1
 (``ops/q8_dense.py``) at the flagship int8 tower's six sites (M = 15,360)
 beside its library and the float layer's bf16 matmul, and the sums over a
 scorer call's 18 launches (``time_int8``).
@@ -63,7 +71,8 @@ cards), run this file by its path with each checkout's root first on
     PYTHONPATH=/path/to/other python allrank_tpu_torch/tools/time_sublayers.py
     PYTHONPATH=. python allrank_tpu_torch/tools/time_sublayers.py
 
-The line's ``package`` says which checkout was timed. Without a card it
+The line's ``package`` says which checkout was timed; the traces are read
+by that checkout's ``tools/timing.py``. Without a card it
 exits 2: it measures nothing on the CPU.
 """
 
@@ -85,6 +94,7 @@ D3 = 384  # X2's hidden width
 LONG = (16, 1024)  # B1's costliest slate length at the flagship's width
 NEURAL_CONFIG = ("reproducibility/configs/neuralndcg_web30k/"
                  "neuralndcg_atmax.json")
+APPROX_CONFIG = "reproducibility/configs/neuralndcg_web30k/approxndcg.json"
 
 
 def b1_library(x, mask_add, g, b, wqkv, bqkv, wout, bout, h):
@@ -425,16 +435,16 @@ def soft_sort_inputs(gen, n, l, dev):
                                                           generator=gen))]
 
 
-def neural_recipe_step(dev):
-    """The NeuralNDCG recipe's train step (``neuralndcg_atmax.json`` as
-    written: 2 blocks of d=96, h=1, dropout 0.1, bf16, Adam) on seeded
-    weights, and ``flagship_step``'s batch of B=64, L=240."""
+def recipe_step(dev, config: str = NEURAL_CONFIG):
+    """A recipe's train step (``config`` as written; the NeuralNDCG and
+    approxNDCG recipes: 2 blocks of d=96, h=1, dropout 0.1, bf16, Adam) on
+    seeded weights, and ``flagship_step``'s batch of B=64, L=240."""
     from allrank_tpu_torch.config import Config
     from allrank_tpu_torch.losses import get_loss
     from allrank_tpu_torch.models.factory import LTRModel, make_model
     from allrank_tpu_torch.training import make_optimizer, make_train_step
 
-    cfg = Config.from_json(NEURAL_CONFIG)
+    cfg = Config.from_json(config)
     model = LTRModel(make_model(cfg.model, FEATURES),
                      torch.Generator().manual_seed(0), device=dev)
     loss_fn, needs_rng = get_loss(cfg.loss.name)
@@ -462,10 +472,73 @@ def long_neural_batch(dev, b: int = 8, l: int = 640):
     return tuple(torch.as_tensor(t, device=dev) for t in (x, y, indices))
 
 
+def approx_inputs(gen, b, l, dev, n_valid):
+    """B9's inputs as the approxNDCG loss hands them over: scores, 0/1
+    validity with the first ``n_valid`` documents of each slate valid (the
+    loss sorts the padding last) and padded scores zeroed, a cotangent."""
+    valid = torch.zeros(b, l)
+    valid[:, :n_valid] = 1.0
+    s = torch.randn(b, l, generator=gen) * valid
+    return [t.to(dev) for t in (s, valid, torch.randn(b, l, generator=gen))]
+
+
+def time_approx(card: str, package: str, iters: int) -> list:
+    """B9's lines (``ops/approx_pos.py``), forward and backward, as device
+    time beside ``chip_smoke.approx_library`` and the bound of
+    ``chip_smoke.approx_work``: at B=64, L=240 with 200 valid documents
+    (the approxNDCG recipe's step), and every document valid at (16, 1024),
+    (2, 4096) and (2, 8192) where the checkout's kernel covers it."""
+    import chip_smoke
+    from allrank_tpu_torch.ops import approx_pos as b9
+    from allrank_tpu_torch.tools.timing import (
+        _median_event_ms,
+        graph_ms,
+        kernel_ms,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    lines = []
+    eps = 1e-10
+    for b, l, n_valid in ((B, L, 200), (16, 1024, 1024), (2, 4096, 4096),
+                          (2, 8192, 8192)):
+        if l > b9.MAX_LENGTH:
+            continue
+        s, valid, u = approx_inputs(gen, b, l, dev, n_valid)
+        lib = chip_smoke.approx_library(s, valid, 1.0, eps)
+        for way, fn in (
+                ("approx_pos_fwd",
+                 functools.partial(b9.approx_pos_fwd, s, valid, 1.0, eps)),
+                ("approx_pos_bwd",
+                 functools.partial(b9.approx_pos_bwd, s, valid, u, 1.0,
+                                   eps))):
+            backward = way.endswith("_bwd")
+            lib_fn = lib[backward]
+            # the parent's chip_smoke has no approx_work: no bound there
+            work = (chip_smoke.approx_work(valid, backward)
+                    if hasattr(chip_smoke, "approx_work") else None)
+            lines.append({
+                "kernel": way, "shape": [b, l], "valid": n_valid,
+                "graph_ms": graph_ms(fn), "ms": _median_event_ms(fn, iters, 3),
+                "library_device_ms": (sum(kernel_ms(lib_fn).values())
+                                      if backward else graph_ms(lib_fn)),
+                "library_ms": _median_event_ms(lib_fn, iters, 3),
+                "bound_ms": (chip_smoke.bound(work[0], work[1],
+                                              torch.float32)[0]
+                             if work else None),
+                "pairs": work[2] if work else None, "card": card,
+                "package": package})
+            print(json.dumps(lines[-1]), flush=True)
+        del s, valid, u, lib
+        torch.cuda.empty_cache()
+    return lines
+
+
 def time_losses(card: str, package: str, iters: int) -> list:
-    """``--losses``' lines: B3, B6, B8 and B7 by route and X4 as device
-    time beside their libraries, and the NeuralNDCG recipe step's busy time
-    and B8's and B7's shares of it at L=240 and L=640."""
+    """``--losses``' lines: B9, B3, B6, B8 and B7 by route and X4 as device
+    time beside their libraries, and the busy time of the NeuralNDCG recipe
+    step (B8's and B7's shares of it at L=240 and L=640) and of the
+    approxNDCG recipe step (B9's share)."""
     import chip_smoke
     from allrank_tpu_torch.ops import lambda_pairs as b3
     from allrank_tpu_torch.ops import lambda_tiled as b6
@@ -474,15 +547,13 @@ def time_losses(card: str, package: str, iters: int) -> list:
     from allrank_tpu_torch.ops import sinkhorn as b7
     from allrank_tpu_torch.tools.timing import (
         _median_event_ms,
-        busy_us,
         graph_ms,
         kernel_ms,
-        trace_kernels,
     )
 
+    lines = time_approx(card, package, iters)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    lines = []
 
     def line(kernel, shape, fn, lib_fn, backward, **extra):
         lines.append({
@@ -587,24 +658,54 @@ def time_losses(card: str, package: str, iters: int) -> list:
                  route=way, **extra)
         del m0, dp, lib
         torch.cuda.empty_cache()
-    step, batch = neural_recipe_step(dev)
+    return lines + time_recipe_steps(card, package, iters)
+
+
+def time_recipe_steps(card: str, package: str, iters: int) -> list:
+    """``--losses``' step lines: the NeuralNDCG recipe's step at B=64, L=240
+    and B=8, L=640 and the approxNDCG recipe's at B=64, L=240, each with
+    its ms, the device's busy ms a step, its idle share, B8's, B7's and
+    B9's shares of the busy time and the device time by kernel (each
+    kernel of at least 1 % of it)."""
+    from allrank_tpu_torch.tools.timing import (
+        _median_event_ms,
+        busy_us,
+        trace_kernels,
+    )
+
+    dev = torch.device("cuda", 0)
+    lines = []
+    step, batch = recipe_step(dev)
+    approx_step = recipe_step(dev, APPROX_CONFIG)[0]
     calls = 5
-    for batch in (batch, long_neural_batch(dev)):
+    for label, step, batch in (
+            ("NeuralNDCG recipe (neuralndcg_atmax.json), bf16", step, batch),
+            ("NeuralNDCG recipe (neuralndcg_atmax.json), bf16", step,
+             long_neural_batch(dev)),
+            ("approxNDCG recipe (approxndcg.json), bf16", approx_step,
+             batch)):
         ms = _median_event_ms(lambda: step(*batch), iters, 3)
         spans, window_us = trace_kernels(lambda: step(*batch), calls)
         busy = busy_us(spans)
         share = {}
-        for key, part in (("b8", "soft_sort"), ("b7", "sinkhorn")):
+        for key, part in (("b8", "soft_sort"), ("b7", "sinkhorn"),
+                          ("b9", "approx_")):
             us = sum(end - start for name, start, end in spans
                      if part in name)
             share.update({f"{key}_ms": us / calls / 1e3,
                           f"{key}_share": us / busy})
+        by_kernel = {}
+        for name, start, end in spans:
+            by_kernel[name[:80]] = (by_kernel.get(name[:80], 0.0)
+                                    + (end - start) / calls / 1e3)
         lines.append({
-            "step": "NeuralNDCG recipe (neuralndcg_atmax.json), bf16",
-            "shape": list(batch[1].shape), "ms": ms,
+            "step": label, "shape": list(batch[1].shape), "ms": ms,
             "device_busy_ms": busy / calls / 1e3,
-            "idle_share": 1 - busy / window_us, **share, "card": card,
-            "package": package})
+            "idle_share": 1 - busy / window_us, **share,
+            "by_kernel_ms": {k: v for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])
+                if v * calls * 1e3 >= 0.01 * busy},
+            "card": card, "package": package})
         print(json.dumps(lines[-1]), flush=True)
     return lines
 
@@ -833,8 +934,9 @@ def main(argv=None) -> int:
                         help="with --probes, also X3 and B1 at B=16, "
                              "L=1024")
     parser.add_argument("--losses", action="store_true",
-                        help="time the loss kernels B3, B6, B8, B7 and X4 "
-                             "instead")
+                        help="time the loss kernels B9, B3, B6, B8, B7 and "
+                             "X4 and the NeuralNDCG and approxNDCG recipe "
+                             "steps instead")
     parser.add_argument("--int8", action="store_true",
                         help="time the int8 dense kernel X1 at the flagship "
                              "int8 tower's six sites instead")
@@ -871,9 +973,10 @@ def main(argv=None) -> int:
                                   "full", "no_softmax", "norm_after_pv",
                                   "no_pv", "frame")))
                              if args.probes else ()),
-                           *(("lambda_pairs", "lambda_tiled", "neuralsort",
-                              "neuralsort_cluster", "neuralsort_layout",
-                              "sinkhorn", "sinkhorn_cluster")
+                           *(("approx_pos", "lambda_pairs", "lambda_tiled",
+                              "neuralsort", "neuralsort_cluster",
+                              "neuralsort_layout", "sinkhorn",
+                              "sinkhorn_cluster")
                              if args.losses else ()),
                            *(("q8_dense",) if args.int8 else ()),
                            *args.ptxas)

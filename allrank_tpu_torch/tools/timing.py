@@ -95,10 +95,20 @@ def _trace(fn: Callable[[], object], calls: int) -> tuple:
             fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    return ([(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and LEAD_KERNEL_NAME not in e.name], window_us)
+    return device_spans(prof.events()), window_us
+
+
+def device_spans(events) -> list:
+    """The (name, start us, end us) of the device's work among a trace's
+    ``events``: its kernels, copies and fills, without the lead kernels
+    and without the ranges that ``record_function`` annotates on the
+    device's timeline (``Optimizer.step#Adam.step`` among them), which
+    span host time and would read as busy."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and LEAD_KERNEL_NAME not in e.name]
 
 
 def trace_complete(spans, one_call, calls: int) -> bool:

@@ -117,7 +117,9 @@ and never prints its last line):
 15. the approxNDCG rank-sum kernels (B9, forward and backward) against
     their plain versions: B=64, L=240 ragged with one empty slate, L in
     {1, 37, 1308, 4096}, alpha in {0.1, 1, 10}, scores of +-1e4 (where
-    t < eps takes the clamp's branch), tied scores;
+    t < eps takes the clamp's branch), tied scores; scattered masks (not a
+    prefix) at B=64, L=240 (with a slate of one valid document and an
+    empty one) and at N=2, L in {4097, 8192}; a rerun bit for bit;
 16. the row-tiled lambdaLoss kernels (B6, forward and backward) against
     their plain versions at (B, k) = (64, 512), (16, 1024), (8, 1308),
     (2, 4096): every weighing scheme, both log bases, k_eff < k, a slate
@@ -1108,6 +1110,31 @@ def b2_library_bwd(args, dy):
     return lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
 
 
+def approx_inputs(gen, n, l, scale=1.0, scattered=False):
+    """B9's inputs on the CPU, drawn from ``gen``: scores [n, l] times
+    ``scale`` with ties (column 5 i + 1 a copy of column 5 i), 0/1 validity
+    and a cotangent u. Ragged: slate 0 whole, the last one empty, the
+    others prefixes. Scattered (not a prefix): slate 0 whole, the others
+    some 70 % valid at random places; where n > 2, slate 1 with a single
+    valid document and slate 2 with none."""
+    s = torch.randn(n, l, generator=gen) * scale
+    s[:, 1::5] = s[:, 0::5][:, :s[:, 1::5].shape[1]]  # tied scores
+    if scattered:
+        valid = (torch.rand(n, l, generator=gen) < 0.7).float()
+        valid[0] = 1.0
+        if n > 2:
+            valid[1] = 0.0
+            valid[1, l // 3] = 1.0
+            valid[2] = 0.0
+    else:
+        lengths = torch.randint(1, l + 1, (n,), generator=gen)
+        lengths[0] = l
+        if n > 1:
+            lengths[-1] = 0  # an empty slate
+        valid = (torch.arange(l)[None, :] < lengths[:, None]).float()
+    return s, valid, torch.randn(n, l, generator=gen)
+
+
 def approx_library(s, valid_f, alpha, eps):
     """The approxNDCG rank sum as the JAX package's XLA-path chain of torch
     ops (``losses/approxndcg._plain_pos``), a yardstick only: returns
@@ -1287,6 +1314,21 @@ def chain_work(pair_args, kw, ops_per_pair: int, backward: bool) -> tuple:
     moved = nbytes(*pair_args) + 2 * k * 4 + (
         b * 4 + b * k * 4 if backward else 2 * b * 4)
     return ops_per_pair * selected + (b * k * k - selected), moved, selected
+
+
+def approx_work(valid, backward: bool) -> tuple:
+    """(operations, bytes, valid ordered pairs): what the approxNDCG rank
+    sum needs on these inputs, per valid off-diagonal pair. The forward 8
+    operations: the difference, the scale, the exponential, the sum and the
+    quotient of the sigmoid, the clamp, the mask and the accumulation; s
+    and valid read, pos written. The backward 12, each c_ij once: the
+    sigmoid (5), 1 - t, the products with -alpha, t and u, the compare, and
+    its two accumulations; u read too, ds written."""
+    b, l = valid.shape
+    counts = (valid > 0.5).sum(dim=1)
+    pairs = int((counts * (counts - 1)).sum().item())
+    return ((12 if backward else 8) * pairs,
+            (4 if backward else 3) * b * l * 4, pairs)
 
 
 def library_device_ms(fn, backward: bool):
@@ -1744,6 +1786,7 @@ def main() -> int:
         approx_pos_bwd_plain,
         approx_pos_fwd,
         approx_pos_fwd_plain,
+        reciprocal_mismatches,
     )
     from allrank_tpu_torch.ops.attention_block import (
         attention_sublayer_bwd,
@@ -2038,6 +2081,16 @@ def main() -> int:
             print(f"ptxas {src}: {kname}: {regs.get(f, '?')}; {line}")
         assert src != "lambda_pairs" or not any(
             spill_bytes(line) for line in found.values()), found
+    # B9's two kernels (the compacted slate, several rows a warp): registers
+    # and spills of each
+    b9_props = {f: line for f, line in ptxas_properties(
+        _build.log_path("approx_pos")).items()
+        if re.search(r"approx_[fb]wd_kernel", f)}
+    b9_regs = dict(ptxas_lines("approx_pos"))
+    assert len(b9_props) == 2, b9_props
+    for f, line in sorted(b9_props.items()):
+        kname = re.search(r"approx_[fb]wd_kernel", f).group(0)
+        print(f"ptxas approx_pos: {kname}: {b9_regs.get(f, '?')}; {line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _SASS.clear()
@@ -3106,17 +3159,24 @@ def main() -> int:
               f"{moved / 1e6:.3f} MB) {tag}")
 
     # -- 15: B9 against its plain version ---------------------------------------
+    t15 = time.perf_counter()
     eps = 1e-10
     b9_errs = {"approx_pos_fwd": 0.0, "approx_pos_bwd": 0.0}
-    for n, l, scale in ((B, L, 1.0), (B, L, 1e4), (3, 1, 1.0), (5, 37, 1.0),
-                        (2, 1308, 1.0), (2, 4096, 1.0)):
-        sc = torch.randn(n, l, generator=gen) * scale
-        sc[:, 1::5] = sc[:, 0::5][:, :sc[:, 1::5].shape[1]]  # tied scores
-        lengths = torch.randint(1, l + 1, (n,), generator=gen)
-        lengths[0] = l
-        lengths[-1] = 0  # an empty slate
-        valid = (torch.arange(l)[None, :] < lengths[:, None]).float()
-        u = torch.randn(n, l, generator=gen)
+    # the kernels' reciprocal of 1 + e has __frcp_rn's bits on all of [1, 2]
+    rcp_bad = reciprocal_mismatches(dev)
+    assert rcp_bad == 0, f"B9's reciprocal: {rcp_bad} floats off __frcp_rn"
+    print("B9's reciprocal of 1 + e vs __frcp_rn at every float of [1, 2]: "
+          "bit for bit")
+    # the scattered masks draw from a generator of their own, so that every
+    # other phase's inputs stay as they were before them
+    gen_b9 = torch.Generator().manual_seed(2020)
+    for n, l, scale, scattered in (
+            (B, L, 1.0, False), (B, L, 1e4, False), (3, 1, 1.0, False),
+            (5, 37, 1.0, False), (2, 1308, 1.0, False), (2, 4096, 1.0, False),
+            (B, L, 1.0, True), (2, 4097, 1.0, True), (2, 6000, 1.0, True),
+            (2, 6144, 1.0, True), (2, 8192, 1.0, True)):
+        sc, valid, u = approx_inputs(gen_b9 if scattered else gen, n, l,
+                                     scale, scattered)
         sc, valid, u = (t.to(dev) for t in (sc, valid, u))
         for alpha in (0.1, 1.0, 10.0):
             before = (approx_pos_fwd.launches, approx_pos_bwd.launches)
@@ -3125,6 +3185,9 @@ def main() -> int:
             torch.cuda.synchronize()
             assert (approx_pos_fwd.launches, approx_pos_bwd.launches) == (
                 before[0] + 1, before[1] + 1), "B9 did not launch"
+            # no atomics, sums in a fixed order: a rerun gives the same bits
+            assert torch.equal(pos, approx_pos_fwd(sc, valid, alpha, eps))
+            assert torch.equal(ds, approx_pos_bwd(sc, valid, u, alpha, eps))
             ref = approx_pos_fwd_plain(sc, valid, alpha, eps)
             ref_ds = approx_pos_bwd_plain(sc, valid, u, alpha, eps)
             assert torch.isfinite(pos).all() and torch.isfinite(ds).all()
@@ -3137,17 +3200,21 @@ def main() -> int:
                 # away from the tied columns nearly every t is 0 (below
                 # eps: the clamp's branch) or 1: no gradient
                 assert (ds[:, 2::5] == 0).float().mean() > 0.9
-            if (n, l, scale, alpha) == (B, L, 1.0, 1.0):
+            if (n, l, scale, alpha, scattered) == (B, L, 1.0, 1.0, False):
                 b9_errs = {"approx_pos_fwd": rel_err(pos, ref)[0],
                            "approx_pos_bwd": g_err}
-            print(f"B9 vs plain N={n} L={l} scores x{scale:g} alpha={alpha}: "
-                  f"max_abs_err pos {rel_err(pos, ref)[0]:.3e} (max "
+            print(f"B9 vs plain N={n} L={l} "
+                  f"{'scattered' if scattered else 'ragged'} mask, scores "
+                  f"x{scale:g} alpha={alpha}: max_abs_err pos "
+                  f"{rel_err(pos, ref)[0]:.3e} (max "
                   f"{ref.max().item():.1f}; tol {B9_VALUE_TOL}), ds "
                   f"{g_err:.3e} of max|ref| {g_scale:.3e} (tol "
-                  f"{B9_GRAD_TOL[0]:g} x)")
+                  f"{B9_GRAD_TOL[0]:g} x); a rerun bit for bit")
         del ref, ref_ds
-    phase_ok("phase 15 ok: approxNDCG rank-sum kernels match their plain "
-             "versions")
+        torch.cuda.empty_cache()
+    phase_ok(f"phase 15 ok: approxNDCG rank-sum kernels match their plain "
+             f"versions, ragged and scattered masks to L = 8192 "
+             f"({time.perf_counter() - t15:.1f} s)")
 
     # -- 16: B6 against its plain version and against B3 -----------------------
     def pair_inputs(b, k):
@@ -3330,23 +3397,15 @@ def main() -> int:
     sc, valid, u = (t.to(dev) for t in (sc * valid, valid,
                                         torch.randn(B, L, generator=gen)))
     lib = approx_library(sc, valid, 1.0, eps)
-    pairs = int((valid.sum(dim=1) * (valid.sum(dim=1) - 1)).sum().item())
-    # per valid off-diagonal pair, forward 8 operations: the difference, the
-    # scale, the exponential, the sum and the quotient of the sigmoid, the
-    # clamp, the mask and the accumulation; s and valid read, pos written
     rows.append(short_kernel_row(
         "approx_pos_fwd", lambda: approx_pos_fwd(sc, valid, 1.0, eps),
         lambda: approx_pos_fwd_plain(sc, valid, 1.0, eps), lib[0],
-        (8 * pairs, 3 * B * L * 4), b9_errs["approx_pos_fwd"],
+        approx_work(valid, False), b9_errs["approx_pos_fwd"],
         f"B={B} L={L} (200 valid)", tag))
-    # backward 12, each c_ij once: the sigmoid (5), 1 - t, the products with
-    # -alpha, t and u, the compare, and its two accumulations; the kernel's
-    # second sigmoid (t_ji, so that no atomics are needed) is a cost of its
-    # design and not part of the bound; u read too
     rows.append(short_kernel_row(
         "approx_pos_bwd", lambda: approx_pos_bwd(sc, valid, u, 1.0, eps),
         lambda: approx_pos_bwd_plain(sc, valid, u, 1.0, eps), lib[1],
-        (12 * pairs, 4 * B * L * 4), b9_errs["approx_pos_bwd"],
+        approx_work(valid, True), b9_errs["approx_pos_bwd"],
         f"B={B} L={L} (200 valid)", tag))
 
     # B6 at the long-slate step's shape and at (64, 512), every document

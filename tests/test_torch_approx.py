@@ -6,6 +6,8 @@ test_approx_pallas.py: atol 1e-5, gradient atol 1e-5 / rtol 1e-5); and
 ``approxNDCGLoss`` through both of the port's rank-sum paths against the
 JAX loss."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,9 +42,12 @@ def _xla_pos_sum(s, valid, alpha, eps):
         jax.nn.sigmoid(-alpha * d), eps), axis=-1)
 
 
-def _case(b=4, n=40, seed=0, scale=1.0, ties=False):
+def _case(b=4, n=40, seed=0, scale=1.0, ties=False, scattered=False):
     """Sorted-slate inputs as the loss hands them to the kernel: scores,
-    0/1 validity with ragged lengths and one empty slate, a cotangent."""
+    0/1 validity with ragged lengths and one empty slate, a cotangent.
+    ``scattered``: validity at random places instead of a prefix (slate 0
+    some 70 % valid, slate 1 one document, slate 2 full, slate 3 empty),
+    which the loss never hands over but the JAX function takes."""
     rng = np.random.RandomState(seed)
     s = (rng.randn(b, n) * scale).astype(np.float32)
     if ties:
@@ -50,12 +55,18 @@ def _case(b=4, n=40, seed=0, scale=1.0, ties=False):
     lengths = np.array([n, max(n - 3, 0), n // 2, 0][:b])
     valid = np.arange(n)[None, :] < lengths[:, None]
     u = rng.randn(b, n).astype(np.float32)
+    if scattered:
+        valid = rng.rand(b, n) < 0.7
+        valid[1:] = False
+        valid[1, n // 2] = True
+        valid[2] = True
     return s, valid, u
 
 
 CASES = [dict(alpha=1.0), dict(alpha=4.0), dict(alpha=0.1, ties=True),
          dict(alpha=10.0, scale=1e4), dict(alpha=1.0, n=1),
-         dict(alpha=2.0, n=7, seed=3)]
+         dict(alpha=2.0, n=7, seed=3), dict(alpha=1.5, scattered=True),
+         dict(alpha=10.0, scale=1e4, ties=True, scattered=True)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
@@ -123,7 +134,99 @@ def test_rank_sum_rejects_bad_arguments():
         approx_pos_fwd_plain(s, torch.zeros(2, 4), 1.0, EPS)
     with pytest.raises(TypeError, match="float32"):
         approx_pos_fwd_plain(s, s.double(), 1.0, EPS)
-    assert MAX_LENGTH == 4096
+    assert MAX_LENGTH == 8192
+
+
+def _lane_sums(terms):
+    """Row sums of ``terms`` [n, n] as a warp takes them: lane l adds
+    columns l, l + 32, ... in order, then the xor butterfly over the 32
+    lanes."""
+    n = terms.shape[1]
+    cols = -(-n // 32) * 32
+    lanes = torch.nn.functional.pad(terms, (0, cols - n)).view(
+        terms.shape[0], cols // 32, 32)
+    acc = torch.zeros(terms.shape[0], 32)
+    for it in range(cols // 32):
+        acc = acc + lanes[:, it]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, torch.arange(32) ^ o]
+    return acc[:, 0]
+
+
+def _kernel_way(s, valid, u, alpha, eps):
+    """pos and ds as the kernel B9 computes them (csrc/approx_pos.cu), in
+    torch ops: each slate's valid documents compacted in index order; the
+    sign-folded sigmoid (e = exp(-|x|), r = 1 / (1 + e); t_kj is r for x >=
+    0, else e r, and t_jk the other); g = -alpha (e r) r; the row-local
+    backward ds_k = sum_j g_kj (u_k [t_kj > eps] - u_j [t_jk > eps]); lane
+    sums, then the butterfly."""
+    pos, ds = torch.zeros_like(s), torch.zeros_like(s)
+    for b in range(s.shape[0]):
+        idx = torch.nonzero(valid[b] > 0.5).flatten()
+        cs, cu = s[b, idx], u[b, idx]
+        x = (-alpha) * (cs[:, None] - cs[None, :])
+        e = torch.exp(-x.abs())
+        r = 1.0 / (1.0 + e)
+        er = e * r
+        t_kj = torch.where(x >= 0, r, er)
+        t_jk = torch.where(x >= 0, er, r)
+        off_diag = ~torch.eye(idx.numel(), dtype=torch.bool)
+        pos[b, idx] = _lane_sums(torch.where(
+            off_diag, torch.clamp(t_kj, min=eps), 0.0))
+        g = (-alpha) * er * r
+        ds[b, idx] = _lane_sums(g * (torch.where(t_kj > eps, cu[:, None], 0.0)
+                                     - torch.where(t_jk > eps, cu[None, :],
+                                                   0.0)))
+    return pos, ds
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
+    f"{k}={v}" for k, v in c.items()))
+def test_kernel_formulation_matches_the_plain_versions(case):
+    """The algebra the kernel relies on, before any card run: the folded
+    sigmoid (no exponential of a positive argument, so nothing overflows at
+    scores of +-1e4), one exponential a pair for t_kj, t_jk and the
+    backward's g, the diagonal's zero term, any mask."""
+    case = dict(case)
+    alpha = case.pop("alpha")
+    s, valid, u = (torch.tensor(a) for a in _case(**case))
+    vf = valid.float()
+    pos, ds = _kernel_way(s, vf, u, alpha, EPS)
+    assert torch.isfinite(pos).all() and torch.isfinite(ds).all()
+    np.testing.assert_allclose(
+        pos.numpy(), approx_pos_fwd_plain(s, vf, alpha, EPS).numpy(), **VALUE)
+    np.testing.assert_allclose(
+        ds.numpy(), approx_pos_bwd_plain(s, vf, u, alpha, EPS).numpy(),
+        **GRAD)
+    assert not pos[~valid].any() and not ds[~valid].any()
+
+
+def test_max_length_is_the_kernels_envelope():
+    """The wrapper's cap is the kernel's and the encoder's; the kernel's
+    block scan takes a ballot word a thread up to its cap, and a block's
+    rows are its warps' rows."""
+    from allrank_tpu_torch.models.transformer import TILED_ATTENTION_MAX_LEN
+    from allrank_tpu_torch.ops import _build
+
+    with open(_build.source_path("approx_pos")) as f:
+        src = f.read()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert constant("kMaxApproxL") == MAX_LENGTH == TILED_ATTENTION_MAX_LEN
+    assert constant("kMaxApproxL") // 32 <= constant("kApproxThreads")
+    assert re.search(r"kApproxRowsPerBlock = kApproxWarps \* "
+                     r"kApproxRowsPerWarp;", src)
+
+
+def test_time_sublayers_losses_measures_nothing_without_a_card(monkeypatch):
+    """``time_sublayers --losses`` (B9 among its kernels) times on the card
+    only: without one it exits 2 before building anything."""
+    from allrank_tpu_torch.tools import time_sublayers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_sublayers.main(["--losses"]) == 2
 
 
 def _batch(b=5, n=32, seed=3):

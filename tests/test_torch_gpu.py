@@ -256,16 +256,18 @@ def test_kernels_raise_outside_their_envelope(cuda):
     long = torch.zeros(1, 4097, device=cuda)
     with pytest.raises(NotImplementedError, match="k <= 4096"):
         lambda_tiled_fwd(long, long, long, long, **{**kw, "k_eff": 4097})
-    with pytest.raises(NotImplementedError, match="L <= 4096"):
-        approx_pos_fwd(long, long, 1.0, 1e-10)
+    longer = torch.zeros(1, 8193, device=cuda)
+    with pytest.raises(NotImplementedError, match="L <= 8192"):
+        approx_pos_fwd(longer, longer, 1.0, 1e-10)
     # the losses let the refusal surface: no torch-op chain on the card
     from allrank_tpu_torch.losses import approxNDCGLoss
 
     long_true = torch.arange(4097, device=cuda).remainder(5).float()[None]
     with pytest.raises(NotImplementedError, match="k <= 4096"):
         lambdaLoss(torch.randn(1, 4097, device=cuda), long_true)
-    with pytest.raises(NotImplementedError, match="L <= 4096"):
-        approxNDCGLoss(torch.randn(1, 4097, device=cuda), long_true)
+    longer_true = torch.arange(8193, device=cuda).remainder(5).float()[None]
+    with pytest.raises(NotImplementedError, match="L <= 8192"):
+        approxNDCGLoss(torch.randn(1, 8193, device=cuda), longer_true)
 
 
 # backward kernel vs its plain version, per gradient tensor: fp32 sums in
@@ -1091,30 +1093,22 @@ def test_neural_ndcg_loss_on_the_card_matches_the_cpu(cuda):
         assert (gg - cg).abs().max() <= 1e-3 * cg.abs().max() + 1e-7
 
 
-def _approx_inputs(n, l, seed, dev, scale=1.0):
-    """Scores with ties, ragged 0/1 validity (slate 0 full, the last one
-    empty) and a cotangent."""
-    gen = torch.Generator().manual_seed(seed)
-    s = torch.randn(n, l, generator=gen) * scale
-    s[:, 1::7] = s[:, 0::7][:, :s[:, 1::7].shape[1]]  # tied scores
-    lengths = torch.randint(1, l + 1, (n,), generator=gen)
-    lengths[0] = l
-    if n > 1:
-        lengths[-1] = 0
-    valid = (torch.arange(l)[None, :] < lengths[:, None]).float()
-    u = torch.randn(n, l, generator=gen)
-    return [t.to(dev) for t in (s, valid, u)]
-
-
 @pytest.mark.parametrize("alpha", [0.1, 1.0, 10.0])
-@pytest.mark.parametrize("n,l,scale", [(3, 1, 1.0), (5, 37, 1.0),
-                                       (64, 240, 1.0), (64, 240, 1e4),
-                                       (2, 1308, 1.0), (2, 4096, 1.0)])
-def test_approx_pos_kernels_match_plain(cuda, n, l, scale, alpha):
-    """B9 against its plain version: the forward at the JAX test's own atol
-    1e-5 (relative to the sums, which reach L); the gradient relative to its
+@pytest.mark.parametrize("n,l,scale,scattered", [
+    (3, 1, 1.0, False), (5, 37, 1.0, False), (64, 240, 1.0, False),
+    (64, 240, 1e4, False), (2, 1308, 1.0, False), (2, 4096, 1.0, False),
+    (5, 37, 1.0, True), (64, 240, 1.0, True), (64, 240, 1e4, True),
+    (2, 4097, 1.0, True), (2, 6000, 1.0, True), (2, 6144, 1.0, False),
+    (2, 8192, 1.0, False), (2, 8192, 1.0, True)])
+def test_approx_pos_kernels_match_plain(cuda, n, l, scale, scattered, alpha):
+    """B9 against its plain version (inputs ``chip_smoke.approx_inputs``:
+    ties, ragged or scattered masks, one-document and empty slates; L 6000
+    and 6144 put the backward's shared memory past 48 KB only with the
+    static part counted): the forward at the JAX test's own atol 1e-5
+    (relative to the sums, which reach L); the gradient relative to its
     largest value (two fp32 sums of up to L terms in another order)."""
-    s, valid, u = _approx_inputs(n, l, l, cuda, scale)
+    s, valid, u = (t.to(cuda) for t in chip_smoke.approx_inputs(
+        torch.Generator().manual_seed(l), n, l, scale, scattered))
     eps = 1e-10
     before = (approx_pos_fwd.launches, approx_pos_bwd.launches)
     pos = approx_pos_fwd(s, valid, alpha, eps)
@@ -1129,6 +1123,14 @@ def test_approx_pos_kernels_match_plain(cuda, n, l, scale, alpha):
     assert not ds[valid < 0.5].any(), "a padded document took a gradient"
     assert torch.equal(pos, approx_pos_fwd(s, valid, alpha, eps))
     assert torch.equal(ds, approx_pos_bwd(s, valid, u, alpha, eps))
+
+
+def test_approx_reciprocal_is_correctly_rounded(cuda):
+    """B9's reciprocal of 1 + e (``__frcp_rn``'s instructions without its
+    slow path) has ``__frcp_rn``'s bits at every float of [1, 2]."""
+    from allrank_tpu_torch.ops.approx_pos import reciprocal_mismatches
+
+    assert reciprocal_mismatches(cuda) == 0
 
 
 def _pair_inputs(b, k, seed, dev):

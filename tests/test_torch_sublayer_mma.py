@@ -210,6 +210,35 @@ def test_busy_time_counts_overlapping_spans_once():
     assert busy_us(spans[::-1]) == 17.0  # in any order
 
 
+def test_device_spans_leave_out_annotated_ranges():
+    """A trace's device spans (``timing.device_spans``, which every busy
+    time and kernel table reads) hold its kernels and copies, not the
+    ranges ``record_function`` marks on the device's timeline, such as
+    the optimizer's step, nor the lead kernels nor host events."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import FunctionEvent
+
+    from allrank_tpu_torch.tools.timing import LEAD_KERNEL_NAME, device_spans
+
+    def event(i, name, start, end, device, annotation=False):
+        return FunctionEvent(i, name, 0, start, end, device_type=device,
+                             is_user_annotation=annotation)
+
+    events = [
+        event(0, "b2_fwd_kernel", 0.0, 4.0, DeviceType.CUDA),
+        event(1, "Optimizer.step#Adam.step", 5.0, 60.0, DeviceType.CUDA,
+              annotation=True),
+        event(2, "Memcpy HtoD", 6.0, 7.0, DeviceType.CUDA),
+        event(3, f"at::cuda::{LEAD_KERNEL_NAME}_kernel", 8.0, 9.0,
+              DeviceType.CUDA),
+        event(4, "aten::mm", 0.0, 3.0, DeviceType.CPU),
+        event(5, "ProfilerStep#1", 0.0, 70.0, DeviceType.CPU,
+              annotation=True),
+    ]
+    assert device_spans(events) == [("b2_fwd_kernel", 0.0, 4.0),
+                                    ("Memcpy HtoD", 6.0, 7.0)]
+
+
 @pytest.mark.parametrize("spans, complete", [
     ([("a", 0, 1), ("b", 1, 2)] * 3, True),
     ([("a", 0, 1), ("b", 1, 2)] * 3 + [("c", 2, 3)], False),  # another
