@@ -8,7 +8,8 @@ step (``training/``, ``losses/``) and the train CLI end to end
 (``main.py``, ``data/``, ``metrics.py``), with hand-written CUDA kernels
 for the encoder's attention and FFN sublayers, the lambdaLoss pair chain,
 the fused NeuralNDCG soft-sort and Sinkhorn scaling (``ops/``, sources in
-``csrc/``).
+``csrc/``), and offline ranking with the click-model zoo
+(``rank_and_click.py``, ``inference/``, ``click_models/``).
 """
 
 __version__ = "0.1.0"

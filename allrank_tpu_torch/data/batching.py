@@ -9,10 +9,13 @@
   JAX package's batchers.
 * ``DevicePrefetcher`` copies batch t+1 from pinned host memory on a side
   stream while the device computes on batch t.
+* ``emit_row_indices=True`` yields index batches for the device feature
+  store (``data/feature_store.py``): ``x`` is [B, L] int32 rows of the
+  dataset's flat feature matrix, padded and dummy slots the store's zero
+  sentinel row; the same batches as the JAX package's, bit for bit.
 
-Not yet ported: worker pools (``num_workers`` > 1), the C++ batch assembler,
-``emit_row_indices`` (the device feature store's index batches) and
-``local_rows`` (multi-host row ownership); asking for one raises.
+Not yet ported: worker pools (``num_workers`` > 1), the C++ batch assembler
+and ``local_rows`` (multi-host row ownership); asking for one raises.
 """
 
 from __future__ import annotations
@@ -35,10 +38,9 @@ class SlateBatch(NamedTuple):
     slate_mask: np.ndarray  # [B] bool, False for batch-padding dummy slates
 
 
-def _check_unported(local_rows, num_workers, emit_row_indices) -> None:
+def _check_unported(local_rows, num_workers) -> None:
     for asked, what in ((local_rows is not None, "local_rows"),
-                        (int(num_workers or 0) > 1, "num_workers > 1"),
-                        (bool(emit_row_indices), "emit_row_indices")):
+                        (int(num_workers or 0) > 1, "num_workers > 1")):
         if asked:
             raise NotImplementedError(
                 f"{what} is not yet ported to allrank_tpu_torch's batchers")
@@ -49,19 +51,22 @@ class SlateBatcher:
 
     Shuffle and randomised subsampling redraw each epoch from
     ``seed + epoch``; call ``set_epoch`` before each pass (train role).
+    With ``emit_row_indices`` the batches carry row indices in place of
+    features (the module docstring).
     """
 
     def __init__(self, dataset, slate_length: int, batch_size: int,
                  shuffle: bool = False, seed: int = 42,
                  local_rows: Optional[np.ndarray] = None,
                  num_workers: int = 0, emit_row_indices: bool = False):
-        _check_unported(local_rows, num_workers, emit_row_indices)
+        _check_unported(local_rows, num_workers)
         self.dataset = dataset
         self.slate_length = int(slate_length)
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.emit_row_indices = bool(emit_row_indices)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -100,7 +105,35 @@ class SlateBatcher:
             x[row], y[row], indices[row] = fx, fy, fi
         slate_mask[row] = True
 
+    def _iter_row_indices(self) -> Iterator[SlateBatch]:
+        """Index batches, derived from the materialising batches: their
+        ``indices`` record each slot's position within its slate, so
+        ``slate_offset + indices`` is the slot's flat row, with the same
+        slate-fixing draws; padded and dummy slots get the sentinel
+        ``offsets[-1]``."""
+        flat = getattr(self.dataset, "flat_slate_buffers", lambda: None)()
+        if flat is None:
+            raise ValueError("emit_row_indices requires flat slate buffers")
+        _, _, offsets, index_map = flat
+        sentinel = np.int64(offsets[-1])
+        order = self._order()
+        G = self.batch_size
+        for start, batch in zip(range(0, len(order), G),
+                                self._iter_materialized()):
+            chunk = order[start:start + G]
+            slates = chunk if index_map is None else index_map[chunk]
+            row_off = np.zeros((G, 1), dtype=np.int64)
+            row_off[:len(chunk), 0] = offsets[slates]
+            xi = np.where(batch.indices >= 0, row_off + batch.indices,
+                          sentinel).astype(np.int32)
+            yield SlateBatch(xi, batch.y, batch.indices, batch.slate_mask)
+
     def __iter__(self) -> Iterator[SlateBatch]:
+        if self.emit_row_indices:
+            return self._iter_row_indices()
+        return self._iter_materialized()
+
+    def _iter_materialized(self) -> Iterator[SlateBatch]:
         order = self._order()
         G, L = self.batch_size, self.slate_length
         n_features = self.dataset.n_features
@@ -134,6 +167,15 @@ class _SubsetDataset:
     def n_features(self) -> int:
         return self.dataset.n_features
 
+    def flat_slate_buffers(self):
+        base = getattr(self.dataset, "flat_slate_buffers", lambda: None)()
+        if base is None:
+            return None
+        X, y, offsets, index_map = base
+        mapped = (self.indices if index_map is None
+                  else index_map[self.indices])
+        return X, y, offsets, mapped
+
 
 class BucketedSlateBatcher:
     """Validation batcher with per-bucket padded slate lengths: slates are
@@ -146,7 +188,7 @@ class BucketedSlateBatcher:
                  local_rows: Optional[np.ndarray] = None,
                  num_workers: int = 0, align: int = 8,
                  emit_row_indices: bool = False):
-        _check_unported(local_rows, num_workers, emit_row_indices)
+        _check_unported(local_rows, num_workers)
         lengths = np.array([len(dataset[i][1]) for i in range(len(dataset))])
         order = np.argsort(lengths, kind="stable")
         self.buckets = []  # (bucket_length, slate indices)
@@ -162,7 +204,7 @@ class BucketedSlateBatcher:
                 self.buckets.append((length, group))
         self._batchers = [
             SlateBatcher(_SubsetDataset(dataset, idxs), length, batch_size,
-                         shuffle=False)
+                         shuffle=False, emit_row_indices=emit_row_indices)
             for length, idxs in self.buckets]
 
     def set_epoch(self, epoch: int) -> None:

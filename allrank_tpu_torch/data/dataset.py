@@ -119,6 +119,11 @@ class SlateDataset:
         self.X_by_qid: List[np.ndarray] = np.split(X, boundaries)
         self.y_by_qid: List[np.ndarray] = np.split(y, boundaries)
         self.longest_query_length = max(len(a) for a in self.y_by_qid)
+        # the flat views: X_by_qid[i] is X[offsets[i]:offsets[i + 1]]
+        self._flat_X = np.ascontiguousarray(X)
+        self._flat_y = np.ascontiguousarray(y)
+        self._offsets = np.concatenate(
+            [[0], np.cumsum(counts[order])]).astype(np.int64)
 
         logger.info("loaded dataset with %d queries", len(self.X_by_qid))
         logger.info("longest query had %d documents",
@@ -140,6 +145,14 @@ class SlateDataset:
     @property
     def n_features(self) -> int:
         return self.X_by_qid[0].shape[-1]
+
+    def flat_slate_buffers(self):
+        """(X [N_docs, F], y [N_docs], offsets [n_slates + 1], index_map):
+        the rows of every slate in slate order, where slate i is rows
+        ``offsets[i]:offsets[i + 1]``; index_map None is the identity. The
+        device feature store uploads X, and the index batches address its
+        rows."""
+        return self._flat_X, self._flat_y, self._offsets, None
 
     @property
     def shape(self) -> List[int]:

@@ -16,9 +16,11 @@ config's ``expected_metrics`` names an evaluated role (``val`` stands for
 tower of ``quant.py``, with the config's ``training.compute_dtype`` as the
 flow between its int8 layers; ``int8_static`` first calibrates on
 ``--calibration-batches`` batches of ``--calibration-role`` and writes
-``act_scales.json``, which ``serve_http --act-scales`` loads. Runs on the
-GPU; a ``parallel`` layout of more than one device, a multi-process launch,
-``data.device_cache`` and ``data.binary_cache`` are not yet ported.
+``act_scales.json``, which ``serve_http --act-scales`` loads.
+``data.device_cache: true`` feeds the evaluation from the device feature
+store (``data/feature_store.py``). Runs on the GPU; a ``parallel`` layout
+of more than one device, a multi-process launch and ``data.binary_cache``
+are not yet ported.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ from allrank_tpu_torch.data.batching import (
     SlateBatcher,
 )
 from allrank_tpu_torch.data.dataset import load_dataset_role
+from allrank_tpu_torch.data.feature_store import (
+    DeviceFeatureStore,
+    resolve_store_dtype,
+)
 from allrank_tpu_torch.losses import get_loss
 from allrank_tpu_torch.models.factory import LTRModel, as_dtype, make_model
 from allrank_tpu_torch.training.checkpoint import load_params
@@ -139,10 +145,6 @@ def run(args: Namespace = None, device=None) -> dict:
     shutil.copy2(paths.config_path,
                  os.path.join(paths.output_dir, "used_config.json"))
     require_one_device(config.parallel)
-    if config.data.device_cache:
-        raise NotImplementedError(
-            "data.device_cache (the device feature store) is not yet ported "
-            "to allrank_tpu_torch")
 
     datasets = {
         role: load_dataset_role(role, config.data.path,
@@ -175,15 +177,26 @@ def run(args: Namespace = None, device=None) -> dict:
     generator = torch.Generator().manual_seed(42)
     batch_size = config.data.batch_size
 
+    device_cache = bool(config.data.device_cache)
     results = {}
     for role, (ds, slate_len) in datasets.items():
+        table = None
+        if device_cache:
+            table = DeviceFeatureStore(
+                ds, device=dev,
+                dtype=resolve_store_dtype(config.data.device_cache_dtype,
+                                          config.training.compute_dtype),
+                sharding=config.data.device_cache_sharding).table
         if config.data.eval_buckets > 0:
             batcher = BucketedSlateBatcher(
-                ds, batch_size, n_buckets=config.data.eval_buckets)
+                ds, batch_size, n_buckets=config.data.eval_buckets,
+                emit_row_indices=device_cache)
         else:
-            batcher = SlateBatcher(ds, slate_len, batch_size, shuffle=False)
+            batcher = SlateBatcher(ds, slate_len, batch_size, shuffle=False,
+                                   emit_row_indices=device_cache)
         metrics, loss = compute_metrics(
-            eval_step, DevicePrefetcher(batcher, device=dev), generator)
+            eval_step, DevicePrefetcher(batcher, device=dev), generator,
+            table=table)
         metrics["loss"] = loss
         results[role] = metrics
         logger.info("%s: %s", role,

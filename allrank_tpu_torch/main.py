@@ -9,10 +9,11 @@ Pipeline: parse args -> load the JSON config -> load libsvm train and
 validation slates -> build model, optimizer, loss and scheduler by name ->
 ``fit`` -> dump ``experiment_result.json`` -> hard-assert
 ``expected_metrics`` (the built-in regression gate). Runs on the GPU; the
-device mesh, the compilation cache and the device feature store of the JAX
-CLI have no counterpart here yet: a ``parallel`` layout of more than one
-device, a multi-process launch and ``data.device_cache`` raise
-``NotImplementedError``.
+device mesh, the compilation cache and the train step over the device
+feature store of the JAX CLI have no counterpart here yet: a ``parallel``
+layout of more than one device, a multi-process launch and
+``data.device_cache`` raise ``NotImplementedError`` (``evaluate`` and
+``rank_and_click`` read the store).
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ def run(args: Namespace = None, device=None) -> dict:
     require_one_device(config.parallel)
     if config.data.device_cache:
         raise NotImplementedError(
-            "data.device_cache (the device feature store) is not yet ported "
-            "to allrank_tpu_torch")
+            "training over data.device_cache (the device feature store) is "
+            "not yet ported to allrank_tpu_torch")
     if config.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 

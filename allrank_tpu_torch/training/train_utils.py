@@ -31,6 +31,7 @@ import torch
 
 from allrank_tpu_torch.constants import PADDED_Y_VALUE
 from allrank_tpu_torch.data.batching import DevicePrefetcher
+from allrank_tpu_torch.data.feature_store import table_gather
 from allrank_tpu_torch.metrics import get_metric
 from allrank_tpu_torch.models.factory import LTRModel, as_dtype
 from allrank_tpu_torch.training.checkpoint import (
@@ -158,12 +159,14 @@ def make_eval_fns(model: LTRModel, loss_fn: Callable,
                   loss_kwargs: Optional[Dict[str, Any]], needs_rng: bool,
                   metrics: Dict[str, Sequence[int]],
                   compute_dtype="float32", forward_fn=None):
-    """Build the evaluation step ``(generator, batch) -> ({metric_at: sum},
-    loss_sum, n_real)``, all device tensors, without autograd; ``batch`` is
-    a ``SlateBatch`` (arrays or tensors). ``forward_fn(x, mask, indices)``
-    replaces the model's forward (the int8 tower of ``quant.py`` for an
-    offline evaluation of quantized serving); batches go to ``model``'s
-    device."""
+    """Build the evaluation step ``(generator, batch, table=None) ->
+    ({metric_at: sum}, loss_sum, n_real)``, all device tensors, without
+    autograd; ``batch`` is a ``SlateBatch`` (arrays or tensors). With a
+    device feature store's ``table``, ``batch.x`` holds [B, L] row indices
+    that one gather on the device turns into features
+    (``data/feature_store.py``). ``forward_fn(x, mask, indices)`` replaces
+    the model's forward (the int8 tower of ``quant.py`` for an offline
+    evaluation of quantized serving); batches go to ``model``'s device."""
     dtype = as_dtype(compute_dtype)
     loss_kwargs = dict(loss_kwargs or {})
     metric_fns = {name: (get_metric(name), tuple(ats))
@@ -174,9 +177,12 @@ def make_eval_fns(model: LTRModel, loss_fn: Callable,
             return model(x, mask, indices, compute_dtype=dtype)
 
     @torch.inference_mode()
-    def step(generator, batch):
+    def step(generator, batch, table=None):
         x, y, indices, slate_mask = batch
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        if table is not None:
+            x = table_gather(table, torch.as_tensor(x, device=dev))
+        else:
+            x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         y = torch.as_tensor(y, dtype=torch.float32, device=dev)
         indices = torch.as_tensor(indices, device=dev).long()
         slate_mask = torch.as_tensor(slate_mask, device=dev).bool()
@@ -199,13 +205,14 @@ def make_eval_fns(model: LTRModel, loss_fn: Callable,
     return step
 
 
-def compute_metrics(eval_step, batches, generator
+def compute_metrics(eval_step, batches, generator, table=None
                     ) -> Tuple[Dict[str, float], float]:
-    """Run the evaluation step over a batch stream; returns (per-slate mean
+    """Run the evaluation step over a batch stream (index batches over a
+    feature store's ``table`` where one is given); returns (per-slate mean
     of each metric, mean loss). The one device-to-host read happens here."""
     names, totals = [], None
     for batch in batches:
-        sums, loss_sum, n_real = eval_step(generator, batch)
+        sums, loss_sum, n_real = eval_step(generator, batch, table)
         names = list(sums)
         row = torch.stack([*sums.values(), loss_sum, n_real])
         totals = row if totals is None else totals + row

@@ -271,9 +271,25 @@ and never prints its last line):
     past its shared-memory cap; then the probe ``exp_sinkhorn_layout`` (B8's
     route "cluster" against X4, forward and forward + backward, 8 steps in
     one CUDA graph); times at N=64 beside B8's;
-34. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
-    3xTF32 rows count the fp32 service's and step's launches, the SIMT
-    rows those of B10's reference chain in phase 28 and carry
+34. rank-and-click, the sixth main path: ``allrank_tpu_torch.rank_and_click``
+    on phase 13's ``vali`` role (256 slates of 40-240 documents) with the
+    ``ndcgloss2pp.json`` run's config and flagship ``model.npz``: (a) the
+    materialising feed with ``DiverseClicksModel(BaseCascadeModel(eta=1,
+    threshold=2), q_percentile=0.5)`` clicking on the card, (b) the same
+    with ``data.device_cache`` (its ``vali.txt`` and CSVs byte-identical to
+    (a)'s), (c) ``EverythingButDuplicatesClickModel`` on the host; each
+    run launches B1 and B2 forward 4 + 4 times a ranking batch on their
+    fp32 route and nothing else; the card's ranked order against the CPU
+    plain run's (neighbour swaps within ``SCORE_TOL`` counted), every
+    batch click model on the card's ranked slates on the card against the
+    CPU, bit for bit (diverse but for slates holding a document within
+    1e-5 of their margin); ``evaluate`` with ``data.device_cache`` against
+    phase 26's float run within 1e-6; the seconds per call and a ranking
+    batch's device time and idle share;
+35. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
+    3xTF32 rows count the fp32 service's, rank-and-click's and step's
+    launches, the SIMT rows those of B10's reference chain in phase 28 and
+    carry
     ``"launch_source": "b10_reference_chain"``; X3 a row per mode and
     route, the SIMT rows' launches those of the probe at d_k 256; B7 and B8
     a row per route, the "l2" rows' launches 0: no path runs them), the
@@ -1775,6 +1791,40 @@ def x3_work(b, l, d, h, mode) -> tuple:
     return flops, moved
 
 
+def neighbour_swaps(got, ref, scores, n: int) -> int:
+    """The swaps of neighbours that take ``ref``, one slate's ranked order
+    (CPU), to ``got`` (card), with ``n`` real documents ranked first: each
+    swap must join two documents whose ``scores`` (CPU, by document) are
+    less than ``SCORE_TOL`` apart, and the padded tail must be equal.
+    Raises otherwise."""
+    assert (got[n:] == ref[n:]).all(), "padding last, in order"
+    swaps, j = 0, 0
+    while j < n:
+        if got[j] == ref[j]:
+            j += 1
+            continue
+        assert j + 1 < n and got[j] == ref[j + 1] and got[j + 1] == ref[j], (
+            "not a swap of neighbours", j)
+        gap = abs(scores[ref[j]] - scores[ref[j + 1]])
+        assert gap < SCORE_TOL, ("swap of documents apart", j, gap)
+        swaps += 1
+        j += 2
+    return swaps
+
+
+def near_margin(dist, margin, y, rtol: float = 1e-5):
+    """[B, L] bool: documents with an earlier real document at a distance
+    within ``rtol`` of their slate's diverse margin, where the card's and
+    the CPU's fp32 sums may decide the keep rule otherwise."""
+    real = y != -1
+    ell = y.shape[1]
+    pair = torch.ones(ell, ell, dtype=torch.bool, device=y.device).triu(1)
+    pair = pair & real[:, :, None] & real[:, None, :]
+    close = ((dist - margin[:, None, None]).abs()
+             <= rtol * margin[:, None, None]) & pair
+    return close.any(dim=1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2934,9 +2984,10 @@ def main() -> int:
             want["soft_sort_bwd[cluster]"] = bwd
         return want
 
-    # removed after phase 26, or when the script ends, also by an
-    # exception: the later CLI runs and the evaluate CLI read the same
-    # dataset, and phase 26 evaluates this run's NeuralNDCG model.npz
+    # removed after phase 34, or when the script ends, also by an
+    # exception: the later CLI runs, the evaluate CLI and the rank-and-click
+    # CLI read the same dataset; phases 26 and 34 evaluate this run's
+    # NeuralNDCG model.npz and phase 34 ranks with the ndcgloss2pp run's
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     work_dir = work.name
     t0 = time.perf_counter()
@@ -2974,6 +3025,7 @@ def main() -> int:
     result, out_dir, losses, seconds = run_cli(PAPER_CONFIG, work_dir,
                                                "ndcgloss2pp", 1)
     paper_launches = counts()
+    paper_out_dir = out_dir  # its model.npz is ranked in phase 34
     check_cli_outputs(result, out_dir, losses, 1, ("ndcg_5", "ndcg_10"))
     expected = expect(4, steps + evals, steps, "lambda_pairs")
     assert paper_launches == expected, (paper_launches, expected)
@@ -4320,7 +4372,6 @@ def main() -> int:
         service.close()
     print(f"evaluate's act_scales.json ({len(neural_scales)} sites) serves: "
           f"val ndcg_5 {ndcg_q8:.4f} int8_static vs {ndcg_float:.4f} float")
-    work.cleanup()
     phase_ok("phase 26 ok: int8 serving through make_scorer, the service and "
              "evaluate --quantize on the card")
 
@@ -5188,7 +5239,249 @@ def main() -> int:
              f"plain version; the layout probe ran "
              f"({time.perf_counter() - t33:.1f} s)")
 
-    # -- 34: the record -------------------------------------------------------
+    # -- 34: rank-and-click, the sixth main path -----------------------------
+    from allrank_tpu_torch.click_models import (
+        BaseCascadeModel,
+        ConditionedClickModel,
+        DiverseClicksModel,
+        FixedClickModel,
+        MaxClicksModel,
+        MultipleClickModel,
+        OnlyRelevantClickModel,
+        RandomClickModel,
+    )
+    from allrank_tpu_torch.click_models.device_models import (
+        ClickKey,
+        as_device_click_fn,
+        diverse_margin,
+        pairwise_distances,
+    )
+    from allrank_tpu_torch.data.dataset import SlateDataset, parse_svmlight
+    from allrank_tpu_torch.inference.inference_utils import (
+        make_rank_and_click_step,
+        make_rank_step,
+        rank_order,
+    )
+    from allrank_tpu_torch.rank_and_click import run as rank_and_click_run
+
+    t34 = time.perf_counter()
+    paper_cfg_path = os.path.join(work_dir, "ndcgloss2pp.json")
+    paper_npz = os.path.join(paper_out_dir, "model.npz")
+    with open(paper_cfg_path) as f:
+        rc_base = json.load(f)
+    rc_batch = rc_base["data"]["batch_size"]
+    rc_batches = -(-CLI_VAL_SLATES // rc_batch)
+    cascade_cfg = {"name": "allrank_tpu_torch.click_models.cascade_models."
+                           "BaseCascadeModel",
+                   "args": {"eta": 1, "threshold": 2}}
+    diverse_cfg = {"name": "allrank_tpu_torch.click_models.cascade_models."
+                           "DiverseClicksModel",
+                   "args": {"inner_click_model": cascade_cfg,
+                            "q_percentile": 0.5}}
+    duplicates_cfg = {"name": "allrank_tpu_torch.click_models."
+                              "duplicate_aware."
+                              "EverythingButDuplicatesClickModel",
+                      "args": {}}
+
+    def rank_and_click_cli(run_id, click_model, device_cache):
+        """The CLI on the vali role with the ndcgloss2pp run's config and
+        model.npz, ``click_model`` and ``data.device_cache`` set; returns
+        (means, output directory, seconds, launches)."""
+        cfg = copy.deepcopy(rc_base)
+        cfg["click_model"] = click_model
+        cfg["data"]["device_cache"] = device_cache
+        path = os.path.join(work_dir, f"{run_id}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        reset_counts()
+        t0 = time.perf_counter()
+        means = rank_and_click_run(Namespace(
+            job_dir=os.path.join(work_dir, "job"), run_id=run_id,
+            config_file_name=path, input_model_path=paper_npz,
+            roles=["vali"]))["vali"]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return (means, os.path.join(work_dir, "job", "results", run_id),
+                seconds, counts())
+
+    # every ranking batch runs the 4 blocks' B1 and B2 forwards on their
+    # fp32 route, and nothing else
+    rc_expected = dict.fromkeys(counts(), 0)
+    for k in ("attention_sublayer_fwd", "attention_sublayer_fwd[tf32x3]",
+              "ffn_sublayer_fwd", "ffn_sublayer_fwd[tf32x3]"):
+        rc_expected[k] = 4 * rc_batches
+    rc_runs = {}
+    for run_id, click_model, cache in (
+            ("rank_and_click_a", diverse_cfg, False),
+            ("rank_and_click_b", diverse_cfg, True),
+            ("rank_and_click_c", duplicates_cfg, False)):
+        rc_runs[run_id] = rank_and_click_cli(run_id, click_model, cache)
+        launched = rc_runs[run_id][3]
+        assert launched == rc_expected, (run_id, launched, rc_expected)
+    rc_files = {}
+    for run_id, (means, rc_dir, _, _) in rc_runs.items():
+        rc_files[run_id] = {}
+        for name in ("vali.txt", "vali_metrics.csv", "vali_metrics_mean.csv",
+                     "used_config.json"):
+            with open(os.path.join(rc_dir, name), "rb") as f:
+                rc_files[run_id][name] = f.read()
+            assert rc_files[run_id][name], (run_id, name)
+        assert 0.0 <= means["ndcg"] <= 1.0, (run_id, means)
+    # the index-mode feed writes what the materialising feed writes
+    for name in ("vali.txt", "vali_metrics.csv", "vali_metrics_mean.csv"):
+        assert (rc_files["rank_and_click_a"][name]
+                == rc_files["rank_and_click_b"][name]), name
+    val_ds = SlateDataset(*parse_svmlight(
+        os.path.join(work_dir, "data", "vali.txt")))
+    val_y = val_ds.flat_slate_buffers()[1]
+    rc_x, rc_y, rc_qid = parse_svmlight(
+        os.path.join(rc_runs["rank_and_click_a"][1], "vali.txt"))
+    assert rc_x.shape[1] == N_FEATURES and set(np.unique(rc_y)) <= {0, 1}
+    n_clicked = len(np.unique(rc_qid))
+    # no two documents coincide, so the duplicate-aware model clicks every
+    # document of every slate
+    dup_x, dup_y, dup_qid = parse_svmlight(
+        os.path.join(rc_runs["rank_and_click_c"][1], "vali.txt"))
+    assert len(dup_y) == len(val_y) and (dup_y == 1).all()
+    assert len(np.unique(dup_qid)) == CLI_VAL_SLATES
+    np.testing.assert_array_equal(np.sort(dup_x, axis=0),
+                                  np.sort(val_ds.flat_slate_buffers()[0],
+                                          axis=0))
+    rc_seconds = {k: round(v[2], 3) for k, v in rc_runs.items()}
+    print(f"rank_and_click CLI, {PAPER_CONFIG} model of phase 13, role vali "
+          f"({CLI_VAL_SLATES} slates, {rc_batches} batches of {rc_batch}): "
+          f"(a) DiverseClicksModel(BaseCascadeModel(1, 2), 0.5), (b) the "
+          f"same with data.device_cache, (c) "
+          f"EverythingButDuplicatesClickModel on the host; seconds per "
+          f"call {rc_seconds}; (a) and (b) byte-identical, {n_clicked} "
+          f"slates clicked, means {rc_runs['rank_and_click_a'][0]}; "
+          f"launches a call {rc_runs['rank_and_click_a'][3]} {tag}")
+
+    # the card against the CPU's plain run, batch by batch
+    rc_model_cfg = Config.from_json(paper_cfg_path).model
+    rc_gpu = load_npz(LTRModel(make_model(rc_model_cfg, N_FEATURES),
+                               device=dev), paper_npz).eval()
+    rc_cpu = load_npz(LTRModel(make_model(rc_model_cfg, N_FEATURES),
+                               device="cpu"), paper_npz).eval()
+    host_models = {
+        "only_relevant": OnlyRelevantClickModel(2),
+        "fixed": FixedClickModel([0, 2, 5]),
+        "base_cascade": BaseCascadeModel(1, 2),
+        "random": RandomClickModel(3),
+        "multiple": MultipleClickModel(
+            [BaseCascadeModel(1, 2), RandomClickModel(2)], [0.5, 0.5]),
+        "conditioned": ConditionedClickModel(
+            [BaseCascadeModel(1, 1), OnlyRelevantClickModel(2)], "all"),
+        "max_clicks": MaxClicksModel(BaseCascadeModel(0.5, 1), 3),
+        "diverse": DiverseClicksModel(BaseCascadeModel(1, 2), 0.5),
+    }
+    click_fns = {k: as_device_click_fn(m) for k, m in host_models.items()}
+    rc_len = val_ds.longest_query_length
+    swaps, click_diffs = 0, dict.fromkeys(click_fns, 0)
+    n_near, diverse_slates_off, dist_err, margin_err = 0, 0, 0.0, 0.0
+    rc_batch0 = None
+    for i, batch in enumerate(SlateBatcher(val_ds, rc_len, rc_batch)):
+        xg = torch.from_numpy(batch.x).to(dev)
+        yg = torch.from_numpy(batch.y).to(dev)
+        with torch.inference_mode():
+            _, order_g = rank_order(rc_gpu, xg, yg)
+            scores_c, order_c = rank_order(rc_cpu, torch.from_numpy(batch.x),
+                                           torch.from_numpy(batch.y))
+        order_g, order_c = order_g.cpu().numpy(), order_c.numpy()
+        scores_c = scores_c.numpy()
+        for row in np.flatnonzero(batch.slate_mask):
+            swaps += neighbour_swaps(order_g[row], order_c[row],
+                                     scores_c[row],
+                                     int((batch.y[row] != -1).sum()))
+        # the clicks on the card's ranked slates, on the card and the CPU
+        xr = torch.take_along_dim(xg, torch.from_numpy(order_g).to(dev)[
+            ..., None], dim=1)
+        yr = torch.take_along_dim(yg, torch.from_numpy(order_g).to(dev),
+                                  dim=1)
+        xr_c, yr_c = xr.cpu(), yr.cpu()
+        if rc_batch0 is None:
+            rc_batch0 = (xg, yg)
+        got = {}
+        for name, fn in click_fns.items():
+            key = ClickKey(42, i)
+            on_card = fn(key, yr, xr).cpu()
+            on_cpu = fn(key, yr_c, xr_c)
+            got[name] = (on_card, on_cpu)
+            if name != "diverse":
+                assert torch.equal(on_card, on_cpu), (name, i)
+            click_diffs[name] += int((on_card != on_cpu).sum())
+        # diverse: only a slate holding a document within fp32 rounding
+        # (1e-5 relative) of its margin may click otherwise
+        dist_g = pairwise_distances(xr)
+        margin_g = diverse_margin(dist_g, yr, 0.5).cpu()
+        dist_g = dist_g.cpu()
+        dist_c = pairwise_distances(xr_c)
+        margin_c = diverse_margin(dist_c, yr_c, 0.5)
+        dist_err = max(dist_err, float(
+            ((dist_g - dist_c).abs() / dist_c.clamp(min=1e-30)).max()))
+        margin_err = max(margin_err, float(
+            ((margin_g - margin_c).abs() / margin_c.clamp(min=1e-30)).max()))
+        near = near_margin(dist_c, margin_c, yr_c)
+        n_near += int(near.sum())
+        on_card, on_cpu = got["diverse"]
+        off = (on_card != on_cpu).any(dim=1)
+        assert not (off & ~near.any(dim=1)).any(), (
+            "diverse clicks differ on a slate with no document near its "
+            "margin", i)
+        diverse_slates_off += int(off.sum())
+    print(f"rank_and_click, card against the CPU plain run on the vali "
+          f"role: ranked order equal but for {swaps} swaps of neighbours "
+          f"within {SCORE_TOL} of each other (CPU scores); clicks on the "
+          f"card's ranked slates, card against CPU, elements that differ "
+          f"{click_diffs}; diverse: {n_near} documents within 1e-5 of "
+          f"their slate's margin, {diverse_slates_off} slates clicked "
+          f"otherwise, distances max rel err {dist_err:.3e}, margins "
+          f"{margin_err:.3e}")
+
+    # evaluate over the device feature store, against phase 26's float run
+    cached_cfg = os.path.join(work_dir, "neuralndcg_atmax_cached.json")
+    with open(neural_cfg) as f:
+        cfg34 = json.load(f)
+    cfg34["data"]["device_cache"] = True
+    with open(cached_cfg, "w") as f:
+        json.dump(cfg34, f)
+    t0 = time.perf_counter()
+    cached = evaluate_run(Namespace(
+        job_dir=os.path.join(work_dir, "job"), run_id="evaluate_cached",
+        config_file_name=cached_cfg, input_model_path=neural_npz,
+        roles=[val_role], quantize=None, calibration_role=val_role,
+        calibration_batches=8))[val_role]
+    cached_s = time.perf_counter() - t0
+    floats = evaluated[None][val_role]
+    assert sorted(cached) == sorted(floats), (cached, floats)
+    cache_err = max(abs(cached[k] - floats[k]) for k in floats)
+    assert cache_err <= 1e-6, (cached, floats)
+    print(f"evaluate with data.device_cache (a bf16 store, the recipe's "
+          f"compute dtype), {NEURAL_CONFIG} model of phase 13, role "
+          f"{val_role}: {cached} in {cached_s:.1f} s; max |difference| from "
+          f"phase 26's materialising run {cache_err:.3e}")
+
+    # the ranking's device time a batch (B=64 at the role's longest slate)
+    xg, yg = rc_batch0
+    rank_step = make_rank_step(rc_gpu)
+    click_step = make_rank_and_click_step(rc_gpu, click_fns["diverse"])
+    for label, fn in (("rank", lambda: rank_step(xg, yg)),
+                      ("rank + diverse clicks",
+                       lambda: click_step(xg, yg, ClickKey(42, 0)))):
+        ms = median_ms(fn, iters=10, warmup=2)
+        print(f"rank_and_click {label}, one batch B={rc_batch} L={rc_len}: "
+              f"{ms:.3f} ms a batch (event-timed) {tag}")
+        profile_calls(fn, f"rank_and_click {label} a batch {tag}", calls=5)
+    del rc_gpu, rc_cpu, rc_batch0, xg, yg, xr, yr
+    torch.cuda.empty_cache()
+    rc_launches = {k: sum(r[3][f"{k}[tf32x3]"] for r in rc_runs.values())
+                   for k in ("attention_sublayer_fwd", "ffn_sublayer_fwd")}
+    work.cleanup()
+    phase_ok(f"phase 34 ok: rank_and_click on the card at the flagship "
+             f"width, both feeds byte-identical, the card against the CPU "
+             f"({time.perf_counter() - t34:.1f} s)")
+
+    # -- 35: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -5307,7 +5600,9 @@ def main() -> int:
              chain_routes[0]),
             ("ffn_sublayer", b2_fp32_routes, b2_train_routes,
              chain_routes[1])):
-        launches[f"{sub}_fwd_tf32x3"] = launches.pop(f"{sub}_fwd")
+        # the fp32 service's (phase 5) and rank_and_click's (phase 34)
+        launches[f"{sub}_fwd_tf32x3"] = (launches.pop(f"{sub}_fwd")
+                                         + rc_launches[f"{sub}_fwd"])
         launches[f"{sub}_bwd_tf32x3"] = fp32_routes[1]["tf32x3"]
         launches[f"{sub}_fwd"] = routes[0]["simt"]
         launches[f"{sub}_bwd"] = routes[1]["simt"]

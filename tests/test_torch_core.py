@@ -205,6 +205,16 @@ NEW_MODULES = [
     "allrank_tpu_torch.tools.exp_boundary_shift",
     "allrank_tpu_torch.tools.exp_attn_decompose",
     "allrank_tpu_torch.tools.exp_sinkhorn_layout",
+    # offline ranking, the click models and the device feature store
+    "allrank_tpu_torch.rank_and_click", "allrank_tpu_torch.inference",
+    "allrank_tpu_torch.inference.inference_utils",
+    "allrank_tpu_torch.click_models", "allrank_tpu_torch.click_models.base",
+    "allrank_tpu_torch.click_models.cascade_models",
+    "allrank_tpu_torch.click_models.duplicate_aware",
+    "allrank_tpu_torch.click_models.click_utils",
+    "allrank_tpu_torch.click_models.device_models",
+    "allrank_tpu_torch.data.saving", "allrank_tpu_torch.data.feature_store",
+    "allrank_tpu_torch.utils.command_executor",
 ]
 
 
@@ -223,7 +233,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "allrank_tpu" or m.startswith("allrank_tpu.")
-             or m.split(".")[0] in ("sklearn", "orbax", "triton"))
+             or m.split(".")[0] in ("sklearn", "orbax", "triton", "pandas"))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad + missing)
 """ % (NEW_MODULES,)
@@ -255,4 +265,4 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
         for name in _imported_roots(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "allrank_tpu", "sklearn",
-                                "orbax"), (path, name)
+                                "orbax", "pandas"), (path, name)

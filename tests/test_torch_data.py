@@ -190,8 +190,7 @@ def test_bucketed_batcher_matches_jax_batch_for_batch(python_assembly):
 
 @pytest.mark.parametrize("what,kw", [
     ("local_rows", {"local_rows": np.arange(2)}),
-    ("num_workers", {"num_workers": 4}),
-    ("emit_row_indices", {"emit_row_indices": True})])
+    ("num_workers", {"num_workers": 4})])
 def test_unported_batcher_options_raise(what, kw):
     ds = _ragged_dataset(td.SlateDataset)
     with pytest.raises(NotImplementedError, match=what):

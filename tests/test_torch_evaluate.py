@@ -205,7 +205,6 @@ def test_evaluate_gate_fails_on_unmet_expectation(job, tmp_path):
 def test_evaluate_refuses_what_is_not_ported(job, tmp_path):
     root, data, _, model = job
     for section, value, match in (("parallel", {"data": 2}, "parallel"),
-                                  ("data", "device_cache", "device_cache"),
                                   ("data", "binary_cache", "binary_cache")):
         cfg = _config(data)
         if section == "data":

@@ -2156,3 +2156,129 @@ def test_layout_soft_sort_states_its_cap_on_the_card(cuda):
     with pytest.raises(ValueError, match="L <= 384"):
         layout_soft_sort_fwd(s, s, s, 1.0, 50)
     assert layout_soft_sort_fwd.launches == before
+
+
+# -- rank-and-click: the ranking and the batch click models ---------------------
+
+def _ranking_batch(b=16, seed=0):
+    """A flagship-width batch (136 features, L=240), ragged, one slate
+    full."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, chip_smoke.L, chip_smoke.N_FEATURES).astype(np.float32)
+    y = rng.randint(0, 5, (b, chip_smoke.L)).astype(np.float32)
+    lengths = rng.randint(40, chip_smoke.L + 1, b)
+    lengths[0] = chip_smoke.L
+    for i, n in enumerate(lengths):
+        x[i, n:], y[i, n:] = 0.0, -1.0
+    return x, y
+
+
+def _ranked_on_the_card(cuda):
+    """The flagship's ranked batch on the card, and the CPU's scores and
+    order."""
+    from allrank_tpu_torch.inference.inference_utils import rank_order
+
+    x, y = _ranking_batch()
+    gpu, cpu = chip_smoke.flagship_model(cuda), chip_smoke.flagship_model(
+        "cpu")
+    with torch.inference_mode():
+        _, order_g = rank_order(gpu, torch.from_numpy(x).to(cuda),
+                                torch.from_numpy(y).to(cuda))
+        scores_c, order_c = rank_order(cpu, torch.from_numpy(x),
+                                       torch.from_numpy(y))
+    return x, y, order_g.cpu().numpy(), order_c.numpy(), scores_c.numpy()
+
+
+def test_rank_step_on_the_card_is_the_cpu_s(cuda):
+    """Phase 34's rule: the card's order is the CPU plain run's but for
+    swaps of neighbours within the scorer's tolerance; B1 and B2 forward
+    once a block, on their fp32 route."""
+    from allrank_tpu_torch.inference.inference_utils import make_rank_step
+
+    before = (attention_sublayer_fwd.route_launches.get("tf32x3", 0),
+              ffn_sublayer_fwd.route_launches.get("tf32x3", 0))
+    x, y, order_g, order_c, scores_c = _ranked_on_the_card(cuda)
+    torch.cuda.synchronize()
+    after = (attention_sublayer_fwd.route_launches.get("tf32x3", 0),
+             ffn_sublayer_fwd.route_launches.get("tf32x3", 0))
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 4)
+    for row in range(len(y)):
+        chip_smoke.neighbour_swaps(order_g[row], order_c[row], scores_c[row],
+                                   int((y[row] != -1).sum()))
+    step = make_rank_step(chip_smoke.flagship_model(cuda))
+    xr, yr = step(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda))
+    ref = np.take_along_axis(x, order_g[..., None], axis=1)
+    np.testing.assert_array_equal(xr.cpu().numpy(), ref)
+    np.testing.assert_array_equal(
+        yr.cpu().numpy(), np.take_along_axis(y, order_g, axis=1))
+
+
+CARD_CLICK_MODELS = {
+    "only_relevant": lambda m: m.OnlyRelevantClickModel(2),
+    "fixed": lambda m: m.FixedClickModel([0, 2, 5]),
+    "base_cascade": lambda m: m.BaseCascadeModel(1, 2),
+    "random": lambda m: m.RandomClickModel(3),
+    "multiple": lambda m: m.MultipleClickModel(
+        [m.BaseCascadeModel(1, 2), m.RandomClickModel(2)], [0.5, 0.5]),
+    "conditioned": lambda m: m.ConditionedClickModel(
+        [m.BaseCascadeModel(1, 1), m.OnlyRelevantClickModel(2)], "any"),
+    "max_clicks": lambda m: m.MaxClicksModel(m.BaseCascadeModel(0.5, 1), 3),
+    "diverse": lambda m: m.DiverseClicksModel(m.BaseCascadeModel(1, 2), 0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_CLICK_MODELS))
+def test_click_models_on_the_card_are_the_cpu_s(cuda, name):
+    """On the card's ranked slates, the card's clicks are the CPU's bit for
+    bit; the diverse model's but on slates holding a document within 1e-5
+    of their margin."""
+    import allrank_tpu_torch.click_models as cm
+    from allrank_tpu_torch.click_models.device_models import (
+        ClickKey,
+        as_device_click_fn,
+        diverse_margin,
+        pairwise_distances,
+    )
+
+    x, y, order_g, _, _ = _ranked_on_the_card(cuda)
+    xr = torch.from_numpy(np.take_along_axis(x, order_g[..., None], axis=1))
+    yr = torch.from_numpy(np.take_along_axis(y, order_g, axis=1))
+    fn = as_device_click_fn(CARD_CLICK_MODELS[name](cm))
+    on_card = fn(ClickKey(42, 3), yr.to(cuda), xr.to(cuda)).cpu()
+    on_cpu = fn(ClickKey(42, 3), yr, xr)
+    assert on_card.dtype == on_cpu.dtype == torch.int32
+    if name != "diverse":
+        assert torch.equal(on_card, on_cpu)
+        return
+    dist = pairwise_distances(xr)
+    near = chip_smoke.near_margin(dist, diverse_margin(dist, yr, 0.5), yr)
+    off = (on_card != on_cpu).any(dim=1)
+    assert not (off & ~near.any(dim=1)).any()
+
+
+def test_index_mode_on_the_card_is_the_materialising_feed(cuda):
+    """rank_and_click over the device feature store clicks what the
+    materialising feed clicks, features and all."""
+    import allrank_tpu_torch.click_models as cm
+    from allrank_tpu_torch.click_models.device_models import (
+        as_device_click_fn,
+    )
+    from allrank_tpu_torch.data.dataset import SlateDataset
+    from allrank_tpu_torch.inference.inference_utils import (
+        rank_and_click_dataset,
+        rank_and_click_dataset_indexed,
+    )
+
+    x, y = _ranking_batch(b=40, seed=1)
+    real = y != -1
+    qid = np.repeat(np.arange(len(y)), real.sum(axis=1))
+    ds = SlateDataset(x[real], y[real], qid)
+    model = chip_smoke.flagship_model(cuda)
+    fn = as_device_click_fn(CARD_CLICK_MODELS["diverse"](cm))
+    got = rank_and_click_dataset_indexed(ds, chip_smoke.L, model, 16, fn,
+                                         include_empty=True)
+    ref = rank_and_click_dataset(ds, chip_smoke.L, model, 16, fn,
+                                 include_empty=True)
+    assert len(got[0]) == len(ref[0]) == 40
+    for a, b in zip(got[0] + got[1], ref[0] + ref[1]):
+        np.testing.assert_array_equal(a, b)
