@@ -226,45 +226,90 @@ def _run_quantized(site, layer, x):
 
 
 class QuantizedLTRModel(nn.Module):
-    """The int8 serving tower of an ``LTRModel`` (``quantize_model``)."""
+    """The int8 serving tower of an ``LTRModel`` (``quantize_model``), or,
+    by ``from_state_dict``, of its stored quantized tensors."""
 
     def __init__(self, model: LTRModel, act_scales: Optional[dict] = None):
         super().__init__()
-        self.mdef = mdef = model.mdef
 
-        def qd(site: str, dense) -> QuantizedDense:
+        def dense(site: str, path: str) -> dict:
+            layer = model.get_submodule(path)
             if act_scales is None:
-                return QuantizedDense(quantize_dense(dense.w, dense.b))
-            return QuantizedDense(_static_dense(site, dense.w, dense.b,
-                                                act_scales))
+                return quantize_dense(layer.w, layer.b)
+            return _static_dense(site, layer.w, layer.b, act_scales)
 
-        def norm(p) -> _Buffers:
-            return _Buffers(scale=p.scale, bias=p.bias)
+        self._assemble(model.mdef, dense,
+                       lambda path: model.get_submodule(path).state_dict())
+
+    @classmethod
+    def from_state_dict(cls, mdef: LTRModelDef,
+                        state: Dict[str, torch.Tensor]
+                        ) -> "QuantizedLTRModel":
+        """The tower of ``mdef`` over ``state``, a ``state_dict()`` of such
+        a tower (int8 weights, their scales, the float rest), on the CPU;
+        a missing, extra or mis-shaped tensor raises."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+
+        def under(path: str) -> dict:
+            return {k[len(path) + 1:]: torch.as_tensor(v).clone()
+                    for k, v in state.items() if k.startswith(path + ".")}
+
+        def dense(site: str, path: str) -> dict:
+            qp = under(path)
+            for name in ("w_q", "w_scale", "b"):
+                if name not in qp:
+                    raise KeyError(f"stored quantized tensors lack "
+                                   f"'{path}.{name}'")
+            return qp
+
+        self._assemble(mdef, dense, under)
+        want = {k: tuple(t.shape) for k, t in self.state_dict().items()}
+        got = {k: tuple(np.shape(v)) for k, v in state.items()}
+        if want != got:
+            differ = sorted(k for k in set(want) & set(got)
+                            if want[k] != got[k])
+            raise ValueError(
+                f"stored quantized tensors do not match the model: missing "
+                f"{sorted(set(want) - set(got))}, unexpected "
+                f"{sorted(set(got) - set(want))}, shapes differ at {differ}")
+        return self
+
+    def _assemble(self, mdef: LTRModelDef, dense, tensors) -> None:
+        """The tower's modules: ``dense(site, path)`` gives the quantized
+        layer at module path ``path`` as ``QuantizedDense`` takes it,
+        ``tensors(path)`` the float tensors of a LayerNorm or a positional
+        table there."""
+        self.mdef = mdef
+
+        def norm(path: str) -> _Buffers:
+            return _Buffers(**tensors(path))
 
         self.fc = self.transformer = None
         if mdef.fc:
             self.fc = nn.Module()
             self.fc.layers = nn.ModuleList(
-                [qd(f"fc/{i}", layer)
-                 for i, layer in enumerate(model.fc.layers)])
-            self.fc.input_norm = (norm(model.fc.input_norm)
+                [QuantizedDense(dense(f"fc/{i}", f"fc.layers.{i}"))
+                 for i in range(len(mdef.fc.sizes))])
+            self.fc.input_norm = (norm("fc.input_norm")
                                   if mdef.fc.input_norm else None)
         if mdef.transformer:
-            enc = model.transformer
             self.transformer = nn.Module()
             blocks = nn.ModuleList()
-            for i, blk in enumerate(enc.layers):
+            for i in range(mdef.transformer.N):
                 qblk = nn.Module()
+                path = f"transformer.layers.{i}"
                 for name in ("qkv", "out", "ff1", "ff2"):
-                    setattr(qblk, name, qd(f"t{i}/{name}",
-                                           getattr(blk, name)))
-                qblk.ln1, qblk.ln2 = norm(blk.ln1), norm(blk.ln2)
+                    setattr(qblk, name, QuantizedDense(
+                        dense(f"t{i}/{name}", f"{path}.{name}")))
+                qblk.ln1, qblk.ln2 = norm(f"{path}.ln1"), norm(f"{path}.ln2")
                 blocks.append(qblk)
             self.transformer.layers = blocks
-            self.transformer.final_ln = norm(enc.final_ln)
-            self.transformer.pe = (_Buffers(table=enc.pe.table)
-                                   if enc.pe is not None else None)
-        self.output = qd("output", model.output)
+            self.transformer.final_ln = norm("transformer.final_ln")
+            self.transformer.pe = (
+                norm("transformer.pe")
+                if mdef.transformer.positional_encoding else None)
+        self.output = QuantizedDense(dense("output", "output"))
 
     def forward(self, x, mask, indices, compute_dtype=torch.float32):
         """[B, L, F] -> [B, L, d_output], squeezed to [B, L] when d_output

@@ -14,9 +14,12 @@
     ``submit`` raises ``ServiceOverloaded`` and the HTTP front answers 503
     with ``Retry-After``.
 
-The worker thread is the one thread that uses the card. Each bucket is
-warmed with one call at startup, so the first request pays no kernel build
-or load.
+Each bucket is compiled at startup by ``serving.aot_compile``: on the
+card, one CUDA graph per bucket, captured in the constructor's thread
+before the worker starts, so the first request pays no kernel build, load
+or capture, and each wave replays its bucket's graph with none of the
+host's launches between the kernels. The worker thread is the one thread
+that replays them.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from allrank_tpu_torch.serving import make_scorer
+from allrank_tpu_torch.serving import GraphPool, aot_compile, make_scorer
 from allrank_tpu_torch.utils.device import resolve_device
 
 
@@ -83,15 +86,22 @@ class SlateScoringService:
         self.device = resolve_device(device)
         scorer = make_scorer(model, flow, device=self.device,
                              quantize=quantize, act_scales=act_scales)
-        self._scorer_by_bucket = {}
+        # one graph per bucket, all in one memory pool: the single worker
+        # never replays two at once
+        pool = GraphPool()
+        self._compiled_by_bucket = {}
+        infos = {}
         for b in self.buckets:
-            # warm each bucket shape: builds and loads the kernels once
-            scorer(np.zeros((b, self.slate_length, self.n_features),
-                            dtype=np.float32), np.ones(b, dtype=np.int64))
-            self._scorer_by_bucket[b] = scorer
-        self.executable_info = {"buckets": self.buckets,
-                                "device": str(self.device),
-                                "compute_dtype": str(compute_dtype)}
+            self._compiled_by_bucket[b], infos[b] = aot_compile(
+                scorer, b, self.slate_length, self.n_features, pool=pool)
+        if len(self.buckets) == 1:
+            self.executable_info = dict(infos[self.buckets[0]])
+        else:
+            # every bucket's record, not just the last's
+            self.executable_info = {"buckets": self.buckets,
+                                    "per_bucket": infos}
+        self.executable_info.update(device=str(self.device),
+                                    compute_dtype=str(compute_dtype))
         self._queue: "queue.Queue" = queue.Queue(
             maxsize=int(max_queue) if max_queue is not None else 0)
         self._stop = threading.Event()
@@ -207,7 +217,7 @@ class SlateScoringService:
                 lengths[i] = n
             t0 = time.perf_counter()
             try:
-                scores = self._scorer_by_bucket[B](xb, lengths).cpu().numpy()
+                scores = self._compiled_by_bucket[B](xb, lengths).cpu().numpy()
                 for i, (x, fut) in enumerate(wave):
                     fut.set_result(scores[i, : x.shape[0]].copy())
                 with self._stats_lock:

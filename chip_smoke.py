@@ -40,8 +40,13 @@ and never prints its last line):
 5. ``SlateScoringService`` with buckets (1, 8, 64) behind ``run_server``
    on a free localhost port, answering concurrent JSON and ``.npy``
    requests, checked against direct scorer calls; this is the main path
-   whose kernel launches are counted (the counters are set to 0 just
-   before the requests and read just after);
+   whose kernel launches are counted. The service replays one CUDA graph
+   a bucket (``serving.aot_compile``), and a replay runs no Python: each
+   graph's capture recorded B1's and B2's launches a call (4 + 4, 3xTF32
+   route), the counters set to 0 just before the requests stay 0, the
+   replays equal the waves, and a device trace of the waves
+   (``timing.trace_kernels``) shows each of B1's and B2's 3xTF32 forward
+   kernels 4 times a wave and no kernel of their other routes;
 6. times (CUDA events after warm-up, medians; and as device time, 20
    calls in one CUDA graph): each kernel, its plain version and a PyTorch
    library yardstick at the flagship serving shape (B1 and B2 a row per
@@ -167,7 +172,9 @@ and never prints its last line):
     and an empty slate, against its plain forward on the card; 4 launches
     each of B5 and B2 forward per call, none of B1 or B4, B5's on the route
     of the dtype (fp32 "tf32x3", bf16 "mma"); one 7,000-document
-    request through ``SlateScoringService`` at ``slate_length=8192``;
+    request through ``SlateScoringService`` at ``slate_length=8192`` (a
+    CUDA graph a bucket, each capturing B5 and B2 4 + 4 on their 3xTF32
+    routes; one replay);
 23. long-slate training, the paper config through ``make_train_step``:
     10 steps at (B, L) = (8, 4096) with a 400-document tail (B5 and B2
     4 + 4 launches per step, B6 1 + 1) and at (16, 1200) with a
@@ -203,8 +210,10 @@ and never prints its last line):
     of slates, exactly 18 X1 and 4 B4 launches a call (B1, B2, B5 none);
     at B=4, L=4096 18 X1 and 4 B5; ``SlateScoringService`` in
     ``int8_static`` with buckets (1, 8, 64) behind ``run_server``
-    answering JSON and ``.npy`` requests as direct scorer calls (the
-    counts set to 0 just before and read just after); ``evaluate.run`` on
+    answering JSON and ``.npy`` requests as direct scorer calls (each
+    bucket's graph captured 18 X1 and 4 B4 launches; the counts set to 0
+    just before stay 0, the replays equal the waves, and a device trace
+    shows 18 X1 and 4 B4 kernels a wave); ``evaluate.run`` on
     phase 13's dataset and NeuralNDCG ``model.npz``, float and
     ``--quantize int8_static``, and a service on its ``act_scales.json``;
 27. times: X1 at each flagship site (device time, its bound, the plain
@@ -227,7 +236,10 @@ and never prints its last line):
 29. the fifth main path, with ``MEGA_ENCODER_ENABLED`` set for the phase
     and restored after it: the flagship scorer in fp32 and bf16 against
     the switched-off scorer and the CPU plain run (one B10 launch a call,
-    none of B1 or B2), ``SlateScoringService`` behind ``run_server``, and
+    none of B1 or B2), ``SlateScoringService`` behind ``run_server`` (each
+    bucket's graph captured one B10 launch, the cooperative launch inside
+    a CUDA graph; replays equal to the waves; a device trace shows one B10
+    forward kernel a wave), and
     20 paper-config train steps (B10 1 + 1 launches a step, B1 and B2
     none, B3 1 + 1), step 1 at dropout 0 in fp32 against the CPU's
     plain run with ReLU gate flips held out (the counts set to 0 just
@@ -286,8 +298,23 @@ and never prints its last line):
     1e-5 of their margin); ``evaluate`` with ``data.device_cache`` against
     phase 26's float run within 1e-6; the seconds per call and a ranking
     batch's device time and idle share;
-35. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
-    3xTF32 rows count the fp32 service's, rank-and-click's and step's
+35. a deployer's path at the flagship width: a reference-layout
+    ``state_dict`` from a seed (``torch.save``d as ``model.pkl``) converted
+    by ``python -m allrank_tpu_torch.interop`` (its ``model.npz`` the
+    in-process mapping bit for bit) and served by ``python -m
+    allrank_tpu_torch.serve_http`` in a subprocess (bf16, buckets 1, 8,
+    64, a CUDA graph each): concurrent requests within phase 4's bf16 rule
+    of the in-process eager scorer on the same weights, lone requests (a
+    wave of bucket 1) equal to it bit for bit; ``export_scorer`` ->
+    ``load_scorer`` in bf16 and int8_static equal to ``aot_compile``'s
+    graphed scorer and that to the eager scorer, bit for bit; eager
+    against graphed in turns (eager, graph, graph, eager) per bucket (1,
+    8, 64) x (fp32, bf16, int8_static): event-timed ms a call, device busy
+    ms and idle share, the host->device copy of x apart, beside the card's
+    name and power limit;
+36. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
+    3xTF32 rows count the fp32 service's (its graphs' captured launches a
+    wave times their replays), rank-and-click's and step's
     launches, the SIMT rows those of B10's reference chain in phase 28 and
     carry
     ``"launch_source": "b10_reference_chain"``; X3 a row per mode and
@@ -301,6 +328,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -310,6 +338,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -718,6 +747,14 @@ def flagship_model(dev, dropout=0.0, output_activation=None):
     return LTRModel(mdef, torch.Generator().manual_seed(0), device=dev)
 
 
+# the flagship's model section as a config file holds it (phase 35)
+FLAGSHIP_MODEL = {
+    "fc_model": {"sizes": [128], "input_norm": True, "activation": "ReLU",
+                 "dropout": 0.0},
+    "transformer": {"N": 4, "d_ff": 512, "h": 4, "dropout": 0.0,
+                    "positional_encoding": {"strategy": "fixed",
+                                            "max_indices": 256}},
+    "post_model": {"d_output": 1, "output_activation": None}}
 PAPER_CONFIG = "reproducibility/configs/contextaware_web30k/ndcgloss2pp.json"
 
 
@@ -1529,6 +1566,81 @@ def post(url: str, slate: np.ndarray, binary: bool) -> np.ndarray:
         return np.asarray(json.loads(r.read())["scores"], dtype=np.float32)
 
 
+def graph_record(service) -> tuple:
+    """A service's CUDA graphs (``serving.aot_compile``, one a bucket):
+    each bucket's launches captured a call, by kernel wrapper (and route),
+    and the replays of all its graphs so far. A replay runs the captured
+    kernels again without the wrappers' Python, so their counters count
+    the capture only."""
+    compiled = service._compiled_by_bucket
+    return ({b: c.captured_launches for b, c in compiled.items()},
+            sum(c.replays for c in compiled.values()))
+
+
+def traced_launches(fn, calls: int, want: dict, refuse=()) -> dict:
+    """The kernels that a call of ``fn`` ran, launches a call by name, from
+    a device trace (``timing.trace_kernels``: the kernels of graph replays
+    too). The kernels whose names hold a fragment of ``want`` ran that
+    many times a call in all; no kernel's name holds one of ``refuse``."""
+    spans, _ = trace_kernels(fn, calls)
+    per_call = {name: n / calls for name, n in collections.Counter(
+        name for name, _, _ in spans).items()}
+    for frag, n in want.items():
+        got = sum(v for k, v in per_call.items() if frag in k)
+        assert got == n, (frag, n, {k: v for k, v in per_call.items()
+                                    if frag in k})
+    refused = [k for k in per_call if any(r in k for r in refuse)]
+    assert not refused, refused
+    return {frag: sum(v for k, v in per_call.items() if frag in k)
+            for frag in want}
+
+
+def reference_state_dict(mdef, seed: int) -> dict:
+    """Seeded tensors in the reference allRank LTRModel's ``state_dict``
+    layout for ``mdef`` (``nn.Linear`` weights [d_out, d_in], Q, K and V
+    projections apart, ``a_2``/``b_2`` LayerNorms, the fixed sin/cos
+    table as the buffer ``encoder.position.pe``): a checkpoint as the
+    reference saves it, weights at Xavier-like scale."""
+    from allrank_tpu_torch.models.positional import fixed_positional_table
+
+    rng = np.random.RandomState(seed)
+
+    def linear(prefix, d_in, d_out):
+        sd[f"{prefix}.weight"] = rng.randn(d_out, d_in) / math.sqrt(d_in)
+        sd[f"{prefix}.bias"] = 0.02 * rng.randn(d_out)
+
+    def std_norm(prefix, dim):
+        sd[f"{prefix}.a_2"] = 1.0 + 0.1 * rng.randn(dim)
+        sd[f"{prefix}.b_2"] = 0.1 * rng.randn(dim)
+
+    sd = {}
+    dims = (mdef.fc.n_features,) + tuple(mdef.fc.sizes)
+    sd["input_layer.input_norm.weight"] = 1.0 + 0.1 * rng.randn(dims[0])
+    sd["input_layer.input_norm.bias"] = 0.1 * rng.randn(dims[0])
+    for i in range(len(mdef.fc.sizes)):
+        linear(f"input_layer.layers.{i}", dims[i], dims[i + 1])
+    tdef = mdef.transformer
+    d = tdef.d_model
+    for i in range(tdef.N):
+        for j in range(4):
+            linear(f"encoder.layers.{i}.self_attn.linears.{j}", d, d)
+        linear(f"encoder.layers.{i}.feed_forward.w_1", d, tdef.d_ff)
+        linear(f"encoder.layers.{i}.feed_forward.w_2", tdef.d_ff, d)
+        for s in (0, 1):
+            std_norm(f"encoder.layers.{i}.sublayer.{s}.norm", d)
+    std_norm("encoder.norm", d)
+    sd["encoder.position.pe"] = fixed_positional_table(d, tdef.max_indices)
+    linear("output_layer.w_1", d, mdef.output.d_output)
+    return {k: torch.from_numpy(np.asarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def q8_inputs(gen, m, k, n, dtype, mode, dev):
     """X1's arguments: x [m, k] (every other row on exact .5 ties after
     scaling by 4, row m // 2 all zero), w_t [n, k] int8, scale and b [n],
@@ -2286,6 +2398,13 @@ def main() -> int:
     service = SlateScoringService(gpu_model, L, N_FEATURES, batch_size=64,
                                   max_wait_ms=5, compute_dtype="float32",
                                   batch_buckets=(1, 8, 64))
+    # each bucket's CUDA graph captured B1 and B2 forward once a block, on
+    # their 3xTF32 route: the launches of one call
+    one_wave = {"attention_sublayer_fwd": 4,
+                "attention_sublayer_fwd[tf32x3]": 4, "ffn_sublayer_fwd": 4,
+                "ffn_sublayer_fwd[tf32x3]": 4}
+    captured, replays_before = graph_record(service)
+    assert all(c == one_wave for c in captured.values()), captured
     server = run_server(service, 0, host="127.0.0.1")
     server_thread = threading.Thread(target=server.serve_forever, daemon=True)
     server_thread.start()
@@ -2301,22 +2420,28 @@ def main() -> int:
             futs = [pool.submit(post, url, s, i % 2 == 1)
                     for i, s in enumerate(slates)]
             answers = [f.result(timeout=120) for f in futs]
-        main_launches = {"attention_sublayer_fwd":
-                         attention_sublayer_fwd.launches,
-                         "ffn_sublayer_fwd": ffn_sublayer_fwd.launches}
-        # an fp32 service: B1 and B2 on their 3xTF32 routes only
-        assert b1_routes()[0] == {**dict.fromkeys(B1_ROUTES, 0),
-                                  "tf32x3": main_launches[
-                                      "attention_sublayer_fwd"]}, b1_routes()
-        assert b2_routes()[0] == {**dict.fromkeys(B2_ROUTES, 0),
-                                  "tf32x3": main_launches[
-                                      "ffn_sublayer_fwd"]}, b2_routes()
+        eager_launches = (attention_sublayer_fwd.launches,
+                          ffn_sublayer_fwd.launches, b1_routes()[0],
+                          b2_routes()[0])
+        replays = graph_record(service)[1] - replays_before
         with urllib.request.urlopen(url + "/statz", timeout=30) as r:
             stats = json.loads(r.read())
         waves = stats["waves_total"] - waves_before
-        assert waves >= 1 and all(
-            v == 4 * waves for v in main_launches.values()), (
-            f"launches {main_launches} != 4 x {waves} waves")
+        # every wave replayed its bucket's graph, and nothing launched from
+        # Python: the launches of the waves are the captured ones a replay
+        assert eager_launches == (0, 0, dict.fromkeys(B1_ROUTES, 0),
+                                  dict.fromkeys(B2_ROUTES, 0)), eager_launches
+        assert waves >= 1 and replays == waves, (replays, waves)
+        main_launches = {"attention_sublayer_fwd": 4 * replays,
+                         "ffn_sublayer_fwd": 4 * replays}
+        # and the device ran B1's and B2's 3xTF32 kernels, once a block a
+        # wave, and none of their other routes'
+        wave_kernels = traced_launches(
+            lambda: service.score(slates[0], timeout=60), 3,
+            {"b1_ln_qkv_tf32x3_kernel": 4, "b1_attn_tf32x3_kernel": 4,
+             "b1_out_tf32x3_kernel": 4, "b2_fwd_tf32x3_kernel": 4},
+            refuse=("_mma_kernel", "::ln_qkv_kernel", "::attn_out_kernel",
+                    "::ffn_kernel"))
         assert stats["requests_total"] == len(slates), stats
         assert sum(stats["waves_by_bucket"].values()) == stats["waves_total"]
         err_service = 0.0
@@ -2330,7 +2455,10 @@ def main() -> int:
                               float(np.abs(got - direct).max()))
         print(f"service: {len(slates)} concurrent requests (JSON and .npy) "
               f"in {waves} waves {stats['waves_by_bucket']}, max_abs_err vs "
-              f"direct scorer {err_service:.3e}; launches {main_launches}")
+              f"direct scorer {err_service:.3e}; {replays} graph replays of "
+              f"the captured launches {one_wave} a wave, none from Python: "
+              f"launches {main_launches}; a wave's kernels on the device "
+              f"{wave_kernels}")
         one = rng.randn(L, N_FEATURES).astype(np.float32)
         lat = []
         for i in range(40):
@@ -3777,8 +3905,17 @@ def main() -> int:
                                   max_wait_ms=5, compute_dtype="float32",
                                   batch_buckets=(1, 4))
     try:
+        # each bucket's graph: B5 and B2 forward once a block, on their
+        # 3xTF32 route
+        captured22, _ = graph_record(service)
+        assert all(c == {"tiled_attention_fwd": 4,
+                         "tiled_attention_fwd[tf32x3]": 4,
+                         "ffn_sublayer_fwd": 4,
+                         "ffn_sublayer_fwd[tf32x3]": 4}
+                   for c in captured22.values()), captured22
         one = rng22.randn(7000, N_FEATURES).astype(np.float32)
         got = service.score(one, timeout=120)
+        assert graph_record(service)[1] == 1
         xb = np.zeros((1, serve_l, N_FEATURES), dtype=np.float32)
         xb[0, :7000] = one
         direct = make_scorer(smodel, "float32")(xb, [7000]).cpu().numpy()
@@ -3788,7 +3925,8 @@ def main() -> int:
     finally:
         service.close()
     print(f"service with slate_length={serve_l}: one 7000-document request "
-          f"answered, equal to the direct scorer")
+          f"answered by one graph replay, equal to the direct scorer; each "
+          f"bucket's graph captured {captured22[1]}")
     phase_ok("phase 22 ok: the scorer serves B=4 slates of L=8192 through B5")
 
     # -- 23: long-slate training -------------------------------------------------
@@ -4275,6 +4413,12 @@ def main() -> int:
                                   max_wait_ms=5, compute_dtype="int8_static",
                                   act_scales=act_scales,
                                   batch_buckets=(1, 8, 64))
+    # each bucket's graph captured one call's 18 X1 and 4 B4 launches, B4
+    # on its bf16 route
+    q8_wave = {**{k: v for k, v in one_call.items() if v},
+               "attention_fused_fwd[mma]": 4}
+    captured26, replays_before = graph_record(service)
+    assert all(c == q8_wave for c in captured26.values()), captured26
     server = run_server(service, 0, host="127.0.0.1")
     server_thread = threading.Thread(target=server.serve_forever, daemon=True)
     server_thread.start()
@@ -4290,13 +4434,20 @@ def main() -> int:
             futs = [pool.submit(post, url, s, i % 2 == 1)
                     for i, s in enumerate(slates)]
             answers = [f.result(timeout=120) for f in futs]
-        q8_main_launches = q8_counts()
+        q8_eager = q8_counts()
+        replays = graph_record(service)[1] - replays_before
         with urllib.request.urlopen(url + "/statz", timeout=30) as r:
             stats = json.loads(r.read())
         waves = stats["waves_total"] - waves_before
-        assert waves >= 1 and q8_main_launches == {
-            k: v * waves for k, v in one_call.items()}, (
-            q8_main_launches, waves)
+        # one replay a wave and no launch from Python; the device ran X1's
+        # and B4's bf16 kernels, 18 and 4 a wave, and no B1, B2 or B5
+        assert q8_eager == dict.fromkeys(q8_eager, 0), q8_eager
+        assert waves >= 1 and replays == waves, (replays, waves)
+        q8_main_launches = {k: v * replays for k, v in one_call.items()}
+        q8_wave_kernels = traced_launches(
+            lambda: service.score(slates[0], timeout=60), 3,
+            {"q8_dense_kernel": 18, "fused_fwd_mma_kernel": 4},
+            refuse=("b1_", "b2_", "tiled_", "q8_dequant"))
         err_q8_service = 0.0
         for s, got in zip(slates, answers):
             xb = np.zeros((1, L, N_FEATURES), dtype=np.float32)
@@ -4308,8 +4459,10 @@ def main() -> int:
                                  float(np.abs(got - want).max()))
         print(f"service int8_static: {len(slates)} concurrent requests (JSON "
               f"and .npy) in {waves} waves {stats['waves_by_bucket']}, "
-              f"max_abs_err vs direct scorer {err_q8_service:.3e}; launches "
-              f"{q8_main_launches}")
+              f"max_abs_err vs direct scorer {err_q8_service:.3e}; {replays} "
+              f"graph replays of the captured launches {q8_wave} a wave: "
+              f"launches {q8_main_launches}; a wave's kernels on the device "
+              f"{q8_wave_kernels}")
         one = rng.randn(L, N_FEATURES).astype(np.float32)
         lat = []
         for i in range(40):
@@ -4629,6 +4782,12 @@ def main() -> int:
         service = SlateScoringService(emodel, L, N_FEATURES, batch_size=64,
                                       max_wait_ms=5, compute_dtype="float32",
                                       batch_buckets=(1, 8, 64))
+        # each bucket's graph captured one B10 launch (the cooperative
+        # launch inside a CUDA graph), on its 3xTF32 routes
+        enc_wave = {"encoder_block_fwd": 1,
+                    "encoder_block_fwd[tf32x3/tf32x3]": 1}
+        captured29, replays_before = graph_record(service)
+        assert all(c == enc_wave for c in captured29.values()), captured29
         server = run_server(service, 0, host="127.0.0.1")
         server_thread = threading.Thread(target=server.serve_forever,
                                          daemon=True)
@@ -4645,9 +4804,15 @@ def main() -> int:
                         for i, sl in enumerate(slates)]
                 answers = [f.result(timeout=120) for f in futs]
             service_counts = enc_counts()
+            replays = graph_record(service)[1] - replays_before
             waves = service.stats()["waves_total"] - waves_before
-            assert waves >= 1 and service_counts == (
-                waves, 0, 0, 0, 0, 0, 0, 0), (waves, service_counts)
+            # one replay a wave, nothing launched from Python; the device
+            # ran B10's forward once a wave and no B1 or B2
+            assert service_counts == (0,) * len(enc_kernels), service_counts
+            assert waves >= 1 and replays == waves, (replays, waves)
+            enc_wave_kernels = traced_launches(
+                lambda: service.score(slates[0], timeout=60), 3,
+                {"encoder_fwd_kernel": 1}, refuse=("b1_", "b2_"))
             for sl, got in zip(slates, answers):
                 xb29 = np.zeros((1, L, N_FEATURES), dtype=np.float32)
                 xb29[0, :len(sl)] = sl
@@ -4659,10 +4824,11 @@ def main() -> int:
             server.server_close()
             service.close()
         server_thread.join(timeout=10)
-        enc_service_launches = service_counts[0]
+        enc_service_launches = replays
         print(f"B10 service: {len(slates)} concurrent requests in {waves} "
-              f"waves, {enc_service_launches} B10 launches, none of B1 or "
-              f"B2; answers equal the direct scorer")
+              f"waves, {replays} graph replays of the captured launches "
+              f"{enc_wave} a wave, none from Python; a wave's kernels on the "
+              f"device {enc_wave_kernels}; answers equal the direct scorer")
 
         cfg29, model29 = paper_setup(dev)
         batch29 = train_batch(dev)  # phase 9's batch; later phases reuse xb
@@ -5481,7 +5647,214 @@ def main() -> int:
              f"width, both feeds byte-identical, the card against the CPU "
              f"({time.perf_counter() - t34:.1f} s)")
 
-    # -- 35: the record -------------------------------------------------------
+    # -- 35: a deployer's path: a reference checkpoint served on graphs ------
+    t35 = time.perf_counter()
+    from allrank_tpu_torch.interop import (
+        export_params,
+        flatten_params,
+        load_torch_state_dict,
+        torch_state_dict_to_params,
+    )
+    from allrank_tpu_torch.serving import (
+        GraphPool,
+        aot_compile,
+        export_scorer,
+        load_scorer,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env35 = dict(os.environ, PYTHONPATH=root)
+    deploy = tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_")
+    ddir = deploy.name
+    rng35 = np.random.RandomState(35)
+    try:
+        # the flagship as the reference allRank saves it, converted by the
+        # port's interop CLI into the model.npz that both packages load
+        pkl = os.path.join(ddir, "model.pkl")
+        npz = os.path.join(ddir, "model.npz")
+        cfg35 = os.path.join(ddir, "config.json")
+        sd35 = reference_state_dict(flag.mdef, seed=35)
+        torch.save(sd35, pkl)
+        with open(cfg35, "w") as f:
+            json.dump({"model": FLAGSHIP_MODEL, "data": {
+                "path": ddir, "num_workers": 0, "batch_size": B,
+                "slate_length": L, "validation_ds_role": "vali"}}, f)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "allrank_tpu_torch.interop",
+             "--config-file-name", cfg35, "--n-features", str(N_FEATURES),
+             "--input-model-path", pkl, "--output-model-path", npz],
+            cwd=root, env=env35, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, timeout=300)
+        assert out.returncode == 0, out.stdout.decode()[-3000:]
+        convert_s = time.perf_counter() - t0
+        model35 = load_npz(LTRModel(flag.mdef, device="cpu"), npz)
+        mapped = flatten_params(torch_state_dict_to_params(
+            load_torch_state_dict(pkl), flag.mdef))
+        stored = export_params(model35)
+        assert sorted(stored) == sorted(mapped) and all(
+            np.array_equal(stored[k], mapped[k]) for k in mapped)
+        eager35 = make_scorer(model35, "bfloat16")
+        port = free_port()
+        log_path = os.path.join(ddir, "serve.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "allrank_tpu_torch.serve_http",
+                 "--config-file-name", cfg35, "--input-model-path", npz,
+                 "--n-features", str(N_FEATURES), "--port", str(port),
+                 "--host", "127.0.0.1", "--batch-size", str(B),
+                 "--batch-buckets", f"1,8,{B}", "--compute-dtype",
+                 "bfloat16"],
+                cwd=root, env=env35, stdout=log, stderr=subprocess.STDOUT)
+        url35 = f"http://127.0.0.1:{port}"
+        try:
+            while True:
+                if proc.poll() is not None:
+                    with open(log_path) as f:
+                        raise AssertionError("the serve CLI exited:\n"
+                                             + f.read()[-3000:])
+                try:
+                    with urllib.request.urlopen(url35 + "/healthz",
+                                                timeout=2):
+                        break
+                except OSError:
+                    assert time.perf_counter() - t0 < 300, "no service"
+                    time.sleep(0.5)
+            startup_s = time.perf_counter() - t0
+            slates = [rng35.randn(n, N_FEATURES).astype(np.float32)
+                      for n in (240, 1, 17, 64, 128, 199, 240, 5, 96, 233,
+                                2, 150)]
+            with concurrent.futures.ThreadPoolExecutor(len(slates)) as pool:
+                futs = [pool.submit(post, url35, sl, i % 2 == 1)
+                        for i, sl in enumerate(slates)]
+                answers = [f.result(timeout=120) for f in futs]
+
+            def eager_one(sl):
+                xb = np.zeros((1, L, N_FEATURES), dtype=np.float32)
+                xb[0, :len(sl)] = sl
+                return eager35(xb, [len(sl)]).cpu().numpy()[0, :len(sl)]
+
+            # a wave packs other requests' slates beside each one, so the
+            # FC layer's and the head's products run at other shapes than
+            # the eager B=1 call's: phase 4's bf16 rule
+            worst35 = 0.0
+            for sl, got in zip(slates, answers):
+                want = eager_one(sl)
+                scale = float(np.abs(want).max())
+                err = float(np.abs(got - want).max())
+                assert got.shape == want.shape and err <= (
+                    BF16_SCORE_TOL * scale), (len(sl), err, scale)
+                worst35 = max(worst35, err / scale)
+            # a lone request is a wave of bucket 1: its graph replays the
+            # eager B=1 call's kernels on the same inputs, bit for bit
+            for n in (240, 33, 1):
+                sl = rng35.randn(n, N_FEATURES).astype(np.float32)
+                got = post(url35, sl, True)
+                assert np.array_equal(got, eager_one(sl)), n
+            with urllib.request.urlopen(url35 + "/statz", timeout=30) as r:
+                stats35 = json.loads(r.read())
+            assert stats35["requests_total"] == len(slates) + 3, stats35
+            assert stats35["wave_errors_total"] == 0, stats35
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        print(f"reference checkpoint -> service: the flagship's reference "
+              f"state_dict ({len(sd35)} tensors) converted by `python -m "
+              f"allrank_tpu_torch.interop` in {convert_s:.1f} s (the "
+              f"model.npz is the in-process mapping bit for bit); `python -m "
+              f"allrank_tpu_torch.serve_http` (bf16, buckets 1,8,{B}) up in "
+              f"{startup_s:.1f} s; {len(slates)} concurrent requests in "
+              f"{stats35['waves_total'] - 3} waves "
+              f"{stats35['waves_by_bucket']} within {worst35:.3e} x "
+              f"max|score| of the in-process eager scorer (tol "
+              f"{BF16_SCORE_TOL}); 3 lone requests equal to it bit for bit")
+
+        # export, load, and the graphed scorer of the same settings
+        x35 = rng35.randn(B, L, N_FEATURES).astype(np.float32)
+        l35 = rng35.randint(1, L + 1, size=B)
+        l35[0], l35[5] = L, 0
+        sizes35 = {}
+        for label, quantize, scales in (("bf16", None, None),
+                                        ("int8_static", "int8_static",
+                                         act_scales)):
+            path = export_scorer(flag, L, N_FEATURES,
+                                 os.path.join(ddir, f"{label}.npz"),
+                                 batch_size=B, compute_dtype="bfloat16",
+                                 quantize=quantize, act_scales=scales)
+            sizes35[label] = os.path.getsize(path)
+            loaded = load_scorer(path)
+            eager = make_scorer(flag, "bfloat16", quantize=quantize,
+                                act_scales=scales)
+            graphed, _ = aot_compile(eager, B, L, N_FEATURES)
+            a, g = loaded(x35, l35), graphed(x35, l35)
+            assert torch.equal(a, g), label
+            assert torch.equal(g, eager(x35, l35)), label
+        print(f"export_scorer -> load_scorer at B={B} L={L}, bf16 flow: the "
+              f"loaded scorer equals the graphed scorer, and it the eager "
+              f"one, bit for bit; files {sizes35} bytes")
+
+        # eager against graphed, in turns, per dtype and bucket
+        serve35 = {}
+        for label, quantize, flow in (("fp32", None, "float32"),
+                                      ("bf16", None, "bfloat16"),
+                                      ("int8_static", "int8_static",
+                                       "bfloat16")):
+            scorer = make_scorer(flag, flow, quantize=quantize,
+                                 act_scales=act_scales if quantize else None)
+            pool35 = GraphPool()
+            for b in (1, 8, B):
+                graphed, info = aot_compile(scorer, b, L, N_FEATURES,
+                                            pool=pool35)
+                xd = torch.as_tensor(x35[:b], device=dev)
+                ld = torch.as_tensor(l35[:b], device=dev)
+                assert torch.equal(graphed(xd, ld), scorer(xd, ld)), (
+                    label, b)
+                runs = {"eager": lambda: scorer(xd, ld),
+                        "graph": lambda: graphed(xd, ld)}
+                ms = {"eager": [], "graph": []}
+                for way in ("eager", "graph", "graph", "eager"):
+                    ms[way].append(median_ms(runs[way], iters=20, warmup=3))
+                busy = {}
+                for way, fn in runs.items():
+                    try:
+                        spans, window_us = trace_kernels(fn, 5)
+                        us = busy_us(spans)
+                        busy[way] = (us / 5 / 1e3, 1 - us / window_us)
+                    except IncompleteTrace:
+                        busy[way] = None
+                copy_ms = median_ms(
+                    lambda: torch.as_tensor(x35[:b], device=dev), iters=20,
+                    warmup=3)
+                serve35[f"{label} B={b}"] = {
+                    "eager_ms": ms["eager"], "graph_ms": ms["graph"],
+                    "busy_ms_idle": busy, "h2d_ms": copy_ms,
+                    "temp_bytes": info["temp_size_in_bytes"]}
+
+                def fmt(v):
+                    return ("not measured" if v is None else
+                            f"busy {v[0]:.4f} ms, idle {v[1]:.3f}")
+
+                print(f"time scorer {label} B={b} L={L}: eager "
+                      f"{ms['eager'][0]:.4f} / {ms['eager'][1]:.4f} ms a "
+                      f"call, graphed {ms['graph'][0]:.4f} / "
+                      f"{ms['graph'][1]:.4f} (in turns: eager, graph, graph, "
+                      f"eager; x on the device); eager {fmt(busy['eager'])}; "
+                      f"graphed {fmt(busy['graph'])}; the host->device copy "
+                      f"of x apart {copy_ms:.4f} ms; graph pool "
+                      f"+{info['temp_size_in_bytes']} bytes {tag}")
+    finally:
+        deploy.cleanup()
+    phase_ok(f"phase 35 ok: a reference checkpoint converted by the interop "
+             f"CLI and served by the serve CLI on CUDA graphs; exported "
+             f"scorers round-trip; graphed scores are the eager ones bit for "
+             f"bit ({time.perf_counter() - t35:.1f} s)")
+
+    # -- 36: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -5619,6 +5992,16 @@ def main() -> int:
     # (backward) (phase 29)
     launches["encoder_block_fwd"] = enc_service_launches
     launches["encoder_block_bwd"] = enc_train["encoder_block_bwd"]
+    # the services replay a CUDA graph a wave: their launches are the ones
+    # each graph captured a wave times its replays, its kernels seen by name
+    # in a device trace of a wave
+    graphs = "CUDA graph replays x launches captured a wave, traced"
+    launch_source["attention_sublayer_fwd_tf32x3"] = launch_source[
+        "ffn_sublayer_fwd_tf32x3"] = (
+        f"phase 5's fp32 service ({graphs}) and rank_and_click (phase 34)")
+    launch_source["q8_dense"] = f"phase 26's int8_static service ({graphs})"
+    launch_source["encoder_block_fwd"] = (
+        f"phase 29's switch-on service ({graphs})")
     for row in rows:
         if row["name"].startswith("encoder_block_"):
             row["routes_source"] = [

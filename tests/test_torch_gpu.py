@@ -9,6 +9,7 @@ only PyTorch is installed (``tests/conftest.py`` imports JAX, hence
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
 
+import gc
 import math
 
 import numpy as np
@@ -2282,3 +2283,161 @@ def test_index_mode_on_the_card_is_the_materialising_feed(cuda):
     assert len(got[0]) == len(ref[0]) == 40
     for a, b in zip(got[0] + got[1], ref[0] + ref[1]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# compiled and exported scorers: one CUDA graph per serve shape
+
+SERVE_DTYPES = ("float32", "bfloat16", "int8_static")
+# the per-call launches each flagship scorer's graph captures: B1 and B2
+# once a block on their dtype's route, or the int8 tower's X1 at 18 sites
+# and B4 once a block
+FLAGSHIP_CAPTURE = {
+    "float32": {"attention_sublayer_fwd": 4,
+                "attention_sublayer_fwd[tf32x3]": 4, "ffn_sublayer_fwd": 4,
+                "ffn_sublayer_fwd[tf32x3]": 4},
+    "bfloat16": {"attention_sublayer_fwd": 4,
+                 "attention_sublayer_fwd[mma]": 4, "ffn_sublayer_fwd": 4,
+                 "ffn_sublayer_fwd[mma]": 4},
+    "int8_static": {"q8_dense": 18, "attention_fused_fwd": 4,
+                    "attention_fused_fwd[mma]": 4},
+}
+
+
+def _flagship_scorer(dev, dtype, model=None):
+    from allrank_tpu_torch.quant import calibrate_activations
+    from allrank_tpu_torch.serving import make_scorer
+
+    model = model or chip_smoke.flagship_model(dev)
+    if dtype != "int8_static":
+        return model, make_scorer(model, dtype), None
+    scales = calibrate_activations(model, chip_smoke.calibration_batches(
+        torch.Generator().manual_seed(26), 2, dev))
+    return model, make_scorer(model, "bfloat16", quantize="int8_static",
+                              act_scales=scales), scales
+
+
+def _serve_inputs(b, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, chip_smoke.L, chip_smoke.N_FEATURES).astype(np.float32)
+    lengths = rng.randint(1, chip_smoke.L + 1, size=b)
+    lengths[0] = chip_smoke.L
+    if b > 1:
+        lengths[-1] = 0
+    return x, lengths
+
+
+@pytest.mark.parametrize("dtype", SERVE_DTYPES)
+def test_graphed_scorer_is_the_eager_scorer_bit_for_bit(cuda, dtype):
+    """aot_compile at the flagship, each bucket of the service: the graph
+    replays the eager call's kernels on the same inputs, so its scores are
+    the eager scores bit for bit; it captured each kernel's launches of one
+    call, and a replay launches nothing from Python."""
+    from allrank_tpu_torch.serving import GraphPool, aot_compile, launch_counts
+
+    _, scorer, _ = _flagship_scorer(cuda, dtype)
+    pool = GraphPool()
+    for b in (1, 8, 64):
+        compiled, info = aot_compile(scorer, b, chip_smoke.L,
+                                     chip_smoke.N_FEATURES, pool=pool)
+        assert compiled.captured_launches == FLAGSHIP_CAPTURE[dtype], (
+            b, compiled.captured_launches)
+        # the first capture fills the pool, later ones add what they need
+        assert info["temp_size_in_bytes"] > 0 if b == 1 else (
+            info["temp_size_in_bytes"] >= 0)
+        x, lengths = _serve_inputs(b, b)
+        want = scorer(x, lengths)
+        before = launch_counts()
+        got = compiled(x, lengths)
+        torch.cuda.synchronize()
+        assert launch_counts() == before and compiled.replays == 1
+        assert torch.equal(got, want), (
+            b, float((got - want).abs().nan_to_num().max()))
+        with pytest.raises(ValueError, match="compiled for x"):
+            compiled(x[:, :10], lengths)
+
+
+def test_a_second_replay_leaves_the_first_result_intact(cuda):
+    from allrank_tpu_torch.serving import aot_compile
+
+    _, scorer, _ = _flagship_scorer(cuda, "bfloat16")
+    compiled, _ = aot_compile(scorer, 8, chip_smoke.L, chip_smoke.N_FEATURES)
+    x1, l1 = _serve_inputs(8, 1)
+    x2, l2 = _serve_inputs(8, 2)
+    first = compiled(x1, l1)
+    kept = first.clone()
+    second = compiled(x2, l2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+    assert not torch.equal(first, second)
+    assert torch.equal(second, scorer(x2, l2))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8_static"])
+def test_exported_scorer_round_trips_on_the_card(cuda, tmp_path, dtype):
+    from allrank_tpu_torch.serving import (
+        aot_compile,
+        export_scorer,
+        load_scorer,
+    )
+
+    model, scorer, scales = _flagship_scorer(cuda, dtype)
+    quantize = "int8_static" if dtype == "int8_static" else None
+    path = export_scorer(model, chip_smoke.L, chip_smoke.N_FEATURES,
+                         str(tmp_path / "scorer.npz"), batch_size=8,
+                         compute_dtype="bfloat16", quantize=quantize,
+                         act_scales=scales)
+    loaded = load_scorer(path)
+    assert loaded.device.type == "cuda"
+    assert loaded.captured_launches == FLAGSHIP_CAPTURE[dtype]
+    compiled, _ = aot_compile(scorer, 8, chip_smoke.L, chip_smoke.N_FEATURES)
+    # the loaded graph reads weights that nothing but the compiled scorer
+    # holds: memory freed now and filled must not be theirs
+    gc.collect()
+    junk = torch.full((1 << 26,), float("nan"), device=cuda)
+    x, lengths = _serve_inputs(8, 3)
+    assert torch.equal(loaded(x, lengths), compiled(x, lengths))
+    del junk
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_switch_on_scorer_is_captured(cuda, monkeypatch, dtype):
+    """B10's cooperative launch inside a CUDA graph: the graphed scorer with
+    MEGA_ENCODER_ENABLED is its eager scorer bit for bit, one B10 launch a
+    call."""
+    from allrank_tpu_torch.models import transformer
+    from allrank_tpu_torch.serving import aot_compile
+
+    monkeypatch.setattr(transformer, "MEGA_ENCODER_ENABLED", True)
+    _, scorer, _ = _flagship_scorer(cuda, dtype)
+    compiled, _ = aot_compile(scorer, 8, chip_smoke.L, chip_smoke.N_FEATURES)
+    way = "tf32x3/tf32x3" if dtype == "float32" else "mma/mma"
+    assert compiled.captured_launches == {
+        "encoder_block_fwd": 1, f"encoder_block_fwd[{way}]": 1}
+    x, lengths = _serve_inputs(8, 4)
+    assert torch.equal(compiled(x, lengths), scorer(x, lengths))
+
+
+def test_graphed_service_matches_its_eager_scorer(cuda):
+    """The service replays a graph a wave: a lone request (a wave of
+    bucket 1) is the eager scorer's B=1 call bit for bit."""
+    from allrank_tpu_torch.serve_http import SlateScoringService
+
+    model, scorer, _ = _flagship_scorer(cuda, "bfloat16")
+    service = SlateScoringService(model, chip_smoke.L, chip_smoke.N_FEATURES,
+                                  batch_size=64, batch_buckets=(1, 8, 64),
+                                  compute_dtype="bfloat16")
+    try:
+        for n in (chip_smoke.L, 1, 77):
+            slate = np.random.RandomState(n).randn(
+                n, chip_smoke.N_FEATURES).astype(np.float32)
+            got = service.score(slate, timeout=60)
+            x = np.zeros((1, chip_smoke.L, chip_smoke.N_FEATURES),
+                         dtype=np.float32)
+            x[0, :n] = slate
+            want = scorer(x, [n]).cpu().numpy()[0, :n]
+            np.testing.assert_array_equal(got, want)
+        assert service._compiled_by_bucket[1].replays == 3
+        assert sorted(service.executable_info["per_bucket"]) == [1, 8, 64]
+    finally:
+        service.close()

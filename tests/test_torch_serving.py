@@ -128,7 +128,7 @@ def test_bf16_scorer_tracks_fp32_and_keeps_padding():
     np.testing.assert_allclose(a[valid], b[valid], rtol=0.05, atol=0.05)
 
 
-def test_quantized_serving_is_not_ported():
+def test_unknown_and_uncalibrated_quantize_modes_raise():
     """Quantized serving is ported (tests/test_torch_quant.py holds it
     against the JAX package); what stays refused is a mode that does not
     exist and the static mode without its calibration."""
@@ -207,7 +207,7 @@ def test_bucketed_service_routes_waves_to_smallest_bucket():
     _, _, model = _models()
     service = _service(model, max_wait_ms=30, batch_buckets=(1, 2, 4))
     used = []
-    orig = dict(service._scorer_by_bucket)
+    orig = dict(service._compiled_by_bucket)
 
     def wrap(b, fn):
         def inner(x, lengths):
@@ -216,7 +216,7 @@ def test_bucketed_service_routes_waves_to_smallest_bucket():
             return fn(x, lengths)
         return inner
 
-    service._scorer_by_bucket = {b: wrap(b, f) for b, f in orig.items()}
+    service._compiled_by_bucket = {b: wrap(b, f) for b, f in orig.items()}
     try:
         rng = np.random.RandomState(7)
         lone = service.score(rng.randn(5, F).astype(np.float32), timeout=30)
@@ -240,14 +240,14 @@ def test_overload_sheds_with_503_and_statz_counts():
         _service(model, max_queue=0)
     service = _service(model, batch_size=2, max_wait_ms=1, max_queue=2)
     entered, gate = threading.Event(), threading.Event()
-    real = service._scorer_by_bucket[2]
+    real = service._compiled_by_bucket[2]
 
     def held(x, lengths):
         entered.set()
         gate.wait(timeout=30)
         return real(x, lengths)
 
-    service._scorer_by_bucket = {2: held}
+    service._compiled_by_bucket = {2: held}
     server, url = _serve(service)
     try:
         rng = np.random.RandomState(3)
