@@ -3,10 +3,16 @@
 
 * Every batch has the same shape [B, L, F]: the trailing partial batch is
   padded with dummy slates marked False in ``slate_mask`` [B].
-* Shuffling redraws each epoch from ``seed + epoch``; slate subsampling draws
-  from a per-(seed, epoch, slate) stream, so a batch does not depend on which
-  position assembles a slate. Same seed, same epoch: the same arrays as the
-  JAX package's batchers.
+* Shuffling redraws each epoch from ``seed + epoch``. Batches are assembled
+  by the C++ assembler (``data/native.py``, ``assembly="native"``, the
+  default) on ``max(1, num_workers)`` threads: a slate longer than L is
+  subsampled (or, at L, permuted) from a splitmix64 stream per (seed, epoch,
+  slate), so a batch does not depend on which thread or position assembles
+  it. The Python row loop stays as the plain version (``assembly=
+  "python"``): the same padding, with numpy ``RandomState`` draws per
+  (seed, epoch, slate), on a thread pool of ``num_workers`` when that is
+  above 1. Same seed, epoch and assembly: the same arrays as the JAX
+  package's batchers (whose default is its C++ assembler).
 * ``DevicePrefetcher`` copies batch t+1 from pinned host memory on a side
   stream while the device computes on batch t.
 * ``emit_row_indices=True`` yields index batches for the device feature
@@ -14,21 +20,26 @@
   dataset's flat feature matrix, padded and dummy slots the store's zero
   sentinel row; the same batches as the JAX package's, bit for bit.
 
-Not yet ported: worker pools (``num_workers`` > 1), the C++ batch assembler
-and ``local_rows`` (multi-host row ownership); asking for one raises.
+Not yet ported: ``local_rows`` (multi-host row ownership); asking for it
+raises.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from allrank_tpu_torch.constants import PADDED_Y_VALUE
+from allrank_tpu_torch.data.native import assemble_rows_native
 from allrank_tpu_torch.data.slate_fixing import fix_slate
 from allrank_tpu_torch.utils.device import resolve_device
+
+ASSEMBLIES = ("native", "python")
 
 
 class SlateBatch(NamedTuple):
@@ -38,12 +49,13 @@ class SlateBatch(NamedTuple):
     slate_mask: np.ndarray  # [B] bool, False for batch-padding dummy slates
 
 
-def _check_unported(local_rows, num_workers) -> None:
-    for asked, what in ((local_rows is not None, "local_rows"),
-                        (int(num_workers or 0) > 1, "num_workers > 1")):
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not yet ported to allrank_tpu_torch's batchers")
+def _check_options(local_rows, assembly) -> None:
+    if local_rows is not None:
+        raise NotImplementedError(
+            "local_rows is not yet ported to allrank_tpu_torch's batchers")
+    if assembly not in ASSEMBLIES:
+        raise ValueError(f"unknown assembly {assembly!r} (expected one of "
+                         f"{ASSEMBLIES})")
 
 
 class SlateBatcher:
@@ -51,15 +63,17 @@ class SlateBatcher:
 
     Shuffle and randomised subsampling redraw each epoch from
     ``seed + epoch``; call ``set_epoch`` before each pass (train role).
-    With ``emit_row_indices`` the batches carry row indices in place of
-    features (the module docstring).
+    ``assembly`` and ``num_workers`` choose the assembler and its threads,
+    ``emit_row_indices`` index batches in place of features (the module
+    docstring).
     """
 
     def __init__(self, dataset, slate_length: int, batch_size: int,
                  shuffle: bool = False, seed: int = 42,
                  local_rows: Optional[np.ndarray] = None,
-                 num_workers: int = 0, emit_row_indices: bool = False):
-        _check_unported(local_rows, num_workers)
+                 num_workers: int = 0, emit_row_indices: bool = False,
+                 assembly: str = "native"):
+        _check_options(local_rows, assembly)
         self.dataset = dataset
         self.slate_length = int(slate_length)
         self.batch_size = int(batch_size)
@@ -67,6 +81,8 @@ class SlateBatcher:
         self.seed = seed
         self.epoch = 0
         self.emit_row_indices = bool(emit_row_indices)
+        self.num_workers = int(num_workers or 0)
+        self.assembly = assembly
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -79,8 +95,9 @@ class SlateBatcher:
         return order
 
     def _slate_rng(self, ds_idx: int) -> np.random.RandomState:
-        """Per-(seed, epoch, slate) stream: subsampling is independent of
-        which batch position assembles the slate."""
+        """Per-(seed, epoch, slate) stream of the Python row loop:
+        subsampling is independent of which batch position assembles the
+        slate."""
         s = (self.seed * 1000003 + self.epoch) * 1000003 + int(ds_idx)
         return np.random.RandomState(s % (2**31 - 1))
 
@@ -106,11 +123,11 @@ class SlateBatcher:
         slate_mask[row] = True
 
     def _iter_row_indices(self) -> Iterator[SlateBatch]:
-        """Index batches, derived from the materialising batches: their
-        ``indices`` record each slot's position within its slate, so
-        ``slate_offset + indices`` is the slot's flat row, with the same
-        slate-fixing draws; padded and dummy slots get the sentinel
-        ``offsets[-1]``."""
+        """Index batches, derived from the materialising batches of either
+        assembly: their ``indices`` record each slot's position within its
+        slate, so ``slate_offset + indices`` is the slot's flat row, with
+        the same slate-fixing draws; padded and dummy slots get the
+        sentinel ``offsets[-1]``."""
         flat = getattr(self.dataset, "flat_slate_buffers", lambda: None)()
         if flat is None:
             raise ValueError("emit_row_indices requires flat slate buffers")
@@ -138,16 +155,43 @@ class SlateBatcher:
         G, L = self.batch_size, self.slate_length
         n_features = self.dataset.n_features
         arange_L = np.arange(L, dtype=np.int32)
-        for start in range(0, len(order), G):
-            chunk = order[start:start + G]  # may be short
-            x = np.zeros((G, L, n_features), dtype=np.float32)
-            y = np.full((G, L), float(PADDED_Y_VALUE), dtype=np.float32)
-            indices = np.full((G, L), PADDED_Y_VALUE, dtype=np.int32)
-            slate_mask = np.zeros((G,), dtype=bool)
-            bufs = (x, y, indices, slate_mask)
-            for row, ds_idx in enumerate(chunk):
-                self._fill_row(bufs, row, int(ds_idx), arange_L)
-            yield SlateBatch(x, y, indices, slate_mask)
+        native = (self.dataset.flat_slate_buffers()
+                  if self.assembly == "native" else None)
+        pooled = native is None and self.num_workers > 1
+        with (ThreadPoolExecutor(max_workers=self.num_workers) if pooled
+              else contextlib.nullcontext()) as pool:
+            for start in range(0, len(order), G):
+                chunk = order[start:start + G]  # may be short
+                x = np.zeros((G, L, n_features), dtype=np.float32)
+                y = np.full((G, L), float(PADDED_Y_VALUE), dtype=np.float32)
+                indices = np.full((G, L), PADDED_Y_VALUE, dtype=np.int32)
+                slate_mask = np.zeros((G,), dtype=bool)
+                bufs = (x, y, indices, slate_mask)
+                todo = list(enumerate(chunk))
+                if native is not None:
+                    flat_X, flat_y, offsets, index_map = native
+                    slates = (chunk.astype(np.int64) if index_map is None
+                              else index_map[chunk])
+                    # the stream is keyed by the dataset's own slate index
+                    assemble_rows_native(
+                        flat_X, flat_y, offsets,
+                        np.arange(len(chunk), dtype=np.int64), slates, slates,
+                        n_features, L, self.seed * 1000003 + self.epoch,
+                        self.num_workers, x, y, indices, slate_mask)
+                elif pool is not None and len(todo) > self.num_workers:
+                    # one task a worker: a task a row drowns in the
+                    # executor's own cost
+                    def fill_span(span):
+                        for row, ds_idx in span:
+                            self._fill_row(bufs, row, ds_idx, arange_L)
+
+                    size = -(-len(todo) // self.num_workers)
+                    list(pool.map(fill_span, [todo[i:i + size] for i in
+                                              range(0, len(todo), size)]))
+                else:
+                    for row, ds_idx in todo:
+                        self._fill_row(bufs, row, ds_idx, arange_L)
+                yield SlateBatch(x, y, indices, slate_mask)
 
 
 class _SubsetDataset:
@@ -187,8 +231,8 @@ class BucketedSlateBatcher:
     def __init__(self, dataset, batch_size: int, n_buckets: int = 4,
                  local_rows: Optional[np.ndarray] = None,
                  num_workers: int = 0, align: int = 8,
-                 emit_row_indices: bool = False):
-        _check_unported(local_rows, num_workers)
+                 emit_row_indices: bool = False, assembly: str = "native"):
+        _check_options(local_rows, assembly)
         lengths = np.array([len(dataset[i][1]) for i in range(len(dataset))])
         order = np.argsort(lengths, kind="stable")
         self.buckets = []  # (bucket_length, slate indices)
@@ -204,7 +248,8 @@ class BucketedSlateBatcher:
                 self.buckets.append((length, group))
         self._batchers = [
             SlateBatcher(_SubsetDataset(dataset, idxs), length, batch_size,
-                         shuffle=False, emit_row_indices=emit_row_indices)
+                         shuffle=False, num_workers=num_workers,
+                         emit_row_indices=emit_row_indices, assembly=assembly)
             for length, idxs in self.buckets]
 
     def set_epoch(self, epoch: int) -> None:

@@ -3,19 +3,25 @@
 
 Rows are grouped by qid in first-appearance order; the train role is fixed
 to ``slate_length`` (pad or subsample), validation roles are padded to their
-own longest slate. The parser is this module's own, in numpy: the JAX
-package's C++ parser, its binary cache and the file validator are not
-ported yet.
+own longest slate. Files are read by the C++ parser (``data/native.py``);
+the numpy parser stays as its plain version, chosen by name, and reads what
+the C++ parser declines. ``parse_svmlight_cached`` keeps a parsed file in
+``.npy`` files beside it, with X memory-mapped.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
+import time
+import uuid
 import warnings
 from typing import List, Tuple
 
 import numpy as np
 
+from allrank_tpu_torch.data.native import parse_svmlight_native
 from allrank_tpu_torch.utils.ltr_logging import get_logger
 
 logger = get_logger()
@@ -25,9 +31,12 @@ _CHUNK_LINES = 20000
 
 def _parse_chunk(lines):
     """(labels, qids, nnz per line, feature indices, values) of a list of
-    ``label qid:N idx:val ...`` lines without comments."""
+    ``label [qid:N] idx:val ...`` lines without comments; a line without
+    ``qid:`` has qid 0."""
+    has_qid = np.fromiter((b"qid:" in ln for ln in lines), dtype=bool,
+                          count=len(lines))
     nnz = np.fromiter((ln.count(b":") for ln in lines), dtype=np.int64,
-                      count=len(lines)) - 1
+                      count=len(lines)) - has_qid
     text = b" ".join(lines).replace(b"qid:", b" ").replace(b":", b" ")
     malformed = ("malformed libsvm text: every line must read "
                  "'label qid:N idx:val ...'")
@@ -39,32 +48,21 @@ def _parse_chunk(lines):
                                  sep=" ")
         except (DeprecationWarning, ValueError) as e:
             raise ValueError(malformed) from e
-    if (nnz < 0).any() or flat.size != int((2 + 2 * nnz).sum()):
+    width = 1 + has_qid + 2 * nnz
+    if (nnz < 0).any() or flat.size != int(width.sum()):
         raise ValueError(malformed)
-    starts = np.concatenate([[0], np.cumsum(2 + 2 * nnz)[:-1]])
+    starts = np.concatenate([[0], np.cumsum(width)[:-1]])
     is_head = np.zeros(flat.size, dtype=bool)
     is_head[starts] = True
-    is_head[starts + 1] = True
+    is_head[(starts + 1)[has_qid]] = True
     pairs = flat[~is_head].reshape(-1, 2)
-    return (flat[starts], flat[starts + 1], nnz, pairs[:, 0].astype(np.int64),
+    qids = np.where(has_qid, flat[np.minimum(starts + 1, flat.size - 1)], 0.0)
+    return (flat[starts], qids, nnz, pairs[:, 0].astype(np.int64),
             pairs[:, 1].astype(np.float32))
 
 
-def parse_svmlight(path_or_stream
-                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Return (X dense [N, F] float32, y [N] float32, qids [N] int64).
-
-    Feature indices are taken as one-based when no index 0 occurs, else as
-    zero-based (scikit-learn's ``zero_based="auto"``); F is the largest
-    index seen plus one, 1 when no row has a feature. Text after ``#`` on a
-    line is ignored."""
-    if isinstance(path_or_stream, (str, os.PathLike)):
-        with open(path_or_stream, "rb") as f:
-            data = f.read()
-    else:
-        data = path_or_stream.read()
-        if isinstance(data, str):
-            data = data.encode("ascii")
+def _parse_svmlight_numpy(data: bytes
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     lines = data.split(b"\n")
     if b"#" in data:
         lines = [ln.split(b"#", 1)[0] for ln in lines]
@@ -83,6 +81,174 @@ def parse_svmlight(path_or_stream
     X = np.zeros((len(y), n_features), dtype=np.float32)
     X[np.repeat(np.arange(len(y)), nnz), idx] = val
     return X, y.astype(np.float32), qids.astype(np.int64)
+
+
+def parse_svmlight(path_or_stream, backend: str = "native"
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Return (X dense [N, F] float32, y [N] float32, qids [N] int64).
+
+    Feature indices are taken as one-based when no index 0 occurs, else as
+    zero-based (scikit-learn's ``zero_based="auto"``); F is the largest
+    index seen plus one, 1 when no row has a feature. Text after ``#`` on a
+    line is ignored; a line without ``qid:`` has qid 0.
+
+    ``backend="native"`` reads a path with the C++ parser; what it declines
+    (a file without any feature, or one it cannot read or parse) goes to
+    the numpy parser, which reads it or raises saying why.
+    ``backend="numpy"`` is the plain version alone; a stream is always read
+    by it."""
+    if backend not in ("native", "numpy"):
+        raise ValueError(f"unknown libsvm parser backend {backend!r} "
+                         "(expected 'native' or 'numpy')")
+    if isinstance(path_or_stream, (str, os.PathLike)):
+        if backend == "native":
+            parsed = parse_svmlight_native(os.fspath(path_or_stream))
+            if parsed is not None:
+                return parsed
+        with open(path_or_stream, "rb") as f:
+            data = f.read()
+    else:
+        data = path_or_stream.read()
+        if isinstance(data, str):
+            data = data.encode("ascii")
+    return _parse_svmlight_numpy(data)
+
+
+_CACHE_VERSION = 1
+
+
+def _cache_paths(path: str):
+    base = str(path) + ".npycache"
+    return (base + ".meta.json", base + ".X.npy", base + ".y.npy",
+            base + ".qids.npy")
+
+
+def _publish(arrays, meta_p: str, stamp: dict) -> None:
+    """Write each (path, array) as ``.npy`` through a temporary name and an
+    atomic rename, then the meta stamp last: a write cut short leaves no
+    meta and reads as a miss, never as a corrupt hit."""
+    for p, arr in arrays:
+        tmp = p + ".tmp"
+        with open(tmp, "wb") as f:
+            np.save(f, arr)
+        os.replace(tmp, p)
+    with open(meta_p + ".tmp", "w") as f:
+        json.dump(stamp, f)
+    os.replace(meta_p + ".tmp", meta_p)
+
+
+def parse_svmlight_cached(path) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``parse_svmlight`` behind a binary cache beside the file: the first
+    load writes ``<path>.npycache.{X,y,qids}.npy`` and a meta stamp of the
+    source's size and mtime; later loads memory-map X (no parse; the OS
+    pages the matrix in as it is read). The cache is stale when the source
+    changes. A cache that cannot be written degrades to a plain parse with
+    a warning. Processes that load one file at once are safe: each writes
+    the same bytes and publishes by atomic rename, the stamp last.
+
+    The first parse fills X straight into the future ``.npy`` file through
+    a writable memory map, so a corpus larger than host memory never exists
+    densely in it. The returned X is read-only on every path: copy it
+    before changing it."""
+    meta_p, x_p, y_p, q_p = _cache_paths(path)
+    st = os.stat(path)
+    stamp = {"version": _CACHE_VERSION, "size": st.st_size,
+             "mtime_ns": st.st_mtime_ns}
+    try:
+        with open(meta_p) as f:
+            if json.load(f) == stamp:
+                x = np.load(x_p, mmap_mode="r")
+                y = np.load(y_p)
+                qids = np.load(q_p)
+                logger.info("dataset cache hit: %s (X memory-mapped)", x_p)
+                return x, y, qids
+            logger.info("dataset cache stale for %s; re-parsing", path)
+    except (OSError, ValueError):
+        pass
+
+    direct = _parse_direct_to_memmap(path, x_p)
+    if direct is not None:
+        x, y, qids = direct
+        try:
+            _publish(((y_p, y), (q_p, qids)), meta_p, stamp)
+            logger.info("wrote dataset cache %s (memmap-direct parse)", x_p)
+        except OSError as exc:
+            logger.warning("dataset cache meta write failed (%s); cache "
+                           "will miss next run", exc)
+        return x, y, qids
+
+    x, y, qids = parse_svmlight(path)
+    try:
+        _publish(((x_p, x), (y_p, y), (q_p, qids)), meta_p, stamp)
+        logger.info("wrote dataset cache %s", x_p)
+    except OSError as exc:
+        logger.warning("dataset cache write failed (%s); continuing uncached",
+                       exc)
+    # X is read-only on every path, as the hits' memory map is
+    x.flags.writeable = False
+    return x, y, qids
+
+
+_STALE_TMP_AGE_S = 24 * 3600
+
+
+def _reap_stale_tmps(x_p: str) -> None:
+    """Remove ``<x_p>.tmp.<hex>`` files older than a day, left by parses
+    that were killed. The age spares live writers; a writer whose file is
+    removed keeps its mapping (the inode outlives the name), and its
+    rename then fails over to the in-memory parse."""
+    for p in glob.glob(glob.escape(x_p) + ".tmp.*"):
+        try:
+            if time.time() - os.stat(p).st_mtime > _STALE_TMP_AGE_S:
+                os.unlink(p)
+                logger.info("removed stale parse tmp %s", p)
+        except OSError:
+            pass
+
+
+def _parse_direct_to_memmap(path, x_p: str):
+    """The C++ parse of ``path`` with X filled through a writable memory
+    map of a temporary ``.npy`` file, published to ``x_p`` by atomic
+    rename; returns (X read-only memory map, y, qids), or None where the
+    parser declines the file or the cache directory is not writable (the
+    caller then parses in memory)."""
+    # each process maps a file of its own: a second writer truncating a
+    # shared one would fault the first one's next write to its map
+    tmp = "%s.tmp.%s" % (x_p, uuid.uuid4().hex)
+    _reap_stale_tmps(x_p)
+    state: dict = {}
+
+    def alloc(n_rows: int, n_features: int) -> np.ndarray:
+        state["x"] = np.lib.format.open_memmap(
+            tmp, mode="w+", dtype=np.float32, shape=(n_rows, n_features))
+        return state["x"]
+
+    try:
+        res = parse_svmlight_native(os.fspath(path), x_alloc=alloc)
+    except OSError as exc:  # open_memmap failed: a read-only dataset dir
+        logger.info("memmap-direct parse unavailable (%s)", exc)
+        res = None
+    if res is None or "x" not in state:
+        if "x" in state:
+            del state["x"]
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+        return None
+    _, y, qids = res
+    xm = state.pop("x")
+    xm.flush()
+    del xm  # close the writable map before publishing
+    try:
+        os.replace(tmp, x_p)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        return None
+    return np.load(x_p, mmap_mode="r"), y, qids
 
 
 class SlateDataset:
@@ -130,8 +296,12 @@ class SlateDataset:
                     self.longest_query_length)
 
     @classmethod
-    def from_svm_file(cls, svm_file_path) -> "SlateDataset":
-        x, y, qids = parse_svmlight(svm_file_path)
+    def from_svm_file(cls, svm_file_path,
+                      binary_cache: bool = False) -> "SlateDataset":
+        """Parse ``svm_file_path``; with ``binary_cache`` through
+        ``parse_svmlight_cached`` (X memory-mapped)."""
+        parse = parse_svmlight_cached if binary_cache else parse_svmlight
+        x, y, qids = parse(svm_file_path)
         logger.info("loaded dataset from %s with x shape %s, y shape %s",
                     svm_file_path, x.shape, y.shape)
         return cls(x, y, qids)
@@ -163,13 +333,11 @@ def load_dataset_role(role: str, input_path: str, slate_length: int,
                       binary_cache: bool = False):
     """Load ``{input_path}/{role}.txt``; returns (dataset, effective slate
     length). Train slates fix to ``slate_length``; other roles pad to their
-    longest slate."""
-    if binary_cache:
-        raise NotImplementedError(
-            "data.binary_cache is not yet ported to allrank_tpu_torch")
+    longest slate. ``binary_cache`` loads through the ``.npy`` cache
+    (``parse_svmlight_cached``)."""
     path = os.path.join(input_path, f"{role}.txt")
     logger.info("loading %s data from %s", role, path)
-    ds = SlateDataset.from_svm_file(path)
+    ds = SlateDataset.from_svm_file(path, binary_cache=binary_cache)
     if role == "train":
         effective = int(slate_length)
     else:

@@ -18,7 +18,6 @@ store and its collective gather are not yet ported.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from allrank_tpu_torch.models.factory import as_dtype
@@ -51,7 +50,8 @@ class DeviceFeatureStore:
         flat_X = dataset.flat_slate_buffers()[0]
         table = torch.zeros((flat_X.shape[0] + 1, flat_X.shape[1]),
                             dtype=torch.float32)
-        table[:-1] = torch.from_numpy(np.asarray(flat_X, dtype=np.float32))
+        # one copy, which also reads a binary cache's read-only memory map
+        table.numpy()[:-1] = flat_X
         if dtype is not None:
             # a bf16 store for bf16 runs: the tower casts its input to the
             # compute dtype first, and rounding commutes with the gather,

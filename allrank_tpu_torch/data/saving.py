@@ -4,11 +4,11 @@ padding (the JAX package's ``data/saving.py``).
 The line grammar is that of the JAX package's writers (scikit-learn's
 ``dump_svmlight_file`` and its C++ writer): ``label qid:N idx:val ...``,
 zero-based feature indices, zeros omitted, qids renumbered from 0 in slate
-order. Each feature value is written with nine significant digits
-(``%.9g``), enough for any float32 to read back as itself by either
-package's parser. Written in Python and numpy (one format call for a line
-without zeros), with neither scikit-learn nor the JAX package's C++
-writer.
+order. The C++ writer (``data/native.py``, ``writer="native"``, the default)
+writes each float in its shortest round-trip form, the bytes of the JAX
+package's default writer. The Python writer stays as the plain version
+(``writer="python"``): nine significant digits (``%.9g``), enough for any
+float32 to read back as itself by either package's parser.
 """
 
 from __future__ import annotations
@@ -18,18 +18,24 @@ from typing import Iterable
 import numpy as np
 
 from allrank_tpu_torch.constants import PADDED_Y_VALUE
+from allrank_tpu_torch.data.native import write_svmlight_native
 
 
 def write_to_libsvm_without_masked(
-    path: str, X: Iterable[np.ndarray], y: Iterable[np.ndarray]
+    path: str, X: Iterable[np.ndarray], y: Iterable[np.ndarray],
+    writer: str = "native"
 ) -> None:
     """Drop padded documents (y == PADDED_Y_VALUE), renumber the qids
-    sequentially and write one line a document.
+    sequentially and write one line a document with ``writer``, "native"
+    (C++) or "python" (the plain version).
 
     Base pinning, as the JAX package's writers: where column 0 is zero in
     every row, a reader's auto-detection would take the file as one-based
     and shift every column, so the first line carries an explicit ``0:0``
     after its qid."""
+    if writer not in ("native", "python"):
+        raise ValueError(f"unknown libsvm writer {writer!r} (expected "
+                         "'native' or 'python')")
     xs, ys, qids = [], [], []
     for qid, (slate_x, slate_y) in enumerate(zip(X, y)):
         slate_x = np.asarray(slate_x)
@@ -39,8 +45,11 @@ def write_to_libsvm_without_masked(
         ys.append(slate_y[keep])
         qids.append(np.repeat(qid, int(keep.sum())))
     flat_x = np.vstack(xs).astype(np.float32)
-    flat_y = np.concatenate(ys).astype(np.float64)
     flat_qid = np.concatenate(qids)
+    if writer == "native":
+        write_svmlight_native(flat_x, np.concatenate(ys), flat_qid, path)
+        return
+    flat_y = np.concatenate(ys).astype(np.float64)
     pin_base = flat_x.shape[0] > 0 and not np.any(flat_x[:, 0])
     dense = " ".join(f"{j}:%.9g" for j in range(flat_x.shape[1]))
     no_zero = flat_x.all(axis=1)

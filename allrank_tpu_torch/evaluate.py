@@ -18,9 +18,10 @@ flow between its int8 layers; ``int8_static`` first calibrates on
 ``--calibration-batches`` batches of ``--calibration-role`` and writes
 ``act_scales.json``, which ``serve_http --act-scales`` loads.
 ``data.device_cache: true`` feeds the evaluation from the device feature
-store (``data/feature_store.py``). Runs on the GPU; a ``parallel`` layout
-of more than one device, a multi-process launch and ``data.binary_cache``
-are not yet ported.
+store (``data/feature_store.py``); ``data.binary_cache: true`` loads each
+role through its ``.npy`` cache (``data/dataset.py``). Runs on the GPU; a
+``parallel`` layout of more than one device and a multi-process launch are
+not yet ported.
 """
 
 from __future__ import annotations

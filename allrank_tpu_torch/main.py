@@ -8,12 +8,14 @@ Usage::
 Pipeline: parse args -> load the JSON config -> load libsvm train and
 validation slates -> build model, optimizer, loss and scheduler by name ->
 ``fit`` -> dump ``experiment_result.json`` -> hard-assert
-``expected_metrics`` (the built-in regression gate). Runs on the GPU; the
-device mesh, the compilation cache and the train step over the device
-feature store of the JAX CLI have no counterpart here yet: a ``parallel``
-layout of more than one device, a multi-process launch and
-``data.device_cache`` raise ``NotImplementedError`` (``evaluate`` and
-``rank_and_click`` read the store).
+``expected_metrics`` (the built-in regression gate). Runs on the GPU.
+``data.binary_cache`` parses each role once into ``.npy`` files beside it;
+``data.device_cache`` keeps each role's features in device memory (one
+``DeviceFeatureStore`` for train, one for validation) and feeds the steps
+row indices; ``data.num_workers`` threads assemble the batches. The device
+mesh and the compilation cache of the JAX CLI have no counterpart here yet:
+a ``parallel`` layout of more than one device and a multi-process launch
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ import torch
 from allrank_tpu_torch.config import Config
 from allrank_tpu_torch.data.batching import BucketedSlateBatcher, SlateBatcher
 from allrank_tpu_torch.data.dataset import load_dataset
+from allrank_tpu_torch.data.feature_store import (
+    DeviceFeatureStore,
+    resolve_store_dtype,
+)
 from allrank_tpu_torch.losses import accumulation_weighting, get_loss
 from allrank_tpu_torch.models.factory import LTRModel, make_model
 from allrank_tpu_torch.training import fit, make_optimizer, make_scheduler
@@ -75,10 +81,6 @@ def run(args: Namespace = None, device=None) -> dict:
     shutil.copy2(paths.config_path,
                  os.path.join(paths.output_dir, "used_config.json"))
     require_one_device(config.parallel)
-    if config.data.device_cache:
-        raise NotImplementedError(
-            "training over data.device_cache (the device feature store) is "
-            "not yet ported to allrank_tpu_torch")
     if config.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
@@ -92,14 +94,31 @@ def run(args: Namespace = None, device=None) -> dict:
             f"train/val feature size mismatch: {n_features} and "
             f"{val_ds.n_features}")
 
+    device_cache = bool(config.data.device_cache)
+    train_store = val_store = None
+    if device_cache:
+        store_dtype = resolve_store_dtype(config.data.device_cache_dtype,
+                                          config.training.compute_dtype)
+        sharding = config.data.device_cache_sharding
+        train_store = DeviceFeatureStore(train_ds, device=dev,
+                                         dtype=store_dtype, sharding=sharding)
+        val_store = DeviceFeatureStore(val_ds, device=dev, dtype=store_dtype,
+                                       sharding=sharding)
+        logger.info(
+            "device feature store: train %s, val %s rows resident on %s "
+            "(dtype %s, %s)", train_store.sentinel, val_store.sentinel, dev,
+            store_dtype or "float32", train_store.sharding)
+
     batch_size = config.data.batch_size
     train_batcher = SlateBatcher(
         train_ds, train_len, batch_size, shuffle=True,
-        seed=config.data.shuffle_seed, num_workers=config.data.num_workers)
+        seed=config.data.shuffle_seed, num_workers=config.data.num_workers,
+        emit_row_indices=device_cache)
     if config.data.eval_buckets > 0:
         val_batcher = BucketedSlateBatcher(
             val_ds, batch_size, n_buckets=config.data.eval_buckets,
-            num_workers=config.data.num_workers)
+            num_workers=config.data.num_workers,
+            emit_row_indices=device_cache)
         logger.info("bucketed eval shapes: %s",
                     [(length, len(idx))
                      for length, idx in val_batcher.buckets])
@@ -107,7 +126,8 @@ def run(args: Namespace = None, device=None) -> dict:
         val_batcher = SlateBatcher(
             val_ds, val_len, batch_size, shuffle=False,
             seed=config.data.shuffle_seed,
-            num_workers=config.data.num_workers)
+            num_workers=config.data.num_workers,
+            emit_row_indices=device_cache)
 
     mdef = make_model(config.model, n_features)
     model = LTRModel(mdef, torch.Generator().manual_seed(42), device=dev)
@@ -151,6 +171,8 @@ def run(args: Namespace = None, device=None) -> dict:
         accumulation_steps=config.training.accumulation_steps,
         accum_weighting=accumulation_weighting(config.loss.name,
                                                config.loss.args),
+        train_feature_table=None if train_store is None else train_store.table,
+        val_feature_table=None if val_store is None else val_store.table,
     )
 
     result_for_dump = {k: v for k, v in result.items() if k != "model"}

@@ -13,8 +13,11 @@ model with a batch formulation (``click_models/device_models.py``) runs on
 the device fused with the ranking; any other (an
 EverythingButDuplicatesClickModel among them) clicks on the host after it.
 ``data.device_cache: true`` feeds the ranking from the device feature
-store. Runs on the GPU; ``run(args, device="cpu")`` runs the plain
-versions on the CPU. Uses neither pandas nor scikit-learn.
+store; ``data.binary_cache: true`` loads each role through its ``.npy``
+cache. The files are read and written by the host C++ parser and writer
+(``data/native.py``), so they are byte for byte the JAX package's. Runs on
+the GPU; ``run(args, device="cpu")`` runs the plain versions on the CPU.
+Uses neither pandas nor scikit-learn.
 """
 
 from __future__ import annotations

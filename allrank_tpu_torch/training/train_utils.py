@@ -16,12 +16,16 @@ program) and has no counterpart here; a CUDA graph per step is later work.
 
 ``fit`` is host-side only: epoch iteration, learning-rate scheduling (with
 plateau scheduling on the validation metric), early stopping, logging,
-partial and final checkpoints. It reads the device once per epoch for the
-loss and once per evaluation pass for the metrics.
+partial and final checkpoints, and a ``torch.profiler`` trace of one epoch.
+It reads the device once per epoch for the loss and once per evaluation
+pass for the metrics. Over a device feature store (``data.device_cache``)
+the batches carry row indices that both steps gather into features on the
+device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -63,13 +67,17 @@ def make_train_step(model: LTRModel, loss_fn: Callable,
                     compute_dtype="float32", accumulation_steps: int = 1,
                     accum_weighting=None,
                     generator: Optional[torch.Generator] = None):
-    """Build ``step(x, y, indices, slate_mask=None) -> (loss, n_real)``.
+    """Build ``step(x, y, indices, slate_mask=None, table=None) -> (loss,
+    n_real)``.
 
     The batch is a slate batch as the JAX package's ``SlateBatch``: x
     [B, L, F], y [B, L] with ``PADDED_Y_VALUE`` at padded documents,
     indices [B, L] and slate_mask [B] (True at real slates; None: all),
-    numpy arrays or tensors; it is moved to the model's device. One call is
-    one optimizer step on ``optimizer`` (built over ``model.parameters()``).
+    numpy arrays or tensors; it is moved to the model's device. With a
+    device feature store's ``table``, x holds [B, L] row indices that one
+    gather on the device turns into features, as the JAX package's
+    ``one_batch`` does. One call is one optimizer step on ``optimizer``
+    (built over ``model.parameters()``).
 
     Dropout draws its seeds from ``generator``, a CPU ``torch.Generator``
     (default: seeded with 0): the same generator state gives the same step.
@@ -100,8 +108,11 @@ def make_train_step(model: LTRModel, loss_fn: Callable,
             kw["generator"] = generator
         return loss_fn(preds, y, slate_mask=slate_mask, **kw)
 
-    def step(x, y, indices, slate_mask=None):
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    def step(x, y, indices, slate_mask=None, table=None):
+        if table is not None:
+            x = table_gather(table, torch.as_tensor(x, device=dev))
+        else:
+            x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         y = torch.as_tensor(y, dtype=torch.float32, device=dev)
         indices = torch.as_tensor(indices, device=dev).long()
         if slate_mask is None:
@@ -241,6 +252,27 @@ def _json_safe(d: dict) -> dict:
             if isinstance(v, (int, float, str, bool, list, type(None)))}
 
 
+@contextlib.contextmanager
+def _epoch_trace(trace_dir: Optional[str], dev: torch.device, epoch: int):
+    """A ``torch.profiler`` trace of the block, CPU and (on a GPU) CUDA
+    activities, exported as a Chrome trace into ``trace_dir``; no trace when
+    ``trace_dir`` is None. A profiler that fails to start raises."""
+    if trace_dir is None:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"epoch_{epoch}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace of epoch %d written to %s", epoch, path)
+
+
 def fit(*, epochs: int, model: LTRModel, loss_fn: Callable,
         loss_kwargs: Dict[str, Any], needs_rng: bool,
         optimizer: torch.optim.Optimizer, scheduler, train_batcher,
@@ -254,7 +286,9 @@ def fit(*, epochs: int, model: LTRModel, loss_fn: Callable,
         checkpoint_backend: str = "npz", resume: bool = False,
         profiler_trace_dir: Optional[str] = None,
         metrics_on_train: bool = True, scan_steps: int = 1,
-        accumulation_steps: int = 1, accum_weighting=None) -> Dict[str, Any]:
+        accumulation_steps: int = 1, accum_weighting=None,
+        train_feature_table: Optional[torch.Tensor] = None,
+        val_feature_table: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """The epoch loop. Trains ``model`` in place on its own device and
     returns ``{"epochs", "train_metrics", "val_metrics", "num_params",
     "model"}``.
@@ -263,13 +297,18 @@ def fit(*, epochs: int, model: LTRModel, loss_fn: Callable,
     (epoch, scheduler, early stop, both generators' states) under
     ``<output_dir>/partial/`` every N epochs; ``resume=True`` restores them
     and continues from the next epoch to the same weights as an
-    uninterrupted run. Not yet ported, and raising when asked for: the Orbax
-    checkpoint backend, ``scan_steps`` > 1 and the profiler trace."""
+    uninterrupted run. ``train_feature_table`` / ``val_feature_table`` are
+    device feature stores' tables (``DeviceFeatureStore.table``) for
+    batchers that emit row indices. ``profiler_trace_dir`` writes a
+    ``torch.profiler`` trace (CPU and, on a GPU, CUDA activities) of epoch
+    1, the first epoch without the one-time costs of the first, or of epoch
+    0 in a run of one epoch, as a Chrome trace ``epoch_<n>.pt.trace.json``
+    in that directory; a profiler that fails to start raises. Not yet
+    ported, and raising when asked for: the Orbax checkpoint backend and
+    ``scan_steps`` > 1."""
     for asked, what in ((checkpoint_backend == "orbax",
                          "checkpoint_backend='orbax'"),
-                        (int(scan_steps or 1) > 1, "scan_steps > 1"),
-                        (profiler_trace_dir is not None,
-                         "profiler_trace_dir")):
+                        (int(scan_steps or 1) > 1, "scan_steps > 1")):
         if asked:
             raise NotImplementedError(
                 f"{what} is not yet ported to allrank_tpu_torch")
@@ -331,41 +370,47 @@ def fit(*, epochs: int, model: LTRModel, loss_fn: Callable,
             }, f)
 
     num_epochs_run = start_epoch
+    trace_epoch = min(1, epochs - 1)
     for epoch in range(start_epoch, epochs):
-        t0 = time.time()
-        logger.info("Current learning rate: %s", get_learning_rate(optimizer))
-        train_batcher.set_epoch(epoch)
-        totals = None
-        for batch in prefetch(train_batcher):
-            loss, n_real = train_step(*batch)
-            row = torch.stack([loss * n_real, n_real])
-            totals = row if totals is None else totals + row
-        loss_total, n_total = totals.tolist()
-        train_loss = loss_total / n_total
-        t_train = time.time() - t0
+        traced = epoch == trace_epoch and profiler_trace_dir is not None
+        with _epoch_trace(profiler_trace_dir if traced else None, dev,
+                          epoch):
+            t0 = time.time()
+            logger.info("Current learning rate: %s",
+                        get_learning_rate(optimizer))
+            train_batcher.set_epoch(epoch)
+            totals = None
+            for batch in prefetch(train_batcher):
+                loss, n_real = train_step(*batch, table=train_feature_table)
+                row = torch.stack([loss * n_real, n_real])
+                totals = row if totals is None else totals + row
+            loss_total, n_total = totals.tolist()
+            train_loss = loss_total / n_total
+            t_train = time.time() - t0
 
-        if metrics_on_train:
-            train_metrics, _ = compute_metrics(
-                eval_step, prefetch(train_batcher), eval_gen)
-        t_eval0 = time.time()
-        val_metrics, val_loss = compute_metrics(
-            eval_step, prefetch(val_batcher), eval_gen)
-        logger.info("epoch %d phases: train %.1fs, val eval %.1fs", epoch,
-                    t_train, time.time() - t_eval0)
-        logger.info("%s [%.1fs]", epoch_summary(
-            epoch, train_loss, train_metrics, val_loss, val_metrics),
-            time.time() - t0)
+            if metrics_on_train:
+                train_metrics, _ = compute_metrics(
+                    eval_step, prefetch(train_batcher), eval_gen,
+                    train_feature_table)
+            t_eval0 = time.time()
+            val_metrics, val_loss = compute_metrics(
+                eval_step, prefetch(val_batcher), eval_gen, val_feature_table)
+            logger.info("epoch %d phases: train %.1fs, val eval %.1fs", epoch,
+                        t_train, time.time() - t_eval0)
+            logger.info("%s [%.1fs]", epoch_summary(
+                epoch, train_loss, train_metrics, val_loss, val_metrics),
+                time.time() - t0)
 
-        if tensorboard_summary_writer is not None:
-            tb = {("train", "loss"): train_loss, ("val", "loss"): val_loss}
-            tb.update({("train", k): v for k, v in train_metrics.items()})
-            tb.update({("val", k): v for k, v in val_metrics.items()})
-            tensorboard_summary_writer.save_to_tensorboard(tb, epoch)
+            if tensorboard_summary_writer is not None:
+                tb = {("train", "loss"): train_loss, ("val", "loss"): val_loss}
+                tb.update({("train", k): v for k, v in train_metrics.items()})
+                tb.update({("val", k): v for k, v in val_metrics.items()})
+                tensorboard_summary_writer.save_to_tensorboard(tb, epoch)
 
-        current_val = val_metrics[val_metric]
-        if scheduler is not None:
-            set_learning_rate(optimizer, scheduler.step(
-                current_val if scheduler.needs_metric else None))
+            current_val = val_metrics[val_metric]
+            if scheduler is not None:
+                set_learning_rate(optimizer, scheduler.step(
+                    current_val if scheduler.needs_metric else None))
         early_stop.step(current_val, epoch)
         num_epochs_run = epoch + 1
         if (checkpoint_every and partial_dir

@@ -9,7 +9,8 @@ kernels are built for sm_90a):
 Phases, each of which raises on failure (the script then exits non-zero
 and never prints its last line):
 
-1. the card, torch and CUDA versions; builds every kernel source
+1. the card, torch and CUDA versions; ``g++ --version`` and the host C++
+   libraries of ``allrank_tpu_torch/native`` (g++); builds every kernel source
    of ``allrank_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel) and prints the seconds it took and each kernel's registers;
    counts the ``HMMA`` instructions of B4's and B5's bf16 kernels (18
@@ -102,7 +103,7 @@ and never prints its last line):
     kernel's own counts at every L;
 13. the train CLI, the third main path: a dummy libsvm dataset of WEB30K's
     shape from a seed (136 features, 5 grades, 1,024 train and 256
-    validation slates of 40-240 documents), then
+    validation slates of 40-240 documents; the C++ writer), then
     ``allrank_tpu_torch.main.run`` on
     ``reproducibility/configs/neuralndcg_web30k/neuralndcg_atmax.json`` with
     only ``data.path``, ``training.epochs`` (2) and ``expected_metrics``
@@ -312,7 +313,26 @@ and never prints its last line):
     8, 64) x (fp32, bf16, int8_static): event-timed ms a call, device busy
     ms and idle share, the host->device copy of x apart, beside the card's
     name and power limit;
-36. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
+36. the host data path at WEB30K's shape: (a) a quarter of Fold1's
+    queries (4,730 train, 1,577 vali; 136 features, grades at WEB30K's
+    marginals, slate lengths drawn as ``tools/make_web30k_surrogate.py``
+    draws them, the vali role holding a slate of 1,308) written by the
+    C++ writer; (b) the C++ parser on both roles bit for bit the writer's
+    arrays and the numpy parser's on vali, ``python -m
+    allrank_tpu_torch.data.validate`` exiting 0 on both roles, the binary
+    cache's memmap-direct miss and its hit bit for bit; (c) the train CLI
+    on ``ndcgloss2pp.json`` with ``data.binary_cache``,
+    ``data.device_cache``, 4 assembly threads and ``profiler_trace_dir``
+    (one epoch): launches exact (B1 and B2 4 + 4 a step on "mma", B3
+    1 + 1, the train set's evaluation likewise forward, the vali batches
+    at L = 1,308 B5 and B2 4 forward and B6 1), the trace naming B1's,
+    B2's and B3's kernels; (d) 5 paper steps over the bf16 store equal to
+    the materialising feed's bit for bit; (e) the assembler's bytes at 1
+    and 4 threads equal; (f) assembly slates/s (C++ at 1 and 4 threads,
+    the Python row loop), the epoch's feed and train seconds with and
+    without the store, the store's bytes, beside the card and the host's
+    CPU;
+37. a ``{"kernels": [...]}`` JSON line (B1 and B2 a row per route: the
     3xTF32 rows count the fp32 service's (its graphs' captured launches a
     wave times their replays), rank-and-click's and step's
     launches, the SIMT rows those of B10's reference chain in phase 28 and
@@ -1482,8 +1502,9 @@ def write_cli_dataset(data_dir: str, seed: int = 0) -> dict:
     """train.txt (1,024 slates) and one validation file under both role
     names the two configs ask for (test.txt, vali.txt; 256 slates): 136
     features, slate lengths drawn from 40-240, labels 0-4 that follow two
-    features plus noise. Returns {role: (X, y, qid)} as written."""
-    from allrank_tpu_torch.data.dummy import write_svmlight
+    features plus noise, written by the C++ writer. Returns {role: (X, y,
+    qid)} as written."""
+    from allrank_tpu_torch.data.native import write_svmlight_native
 
     rng = np.random.RandomState(seed)
     os.makedirs(data_dir, exist_ok=True)
@@ -1495,23 +1516,29 @@ def write_cli_dataset(data_dir: str, seed: int = 0) -> dict:
         y = np.clip(np.round(2.0 + x[:, 0] + 0.5 * x[:, 1]
                              + 0.5 * rng.randn(len(x))), 0, 4).astype(np.int32)
         qid = np.repeat(np.arange(n_slates), lengths)
-        write_svmlight(os.path.join(data_dir, f"{role}.txt"), x, y, qid)
+        x = x.astype(np.float32)
+        write_svmlight_native(x, y, qid, os.path.join(data_dir, f"{role}.txt"))
         arrays[role] = (x, y, qid)
     shutil.copyfile(os.path.join(data_dir, "test.txt"),
                     os.path.join(data_dir, "vali.txt"))
     return arrays
 
 
-def run_cli(config_path: str, work_dir: str, run_id: str, epochs: int):
+def run_cli(config_path: str, work_dir: str, run_id: str, epochs: int,
+            data_path=None, **sections):
     """``allrank_tpu_torch.main.run`` on ``config_path`` with only the data
-    path, the epochs and the expected-metrics gate changed; returns (result,
-    output directory, per-epoch train and validation losses, seconds)."""
+    path (default ``<work_dir>/data``), the epochs, the expected-metrics
+    gate and the fields of ``sections`` ({section: {field: value}})
+    changed; returns (result, output directory, per-epoch train and
+    validation losses, seconds)."""
     from allrank_tpu_torch.main import run
 
     with open(config_path) as f:
         cfg = json.load(f)
-    cfg["data"]["path"] = os.path.join(work_dir, "data")
+    cfg["data"]["path"] = data_path or os.path.join(work_dir, "data")
     cfg["training"]["epochs"] = epochs
+    for section, fields in sections.items():
+        cfg[section].update(fields)
     cfg["expected_metrics"] = {"val": {"ndcg_5": 0.0}}
     cut = os.path.join(work_dir, f"{run_id}.json")
     with open(cut, "w") as f:
@@ -1529,6 +1556,87 @@ def run_cli(config_path: str, work_dir: str, run_id: str, epochs: int):
                                f"loss_{role}", "scalars.jsonl")) as f:
             losses[role] = [json.loads(line)["value"] for line in f]
     return result, out_dir, losses, seconds
+
+
+# the host data path's dataset (phase 36): a quarter of WEB30K Fold1's
+# queries (18,919 train, 6,306 vali), drawn as tools/make_web30k_surrogate.py
+# draws them
+WEB30K_QUERIES = {"train": 4730, "vali": 1577}
+WEB30K_MARGINALS = [0.514, 0.325, 0.134, 0.019, 0.008]
+WEB30K_LONGEST = 1308  # the longest WEB30K vali slate
+WEB30K_NEGATIVE = [110, 111, 112, 113, 114, 115, 116, 117, 118, 119, 120,
+                   123, 124]
+
+
+def write_web30k_dataset(data_dir: str, seed: int = 42) -> dict:
+    """``train.txt`` and ``vali.txt`` of WEB30K's shape, as the surrogate
+    tool makes them but in bulk: slate lengths lognormal (mean 4.35, sigma
+    0.8 in log space, 5-1,308 documents, a few near 1,308; the vali role
+    holds one of exactly 1,308), a latent quality per document, grades 0-4
+    at WEB30K's marginals from noisy quantiles of it, 136 features as
+    linear, heavy-tailed or noise views of it over spread scales, 13 of
+    them negative; qids run on across the roles. Written by the port's C++
+    writer. Returns {role: (X, y, qid)} as written and the seconds to draw
+    and to write."""
+    from statistics import NormalDist
+
+    from allrank_tpu_torch.data.native import write_svmlight_native
+
+    rng = np.random.RandomState(seed)
+    kinds = rng.choice(3, size=N_FEATURES, p=[0.45, 0.35, 0.2])
+    signal = np.where(kinds == 2, 0.0, rng.uniform(0.1, 1.2, N_FEATURES))
+    scale = 10.0 ** rng.uniform(-1, 3, N_FEATURES)
+    noise_w = np.sqrt(np.maximum(1e-6, 1.0 - signal ** 2))
+    thresholds = np.sqrt(1.0 + 0.9 ** 2) * np.array(
+        [NormalDist().inv_cdf(c) for c in np.cumsum(WEB30K_MARGINALS)[:-1]])
+    os.makedirs(data_dir, exist_ok=True)
+    arrays, seconds, qid0 = {}, {"draw": 0.0, "write": 0.0}, 1
+    for role, n_queries in WEB30K_QUERIES.items():
+        t0 = time.perf_counter()
+        lengths = np.clip(rng.lognormal(4.35, 0.8, n_queries).astype(int), 5,
+                          WEB30K_LONGEST)
+        tail = rng.choice(n_queries, size=max(3, n_queries // 2000),
+                          replace=False)
+        lengths[tail] = rng.randint(WEB30K_LONGEST - 60, WEB30K_LONGEST + 1,
+                                    size=len(tail))
+        if role == "vali":
+            lengths[tail[0]] = WEB30K_LONGEST
+        u = rng.randn(int(lengths.sum())).astype(np.float32)
+        y = np.digitize(u + 0.9 * rng.randn(len(u)), thresholds).astype(
+            np.float32)
+        base = (signal * u[:, None]).astype(np.float32) + (
+            noise_w * rng.randn(len(u), N_FEATURES)).astype(np.float32)
+        x = np.where(kinds == 1, np.exp(1.2 * base), base) * scale
+        x[:, WEB30K_NEGATIVE] = -np.abs(x[:, WEB30K_NEGATIVE])
+        x = x.astype(np.float32)
+        qid = np.repeat(np.arange(qid0, qid0 + n_queries), lengths)
+        qid0 += n_queries
+        seconds["draw"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_svmlight_native(x, y, qid, os.path.join(data_dir, f"{role}.txt"))
+        seconds["write"] += time.perf_counter() - t0
+        arrays[role] = (x, y, qid)
+    return arrays, seconds
+
+
+def host_cpu() -> str:
+    """The host's CPU model and core count, as ``lscpu`` reports them; where
+    it names no model ("unknown" in a virtual machine), ``/proc/cpuinfo``'s
+    model name beside lscpu's vendor, family and model numbers."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    fields = {k.strip(): v.strip() for k, v in (
+        line.split(":", 1) for line in out.splitlines() if ":" in line)}
+    model = fields.get("Model name", "")
+    if model.lower() in ("", "-", "unknown"):
+        with open("/proc/cpuinfo") as f:
+            names = {v.strip() for k, v in (
+                line.split(":", 1) for line in f if ":" in line)
+                if k.strip() == "model name"}
+        model = "; ".join(sorted(names) + [
+            f"{k} {fields[k]}" for k in ("Vendor ID", "CPU family", "Model")
+            if k in fields])
+    return f"{model}, {fields.get('CPU(s)')} CPUs (lscpu)"
 
 
 def check_cli_outputs(result, out_dir, losses, epochs, metric_names) -> None:
@@ -2079,6 +2187,18 @@ def main() -> int:
     # -- 1: card, versions, build --------------------------------------------
     print(f"card: {name_power}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    # the host libraries of the data path (phase 36) build with g++; its
+    # parser needs std::from_chars for floats (GCC >= 11)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    from allrank_tpu_torch.data import native as host_native
+
+    t0 = time.perf_counter()
+    built = [host_native.build(name) for name in (
+        "libsvm_parser", "slate_assembler", "libsvm_writer")]
+    print(f"g++: {gxx.splitlines()[0]}; host libraries built in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{[os.path.basename(p) for p in built]}")
     t0 = time.perf_counter()
     sources = SOURCES
     _build.build(sources)
@@ -5854,7 +5974,236 @@ def main() -> int:
              f"scorers round-trip; graphed scores are the eager ones bit for "
              f"bit ({time.perf_counter() - t35:.1f} s)")
 
-    # -- 36: the record -------------------------------------------------------
+    # -- 36: the host data path at WEB30K's shape -----------------------------
+    t36 = time.perf_counter()
+    from itertools import islice
+
+    from allrank_tpu_torch.data.batching import SlateBatcher as Batcher
+    from allrank_tpu_torch.data.dataset import (
+        SlateDataset as Dataset,
+        parse_svmlight,
+        parse_svmlight_cached,
+    )
+    from allrank_tpu_torch.data.feature_store import DeviceFeatureStore
+    from allrank_tpu_torch.data.batching import DevicePrefetcher as Feed
+
+    host_tag = f"[{name_power}; host {host_cpu()}]"
+    host_kernels = (attention_sublayer_fwd, attention_sublayer_bwd,
+                    ffn_sublayer_fwd, ffn_sublayer_bwd, lambda_pairs_fwd,
+                    lambda_pairs_bwd, lambda_tiled_fwd, lambda_tiled_bwd,
+                    attention_fused_fwd, attention_fused_bwd,
+                    tiled_attention_fwd, tiled_attention_bwd)
+    routed = host_kernels[:4] + host_kernels[8:]
+
+    def host_counts():
+        got = {k.__name__: k.launches for k in host_kernels}
+        for k in routed:
+            got.update({f"{k.__name__}[{way}]": n
+                        for way, n in k.route_launches.items()})
+        return got
+
+    def host_reset():
+        for k in host_kernels:
+            k.launches = 0
+        for k in routed:
+            k.route_launches = dict.fromkeys(k.route_launches, 0)
+
+    def same_bits(got, ref, what):
+        for a, b in zip(got, ref, strict=True):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and a.shape == b.shape, (what, a.dtype,
+                                                               b.dtype)
+            assert np.array_equal(a, b), what
+
+    host_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_web30k_")
+    try:
+        # (a) the data, written by the C++ writer
+        hdata = os.path.join(host_dir.name, "data")
+        host_arrays, host_s = write_web30k_dataset(hdata)
+        paths = {r: os.path.join(hdata, f"{r}.txt") for r in host_arrays}
+        sizes = {r: (len(np.unique(a[2])), len(a[1]),
+                     os.path.getsize(paths[r])) for r, a in
+                 host_arrays.items()}
+        lengths = np.bincount(host_arrays["vali"][2])
+        assert lengths.max() == WEB30K_LONGEST, lengths.max()
+        print(f"web30k-shaped data (queries, documents, bytes) {sizes}, "
+              f"grades {np.bincount(host_arrays['train'][1].astype(int))}: "
+              f"drawn in {host_s['draw']:.2f} s, written by the C++ writer "
+              f"in {host_s['write']:.2f} s {host_tag}")
+
+        # (b) parsing: the C++ parser on the writer's own arrays (the round
+        # trip), against the numpy parser on vali, the validate CLI on both
+        # roles, the binary cache's miss (memmap-direct) and hit
+        secs = {}
+        for role, path in paths.items():
+            t0 = time.perf_counter()
+            parsed = parse_svmlight(path)
+            secs[f"C++ parse {role}"] = time.perf_counter() - t0
+            same_bits(parsed, host_arrays[role], f"round trip {role}")
+        t0 = time.perf_counter()
+        plain = parse_svmlight(paths["vali"], backend="numpy")
+        secs["numpy parse vali"] = time.perf_counter() - t0
+        same_bits(plain, host_arrays["vali"], "numpy parser on vali")
+        del plain, parsed
+        t0 = time.perf_counter()
+        checked = subprocess.run(
+            [sys.executable, "-m", "allrank_tpu_torch.data.validate",
+             "--ds_path", hdata, "--roles", "train,vali", "--slate_length",
+             str(L)], capture_output=True, text=True, timeout=300)
+        secs["validate CLI (a process)"] = time.perf_counter() - t0
+        assert checked.returncode == 0, checked.stderr[-3000:]
+        for line in checked.stderr.splitlines()[-8:]:  # its warnings
+            print("  validate CLI: " + line)
+        cached = {}
+        for role, path in paths.items():
+            t0 = time.perf_counter()
+            miss = parse_svmlight_cached(path)
+            secs[f"cache miss {role} (memmap-direct)"] = (
+                time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            hit = parse_svmlight_cached(path)
+            secs[f"cache hit {role}"] = time.perf_counter() - t0
+            assert isinstance(miss[0], np.memmap) and isinstance(
+                hit[0], np.memmap)
+            same_bits(miss, host_arrays[role], f"cache miss {role}")
+            same_bits(hit, miss, f"cache hit {role}")
+            cached[role] = hit
+        print("parse seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in secs.items()) + " (every parse bit for "
+            f"bit the writer's arrays; the numpy parser's vali too) "
+            f"{host_tag}")
+        rate = {role: host_arrays[role][0].size / secs[what] / 1e6
+                for role, what in (("train", "C++ parse train"),
+                                   ("vali", "numpy parse vali"))}
+        print(f"C++ parser: {rate['train']:.1f} M numbers/s on train, numpy "
+              f"parser {rate['vali']:.1f} M/s on vali {host_tag}")
+
+        # (c) the train CLI on the paper recipe over the store, the binary
+        # cache, 4 assembly threads and a profiler trace of its one epoch
+        trace_dir = os.path.join(host_dir.name, "trace")
+        n_train = WEB30K_QUERIES["train"]
+        n_val = WEB30K_QUERIES["vali"]
+        steps = -(-n_train // B)
+        val_batches = -(-n_val // B)
+        host_reset()
+        result, out_dir, losses, cli_s = run_cli(
+            PAPER_CONFIG, host_dir.name, "web30k", 1, data_path=hdata,
+            data={"binary_cache": True, "device_cache": True,
+                  "num_workers": 4},
+            training={"profiler_trace_dir": trace_dir})
+        host_launches = host_counts()
+        check_cli_outputs(result, out_dir, losses, 1, ("ndcg_5", "ndcg_10"))
+        # train steps at L=240: B1, B2 4 + 4 and B3 1 + 1; the train set's
+        # evaluation at 240 likewise forward; vali padded to its longest
+        # slate, 1,308 (past B4's 1,224): B5 and B2 4 forward, B6 1
+        want = dict.fromkeys(host_launches, 0)
+        for sub, fwd in (("attention_sublayer", 2 * steps),
+                         ("ffn_sublayer", 2 * steps + val_batches)):
+            want[f"{sub}_fwd"] = want[f"{sub}_fwd[mma]"] = 4 * fwd
+            want[f"{sub}_bwd"] = want[f"{sub}_bwd[mma]"] = 4 * steps
+        want["lambda_pairs_fwd"], want["lambda_pairs_bwd"] = 2 * steps, steps
+        want["lambda_tiled_fwd"] = val_batches
+        want["tiled_attention_fwd"] = 4 * val_batches
+        want["tiled_attention_fwd[mma]"] = 4 * val_batches
+        assert host_launches == want, (host_launches, want)
+        with open(os.path.join(out_dir, "training.log")) as f:
+            log = f.read()
+        assert "device feature store: train" in log and (
+            "dataset cache hit" in log), log[-3000:]
+        trace_file = os.path.join(trace_dir, "epoch_0.pt.trace.json")
+        with open(trace_file) as f:
+            kernels = collections.Counter(
+                e["name"] for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel")
+        traced = {what: sum(n for k, n in kernels.items() if all(
+            p in k for p in parts)) for what, parts in (
+            ("B1", ("b1_", "_mma_kernel")), ("B2", ("b2_", "_mma_kernel")),
+            ("B3", ("lambda_cluster_",)))}
+        assert all(traced.values()), (traced, kernels.most_common(20))
+        print(f"train CLI, {PAPER_CONFIG} over the device feature store "
+              f"(binary cache, 4 assembly threads, a profiler trace): 1 "
+              f"epoch of {steps} steps, {val_batches} vali batches at "
+              f"L={WEB30K_LONGEST}, in {cli_s:.1f} s with loading; train "
+              f"loss {losses['train']}, val ndcg_5 "
+              f"{result['val_metrics']['ndcg_5']:.4f}; launches "
+              f"{host_launches}; the trace "
+              f"({os.path.getsize(trace_file) / 1e6:.1f} MB) names "
+              f"B1/B2/B3 kernels {traced} times {host_tag}")
+
+        # (d) the first 5 steps over the store against the materialising
+        # feed: the same parameters bit for bit on the card
+        train_ds = Dataset(*cached["train"])
+        cfg, store_model = paper_setup(dev)
+        _, feed_model = paper_setup(dev)
+        dtype = cfg.training.compute_dtype
+        store = DeviceFeatureStore(train_ds, device=dev, dtype="bfloat16")
+        store_step = make_step(cfg, store_model, dtype)
+        feed_step = make_step(cfg, feed_model, dtype)
+        index_batches = Batcher(train_ds, L, B, shuffle=True, num_workers=4,
+                                emit_row_indices=True)
+        feature_batches = Batcher(train_ds, L, B, shuffle=True,
+                                  num_workers=4)
+        for bi, bm in islice(zip(Feed(index_batches, device=dev),
+                                 Feed(feature_batches, device=dev)), 5):
+            store_step(*bi, table=store.table)
+            feed_step(*bm)
+        torch.cuda.synchronize()
+        for (name, p), q in zip(store_model.named_parameters(),
+                                feed_model.parameters()):
+            assert torch.equal(p, q), name
+        print(f"5 paper-config steps over the bf16 store (gathered in the "
+              f"step) equal the materialising feed's bit for bit: "
+              f"{sum(p.numel() for p in store_model.parameters())} "
+              f"parameters")
+
+        # (e) the C++ assembler's bytes at 1 and 4 threads
+        for a, b in zip(Batcher(train_ds, L, B, shuffle=True, num_workers=1),
+                        Batcher(train_ds, L, B, shuffle=True, num_workers=4),
+                        strict=True):
+            same_bits(a, b, "assembly at 1 and 4 threads")
+
+        # (f) host times: assembly, the epoch's feed and train loops with
+        # and without the store, the store's bytes
+        rates = {}
+        for label, kw in (("C++, 1 thread", {"num_workers": 1}),
+                          ("C++, 4 threads", {"num_workers": 4}),
+                          ("Python row loop", {"assembly": "python"})):
+            batches = Batcher(train_ds, L, B, shuffle=True, **kw)
+            t0 = time.perf_counter()
+            for _ in batches:
+                pass
+            rates[label] = n_train / (time.perf_counter() - t0)
+        split = {}
+        for label, batches, step, table in (
+                ("store", index_batches, store_step, store.table),
+                ("materialising", feature_batches, feed_step, None)):
+            t0 = time.perf_counter()
+            for _ in Feed(batches, device=dev):
+                pass
+            torch.cuda.synchronize()
+            split[f"{label} feed alone"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for batch in Feed(batches, device=dev):
+                step(*batch, table=table)
+            torch.cuda.synchronize()
+            split[f"{label} train"] = time.perf_counter() - t0
+        store_bytes = store.table.numel() * store.table.element_size()
+        print(f"assembly slates/s over train ({n_train} slates, L={L}): "
+              + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+              + f"; epoch of {steps} steps, seconds: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; the bf16 store {store_bytes} bytes on the card "
+              f"({store.table.shape[0]} rows) {host_tag}")
+        del store, store_model, feed_model, cached, train_ds
+        torch.cuda.empty_cache()
+    finally:
+        host_dir.cleanup()
+    phase_ok(f"phase 36 ok: the host data path at WEB30K's shape: C++ "
+             f"writer, parser, cache and validator bit for bit; the train "
+             f"CLI over the store with exact launches and a trace; the store "
+             f"equal to the feed ({time.perf_counter() - t36:.1f} s)")
+
+    # -- 37: the record -------------------------------------------------------
     origin = {"attention_sublayer_fwd": (
         "allrank_tpu_torch/csrc/attention_block.cu",
         "allrank_tpu/ops/attention_block.py:343"),
@@ -6081,6 +6430,16 @@ def main() -> int:
                                                *l2_rows), name
         for k, v in row.items():
             assert not isinstance(v, float) or math.isfinite(v), (k, v)
+    # the host data path's CLI run (phase 36), beside each kernel it ran
+    host_rows = {f"{sub}_{way}_mma": host_launches[f"{sub}_{way}[mma]"]
+                 for sub in ("attention_sublayer", "ffn_sublayer")
+                 for way in ("fwd", "bwd")}
+    host_rows.update({k: host_launches[k] for k in (
+        "lambda_pairs_fwd", "lambda_pairs_bwd", "lambda_tiled_fwd",
+        "tiled_attention_fwd")})
+    for row in rows:
+        if row["name"] in host_rows:
+            row["host_data_launches"] = host_rows[row["name"]]
     assert len(rows) == 49
     print(f"profiler: {trace_kernels.lost} traces of this run lost device "
           f"events and were taken again {tag}")

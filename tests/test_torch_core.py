@@ -215,6 +215,8 @@ NEW_MODULES = [
     "allrank_tpu_torch.click_models.device_models",
     "allrank_tpu_torch.data.saving", "allrank_tpu_torch.data.feature_store",
     "allrank_tpu_torch.utils.command_executor",
+    # the host data path: the C++ libraries' bindings and the validator
+    "allrank_tpu_torch.data.native", "allrank_tpu_torch.data.validate",
 ]
 
 
@@ -266,3 +268,37 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "allrank_tpu", "sklearn",
                                 "orbax", "pandas"), (path, name)
+
+
+def test_host_build_reads_nothing_of_the_jax_package(tmp_path):
+    """The host C++ libraries build from the port's own copies: in a fresh
+    process, building and loading each one opens, lists, runs and loads no
+    path under ``allrank_tpu/`` (an audit hook records every such call),
+    and g++ compiles ``allrank_tpu_torch/native/<name>.cpp``."""
+    code = """
+import json, sys
+seen = []
+sys.addaudithook(lambda event, args: seen.append((event, repr(args)))
+                 if event in ("open", "os.listdir", "os.scandir", "glob.glob",
+                              "subprocess.Popen", "ctypes.dlopen") else None)
+from allrank_tpu_torch.data import native
+for name in ("libsvm_parser", "slate_assembler", "libsvm_writer"):
+    native.build(name, build_dir=sys.argv[1])
+    native.load(name)
+print(json.dumps(seen))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    jax_dir = os.path.join(REPO, "allrank_tpu") + os.sep
+    assert not [s for s in seen if jax_dir in s[1]
+                or "'allrank_tpu/" in s[1]], seen
+    compiled = [s[1] for s in seen if s[0] == "subprocess.Popen"]
+    assert len(compiled) == 3, compiled
+    for name, args in zip(("libsvm_parser", "slate_assembler",
+                           "libsvm_writer"), compiled):
+        assert os.path.join(REPO, "allrank_tpu_torch", "native",
+                            name + ".cpp") in args, args

@@ -1,8 +1,9 @@
 """The port's dataset parser, dummy writer and batchers against the JAX
 package's on the same files and seeds: identical arrays (the parsers read
-the same decimal text into float64 and round to float32; the batchers make
-the same ``RandomState`` draws). The JAX batchers run their Python row
-assembly here, the path the port copies."""
+the same decimal text into float32; the batchers make the same draws). The
+batchers are held on both assemblies: the Python row loops (the same
+``RandomState`` draws) and the C++ assemblers (the same splitmix64
+streams), each package's default."""
 
 import io
 import os
@@ -22,9 +23,13 @@ from allrank_tpu_torch.data import dummy as tdummy
 from allrank_tpu_torch.data import slate_fixing as tfix
 
 
-@pytest.fixture
-def python_assembly(monkeypatch):
-    monkeypatch.setattr(jnative, "_load_assembler", lambda: None)
+@pytest.fixture(params=["python", "native"])
+def assembly(request, monkeypatch):
+    """The assembly both packages' batchers run: the JAX package's Python
+    row loop where its C++ assembler is switched off, else its default."""
+    if request.param == "python":
+        monkeypatch.setattr(jnative, "_load_assembler", lambda: None)
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +128,12 @@ def test_load_dataset_roles_and_unported_options(dummy_dirs):
     ref = jd.load_dataset(ours, 6, "vali")
     assert (train_len, val_len) == (ref[1], ref[3]) == (6, 9)
     assert train_ds.n_features == val_ds.n_features == 7
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        td.load_dataset(ours, 6, "vali", binary_cache=True)
+    # the binary cache, once ported, loads the same slates as the parse
+    cached = td.load_dataset(ours, 6, "vali", binary_cache=True)
+    assert (cached[1], cached[3]) == (6, 9)
+    for plain, ds in ((train_ds, cached[0]), (val_ds, cached[2])):
+        for i in range(len(plain)):
+            _assert_same(plain[i], ds[i])
 
 
 def test_slate_fixing_matches_jax():
@@ -142,10 +151,11 @@ def test_slate_fixing_matches_jax():
 @pytest.mark.parametrize("slate_length,batch_size,shuffle",
                          [(6, 4, True), (9, 5, True), (14, 8, False)])
 def test_slate_batcher_matches_jax_batch_for_batch(
-        dummy_dirs, python_assembly, slate_length, batch_size, shuffle):
+        dummy_dirs, assembly, slate_length, batch_size, shuffle):
     ours, _ = dummy_dirs
     mine = tb.SlateBatcher(td.SlateDataset.from_svm_file(ours + "/train.txt"),
-                           slate_length, batch_size, shuffle=shuffle, seed=5)
+                           slate_length, batch_size, shuffle=shuffle, seed=5,
+                           assembly=assembly)
     ref = jb.SlateBatcher(jd.SlateDataset.from_svm_file(ours + "/train.txt"),
                           slate_length, batch_size, shuffle=shuffle, seed=5)
     assert len(mine) == len(ref) == -(-23 // batch_size)
@@ -170,9 +180,9 @@ def _ragged_dataset(cls):
     return cls(x, y, np.repeat(np.arange(37), lengths))
 
 
-def test_bucketed_batcher_matches_jax_batch_for_batch(python_assembly):
+def test_bucketed_batcher_matches_jax_batch_for_batch(assembly):
     mine = tb.BucketedSlateBatcher(_ragged_dataset(td.SlateDataset), 8,
-                                   n_buckets=3)
+                                   n_buckets=3, assembly=assembly)
     ref = jb.BucketedSlateBatcher(_ragged_dataset(jd.SlateDataset), 8,
                                   n_buckets=3)
     assert [(n, idx.tolist()) for n, idx in mine.buckets] == [
@@ -192,12 +202,24 @@ def test_bucketed_batcher_matches_jax_batch_for_batch(python_assembly):
     ("local_rows", {"local_rows": np.arange(2)}),
     ("num_workers", {"num_workers": 4})])
 def test_unported_batcher_options_raise(what, kw):
+    """local_rows raises; num_workers > 1, ported since, assembles the
+    batches of one worker on either assembly."""
     ds = _ragged_dataset(td.SlateDataset)
-    with pytest.raises(NotImplementedError, match=what):
-        tb.SlateBatcher(ds, 8, 4, **kw)
-    with pytest.raises(NotImplementedError, match=what):
-        tb.BucketedSlateBatcher(ds, 4, **kw)
-    tb.SlateBatcher(ds, 8, 4, num_workers=1)  # the configs' value
+    if what == "local_rows":
+        with pytest.raises(NotImplementedError, match=what):
+            tb.SlateBatcher(ds, 8, 4, **kw)
+        with pytest.raises(NotImplementedError, match=what):
+            tb.BucketedSlateBatcher(ds, 4, **kw)
+        return
+    for assembly in ("native", "python"):
+        one = tb.SlateBatcher(ds, 8, 4, shuffle=True, num_workers=1,
+                              assembly=assembly)
+        many = tb.SlateBatcher(ds, 8, 4, shuffle=True, assembly=assembly,
+                               **kw)
+        for a, b in zip(one, many, strict=True):
+            _assert_same(a, b)
+    with pytest.raises(ValueError, match="assembly"):
+        tb.SlateBatcher(ds, 8, 4, assembly="rust")
 
 
 def test_device_prefetcher_on_the_cpu_yields_the_same_batches():

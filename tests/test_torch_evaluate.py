@@ -203,20 +203,23 @@ def test_evaluate_gate_fails_on_unmet_expectation(job, tmp_path):
 
 
 def test_evaluate_refuses_what_is_not_ported(job, tmp_path):
+    """A layout of two devices raises; data.binary_cache, ported since,
+    evaluates as the parse does."""
     root, data, _, model = job
-    for section, value, match in (("parallel", {"data": 2}, "parallel"),
-                                  ("data", "binary_cache", "binary_cache")):
-        cfg = _config(data)
-        if section == "data":
-            cfg["data"][value] = True
-        else:
-            cfg[section] = value
-        path = str(tmp_path / f"{match}.json")
+    results = {}
+    for name, edit in (("parallel", {"parallel": {"data": 2}}),
+                       ("plain", {}), ("binary_cache", {"data": {
+                           **_config(data)["data"], "binary_cache": True}})):
+        path = str(tmp_path / f"{name}.json")
         with open(path, "w") as f:
-            json.dump(cfg, f)
-        with pytest.raises(NotImplementedError, match=match):
-            evaluate(_args(root, match, path, model, roles=["vali"]),
-                     device="cpu")
+            json.dump({**_config(data), **edit}, f)
+        args = _args(root, name, path, model, roles=["vali"])
+        if name == "parallel":
+            with pytest.raises(NotImplementedError, match=name):
+                evaluate(args, device="cpu")
+        else:
+            results[name] = evaluate(args, device="cpu")
+    assert results["binary_cache"] == results["plain"]
 
 
 def test_evaluate_cli_arguments():

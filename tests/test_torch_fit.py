@@ -213,8 +213,8 @@ def test_fit_stops_early_and_rejects_unported_options(data_dir):
                                scheduler=None, early_stopping_patience=1,
                                metrics_on_train=False))
     assert result["epochs"] == 3  # no improvement after epoch 0
-    for kw in ({"checkpoint_backend": "orbax"}, {"scan_steps": 4},
-               {"profiler_trace_dir": "/nowhere"}):
+    # profiler_trace_dir is ported (tests/test_torch_host_data.py)
+    for kw in ({"checkpoint_backend": "orbax"}, {"scan_steps": 4}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             fit(**_fit_kwargs(cfg, model, ds, **kw))
     with pytest.raises(ValueError, match="checkpoint_backend"):
@@ -374,10 +374,11 @@ def test_cli_gate_failure_and_unported_options_raise(data_dir, tmp_path):
     with pytest.raises(AssertionError, match="expected to be at least 1.01"):
         run(args, device="cpu")
     assert_expected_metrics({"val_metrics": {"ndcg_5": 0.4}}, {})
+    # data.device_cache, ported since, trains to the same gate
     cfg["data"]["device_cache"] = True
     with open(config_path, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="device_cache"):
+    with pytest.raises(AssertionError, match="expected to be at least 1.01"):
         run(args, device="cpu")
     with pytest.raises(NotImplementedError, match="gs://"):
         PathsContainer.from_args("gs://bucket/job", "r", config_path)

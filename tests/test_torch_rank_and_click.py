@@ -10,6 +10,7 @@ the two feeds' outputs exactly; ranked features exactly wherever two
 neighbouring scores are more than 1e-5 apart."""
 
 import csv
+import functools
 import json
 import os
 from argparse import Namespace
@@ -113,11 +114,18 @@ def _ragged(seed, n_slates, lo=3, hi=15):
     return X, y, np.repeat(np.arange(n_slates), lengths)
 
 
-@pytest.fixture(autouse=True)
-def python_assembly(monkeypatch):
-    """The JAX package's Python batch assembly, whose slate-fixing draws
-    the port's batchers make (its C++ assembler draws its own)."""
-    monkeypatch.setattr(jnative, "_load_assembler", lambda: None)
+@pytest.fixture(autouse=True, params=["python", "native"])
+def python_assembly(request, monkeypatch):
+    """Each test on both assemblies: for "python" the JAX package's Python
+    batch assembly and the port's Python row loop (chosen by name in the
+    port's ranking functions), which make the same ``RandomState`` draws;
+    for "native" both packages' default C++ assemblers, which draw the
+    same splitmix64 streams. Returns the assembly."""
+    if request.param == "python":
+        monkeypatch.setattr(jnative, "_load_assembler", lambda: None)
+        monkeypatch.setattr(ti, "SlateBatcher", functools.partial(
+            tb.SlateBatcher, assembly="python"))
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -273,17 +281,19 @@ def test_metrics_on_clicked_slates_are_jax_s():
 # -- the index batches ------------------------------------------------------------
 
 @pytest.mark.parametrize("bucketed", [False, True])
-def test_index_batches_are_jax_s(bucketed):
+def test_index_batches_are_jax_s(bucketed, python_assembly):
     X, y, qid = _ragged(2, 21, lo=1, hi=20)
     ds, jds = SlateDataset(X, y, qid), JaxDataset(X, y, qid)
 
     def batches(pkg, data, emit):
+        kw = {"assembly": python_assembly} if pkg is tb else {}
         if bucketed:
             return list(pkg.BucketedSlateBatcher(data, 4, n_buckets=3,
-                                                 emit_row_indices=emit))
+                                                 emit_row_indices=emit,
+                                                 **kw))
         # the train role's shape: long slates subsampled, shuffled
         batcher = pkg.SlateBatcher(data, 10, 4, shuffle=True, seed=3,
-                                   emit_row_indices=emit)
+                                   emit_row_indices=emit, **kw)
         batcher.set_epoch(2)
         return list(batcher)
 
